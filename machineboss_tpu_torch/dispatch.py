@@ -1,0 +1,213 @@
+"""Batched Forward front end: the port's `CompiledMachine`.
+
+Counterpart of machineboss_tpu's dispatch.py, with its padding and its
+router. Ported so far is `log_forward_batch` for dense 2D machines:
+
+  - structured machines (lowrank_cost_ratio < 0.6, e.g. GeneWise prot2dna)
+    -> the lowrank wavefront (the CUDA kernel on the card, its plain
+       PyTorch version on the CPU);
+  - engine="wavefront" -> the torch wavefront engine (ops/wavefront_fast);
+  - full-rank machines with engine="auto" -> on the CPU the wavefront
+    engine, as the JAX package does off its accelerator; on the card
+    their kernels (merged, chained_ragged) are not ported yet and raise.
+
+The 1D and non-dense routes are later slices and raise
+NotImplementedError; the single-pair log_forward/log_viterbi are not
+ported yet.
+"""
+
+import numpy as np
+import torch
+
+from .core.eval import EvaluatedMachine
+from .core.machine import Machine
+from .core.params import Params
+from .ops.fwdback import pad_bucket
+from .ops.kernels.lowrank_kernel import lowrank_cost_ratio, \
+    make_lowrank_forward
+from .ops.lowering import LoweredMachine
+from .ops.wavefront_fast import forward_2d_wavefront_fast
+from .utils.debug import check_finite
+from .utils.device import resolve_device
+
+DENSE_MAX_STATES = 512
+LOWRANK_MAX_RATIO = 0.6
+
+
+class CompiledMachine:
+    """A machine prepared for repeated batched Forward calls on `device`
+    (None: the CUDA card, raising when CUDA is absent; "cpu" runs the
+    plain PyTorch versions)."""
+
+    def __init__(self, machine, params=None, dtype=np.float32,
+                 dense_max_states=DENSE_MAX_STATES, device=None):
+        self.device = resolve_device(device)
+        if not isinstance(machine, Machine):
+            machine = Machine.from_file(machine) if isinstance(machine, str) \
+                else Machine.from_json(machine)
+        if params is None:
+            params = machine.get_param_defs(True)
+        elif not isinstance(params, Params):
+            from .core.params import param_assign_from_json
+            params = param_assign_from_json(params)
+        self.machine = machine
+        self.ev = EvaluatedMachine(machine, params)
+        self.lowered = LoweredMachine(self.ev, dtype=dtype,
+                                      dense_max_states=dense_max_states)
+        self.is_dense = self.lowered.is_dense
+        self._cache = {}
+
+    # -- tokenization helpers ----------------------------------------------
+
+    def in_toks(self, seq):
+        return [self.ev.input_tokenizer.sym2tok[c] - 1 for c in seq]
+
+    def out_toks(self, seq):
+        return [self.ev.output_tokenizer.sym2tok[c] - 1 for c in seq]
+
+    # -- routing -----------------------------------------------------------
+
+    def _host_mats(self):
+        if "2d" not in self._cache:
+            self._cache["2d"] = tuple(np.asarray(x) for x in
+                                      self.lowered.matrices_2d())
+        return self._cache["2d"]
+
+    def lowrank_ratio(self):
+        """lowrank_cost_ratio of this machine (cached)."""
+        if "lowrank_ratio" not in self._cache:
+            self._cache["lowrank_ratio"] = lowrank_cost_ratio(
+                *self._host_mats())[0]
+        return self._cache["lowrank_ratio"]
+
+    def route(self, engine="auto"):
+        """The engine log_forward_batch takes for a dense 2D machine:
+        'lowrank' or 'wavefront'. Raises NotImplementedError for a route
+        whose kernel is not ported yet."""
+        if engine == "wavefront":
+            return "wavefront"
+        if engine != "auto":
+            raise ValueError("engine must be 'auto' or 'wavefront', not %r"
+                             % (engine,))
+        if self.lowrank_ratio() < LOWRANK_MAX_RATIO:
+            return "lowrank"
+        if self.device.type == "cuda":
+            raise NotImplementedError(
+                "full-rank machines (lowrank ratio %.3g) need the merged and "
+                "chained_ragged kernels, not ported yet: ROADMAP.md queue B, "
+                "kernels 2-3" % self.lowrank_ratio())
+        return "wavefront"
+
+    def log_forward_batch(self, pairs, engine="auto", pad_multiple=16,
+                          bucket=False):
+        """Batched Forward over [(input_seq, output_seq), ...] on the
+        machine's device. Sequences are right-padded to a shared bucket
+        (pad_bucket(max length, base=pad_multiple)); per-sequence lengths
+        mask the padding. Returns a numpy (B,) array of log-likelihoods.
+
+        engine: 'auto' routes by lowrank_cost_ratio (see `route`);
+        'wavefront' forces the torch wavefront engine. bucket=True groups
+        batches of >= 64 ragged pairs by length bucket and runs one call
+        per group, as the JAX package does."""
+        if not self.is_dense:
+            raise NotImplementedError(
+                "non-dense machines (sparse COO engine) are not ported yet: "
+                "ROADMAP.md queue A, item 9")
+        one_d = self.machine.input_empty() != self.machine.output_empty()
+        if one_d and engine != "wavefront":
+            raise NotImplementedError(
+                "1D machines (one empty side) need the scan1d kernel, not "
+                "ported yet: ROADMAP.md queue B, kernel 4")
+        toks = [(self.in_toks(i), self.out_toks(o)) for i, o in pairs]
+        if bucket and len(toks) >= 64:
+            return self._log_forward_batch_bucketed(toks, engine,
+                                                    pad_multiple)
+        return self._log_forward_batch_padded(toks, engine, pad_multiple)
+
+    def _log_forward_batch_bucketed(self, toks, engine, pad_multiple):
+        B = len(toks)
+        min_group = max(16, B // 16)
+        shapes = [(pad_bucket(len(ti), base=pad_multiple),
+                   pad_bucket(len(to), base=pad_multiple))
+                  for ti, to in toks]
+        groups = {}
+        for n, s in enumerate(shapes):
+            groups.setdefault(s, []).append(n)
+        # merge under-filled groups forward. Sorting is by total padded
+        # lattice area, and a carried group only merges into a bucket
+        # that DOMINATES it in both dimensions — a lexicographic sort on
+        # (Li, Lo) could otherwise fold a large-Lo group into a
+        # smaller-Lo bucket and inflate the merged lattice beyond either
+        # original (results would still be right — the padded call
+        # recomputes pads from actual max lengths — but the padding win
+        # would be lost)
+        order = sorted(groups, key=lambda s: (s[0] * s[1], s))
+        merged = []
+        carry = []
+        for i, s in enumerate(order):
+            if carry and not all(s[d] >= max(shapes[n][d] for n in carry)
+                                 for d in (0, 1)):
+                # next bucket does not dominate the carried pairs: flush
+                # them as their own (under-filled) group
+                cs = (max(shapes[n][0] for n in carry),
+                      max(shapes[n][1] for n in carry))
+                merged.append((cs, carry))
+                carry = []
+            idxs = carry + groups[s]
+            carry = []
+            if len(idxs) < min_group and i + 1 < len(order):
+                carry = idxs
+            else:
+                merged.append((s, idxs))
+        if carry:
+            cs = (max(shapes[n][0] for n in carry),
+                  max(shapes[n][1] for n in carry))
+            if merged and all(merged[-1][0][d] >= cs[d] for d in (0, 1)):
+                s, idxs = merged[-1]
+                merged[-1] = (s, idxs + carry)
+            else:
+                merged.append((cs, carry))
+        out = np.empty(B)
+        for _, idxs in merged:
+            sub = [toks[n] for n in idxs]
+            # pad group size to a power of two (repeat the first pair)
+            gb = 1
+            while gb < len(sub):
+                gb *= 2
+            padded = sub + [sub[0]] * (gb - len(sub))
+            vals = self._log_forward_batch_padded(padded, engine,
+                                                  pad_multiple)
+            out[np.array(idxs)] = vals[:len(sub)]
+        return out
+
+    def _log_forward_batch_padded(self, toks, engine, pad_multiple):
+        B = len(toks)
+        Li = pad_bucket(max((len(t[0]) for t in toks), default=1),
+                        base=pad_multiple)
+        Lo = pad_bucket(max((len(t[1]) for t in toks), default=1),
+                        base=pad_multiple)
+        it = np.zeros((B, Li), np.int32)
+        ot = np.zeros((B, Lo), np.int32)
+        il = np.zeros(B, np.int32)
+        ol = np.zeros(B, np.int32)
+        for n, (ti, to) in enumerate(toks):
+            it[n, :len(ti)] = ti
+            ot[n, :len(to)] = to
+            il[n] = len(ti)
+            ol[n] = len(to)
+
+        dev = self.device
+        batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+        if self.route(engine) == "lowrank":
+            key = ("lowrank", B, Li, Lo)
+            if key not in self._cache:
+                self._cache[key] = make_lowrank_forward(
+                    *self._host_mats(), B, Li, Lo, device=dev)
+            res = self._cache[key](*batch)
+        else:
+            if "2d_dev" not in self._cache:
+                self._cache["2d_dev"] = tuple(
+                    torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                    .to(dev) for x in self._host_mats())
+            res = forward_2d_wavefront_fast(*self._cache["2d_dev"], *batch)
+        return check_finite("log_forward_batch", res.cpu().numpy())

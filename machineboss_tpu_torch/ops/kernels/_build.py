@@ -1,0 +1,88 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in `csrc/` is compiled with nvcc for sm_90a into a shared
+library with a plain C interface, at first use, under the package's
+`build/` directory (listed in .gitignore), and loaded with ctypes. The
+library name carries a hash of its source, so an edited source is rebuilt
+and a stale library is never loaded. `build_all` starts one nvcc process
+per source, all at once, and waits for them together.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# kernel name -> source file under csrc/
+SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu"}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded = {}     # kernel name -> ctypes.CDLL
+build_logs = {}  # kernel name -> nvcc output of the build in this process
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "csrc/ at first use and need the CUDA toolkit")
+    return path
+
+
+def _lib_path(name):
+    src = os.path.join(CSRC, SOURCES[name])
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
+
+
+def build_all(names=None):
+    """Compile every named kernel (default: all) that has no current
+    library, one nvcc process per source, concurrently. Returns the wall
+    seconds spent; raises RuntimeError with nvcc's output on failure."""
+    names = list(SOURCES) if names is None else list(names)
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        src, lib = _lib_path(name)
+        if os.path.exists(lib):
+            continue
+        tmp = "%s.%d.tmp" % (lib, os.getpid())
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src]
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append("%s (nvcc exit %d):\n%s"
+                          % (name, proc.returncode, log))
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name):
+    """The ctypes library of kernel `name`, built first if needed."""
+    if name not in _loaded:
+        _, lib = _lib_path(name)
+        if not os.path.exists(lib):
+            build_all([name])
+        _loaded[name] = ctypes.CDLL(lib)
+    return _loaded[name]

@@ -21,3 +21,8 @@ REF = "/root/reference"
 
 def ref_path(*parts):
     return os.path.join(REF, *parts)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")

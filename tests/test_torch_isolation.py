@@ -1,0 +1,54 @@
+"""machineboss_tpu_torch and chip_smoke.py import neither jax nor anything
+of machineboss_tpu: the port keeps its own copies of what it needs."""
+
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "machineboss_tpu_torch")
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|machineboss_tpu)(\.|\s|$)", re.M)
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import machineboss_tpu_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "machineboss_tpu"))
+print(len(names), ",".join(bad))
+"""
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_importing_the_port_loads_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    fields = res.stdout.strip().split(" ")
+    n_mods, bad = int(fields[0]), fields[1] if len(fields) > 1 else ""
+    # every .py file but the package's own __init__ is one module imported
+    assert n_mods == len(_sources()) - 2
+    assert bad == "", bad
+
+
+def test_no_jax_import_in_port_sources():
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            for m in FORBIDDEN.finditer(f.read()):
+                hits.append("%s: %s" % (os.path.relpath(path, ROOT),
+                                        m.group(0).strip()))
+    assert not hits, hits

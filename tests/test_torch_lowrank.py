@@ -1,0 +1,164 @@
+"""The port's lowrank wavefront against the JAX kernel and the f64 oracle.
+
+lowrank_forward_plain (the CPU path of make_lowrank_forward) is held to
+the JAX package's make_lowrank_forward in its own CPU mode (interpret=True)
+and to forward_2d_f64. Bound: 5e-3 nats, the JAX lowrank kernel's own
+bound at L=20 (tests/test_pallas_kernel.py), because its signed SVD
+factors cancel. On a CUDA card the kernel is held to the plain version at
+1e-3 nats (the same f32 recurrence, summed in another order).
+
+The JAX package is imported inside the tests that use it, so that the card
+test runs where only torch is installed:
+    python -m pytest --noconftest tests/test_torch_lowrank.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from machineboss_tpu_torch import testmachines
+from machineboss_tpu_torch.core.eval import EvaluatedMachine
+from machineboss_tpu_torch.core.presets import make_preset
+from machineboss_tpu_torch.ops.host_oracle import forward_2d_f64
+from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
+from machineboss_tpu_torch.ops.lowering import LoweredMachine
+
+JAX_BOUND = 5e-3     # nats, lowrank vs f64 and vs the JAX kernel at L<=20
+CARD_BOUND = 1e-3    # nats, kernel vs plain on the card
+CASES = ["prot2dna", "allclass", "dense8", "edges"]
+# a diagonal of 101 cells takes two of the kernel's shared-memory chunks
+CARD_CASES = CASES + ["prot2dna_long"]
+_cache = {}
+
+
+def _case(name):
+    """(log-space matrices_2d, it, ot, il, ol) as numpy, from seeds."""
+    if name in _cache:
+        return _cache[name]
+    if name.startswith("prot2dna"):
+        m = make_preset("prot2dna")
+        B, Lp = (8, 6) if name == "prot2dna" else (2, 100)
+        rng = np.random.RandomState(2)
+        lens = rng.randint(3, Lp + 1, B)
+        lens[0] = Lp
+        pairs = testmachines.prot2dna_pairs(B, lens, seed=2)
+        Li, Lo = Lp, 3 * Lp
+    elif name in ("allclass", "edges"):
+        m = testmachines.build_allclass_transducer(5, list("AC"))
+        B, L = 6, 7
+        Li = Lo = L
+    else:
+        m = testmachines.build_random_transducer(8, list("ACGT"), seed=15)
+        B, L = 2, 20
+        Li = Lo = L
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    mats = tuple(np.asarray(x) for x in
+                 LoweredMachine(ev, dtype=np.float32).matrices_2d())
+    it = np.zeros((B, Li), np.int32)
+    ot = np.zeros((B, Lo), np.int32)
+    if name.startswith("prot2dna"):
+        il = np.zeros(B, np.int32)
+        ol = np.zeros(B, np.int32)
+        for n, (p, dna) in enumerate(pairs):
+            it[n, :len(p)] = [ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+            ot[n, :len(dna)] = [ev.output_tokenizer.sym2tok[c] - 1
+                                for c in dna]
+            il[n], ol[n] = len(p), len(dna)
+    else:
+        n_in, n_out = mats[1].shape[0], mats[2].shape[0]
+        rng = np.random.RandomState(8 if name == "allclass" else 6)
+        it[:] = rng.randint(0, n_in, (B, Li))
+        ot[:] = rng.randint(0, n_out, (B, Lo))
+        il = np.full(B, Li, np.int32)
+        ol = np.full(B, Lo, np.int32)
+        if name == "allclass":      # ragged, as the JAX package's test
+            il[1], ol[1] = L - 3, L - 1
+            il[2], ol[2] = L - 1, L - 4
+        elif name == "edges":       # empty sides and single cells
+            il[:], ol[:] = (0, 0, 5, 1, 1, 0), (0, 5, 0, 1, 0, 1)
+    _cache[name] = (mats, it, ot, il, ol)
+    return _cache[name]
+
+
+def _f64(name):
+    key = ("f64", name)
+    if key not in _cache:
+        mats, it, ot, il, ol = _case(name)
+        m64 = [x.astype(np.float64) for x in mats]
+        _cache[key] = np.array([forward_2d_f64(*m64, it[b][:il[b]],
+                                               ot[b][:ol[b]])
+                                for b in range(len(il))])
+    return _cache[key]
+
+
+def _port(name, device="cpu", rescale_every=4):
+    mats, it, ot, il, ol = _case(name)
+    B, Li = it.shape
+    fn = lk.make_lowrank_forward(*mats, B, Li, ot.shape[1], device=device,
+                                 rescale_every=rescale_every)
+    return fn(it, ot, il, ol).cpu().numpy()
+
+
+def _assert_close(dev, ref, bound):
+    for b in range(len(ref)):
+        if ref[b] <= -1e29:
+            assert dev[b] <= -1e29, (b, dev[b])
+        else:
+            assert abs(float(dev[b]) - float(ref[b])) <= bound, \
+                (b, dev[b], ref[b])
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_jax_interpret(name):
+    import jax.numpy as jnp
+    from machineboss_tpu.ops.pallas.lowrank_kernel import \
+        make_lowrank_forward as j_make
+    mats, it, ot, il, ol = _case(name)
+    B, Li = it.shape
+    jfn = j_make(*mats, B, Li, ot.shape[1], interpret=True)
+    jres = np.array(jfn(jnp.array(it), jnp.array(ot), jnp.array(il),
+                        jnp.array(ol)))
+    _assert_close(_port(name), jres, JAX_BOUND)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_f64(name):
+    _assert_close(_port(name), _f64(name), JAX_BOUND)
+
+
+@pytest.mark.parametrize("rescale_every", [1, 2, 8])
+def test_rescale_schedule_invariant(rescale_every):
+    # rescaling only moves mass between p and its log scale m, so every
+    # cadence gives the same scores up to f32 rounding (1e-5 nats)
+    np.testing.assert_allclose(_port("allclass", rescale_every=rescale_every),
+                               _port("allclass"), rtol=0, atol=1e-5)
+
+
+def test_cpu_wrapper_takes_plain_without_launch():
+    mats, it, ot, il, ol = _case("allclass")
+    plan, host = lk.prepare_lowrank(*mats)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
+                              torch.device("cpu"))
+    batch = [torch.from_numpy(x) for x in (it, ot, il, ol)]
+    before = lk.lowrank_wavefront.launches
+    out = lk.lowrank_wavefront(ops, *batch)
+    assert lk.lowrank_wavefront.launches == before
+    assert torch.equal(out, lk.lowrank_forward_plain(ops, *batch))
+
+
+def test_chained_mode_not_ported():
+    mats, it, ot, il, ol = _case("dense8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lk.make_lowrank_forward(*mats, 2, 20, 20, device="cpu", chain=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_kernel_matches_plain_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    before = lk.lowrank_wavefront.launches
+    kern = _port(name, device="cuda")
+    assert lk.lowrank_wavefront.launches == before + 1
+    _assert_close(kern, _port(name), CARD_BOUND)
+    _assert_close(kern, _f64(name), JAX_BOUND)
