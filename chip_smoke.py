@@ -3,10 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from csrc/, holds each against its
-plain PyTorch version, then drives the main path: batched prot2dna Forward
-through CompiledMachine.log_forward_batch at B=512 (protein length 64
-against its 192-base codon DNA), gated against the float64 host oracle.
+Builds every CUDA kernel of the port from csrc/ (one nvcc process each, all
+at once), holds each against its plain PyTorch version and the float64
+oracles at small sizes, then drives four paths through
+CompiledMachine.log_forward_batch at full width, each gated against a
+float64 oracle on 8 pairs:
+
+  prot2dna       B=512, protein 64 against its 192-base codon DNA
+                 (lowrank kernel);
+  dense_uniform  random 64-state ACGT transducer, B=512 pairs of 200x200
+                 (merged kernel);
+  dense_ragged   the same machine, lengths uniform in [100, 200]
+                 (chained_ragged kernel);
+  dense1d        random 64-state ACGT generator, B=256 sequences of
+                 10,000 (scan1d kernel).
+
 Prints one JSON line per phase, the kernel table, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 prints its traceback and exits non-zero. Without CUDA it exits 1 and
@@ -24,6 +35,9 @@ import torch
 NEG = -1e29                      # below this a score is log(0)
 KERNEL_VS_PLAIN_TOL = 1e-3       # nats: same f32 recurrence, other sum order
 KERNEL_VS_F64_TOL = 5e-3         # nats: signed SVD factors cancel at L~20-200
+MERGED_VS_F64_TOL = 2e-3         # nats: the merged family's bound at L<=20
+ODD_START_VS_F64_TOL = 5e-3      # nats: the S=64, L=100 deep chain
+SCAN1D_VS_F64_TOL = 1e-4         # nats: f32 products over <= 150 positions
 GATE_TOL = 0.01                  # nats: the f64 accuracy gate of bench.py
 F32_FMA_FLOPS = 67e12            # H100 SXM f32 non-tensor peak (data sheet)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
@@ -110,6 +124,331 @@ def lowrank_case(name, cm, toks, dev):
           "%s: kernel vs f64 %.3g nats" % (name, err_f64))
 
 
+def lowered(machine):
+    """Log-space matrices_2d of a machine, numpy float32."""
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.ops.lowering import LoweredMachine
+    ev = EvaluatedMachine(machine, machine.get_param_defs(True))
+    return tuple(np.asarray(x) for x in
+                 LoweredMachine(ev, dtype=np.float32).matrices_2d())
+
+
+def fullrank_case(name, mats, it, ot, il, ol, dev, ragged=False, grid=None,
+                  f64_tol=MERGED_VS_F64_TOL):
+    """merged (or, ragged=True, chained_ragged) kernel vs plain vs f64."""
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    batch = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+             for x in (it, ot, il, ol)]
+    if ragged:
+        kern = wk.chained_ragged_wavefront(ops, *batch, grid=grid)
+        plain = wk.chained_ragged_forward_plain(ops, *batch)
+    else:
+        kern = wk.merged_wavefront(ops, *batch, grid=grid)
+        plain = wk.merged_forward_plain(ops, *batch)
+    torch.cuda.synchronize()
+    kern, plain = kern.cpu().numpy(), plain.cpu().numpy()
+    ref = f64_scores(mats, [(it[b][:il[b]], ot[b][:ol[b]])
+                            for b in range(len(il))])
+    err_plain = score_err(kern, plain)
+    err_f64 = score_err(kern, ref)
+    emit({"phase": "kernel_vs_plain",
+          "kernel": "chained_ragged_wavefront" if ragged
+          else "merged_wavefront", "case": name, "B": len(il),
+          "Li": it.shape[1], "Lo": ot.shape[1], "Sa": ops.Sa,
+          "sink": ops.sink, "classes": ops.names, "grid": grid,
+          "max_abs_vs_plain": err_plain, "max_abs_vs_f64": err_f64,
+          "n_impossible": int((ref <= NEG).sum())})
+    check(err_plain <= KERNEL_VS_PLAIN_TOL,
+          "%s: kernel vs plain %.3g nats" % (name, err_plain))
+    check(err_f64 <= f64_tol, "%s: kernel vs f64 %.3g nats" % (name, err_f64))
+
+
+def fullrank_cases(dev):
+    from machineboss_tpu_torch.testmachines import (
+        build_allclass_transducer, build_indel_transducer,
+        build_random_transducer)
+
+    def toks(seed, n_sym, B, L):
+        rng = np.random.RandomState(seed)
+        return (rng.randint(0, n_sym, (B, L)).astype(np.int32),
+                rng.randint(0, n_sym, (B, L)).astype(np.int32), rng)
+
+    # all three classes, ragged lengths (the unified left fold on the TPU)
+    mats = lowered(build_allclass_transducer(5, list("AC")))
+    it, ot, _ = toks(8, 2, 6, 7)
+    fullrank_case("allclass", mats, it, ot, np.array([7, 4, 6, 7, 7, 7]),
+                  np.array([7, 6, 3, 7, 7, 7]), dev)
+    # empty sides and single cells
+    fullrank_case("edges", mats, it, ot, np.array([0, 0, 5, 1, 1, 0]),
+                  np.array([0, 5, 0, 1, 0, 1]), dev)
+    # no diag class
+    mats = lowered(build_indel_transducer(6, list("ACGT")))
+    it, ot, _ = toks(4, 4, 6, 6)
+    full = np.full(6, 6)
+    fullrank_case("indel", mats, it, ot, full, full, dev)
+    # diag only, one block walking every pair in turn
+    mats = lowered(build_random_transducer(8, list("ACGT"), seed=15))
+    it, ot, _ = toks(6, 4, 2, 20)
+    fullrank_case("dense8_one_block", mats, it, ot, np.full(2, 20),
+                  np.full(2, 20), dev, grid=1)
+    # ragged schedule on a small dense machine
+    mats = lowered(build_random_transducer(6, list("ACGT"), seed=3))
+    it, ot, rng = toks(1, 4, 8, 14)
+    il = rng.randint(7, 15, 8)
+    fullrank_case("ragged_dense", mats, it, ot, il, il, dev, ragged=True)
+    # the odd-start deep chain: 64 states, L=100, the third pair passes
+    # -87.9 nats; once over the grid, once with ONE block that walks the
+    # long pair and then the two short ones on the same slots
+    mats = lowered(build_random_transducer(64, list("ACGT"), seed=42))
+    it, ot, _ = toks(1, 4, 4, 100)
+    il = np.array([56, 53, 99])
+    for grid in (None, 1):
+        fullrank_case("odd_start" + ("_one_block" if grid else ""), mats,
+                      it[:3], ot[:3], il, il, dev, ragged=True, grid=grid,
+                      f64_tol=ODD_START_VS_F64_TOL)
+
+
+def scan1d_cases(dev):
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    from machineboss_tpu_torch.ops.lowering import LoweredMachine
+    from machineboss_tpu_torch.testmachines import (build_generator_1d,
+                                                    forward_1d_f64)
+    for name, S, B, L, seed in (("long", 6, 6, 150, 2), ("wide", 40, 3, 70, 3)):
+        m = build_generator_1d(S, seed=seed)
+        ev = EvaluatedMachine(m, m.get_param_defs(True))
+        trans, closure = (np.asarray(x) for x in LoweredMachine(
+            ev, dtype=np.float32).emit_matrices_1d(output_side=True))
+        rng = np.random.RandomState(seed)
+        toks = rng.randint(0, 4, (B, L)).astype(np.int32)
+        lens = rng.randint(L // 2, L + 1, B).astype(np.int32)
+        lens[0], lens[1] = L, 0
+        toks[2, lens[2]:] = -1              # padding past the end
+        if name == "long":
+            toks[3, 40], lens[3] = 4, L     # outside the alphabet: dead
+        ops = sk.scan1d_operands(*sk.prepare_scan1d(trans, closure), dev)
+        t = torch.from_numpy(toks).to(dev)
+        n = torch.from_numpy(lens).to(dev)
+        errs = []
+        for threads in (None, 32, 128):
+            kern = sk.scan1d_forward(ops, t, n, threads=threads)
+            plain = sk.scan1d_forward_plain(ops, t, n)
+            torch.cuda.synchronize()
+            check(torch.equal(kern[1:], plain[1:]),
+                  "%s: exponents or dead flags differ" % name)
+            kll = sk.scan1d_loglike(kern.cpu().numpy(), lens, ops.g)
+            pll = sk.scan1d_loglike(plain.cpu().numpy(), lens, ops.g)
+            errs.append(score_err(kll, pll))
+        ref = forward_1d_f64(trans, closure, toks, lens)
+        err_f64 = score_err(kll, ref)
+        emit({"phase": "kernel_vs_plain", "kernel": "scan1d", "case": name,
+              "B": B, "L": L, "S": ops.S, "max_abs_vs_plain": max(errs),
+              "max_abs_vs_f64": err_f64,
+              "n_impossible": int((ref <= NEG).sum())})
+        check(max(errs) <= KERNEL_VS_PLAIN_TOL,
+              "%s: kernel vs plain %.3g nats" % (name, max(errs)))
+        check(err_f64 <= SCAN1D_VS_F64_TOL,
+              "%s: kernel vs f64 %.3g nats" % (name, err_f64))
+
+
+def counts():
+    from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    return {"lowrank_wavefront": lk.lowrank_wavefront,
+            "merged_wavefront": wk.merged_wavefront,
+            "chained_ragged_wavefront": wk.chained_ragged_wavefront,
+            "scan1d": sk.scan1d_forward}
+
+
+def drive(name, cm, pairs, kernel, route):
+    """One path through log_forward_batch: every launch count set to 0
+    just before the first call and read just after; the path's kernel must
+    have been launched once and no other kernel at all. Then the call's
+    median of 5. Returns (scores, launches, first call s, call ms)."""
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lls = cm.log_forward_batch(pairs)
+    first_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k == kernel) for k in wrappers},
+          "%s: launches %s, expected one of %s" % (name, got, kernel))
+    check(cm.last_route == route, "%s took route %s, expected %s"
+          % (name, cm.last_route, route))
+    check(lls.shape == (len(pairs),) and np.isfinite(lls).all()
+          and (lls > NEG).all(), "%s: scores not all finite" % name)
+    call_s = []
+    for _ in range(5):
+        before = wrappers[kernel].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = cm.log_forward_batch(pairs)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        check(wrappers[kernel].launches == before + 1,
+              "%s: a call did not launch %s once" % (name, kernel))
+    check(np.array_equal(again, lls), "%s: a repeated call differs" % name)
+    return lls, got[kernel], first_s, float(np.median(call_s)) * 1e3
+
+
+def bound(flops, nbytes):
+    ops_s, bytes_s = flops / F32_FMA_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def tensor_bytes(tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def dense_path(name, cm, pairs, ragged, dev, card, smi):
+    """A full-rank 2D path at full width: merged on a uniform batch,
+    chained_ragged on a ragged one."""
+    from machineboss_tpu_torch.ops.fwdback import pad_bucket
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    kernel = "chained_ragged_wavefront" if ragged else "merged_wavefront"
+    wrapper = wk.chained_ragged_wavefront if ragged else wk.merged_wavefront
+    plain_fn = wk.chained_ragged_forward_plain if ragged \
+        else wk.merged_forward_plain
+    lls, launches, first_s, call_ms = drive(
+        name, cm, pairs, kernel, "chained_ragged" if ragged else "merged")
+    toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
+    mats = cm._host_mats()
+    n_gate = 8
+    gate = score_err(lls[:n_gate], f64_scores(mats, toks[:n_gate]))
+    check(gate <= GATE_TOL, "%s: f64 gate %.3g nats" % (name, gate))
+
+    # the kernel alone, and its plain version, at the path's shapes
+    ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    Li = pad_bucket(max(len(t[0]) for t in toks), base=16)
+    Lo = pad_bucket(max(len(t[1]) for t in toks), base=16)
+    batch = padded_batch(toks, Li, Lo, dev)
+    kern = wrapper(ops, *batch).cpu().numpy()
+    check(score_err(kern, lls) == 0.0, "%s: kernel alone differs from the "
+          "path" % name)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = plain_fn(ops, *batch)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    err = score_err(kern, plain.cpu().numpy())
+    check(err <= KERNEL_VS_PLAIN_TOL,
+          "%s: kernel vs plain %.3g nats" % (name, err))
+    kernel_ms = cuda_ms(lambda: wrapper(ops, *batch), 5)
+
+    # least time for this run's work: every cell does Sa*Sa MACs for each
+    # present class whose neighbour lies in the pair's lattice; tokens,
+    # lengths, class blocks and scores move once
+    il = np.array([len(t[0]) for t in toks], np.float64)
+    ol = np.array([len(t[1]) for t in toks], np.float64)
+    nb_cells = {"up": ((il + 1) * ol).sum(), "left": (il * (ol + 1)).sum(),
+                "diag": (il * ol).sum()}
+    flops = 2.0 * ops.Sa * ops.Sa * sum(nb_cells[k] for k in ops.names)
+    nbytes = tensor_bytes(batch + list(ops.mats.values())
+                          + [ops.c0, ops.w]) + len(pairs) * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    S = mats[3].shape[0]
+    state_cells = float(((il + 1) * (ol + 1)).sum()) * S
+    emit({"phase": name, "B": len(pairs), "S": S, "Sa": ops.Sa,
+          "classes": ops.names, "lens": [int(il.min()), int(il.max())],
+          "padded": [Li, Lo], "route": cm.last_route, "launches": launches,
+          "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
+          "first_call_s": first_s, "call_ms_median5": call_ms,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "kernel_share_of_call": kernel_ms / call_ms,
+          "state_cells_per_s": state_cells / (call_ms / 1e3),
+          "kernel_state_cells_per_s": state_cells / (kernel_ms / 1e3),
+          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+          "kernel_share_of_bound": bound_ms / kernel_ms,
+          "card": card, "nvidia_smi": smi})
+    return {"name": kernel, "route": "cuda",
+            "source": "machineboss_tpu_torch/csrc/%s.cu" % kernel,
+            "replaces": "machineboss_tpu/ops/pallas/wavefront_kernel.py:%s"
+            % ("489 (_chained_ragged_kernel)" if ragged
+               else "40 (_merged_kernel)"),
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def dense1d_path(dev, card, smi):
+    """The 1D path at full width: a random 64-state generator, 256
+    sequences of 10,000."""
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.fwdback import pad_bucket
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    from machineboss_tpu_torch.testmachines import (build_generator_1d,
+                                                    forward_1d_f64)
+    S, B, L = 64, 256, 10000
+    rng = np.random.RandomState(42)
+    cm = CompiledMachine(build_generator_1d(S, rng=rng), device=dev)
+    sym = np.array(list("ACGT"))
+    pairs = [("", "".join(sym[rng.randint(0, 4, L)])) for _ in range(B)]
+    lls, launches, first_s, call_ms = drive("dense1d", cm, pairs, "scan1d",
+                                            "scan1d")
+    trans, closure = cm._cache[("1d_mats", True)]
+    Lp = pad_bucket(L, base=16)
+    toks = np.zeros((B, Lp), np.int32)
+    for n, (_, o) in enumerate(pairs):
+        toks[n, :L] = cm.out_toks(o)
+    lens = np.full(B, L, np.int32)
+    n_gate = 8
+    gate = score_err(lls[:n_gate], forward_1d_f64(
+        trans, closure, toks[:n_gate], lens[:n_gate]))
+    check(gate <= GATE_TOL, "dense1d: f64 gate %.3g nats" % gate)
+
+    ops = sk.scan1d_operands(*sk.prepare_scan1d(trans, closure), dev)
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    kern = sk.scan1d_forward(ops, t, n)
+    kll = sk.scan1d_loglike(kern.cpu().numpy(), lens, ops.g)
+    check(score_err(kll, lls) == 0.0, "dense1d: kernel alone differs from "
+          "the path")
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = sk.scan1d_forward_plain(ops, t, n)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    check(torch.equal(kern[1:], plain[1:]),
+          "dense1d: exponents or dead flags differ from the plain version")
+    err = score_err(kll, sk.scan1d_loglike(plain.cpu().numpy(), lens, ops.g))
+    check(err <= KERNEL_VS_PLAIN_TOL,
+          "dense1d: kernel vs plain %.3g nats" % err)
+    kernel_ms = cuda_ms(lambda: sk.scan1d_forward(ops, t, n), 5)
+
+    # least time: S*S MACs per real position; tokens, lengths, the
+    # transfer matrices and the (3, B) result move once
+    flops = 2.0 * ops.S * ops.S * float(lens.sum())
+    nbytes = tensor_bytes([t, n, ops.em, ops.c0]) + 3 * B * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    cells = float(lens.sum()) * ops.S
+    emit({"phase": "dense1d", "B": B, "L": L, "S": ops.S, "padded": Lp,
+          "route": cm.last_route, "launches": launches,
+          "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
+          "first_call_s": first_s, "call_ms_median5": call_ms,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "kernel_share_of_call": kernel_ms / call_ms,
+          "state_cells_per_s": cells / (call_ms / 1e3),
+          "kernel_state_cells_per_s": cells / (kernel_ms / 1e3),
+          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+          "kernel_share_of_bound": bound_ms / kernel_ms,
+          "card": card, "nvidia_smi": smi})
+    return {"name": "scan1d", "route": "cuda",
+            "source": "machineboss_tpu_torch/csrc/scan1d.cu",
+            "replaces": "machineboss_tpu/ops/pallas/scan1d_kernel.py:46 "
+                        "(_scan1d_kernel)",
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -122,7 +461,8 @@ def main():
     from machineboss_tpu_torch.ops.kernels import _build
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.testmachines import (
-        build_allclass_transducer, prot2dna_pairs)
+        build_allclass_transducer, build_random_transducer, prot2dna_pairs,
+        ragged_lens)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -155,35 +495,20 @@ def main():
                  [(list(rng.randint(0, 2, a)), list(rng.randint(0, 2, b)))
                   for a, b in lens], dev)
 
-    # -- the main path ----------------------------------------------------
+    fullrank_cases(dev)
+    scan1d_cases(dev)
+
+    # -- the prot2dna path ------------------------------------------------
     B, Lp = 512, 64
     cm = CompiledMachine(make_preset("prot2dna"), device=dev)
     check(cm.route() == "lowrank", "prot2dna must route to lowrank")
     pairs = prot2dna_pairs(B, Lp, seed=0)
-    lk.lowrank_wavefront.launches = 0
-    t0 = time.perf_counter()
-    lls = cm.log_forward_batch(pairs)
-    first_s = time.perf_counter() - t0
-    launches = lk.lowrank_wavefront.launches
-    check(launches == 1, "main path launched the kernel %d times" % launches)
-    check(lls.shape == (B,) and np.isfinite(lls).all(),
-          "main path scores not all finite")
+    lls, launches, first_s, call_ms = drive("main_path", cm, pairs,
+                                            "lowrank_wavefront", "lowrank")
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
     n_gate = 8
     gate = score_err(lls[:n_gate], f64_scores(cm._host_mats(), toks[:n_gate]))
     check(gate <= GATE_TOL, "f64 gate %.3g nats" % gate)
-
-    call_s = []
-    for _ in range(5):
-        before = lk.lowrank_wavefront.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cm.log_forward_batch(pairs)
-        torch.cuda.synchronize()
-        call_s.append(time.perf_counter() - t0)
-        check(lk.lowrank_wavefront.launches == before + 1,
-              "a log_forward_batch call did not launch the kernel once")
-    call_ms = float(np.median(call_s)) * 1e3
 
     # the kernel alone, and its plain version, at the main path's shapes
     mats = cm._host_mats()
@@ -209,12 +534,9 @@ def main():
     cells = float(((il + 1) * (ol + 1) - 1).sum())
     macs_per_cell = sum(c.rank * ops.Sa * ops.Sa for c in ops.classes)
     flops = 2.0 * macs_per_cell * cells
-    nbytes = float(sum(t.numel() * t.element_size() for t in batch)
-                   + sum(m.numel() * 4 + e.numel() * 4 for m, e in ops.mats)
-                   + ops.c0.numel() * 4 + B * 4)
-    bound_ms = max(flops / F32_FMA_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / F32_FMA_FLOPS >= \
-        nbytes / HBM_BYTES_PER_S else "bytes"
+    nbytes = tensor_bytes(batch + [x for me in ops.mats for x in me]
+                          + [ops.c0]) + B * 4
+    bound_ms, bound_by = bound(flops, nbytes)
     state_cells = B * (Lp + 1) * (3 * Lp + 1) * mats[3].shape[0]
     emit({"phase": "main_path", "B": B, "Lp": Lp, "Lo": 3 * Lp,
           "padded": [Li, Lo], "launches_first_call": launches,
@@ -228,14 +550,38 @@ def main():
           "kernel_share_of_bound": bound_ms / kernel_ms,
           "card": card, "nvidia_smi": smi})
 
-    emit({"kernels": [{
+    kernels = [{
         "name": "lowrank_wavefront", "route": "cuda",
         "source": "machineboss_tpu_torch/csrc/lowrank_wavefront.cu",
         "replaces": "machineboss_tpu/ops/pallas/lowrank_kernel.py:188 "
                     "(_lowrank_kernel)",
-        "launches": launches, "max_abs_err": err_main,
-        "max_abs_vs_plain": err_main, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]})
+        "launches": launches, "max_abs_err": err_main, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}]
+
+    # -- the full-rank and 1D paths, at full width ------------------------
+    # the dense grid machine is diag-only, so a scoreable pair has il == ol
+    B, L = 512, 200
+    dense = CompiledMachine(build_random_transducer(64, list("ACGT")),
+                            device=dev)
+    rng = np.random.RandomState(0)
+    sym = np.array(list("ACGT"))
+    x = sym[rng.randint(0, 4, (B, L))]
+    y = sym[rng.randint(0, 4, (B, L))]
+    lens = ragged_lens(rng, B, L)
+    kernels.append(dense_path(
+        "dense_uniform", dense,
+        [("".join(x[n]), "".join(y[n])) for n in range(B)], False, dev, card,
+        smi))
+    kernels.append(dense_path(
+        "dense_ragged", dense,
+        [("".join(x[n, :lens[n]]), "".join(y[n, :lens[n]]))
+         for n in range(B)], True, dev, card, smi))
+    kernels.append(dense1d_path(dev, card, smi))
+
+    # no single PyTorch call computes a wavefront or this scan: library_ms
+    # is null for every kernel
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,10 @@
 
 The JAX package writes a machine as JSON (Machine.to_json_str()) and its
 parameters as JSON, and lowers a machine to numpy tensors
-(LoweredMachine.matrices_2d()). These helpers build the port's objects from
-exactly that output, so both packages can be fed the same machine.
+(LoweredMachine.matrices_2d(), emit_matrices_1d()), and its kernel factories
+prepare host tensors from those. These helpers build the port's objects
+from exactly that output, so both packages can be fed the same machine and
+the same arrays.
 """
 
 import json
@@ -12,6 +14,8 @@ import numpy as np
 import torch
 
 from .dispatch import CompiledMachine
+from .ops.kernels.scan1d_kernel import prepare_scan1d, scan1d_operands
+from .ops.kernels.wavefront_kernel import merged_operands
 from .utils.device import resolve_device
 
 
@@ -28,3 +32,52 @@ def compiled_from_json(machine_json, params_json=None, device=None):
     machine = json.loads(machine_json)
     params = json.loads(params_json) if params_json is not None else None
     return CompiledMachine(machine, params, device=device)
+
+
+def scan1d_from_numpy(trans, closure, device=None):
+    """emit_matrices_1d() numpy output (log transfer matrices with the
+    closure folded, and the closure) -> the 1D scan's operands on
+    `device`."""
+    return scan1d_operands(*prepare_scan1d(trans, closure),
+                           resolve_device(device))
+
+
+def merged_from_jax_layout(m_ud, m_left, c0, w, Ti, To, classes, sink,
+                           device=None):
+    """The JAX merged kernel family's host tensors -> MergedOperands on
+    `device`.
+
+    m_ud is the JAX factory's stacked matrix: one row block of Sa per
+    output token (plus one "no output token" block when the left class
+    rides along), column groups [up Sa][diag Ti*Sa][left Ti*Sa] for the
+    present classes; m_left (Sa, Ti*Sa) is used only by a left-only
+    machine. c0 and w are (Sa, 1) or (Sa,); classes is (has_up, has_left,
+    has_diag). Each class's token blocks are cut out as they stand
+    (destination x source), so the operands compute from the JAX package's
+    own numbers."""
+    has_up, has_left, has_diag = classes
+    unify = has_left and (has_up or has_diag)
+    c0 = np.asarray(c0, np.float32).reshape(-1)
+    Sa = c0.shape[0]
+    m_ud = np.asarray(m_ud, np.float32)
+    mats = {}
+    col = 0
+    if has_up:
+        mats["up"] = np.array([m_ud[t * Sa:(t + 1) * Sa, :Sa]
+                               for t in range(To)]).reshape(To, Sa, Sa)
+        col += Sa
+    if has_diag:
+        mats["diag"] = np.array(
+            [m_ud[to * Sa:(to + 1) * Sa, col + ti * Sa:col + (ti + 1) * Sa]
+             for ti in range(Ti) for to in range(To)]) \
+            .reshape(Ti * To, Sa, Sa)
+        col += Ti * Sa
+    if has_left:
+        src = m_ud[:Sa, col:] if unify else np.asarray(m_left, np.float32)
+        mats["left"] = np.array([src[:, t * Sa:(t + 1) * Sa]
+                                 for t in range(Ti)]).reshape(Ti, Sa, Sa)
+    plan = {"Ti": Ti, "To": To, "Sa": Sa, "sink": bool(sink),
+            "classes": tuple(bool(c) for c in classes),
+            "mats": {k: np.ascontiguousarray(v) for k, v in mats.items()},
+            "c0": c0, "w": np.asarray(w, np.float32).reshape(-1)}
+    return merged_operands(plan, resolve_device(device))

@@ -1,0 +1,295 @@
+// Shared device code of the full-rank wavefront kernels (merged_wavefront.cu
+// and chained_ragged_wavefront.cu), for Hopper (sm_90a).
+//
+// walk_pair() walks ONE pair's lattice with the whole thread block and
+// returns its Forward log-likelihood. It is what
+// machineboss_tpu/ops/pallas/wavefront_kernel.py::_merged_kernel computes
+// for one lane window, and what ::_chained_ragged_kernel computes for one
+// chain element; the two CUDA kernels differ only in how they hand pairs to
+// blocks. The host prep is prepare_merged (ops/kernels/wavefront_kernel.py):
+// the silent closure is folded into each present class, F[tok] = C^T A[tok]^T,
+// trailing sink states are trimmed (Sa states remain).
+//
+// Per cell (i, o) of the pair, diagonal d = i + o, carried as scaled
+// probabilities p (Sa floats) with a per-cell log scale m:
+//   * each present class reads one neighbour: up (i, o-1) by the y token and
+//     left (i-1, o) by the x token on d-1, diag (i-1, o-1) by (x, y) on d-2;
+//     a neighbour outside the lattice is skipped;
+//   * mu = max of the neighbours' m; cur = sum_class exp(m_c - mu) *
+//     (F_class[tok] @ p_c);
+//   * on diagonals with d % rescale_every <= 1 (both parities: the diag
+//     class's mass lives on one) p is divided by its max over states and the
+//     log of that max is added to m; a cell whose max is not positive is
+//     zeroed;
+//   * the readout at (il, ol) is m + log(p[Sa-1]), or m + log(w . p) when the
+//     sink states were trimmed.
+//
+// What the TPU kernels did that this code does not: the transposed
+// (S, cells) slabs and their lane rolls, the 128-lane windows, two diagonals
+// per grid step, the bf16 hi/lo 3-pass products (a plain f32 FMA is at least
+// as accurate), and the one-hot wide product with its "unify" block, which
+// multiplies every cell by every token's block to fill the matrix unit. Here
+// a thread reads the (Sa, Sa) block of its own cell's token directly, so a
+// cell costs Sa*Sa multiply-adds per class and not n_tok times that.
+//
+// Design: the diagonal state lives in a global scratch of three rotating
+// (W, SaP) slots per block (it stays in L2; the active part is
+// 3*(il+1)*SaP floats). Only neighbours inside the lattice are ever read, and
+// each of those was written earlier in the same walk, so a block that starts
+// its next pair needs no clearing of the previous pair's slots. Each thread
+// computes 4 neighbouring destination states of one cell: it reads p of the
+// neighbour cell as float4s (the same address across the 16 threads of a
+// cell, one broadcast) and the token's block, stored source-major, as
+// float4s through the read-only cache (neighbouring threads on neighbouring
+// addresses).
+//
+// What bounds it on this card: the work is f32 FMAs, Sa*Sa per class per
+// cell; the bytes that must move are tokens, lengths and the class blocks.
+// No tensor cores are used, so the bound is the f32 non-tensor rate. The
+// class blocks of a 64-state ACGT machine (16 x 16 KB) do not fit shared
+// memory and are read through L1/L2, one float4 per 4 FMAs: that traffic,
+// not the FMA pipes, is what limits this simple version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wavefront {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int THREADS = 256;
+constexpr int TD = 4;        // destination states per thread
+constexpr int MAX_CLS = 3;
+
+enum { KIND_UP = 0, KIND_LEFT = 1, KIND_DIAG = 2 };
+
+// Per-class descriptor, laid out as the host passes it (DESC_LEN ints).
+struct ClassDesc {
+  int kind;    // KIND_*
+  int n_tok;
+  int mt_off;  // float offset of this class's [n_tok][SaP][SaP] blocks
+};
+constexpr int DESC_LEN = 3;
+
+struct Plan {
+  ClassDesc cls[MAX_CLS];
+  int n_cls;
+};
+
+// What both launch functions take besides the pair assignment.
+struct Args {
+  const int* in_toks;
+  const int* out_toks;
+  const int* in_lens;
+  const int* out_lens;
+  const float* c0;     // (SaP,) start vector, zero padded
+  const float* wvec;   // (SaP,) sink readout vector, zero padded
+  const float* mt;     // packed class blocks
+  float* pbuf;         // gridDim.x * 3 * W * SaP
+  float* mbuf;         // gridDim.x * 3 * W
+  float* out;          // (B,)
+  int B, Li, Lo, Sa, SaP, To, rescale_every, sink;
+  Plan plan;
+};
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float quiet_nan() {
+  return __int_as_float(0x7fc00000);
+}
+
+// Walks pair b with the whole block. Thread 0 returns the score; every
+// thread must call it (it synchronises the block). s_bad is one int of
+// shared memory.
+__device__ float walk_pair(const Args& a, int b, int* s_bad) {
+  const int tid = threadIdx.x;
+  const int W = a.Li + 1;
+  const int Sa = a.Sa, SaP = a.SaP;
+  const int il = a.in_lens[b];
+  const int ol = a.out_lens[b];
+  // the previous pair's readout must be done before its slots are reused
+  __syncthreads();
+  if (il < 0 || il > a.Li || ol < 0 || ol > a.Lo) return quiet_nan();
+  const int* xt = a.in_toks + (size_t)b * a.Li;
+  const int* yt = a.out_toks + (size_t)b * a.Lo;
+  float* pb = a.pbuf + (size_t)blockIdx.x * 3 * W * SaP;
+  float* mb = a.mbuf + (size_t)blockIdx.x * 3 * W;
+  if (tid == 0) *s_bad = 0;
+
+  // d = 0: only cell (0, 0), p = c0 (closure row 0), m = 0
+  for (int s = tid; s < SaP; s += THREADS) pb[s] = a.c0[s];
+  if (tid == 0) mb[0] = 0.f;
+  __syncthreads();
+
+  const int dfin = il + ol;
+  const int n_dg = SaP / TD;
+  for (int d = 1; d <= dfin; ++d) {
+    const int slot0 = d % 3, slot1 = (d + 2) % 3, slot2 = (d + 1) % 3;
+    float* p0 = pb + (size_t)slot0 * W * SaP;
+    const float* p1 = pb + (size_t)slot1 * W * SaP;
+    const float* p2 = pb + (size_t)slot2 * W * SaP;
+    float* m0 = mb + slot0 * W;
+    const float* m1 = mb + slot1 * W;
+    const float* m2 = mb + slot2 * W;
+    const int lo = max(0, d - ol), hi = min(d, il);
+
+    // products: one thread per (cell, 4 destination states)
+    const int n_items = (hi - lo + 1) * n_dg;
+    for (int item = tid; item < n_items; item += THREADS) {
+      const int c = item / n_dg, dg = item - c * n_dg;
+      const int i = lo + c, o = d - i;
+      float mc[MAX_CLS];
+      const float* src[MAX_CLS];
+      const float* blk[MAX_CLS];
+      float mu = NEG_INF;
+      for (int q = 0; q < a.plan.n_cls; ++q) {
+        const ClassDesc& k = a.plan.cls[q];
+        float mv = NEG_INF;
+        int tok = 0;
+        bool in_lattice = false;
+        const float* sp = p1;
+        if (k.kind == KIND_UP) {
+          if (o >= 1) {
+            in_lattice = true;
+            mv = m1[i]; tok = __ldg(yt + o - 1);
+            sp = p1 + (size_t)i * SaP;
+          }
+        } else if (k.kind == KIND_LEFT) {
+          if (i >= 1) {
+            in_lattice = true;
+            mv = m1[i - 1]; tok = __ldg(xt + i - 1);
+            sp = p1 + (size_t)(i - 1) * SaP;
+          }
+        } else {
+          if (i >= 1 && o >= 1) {
+            in_lattice = true;
+            mv = m2[i - 1];
+            tok = __ldg(xt + i - 1) * a.To + __ldg(yt + o - 1);
+            sp = p2 + (size_t)(i - 1) * SaP;
+          }
+        }
+        if (in_lattice && (tok < 0 || tok >= k.n_tok)) {
+          *s_bad = 1;
+          tok = 0;
+          mv = NEG_INF;
+        }
+        mc[q] = mv;
+        src[q] = sp;
+        blk[q] = a.mt + k.mt_off + (size_t)tok * SaP * SaP + dg * TD;
+        mu = fmaxf(mu, mv);
+      }
+      const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < a.plan.n_cls; ++q) {
+        if (!(mc[q] > NEG_INF / 2)) continue;
+        const float w = expf(mc[q] - mu_safe);
+        const float* sp = src[q];
+        const float* mp = blk[q];
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+        for (int s = 0; s < SaP; s += 4) {
+          const float4 pv = *reinterpret_cast<const float4*>(sp + s);
+          const float4 r0 = __ldg(
+              reinterpret_cast<const float4*>(mp + (size_t)s * SaP));
+          const float4 r1 = __ldg(
+              reinterpret_cast<const float4*>(mp + (size_t)(s + 1) * SaP));
+          const float4 r2 = __ldg(
+              reinterpret_cast<const float4*>(mp + (size_t)(s + 2) * SaP));
+          const float4 r3 = __ldg(
+              reinterpret_cast<const float4*>(mp + (size_t)(s + 3) * SaP));
+          t.x = fmaf(pv.x, r0.x, t.x); t.y = fmaf(pv.x, r0.y, t.y);
+          t.z = fmaf(pv.x, r0.z, t.z); t.w = fmaf(pv.x, r0.w, t.w);
+          t.x = fmaf(pv.y, r1.x, t.x); t.y = fmaf(pv.y, r1.y, t.y);
+          t.z = fmaf(pv.y, r1.z, t.z); t.w = fmaf(pv.y, r1.w, t.w);
+          t.x = fmaf(pv.z, r2.x, t.x); t.y = fmaf(pv.z, r2.y, t.y);
+          t.z = fmaf(pv.z, r2.z, t.z); t.w = fmaf(pv.z, r2.w, t.w);
+          t.x = fmaf(pv.w, r3.x, t.x); t.y = fmaf(pv.w, r3.y, t.y);
+          t.z = fmaf(pv.w, r3.z, t.z); t.w = fmaf(pv.w, r3.w, t.w);
+        }
+        acc.x = fmaf(w, t.x, acc.x); acc.y = fmaf(w, t.y, acc.y);
+        acc.z = fmaf(w, t.z, acc.z); acc.w = fmaf(w, t.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(p0 + (size_t)i * SaP + dg * TD) = acc;
+      if (dg == 0) m0[i] = mu;
+    }
+    __syncthreads();
+
+    // rescale on two consecutive diagonals of every rescale_every
+    if (d % a.rescale_every <= 1) {
+      const int warp = tid >> 5, lane = tid & 31;
+      for (int i = lo + warp; i <= hi; i += THREADS / 32) {
+        float* pc = p0 + (size_t)i * SaP;
+        float mx = -3.4e38f;
+        for (int s = lane; s < Sa; s += 32) mx = fmaxf(mx, pc[s]);
+        mx = warp_max(mx);
+        const bool has = mx > 0.f;
+        const float den = fmaxf(mx, 1e-37f);
+        for (int s = lane; s < Sa; s += 32) pc[s] = has ? pc[s] / den : 0.f;
+        if (lane == 0) m0[i] = has ? m0[i] + logf(den) : NEG_INF;
+      }
+      __syncthreads();
+    }
+  }
+
+  // readout at (il, ol) by warp 0
+  float v = NEG_INF;
+  if (tid < 32) {
+    const int slot = dfin % 3;
+    const float* pc = pb + ((size_t)slot * W + il) * SaP;
+    float e;
+    if (a.sink) {
+      e = 0.f;
+      for (int s = tid; s < Sa; s += 32) e = fmaf(pc[s], a.wvec[s], e);
+      e = warp_sum(e);
+    } else {
+      e = pc[Sa - 1];
+    }
+    const float m = mb[slot * W + il];
+    v = e > 0.f ? m + logf(fmaxf(e, 1e-37f)) : NEG_INF;
+    if (*s_bad) v = quiet_nan();                           // bad token
+  }
+  return v;
+}
+
+// Fills `args` from the C interface's arguments; returns false on a bad plan.
+inline bool make_args(Args& args, const void* in_toks, const void* out_toks,
+                      const void* in_lens, const void* out_lens,
+                      const void* c0, const void* wvec, const void* mt,
+                      void* pbuf, void* mbuf, void* out, int B, int Li,
+                      int Lo, int Sa, int SaP, int To, int rescale_every,
+                      int sink, int n_cls, const int* desc) {
+  if (n_cls < 0 || n_cls > MAX_CLS || SaP % TD != 0 || Sa < 1 || Sa > SaP ||
+      rescale_every < 1)
+    return false;
+  args.in_toks = (const int*)in_toks;
+  args.out_toks = (const int*)out_toks;
+  args.in_lens = (const int*)in_lens;
+  args.out_lens = (const int*)out_lens;
+  args.c0 = (const float*)c0;
+  args.wvec = (const float*)wvec;
+  args.mt = (const float*)mt;
+  args.pbuf = (float*)pbuf;
+  args.mbuf = (float*)mbuf;
+  args.out = (float*)out;
+  args.B = B; args.Li = Li; args.Lo = Lo; args.Sa = Sa; args.SaP = SaP;
+  args.To = To; args.rescale_every = rescale_every; args.sink = sink;
+  args.plan.n_cls = n_cls;
+  for (int q = 0; q < n_cls; ++q) {
+    const int* v = desc + q * DESC_LEN;
+    args.plan.cls[q] = ClassDesc{v[0], v[1], v[2]};
+  }
+  return true;
+}
+
+}  // namespace wavefront

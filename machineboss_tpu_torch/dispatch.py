@@ -1,17 +1,23 @@
 """Batched Forward front end: the port's `CompiledMachine`.
 
 Counterpart of machineboss_tpu's dispatch.py, with its padding and its
-router. Ported so far is `log_forward_batch` for dense 2D machines:
+router. Ported so far is `log_forward_batch` for dense machines:
 
-  - structured machines (lowrank_cost_ratio < 0.6, e.g. GeneWise prot2dna)
-    -> the lowrank wavefront (the CUDA kernel on the card, its plain
-       PyTorch version on the CPU);
-  - engine="wavefront" -> the torch wavefront engine (ops/wavefront_fast);
-  - full-rank machines with engine="auto" -> on the CPU the wavefront
-    engine, as the JAX package does off its accelerator; on the card
-    their kernels (merged, chained_ragged) are not ported yet and raise.
+  - structured 2D machines (lowrank_cost_ratio < 0.6, e.g. GeneWise
+    prot2dna) -> the lowrank wavefront;
+  - full-rank 2D machines -> the merged wavefront, or the ragged schedule
+    (chained_ragged) when the batch is ragged, B % 8 == 0 and no sequence
+    is empty;
+  - 1D machines (exactly one empty side) -> the 1D scan;
+  - engine="wavefront" -> the torch wavefront engine (ops/wavefront_fast).
 
-The 1D and non-dense routes are later slices and raise
+Each kernel route launches its CUDA kernel on the card and runs the
+kernel's plain PyTorch version on the CPU. With engine="auto" the CPU
+takes, as the JAX package does off its accelerator, the wavefront engine
+for full-rank machines and the sequential scan (ops/dp1d) for 1D ones;
+engine="kernel" forces the kernel routes on any device.
+
+Non-dense machines (the sparse engine) are a later slice and raise
 NotImplementedError; the single-pair log_forward/log_viterbi are not
 ported yet.
 """
@@ -22,9 +28,11 @@ import torch
 from .core.eval import EvaluatedMachine
 from .core.machine import Machine
 from .core.params import Params
+from .ops import dp1d
 from .ops.fwdback import pad_bucket
-from .ops.kernels.lowrank_kernel import lowrank_cost_ratio, \
-    make_lowrank_forward
+from .ops.kernels.lowrank_kernel import lowrank_cost_ratio
+from .ops.kernels.scan1d_kernel import make_forward_1d_kernel
+from .ops.kernels.wavefront_kernel import make_wavefront_forward, ragged_span
 from .ops.lowering import LoweredMachine
 from .ops.wavefront_fast import forward_2d_wavefront_fast
 from .utils.debug import check_finite
@@ -32,6 +40,12 @@ from .utils.device import resolve_device
 
 DENSE_MAX_STATES = 512
 LOWRANK_MAX_RATIO = 0.6
+
+
+def _check_engine(engine):
+    if engine not in ("auto", "kernel", "pallas", "wavefront"):
+        raise ValueError("engine must be 'auto', 'kernel' (or 'pallas') or "
+                         "'wavefront', not %r" % (engine,))
 
 
 class CompiledMachine:
@@ -55,6 +69,7 @@ class CompiledMachine:
         self.lowered = LoweredMachine(self.ev, dtype=dtype,
                                       dense_max_states=dense_max_states)
         self.is_dense = self.lowered.is_dense
+        self.last_route = None
         self._cache = {}
 
     # -- tokenization helpers ----------------------------------------------
@@ -82,21 +97,21 @@ class CompiledMachine:
 
     def route(self, engine="auto"):
         """The engine log_forward_batch takes for a dense 2D machine:
-        'lowrank' or 'wavefront'. Raises NotImplementedError for a route
-        whose kernel is not ported yet."""
+        'lowrank', 'fullrank' (the merged kernel or, by the batch, the
+        ragged schedule) or 'wavefront'.
+
+        engine: 'auto' takes the kernel routes on the card and, on the
+        CPU, the wavefront engine for full-rank machines; 'kernel' (alias
+        'pallas', the JAX package's name for it) forces the kernel routes
+        on any device; 'wavefront' forces the torch wavefront engine."""
+        _check_engine(engine)
         if engine == "wavefront":
             return "wavefront"
-        if engine != "auto":
-            raise ValueError("engine must be 'auto' or 'wavefront', not %r"
-                             % (engine,))
         if self.lowrank_ratio() < LOWRANK_MAX_RATIO:
             return "lowrank"
-        if self.device.type == "cuda":
-            raise NotImplementedError(
-                "full-rank machines (lowrank ratio %.3g) need the merged and "
-                "chained_ragged kernels, not ported yet: ROADMAP.md queue B, "
-                "kernels 2-3" % self.lowrank_ratio())
-        return "wavefront"
+        if engine == "auto" and self.device.type == "cpu":
+            return "wavefront"
+        return "fullrank"
 
     def log_forward_batch(self, pairs, engine="auto", pad_multiple=16,
                           bucket=False):
@@ -105,24 +120,60 @@ class CompiledMachine:
         (pad_bucket(max length, base=pad_multiple)); per-sequence lengths
         mask the padding. Returns a numpy (B,) array of log-likelihoods.
 
-        engine: 'auto' routes by lowrank_cost_ratio (see `route`);
-        'wavefront' forces the torch wavefront engine. bucket=True groups
-        batches of >= 64 ragged pairs by length bucket and runs one call
-        per group, as the JAX package does."""
+        engine: see `route`. bucket=True groups batches of >= 64 ragged
+        pairs by length bucket and runs one call per group, as the JAX
+        package does. Machines with exactly one empty side take the 1D
+        scan, which pads every sequence to the batch's longest (no
+        bucketing); engine='wavefront' keeps them on the 2D wavefront
+        engine. `last_route` names the route the call took."""
         if not self.is_dense:
             raise NotImplementedError(
                 "non-dense machines (sparse COO engine) are not ported yet: "
-                "ROADMAP.md queue A, item 9")
+                "ROADMAP.md queue A, item 7")
         one_d = self.machine.input_empty() != self.machine.output_empty()
         if one_d and engine != "wavefront":
-            raise NotImplementedError(
-                "1D machines (one empty side) need the scan1d kernel, not "
-                "ported yet: ROADMAP.md queue B, kernel 4")
+            return self._log_forward_batch_1d(pairs, pad_multiple, engine)
         toks = [(self.in_toks(i), self.out_toks(o)) for i, o in pairs]
         if bucket and len(toks) >= 64:
             return self._log_forward_batch_bucketed(toks, engine,
                                                     pad_multiple)
         return self._log_forward_batch_padded(toks, engine, pad_multiple)
+
+    def _log_forward_batch_1d(self, pairs, pad_multiple, engine):
+        _check_engine(engine)
+        out_side = self.machine.input_empty()
+        seqs = [self.out_toks(o) if out_side else self.in_toks(i)
+                for i, o in pairs]
+        B = len(seqs)
+        L = pad_bucket(max((len(s) for s in seqs), default=1),
+                       base=pad_multiple)
+        toks = np.zeros((B, L), np.int32)
+        lens = np.zeros(B, np.int32)
+        for n, sq in enumerate(seqs):
+            toks[n, :len(sq)] = sq
+            lens[n] = len(sq)
+        key = ("1d_mats", out_side)
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                np.asarray(x) for x in self.lowered.emit_matrices_1d(
+                    output_side=out_side))
+        trans, closure = self._cache[key]
+        dev = self.device
+        if dev.type == "cuda" or engine != "auto":
+            self.last_route = "scan1d"
+            pkey = ("1d_kernel", out_side, B, L)
+            if pkey not in self._cache:
+                self._cache[pkey] = make_forward_1d_kernel(
+                    trans, closure, B, L, device=dev)
+            return check_finite("log_forward_batch_1d",
+                                self._cache[pkey](toks, lens))
+        self.last_route = "scan"
+        fn = dp1d.make_batched(dp1d.forward_1d_scan)
+        res = fn(torch.from_numpy(trans).to(dev),
+                 torch.from_numpy(closure).to(dev),
+                 torch.from_numpy(toks).to(dev),
+                 torch.from_numpy(lens).to(dev))
+        return check_finite("log_forward_batch_1d", res.cpu().numpy())
 
     def _log_forward_batch_bucketed(self, toks, engine, pad_multiple):
         B = len(toks)
@@ -198,16 +249,35 @@ class CompiledMachine:
 
         dev = self.device
         batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
-        if self.route(engine) == "lowrank":
-            key = ("lowrank", B, Li, Lo)
-            if key not in self._cache:
-                self._cache[key] = make_lowrank_forward(
-                    *self._host_mats(), B, Li, Lo, device=dev)
-            res = self._cache[key](*batch)
-        else:
+        route = self.route(engine)
+        if route == "wavefront":
+            self.last_route = "wavefront"
             if "2d_dev" not in self._cache:
                 self._cache["2d_dev"] = tuple(
                     torch.from_numpy(np.ascontiguousarray(x, np.float32))
                     .to(dev) for x in self._host_mats())
             res = forward_2d_wavefront_fast(*self._cache["2d_dev"], *batch)
+            return check_finite("log_forward_batch", res.cpu().numpy())
+        # structured machines take the closure-folded min-rank kernel;
+        # full-rank machines the merged kernel family: the ragged schedule
+        # when the batch is ragged and chainable, plain merged otherwise
+        variant = "lowrank" if route == "lowrank" else None
+        chain = None
+        hint = None
+        is_ragged = bool((il != il[0]).any() or (ol != ol[0]).any())
+        if (variant is None and is_ragged and B % 8 == 0
+                and Li >= 1 and Lo >= 1 and il.min() >= 1
+                and ol.min() >= 1):
+            variant = "chained_ragged"
+            chain = 8
+            # bucket the span so the cache survives small changes of the
+            # length profile
+            hint = -(-ragged_span(il, ol, chain) // 64) * 64
+        self.last_route = variant or "merged"
+        key = ("kernel", B, Li, Lo, variant, chain, hint)
+        if key not in self._cache:
+            self._cache[key] = make_wavefront_forward(
+                *self._host_mats(), B, Li, Lo, device=dev, merged=True,
+                variant=variant, chain=chain, n_abs_hint=hint)
+        res = self._cache[key](*batch)
         return check_finite("log_forward_batch", res.cpu().numpy())

@@ -3,14 +3,16 @@
 Each source in `csrc/` is compiled with nvcc for sm_90a into a shared
 library with a plain C interface, at first use, under the package's
 `build/` directory (listed in .gitignore), and loaded with ctypes. The
-library name carries a hash of its source, so an edited source is rebuilt
-and a stale library is never loaded. `build_all` starts one nvcc process
+library name carries a hash of its source and of every file under `csrc/`
+that the source includes, so an edited source or header is rebuilt and a
+stale library is never loaded. `build_all` starts one nvcc process
 per source, all at once, and waits for them together.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,10 +23,16 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu"}
+SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
+           "merged_wavefront": "merged_wavefront.cu",
+           "chained_ragged_wavefront": "chained_ragged_wavefront.cu",
+           "scan1d": "scan1d.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC]
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded = {}     # kernel name -> ctypes.CDLL
 build_logs = {}  # kernel name -> nvcc output of the build in this process
@@ -40,11 +48,29 @@ def _nvcc():
     return path
 
 
+def source_files(name):
+    """The source of kernel `name` and every file under csrc/ that it
+    includes with quotes, directly or through another header, in the order
+    found."""
+    files = [os.path.join(CSRC, SOURCES[name])]
+    for path in files:
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(CSRC, inc.decode())
+            if os.path.exists(dep) and dep not in files:
+                files.append(dep)
+    return files
+
+
 def _lib_path(name):
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
+    files = source_files(name)
+    h = hashlib.sha256()
+    for path in files:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return files[0], os.path.join(BUILD_DIR, "lib%s_%s.so"
+                                  % (name, h.hexdigest()[:12]))
 
 
 def build_all(names=None):

@@ -421,7 +421,7 @@ def make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
     if chain is not None:
         raise NotImplementedError(
             "lowrank chained mode (chain=%r) is not ported yet: ROADMAP.md "
-            "queue B, kernel 2" % (chain,))
+            "queue A, item 10" % (chain,))
     dev = resolve_device(device)
     plan, mats = prepare_lowrank(a_diag, a_left, a_up, closure)
     ops = lowrank_operands(plan, mats, a_diag.shape[1], dev)

@@ -3,7 +3,10 @@
 On the CPU the port routes prot2dna to the plain lowrank version and the
 JAX package to its jnp wavefront: two algorithms, so the bound is the
 lowrank bound, 5e-3 nats. Full-rank machines take the wavefront engine in
-both packages: 1e-4 nats (same algorithm, other summation order).
+both packages: 1e-4 nats (same algorithm, other summation order). With
+engine="kernel" the port takes its kernel routes (their plain versions on
+the CPU): merged, chained_ragged and the 1D scan, each within 2e-3 nats of
+the JAX package's log_forward_batch on the same pairs.
 """
 
 import json
@@ -22,9 +25,11 @@ from machineboss_tpu_torch.convert import compiled_from_json, \
 from machineboss_tpu_torch.core.presets import make_preset
 from machineboss_tpu_torch.dispatch import CompiledMachine
 from machineboss_tpu_torch.ops.host_oracle import forward_2d_f64
+from machineboss_tpu_torch.ops.kernels.wavefront_kernel import ragged_span
 
 LOWRANK_BOUND = 5e-3
 WAVEFRONT_BOUND = 1e-4
+KERNEL_ROUTE_BOUND = 2e-3
 _cache = {}
 
 
@@ -84,25 +89,31 @@ def test_bucketed_equals_padded():
                                atol=1e-5)
 
 
-def _one_d_machine():
+def _one_d_machine(side="out"):
     return {"state": [
-        {"id": "S", "trans": [{"out": "A", "to": "S", "weight": 0.5},
-                              {"out": "C", "to": "S", "weight": 0.3},
+        {"id": "S", "trans": [{side: "A", "to": "S", "weight": 0.5},
+                              {side: "C", "to": "T", "weight": 0.3},
                               {"to": "E", "weight": 0.2}]},
+        {"id": "T", "trans": [{side: "A", "to": "S", "weight": 0.6},
+                              {side: "C", "to": "T", "weight": 0.1},
+                              {"to": "E", "weight": 0.3}]},
         {"id": "E", "trans": []}]}
 
 
 @pytest.mark.parametrize("branch", ["one_d", "sparse", "full_rank_card"])
 def test_unported_routes_raise(branch):
+    """Only the non-dense route is still unported; the 1D route and the
+    full-rank route on the card, which used to raise, now score."""
     if branch == "one_d":
         cm = CompiledMachine(_one_d_machine(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            cm.log_forward_batch([("", "AC")])
-        assert "1D" in str(err.value)
+        res = cm.log_forward_batch([("", "AC")])
+        assert cm.last_route == "scan"
+        assert res[0] == pytest.approx(np.log(0.5 * 0.3 * 0.3), abs=1e-5)
     elif branch == "sparse":
         cm = CompiledMachine(make_preset("prot2dna"), device="cpu",
                              dense_max_states=16)
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue A, item 7") as err:
             cm.log_forward_batch([("M", "ATG")])
         assert "non-dense" in str(err.value)
     else:
@@ -111,9 +122,89 @@ def test_unported_routes_raise(branch):
             device="cpu")
         # the router decides before touching the card
         cm.device = torch.device("cuda")
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            cm.route()
-        assert "full-rank" in str(err.value)
+        assert cm.route() == "fullrank"
+
+
+def _dense6():
+    if "dense6" not in _cache:
+        m = testmachines.build_random_transducer(6, list("ACGT"), seed=3)
+        _cache["dense6"] = (
+            JCompiled(JMachine.from_json(json.loads(m.to_json_str()))),
+            CompiledMachine(m, device="cpu"))
+    return _cache["dense6"]
+
+
+def _acgt_pairs(lens, seed):
+    rng = np.random.RandomState(seed)
+    return [("".join(rng.choice(list("ACGT"), n)),
+             "".join(rng.choice(list("ACGT"), n))) for n in lens]
+
+
+@pytest.mark.parametrize("batch,route", [
+    ("uniform", "merged"), ("ragged_b6", "merged"),
+    ("ragged_b8", "chained_ragged"), ("ragged_b8_empty", "merged")])
+def test_full_rank_kernel_route(batch, route):
+    """engine="kernel" on the CPU drives the full-rank router: merged on a
+    uniform batch, on a ragged batch with B % 8 != 0 and on one with an
+    empty sequence; chained_ragged on a ragged batch of 8."""
+    jcm, tcm = _dense6()
+    lens = {"uniform": [9] * 8, "ragged_b6": [5, 9, 12, 7, 9, 11],
+            "ragged_b8": [5, 9, 12, 7, 9, 11, 6, 10],
+            "ragged_b8_empty": [5, 9, 12, 0, 9, 11, 6, 10]}[batch]
+    pairs = _acgt_pairs(lens, seed=len(lens) + lens[3])
+    # the ragged schedule's cache key carries the chain length and the
+    # span of the sorted schedule, rounded up to 64, as the JAX router's
+    ragged_key = ("chained_ragged", 8,
+                  -(-ragged_span(lens, lens, 8) // 64) * 64) \
+        if route == "chained_ragged" else (None, None, None)
+    for engine in ("kernel", "pallas"):
+        res = tcm.log_forward_batch(pairs, engine=engine)
+        assert tcm.last_route == route
+        assert ("kernel", len(lens), 16, 16) + ragged_key in tcm._cache
+    np.testing.assert_allclose(res, jcm.log_forward_batch(pairs), rtol=0,
+                               atol=KERNEL_ROUTE_BOUND)
+    mats = [np.asarray(x, np.float64) for x in tcm._host_mats()]
+    ref = [forward_2d_f64(*mats, tcm.in_toks(i), tcm.out_toks(o))
+           for i, o in pairs]
+    np.testing.assert_allclose(res, ref, rtol=0, atol=KERNEL_ROUTE_BOUND)
+    # the default engine keeps full-rank machines on the wavefront engine
+    # off the card, as the JAX package does
+    tcm.log_forward_batch(pairs)
+    assert tcm.last_route == "wavefront"
+
+
+def test_kernel_engine_keeps_structured_machines_on_lowrank():
+    _, tcm = _prot2dna()
+    assert tcm.route("kernel") == "lowrank" and tcm.route("pallas") == "lowrank"
+    tcm.log_forward_batch(_pairs(2, 3, 5, seed=1), engine="kernel")
+    assert tcm.last_route == "lowrank"
+    with pytest.raises(ValueError, match="engine must be"):
+        tcm.route("mosaic")
+
+
+@pytest.mark.parametrize("engine", ["auto", "kernel"])
+@pytest.mark.parametrize("side", ["in", "out"])
+def test_one_d_machines_take_the_1d_route(side, engine):
+    """An input-empty and an output-empty machine through
+    log_forward_batch, against the JAX package's: the sequential scan with
+    engine="auto" off the card, the 1D kernel route with "kernel"."""
+    js = _one_d_machine(side)
+    tcm = CompiledMachine(js, device="cpu")
+    jcm = JCompiled(JMachine.from_json(js))
+    rng = np.random.RandomState(3)
+    seqs = ["".join(rng.choice(list("AC"), n)) for n in (0, 1, 7, 30, 18)]
+    pairs = [("", q) if side == "out" else (q, "") for q in seqs]
+    res = tcm.log_forward_batch(pairs, engine=engine)
+    assert tcm.last_route == ("scan" if engine == "auto" else "scan1d")
+    assert res.shape == (5,) and np.isfinite(res).all()
+    np.testing.assert_allclose(res, jcm.log_forward_batch(pairs), rtol=0,
+                               atol=KERNEL_ROUTE_BOUND)
+    # engine="wavefront" keeps a 1D machine on the 2D wavefront engine
+    wf = tcm.log_forward_batch(pairs, engine="wavefront")
+    assert tcm.last_route == "wavefront"
+    np.testing.assert_allclose(wf, res, rtol=0, atol=KERNEL_ROUTE_BOUND)
+    with pytest.raises(ValueError, match="engine must be"):
+        tcm.log_forward_batch(pairs, engine="mosaic")
 
 
 def test_default_device_is_the_card():

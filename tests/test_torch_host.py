@@ -1,9 +1,13 @@
 """The port's copied host layer equals the JAX package's exactly.
 
 machineboss_tpu_torch keeps its own copies of the numpy-only modules
-(core/*, ops/lowering.py, ops/host_oracle.py, the lowrank host prep). On
-the same machine they must give bit-identical arrays (np.array_equal): the
-copies change only import paths, so any difference is a copying fault.
+(core/*, ops/lowering.py, ops/host_oracle.py, the lowrank host prep, the
+test fixtures). On the same machine they must give bit-identical arrays
+(np.array_equal): the copies change only import paths, so any difference is
+a copying fault. The merged and 1D host preps are held to the JAX
+factories' tensors in tests/test_torch_wavefront_kernel.py and
+tests/test_torch_scan1d.py. Also here: the build module names a library
+by the bytes of its source and of the headers it includes.
 """
 
 import dataclasses
@@ -27,7 +31,7 @@ from machineboss_tpu_torch.ops.kernels.lowrank_kernel import (
 from machineboss_tpu_torch.ops.lowering import LoweredMachine as TLowered
 from machineboss_tpu_torch import testmachines
 
-MACHINES = ["prot2dna", "allclass", "dense8"]
+MACHINES = ["prot2dna", "allclass", "dense8", "indel", "generator"]
 _cache = {}
 
 
@@ -41,6 +45,12 @@ def _machines(name):
             from test_pallas_kernel import build_allclass_transducer
             pair = (build_allclass_transducer(5, list("AC")),
                     testmachines.build_allclass_transducer(5, list("AC")))
+        elif name == "indel":
+            from test_pallas_kernel import build_indel_transducer
+            pair = (build_indel_transducer(6, list("ACGT")),
+                    testmachines.build_indel_transducer(6, list("ACGT")))
+        elif name == "generator":
+            pair = (_bench_generator(6), testmachines.build_generator_1d(6))
         else:
             from bench import build_random_transducer
             pair = (build_random_transducer(8, list("ACGT"), seed=15),
@@ -48,6 +58,22 @@ def _machines(name):
                                                          seed=15))
         _cache[name] = pair
     return _cache[name]
+
+
+def _bench_generator(S):
+    """The 1D generator as bench.dense1d_workload_run builds it inline
+    (its RandomState(42), one draw of destination and weight per symbol)."""
+    from machineboss_tpu.core.machine import Machine as JMachine
+    rng = np.random.RandomState(42)
+    states = []
+    for s in range(S):
+        trans = [{"out": c, "to": int(rng.randint(0, S - 1)),
+                  "weight": round(float(rng.uniform(0.1, 1.0)), 4)}
+                 for c in "ACGT" for _ in range(1)]
+        trans.append({"to": S, "weight": 0.05})
+        states.append({"id": "S%d" % s, "trans": trans})
+    states.append({"id": "End", "trans": []})
+    return JMachine.from_json({"state": states})
 
 
 def _mats(name):
@@ -114,6 +140,60 @@ def test_forward_2d_f64_equal(name):
     n_in, n_out = tmats[1].shape[0], tmats[2].shape[0]
     rng = np.random.RandomState(3)
     for li, lo in ((4, 12), (7, 5), (0, 3)):
-        it = rng.randint(0, n_in, li)
+        # a generator has no input alphabet: its input side stays empty
+        it = rng.randint(0, n_in, li) if n_in else np.zeros(0, np.int64)
         ot = rng.randint(0, n_out, lo)
         assert j_f64(*jmats, it, ot) == t_f64(*tmats, it, ot)
+
+
+@pytest.mark.parametrize("name", ["generator", "dense8"])
+def test_emit_matrices_1d_equal(name):
+    jm, tm = _machines(name)
+    jl = JLowered(JEvaluated(jm, jm.get_param_defs(True)), dtype=np.float32)
+    tl = TLowered(TEvaluated(tm, tm.get_param_defs(True)), dtype=np.float32)
+    for side in (True, False):
+        for a, b in zip(jl.emit_matrices_1d(output_side=side),
+                        tl.emit_matrices_1d(output_side=side)):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_ragged_lens_equal():
+    from bench import _ragged_lens
+    for seed, B, L in ((0, 512, 200), (3, 7, 1), (5, 16, 33)):
+        a = _ragged_lens(np.random.RandomState(seed), B, L)
+        b = testmachines.ragged_lens(np.random.RandomState(seed), B, L)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
+    """No nvcc needed: the library's name is a hash of the source and of
+    every csrc/ file it includes, so editing the shared header renames the
+    libraries of both kernels that include it and of no other."""
+    import shutil
+
+    from machineboss_tpu_torch.ops.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    assert set(_build.SOURCES) == {"lowrank_wavefront", "merged_wavefront",
+                                   "chained_ragged_wavefront", "scan1d"}
+    for name, deps in (("merged_wavefront", 2),
+                       ("chained_ragged_wavefront", 2),
+                       ("lowrank_wavefront", 1), ("scan1d", 1)):
+        files = _build.source_files(name)
+        assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
+        assert all(f.startswith(str(csrc)) for f in files)
+    before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
+    assert len(set(before.values())) == 4
+    with open(csrc / "wavefront_common.cuh", "ab") as f:
+        f.write(b"\n// edited\n")
+    after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
+    changed = {n for n in before if before[n] != after[n]}
+    assert changed == {"merged_wavefront", "chained_ragged_wavefront"}
+    with open(csrc / "scan1d.cu", "ab") as f:
+        f.write(b"\n// edited\n")
+    assert _build._lib_path("scan1d")[1] != after["scan1d"]
+    assert _build._lib_path("lowrank_wavefront")[1] == \
+        before["lowrank_wavefront"]
