@@ -5,9 +5,9 @@
 
 Builds every CUDA kernel of the port from csrc/ (one nvcc process each, all
 at once), holds each against its plain PyTorch version and the float64
-oracles at small sizes, then drives four paths through
-CompiledMachine.log_forward_batch at full width, each gated against a
-float64 oracle on 8 pairs:
+oracles at small sizes, then drives seven paths at full width, each gated
+against a float64 oracle on 8 pairs. Four go through
+CompiledMachine.log_forward_batch:
 
   prot2dna       B=512, protein 64 against its 192-base codon DNA
                  (lowrank kernel);
@@ -17,6 +17,18 @@ float64 oracle on 8 pairs:
                  (chained_ragged kernel);
   dense1d        random 64-state ACGT generator, B=256 sequences of
                  10,000 (scan1d kernel).
+
+Three go through algo.viterbi_device.device_viterbi_matrices (the max-plus
+fill, the lattice walk on the card, the host re-trace), and must give the
+host engine's alignments:
+
+  viterbi_dense   random 64-state ACGT transducer, B=64 pairs of 128x128
+                  (viterbi_wavefront and lattice_walk kernels);
+  align_banded    the same kind of machine, ONE pair of L=1500 with 10%
+                  mutations inside an envelope of width 16
+                  (viterbi_banded_wavefront and lattice_walk kernels);
+  align_prot2dna  the prot2dna preset, B=64 proteins of 64 against their
+                  192-base codon DNA (viterbi_wavefront and lattice_walk).
 
 Prints one JSON line per phase, the kernel table, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
@@ -39,6 +51,7 @@ MERGED_VS_F64_TOL = 2e-3         # nats: the merged family's bound at L<=20
 ODD_START_VS_F64_TOL = 5e-3      # nats: the S=64, L=100 deep chain
 SCAN1D_VS_F64_TOL = 1e-4         # nats: f32 products over <= 150 positions
 GATE_TOL = 0.01                  # nats: the f64 accuracy gate of bench.py
+VITERBI_VS_PLAIN_TOL = 0.0       # nats: float32 adds and maxes only
 F32_FMA_FLOPS = 67e12            # H100 SXM f32 non-tensor peak (data sheet)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 
@@ -253,13 +266,18 @@ def scan1d_cases(dev):
 
 
 def counts():
+    from machineboss_tpu_torch.algo import traceback_device as tb
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     return {"lowrank_wavefront": lk.lowrank_wavefront,
             "merged_wavefront": wk.merged_wavefront,
             "chained_ragged_wavefront": wk.chained_ragged_wavefront,
-            "scan1d": sk.scan1d_forward}
+            "scan1d": sk.scan1d_forward,
+            "viterbi_wavefront": vk.viterbi_wavefront,
+            "viterbi_banded_wavefront": vk.viterbi_banded_wavefront,
+            "lattice_walk": tb.lattice_walk}
 
 
 def drive(name, cm, pairs, kernel, route):
@@ -449,6 +467,426 @@ def dense1d_path(dev, card, smi):
             "bound_by": bound_by, "library_ms": None}
 
 
+# ---------------------------------------------------------------- alignment
+
+def max_abs_diff(a, b):
+    """max |a - b| of two float tensors of one shape (NEG_INF cells are
+    equal bit for bit, so they contribute 0)."""
+    check(a.shape == b.shape, "shapes %s vs %s" % (a.shape, b.shape))
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def evaluated(machine):
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    return EvaluatedMachine(machine, machine.get_param_defs(True))
+
+
+def maxplus_mats(ev, dtype=np.float32):
+    from machineboss_tpu_torch.ops.lowering import LoweredMachine
+    return tuple(np.asarray(x) for x in
+                 LoweredMachine(ev, dtype=dtype).matrices_2d("maxplus"))
+
+
+def ragged_batch(tok_in, tok_out, dev):
+    """Padded int32 token and length tensors of a list of token arrays,
+    padded as device_viterbi_matrices pads."""
+    B = len(tok_in)
+    Li = max([len(t) for t in tok_in] + [1])
+    Lo = max([len(t) for t in tok_out] + [1])
+    it = np.zeros((B, Li), np.int32)
+    ot = np.zeros((B, Lo), np.int32)
+    for b in range(B):
+        it[b, :len(tok_in[b])] = tok_in[b]
+        ot[b, :len(tok_out[b])] = tok_out[b]
+    il = np.array([len(t) for t in tok_in], np.int32)
+    ol = np.array([len(t) for t in tok_out], np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)], Li, Lo
+
+
+def walk_equal(name, kern, plain):
+    """The kernel's records against the plain walk's: n, ok, ij and vals
+    equal exactly (unwritten slots keep their preset on both sides)."""
+    for k, (a, b) in enumerate(zip(kern, plain)):
+        check(torch.equal(a.cpu(), b.cpu()),
+              "%s: lattice walk differs from the plain walk in %s"
+              % (name, ("n", "ij", "vals", "ok")[k]))
+
+
+def viterbi_cases(dev):
+    """The three alignment kernels against their plain versions, small."""
+    from machineboss_tpu_torch.algo import traceback_device as tb
+    from machineboss_tpu_torch.core.machine import Machine
+    from machineboss_tpu_torch.core.seqpair import Envelope
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
+    from machineboss_tpu_torch.testmachines import (
+        align_pair, build_allclass_transducer, build_indel_transducer,
+        build_random_transducer)
+
+    def full_case(name, machine, tok_in, tok_out, grid=None):
+        ev = evaluated(machine)
+        ops = vk.viterbi_operands(vk.maxplus_class_mats(*maxplus_mats(ev)),
+                                  dev)
+        batch, Li, Lo = ragged_batch(tok_in, tok_out, dev)
+        kern = vk.viterbi_wavefront(ops, *batch, grid=grid)
+        plain = vk.viterbi_forward_plain(ops, *batch)
+        torch.cuda.synchronize()
+        err = max_abs_diff(kern, plain)
+        walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
+        wargs = tb.walk_tensors(walker, np.zeros(Li + Lo + 1), tok_in, tok_out)
+        wk_ = tb.lattice_walk(walker, kern, *wargs)
+        wp = tb.lattice_walk_plain(walker, kern, *wargs)
+        torch.cuda.synchronize()
+        walk_equal(name, wk_, wp)
+        emit({"phase": "kernel_vs_plain",
+              "kernel": "viterbi_wavefront+lattice_walk", "case": name,
+              "B": len(tok_in), "Li": Li, "Lo": Lo, "S": ops.S,
+              "classes": ops.classes, "grid": grid, "max_abs_vs_plain": err,
+              "walk_ok": [bool(x) for x in wk_[3].cpu()],
+              "walk_cells": [int(x) for x in wk_[0].cpu()]})
+        check(err <= VITERBI_VS_PLAIN_TOL,
+              "%s: viterbi kernel vs plain %.3g nats" % (name, err))
+        return wk_
+
+    def toks(rng, n_sym, lens):
+        return ([rng.randint(0, n_sym, a).astype(np.int32) for a, _ in lens],
+                [rng.randint(0, n_sym, b).astype(np.int32) for _, b in lens])
+
+    # all three classes, ragged lengths, an empty side and an empty pair
+    rng = np.random.RandomState(0)
+    ti, to = toks(rng, 2, [(6, 5), (0, 5), (3, 0), (0, 0), (6, 2), (4, 4)])
+    full_case("allclass_ragged", build_allclass_transducer(5, list("AC")),
+              ti, to)
+    # no diag class
+    rng = np.random.RandomState(5)
+    ti, to = toks(rng, 2, [(5, 5)] * 3)
+    full_case("indel", build_indel_transducer(5, list("AC"), seed=21), ti, to)
+    # a batch through ONE block, one pair after the other
+    rng = np.random.RandomState(6)
+    ti, to = toks(rng, 4, [(20, 20), (9, 9), (14, 14)])
+    full_case("dense8_one_block",
+              build_random_transducer(8, list("ACGT"), seed=15), ti, to,
+              grid=1)
+    # a pair without a path: the walk is stuck at its first step
+    chain = Machine.from_json({"state": [
+        {"id": "s", "trans": [
+            {"in": "A", "out": "A", "to": "s", "weight": 0.5},
+            {"in": "C", "to": "s", "weight": 0.2},
+            {"out": "C", "to": "s", "weight": 0.1},
+            {"to": "t", "weight": 0.3}]},
+        {"id": "t", "trans": [
+            {"to": "e", "weight": 0.7},
+            {"in": "A", "out": "C", "to": "t", "weight": 0.2}]},
+        {"id": "e", "trans": []}]})
+    i32 = np.int32
+    res = full_case("chain_no_path", chain,
+                    [np.zeros(3, i32), np.array([1], i32), np.zeros(0, i32)],
+                    [np.zeros(3, i32), np.array([0], i32), np.zeros(0, i32)])
+    check([bool(x) for x in res[3].cpu()] == [True, False, True],
+          "chain_no_path: ok flags %s" % (res[3],))
+
+    def band_case(name, machine, sp, lo, hi):
+        ev = evaluated(machine)
+        ops = vk.viterbi_operands(vk.maxplus_class_mats(*maxplus_mats(ev)),
+                                  dev)
+        it0 = np.array(ev.input_tokenizer.tokenize(sp.input.seq), i32) - 1
+        ot0 = np.array(ev.output_tokenizer.tokenize(sp.output.seq), i32) - 1
+        Li, Lo = len(it0), len(ot0)
+        geom = vk.band_geometry(Li, Lo, lo, hi, dev)
+        t_it = torch.from_numpy(it0).to(dev)
+        t_ot = torch.from_numpy(ot0).to(dev)
+        kern = vk.viterbi_banded_wavefront(ops, geom, t_it, t_ot)
+        plain = vk.viterbi_banded_forward_plain(ops, geom, t_it, t_ot)
+        torch.cuda.synchronize()
+        err = max_abs_diff(kern, plain)
+        walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
+        wargs = tb.walk_tensors(walker, geom.bases, [it0], [ot0])
+        lat = kern[:, None].contiguous()
+        wk_ = tb.lattice_walk(walker, lat, *wargs)
+        wp = tb.lattice_walk_plain(walker, lat, *wargs)
+        torch.cuda.synchronize()
+        walk_equal(name, wk_, wp)
+        steps = np.diff(geom.bases)
+        emit({"phase": "kernel_vs_plain",
+              "kernel": "viterbi_banded_wavefront+lattice_walk", "case": name,
+              "Li": Li, "Lo": Lo, "Wb": geom.Wb, "S": ops.S,
+              "base_steps": [int((steps == 0).sum()), int((steps == 1).sum())],
+              "max_abs_vs_plain": err, "walk_ok": bool(wk_[3][0]),
+              "walk_cells": int(wk_[0][0])})
+        check(err <= VITERBI_VS_PLAIN_TOL,
+              "%s: banded kernel vs plain %.3g nats" % (name, err))
+
+    dense6 = build_random_transducer(6, list("ACGT"), seed=2)
+    sp = align_pair(24, seed=1)
+    band_case("band_L24_w4", dense6, sp,
+              *vk.envelope_diag_bands(Envelope(sp, width=4)))
+    # a band that jumps two cells at a time: the window's base follows one
+    # cell per diagonal, below the band's lower edge
+    sp = align_pair(12, seed=3)
+    d = np.arange(25)
+    lo = np.clip(2 * (d // 3), np.maximum(0, d - 12), np.minimum(12, d))
+    hi = np.minimum(np.minimum(lo + 4, 13), d + 1)
+    band_case("band_jumps", dense6, sp, lo, np.maximum(hi, lo + 1))
+
+
+def viterbi_bound(ops, il, ol, lattice_bytes, other_bytes):
+    """Least ms for a max-plus fill of these pairs: 2 float32 operations
+    (an add and a max) per term against the non-tensor peak, S*S terms per
+    class for every cell whose neighbour lies in the lattice; and the
+    lattice written once plus the inputs read once at the memory rate."""
+    il = np.asarray(il, np.float64)
+    ol = np.asarray(ol, np.float64)
+    has_up, has_left, has_diag = ops.classes
+    cells = (has_up * ((il + 1) * ol).sum() + has_left * (il * (ol + 1)).sum()
+             + has_diag * (il * ol).sum())
+    flops = 2.0 * ops.S * ops.S * float(cells)
+    ms, by = bound(flops, lattice_bytes + other_bytes)
+    return ms, by, flops
+
+
+def event_ms(fn):
+    """Device ms of one call of fn, by CUDA events."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
+               cpu_fallbacks=False):
+    """One path through device_viterbi_matrices at full width.
+
+    Every launch count is set to 0 just before the first call and read
+    just after: one fill per batched call (or per banded pair), one walk
+    per batch, no other kernel. Then the f64 gate on 8 pairs, alignment
+    equality with the host ViterbiMatrix on `n_host` pairs, the number of
+    full-readback fallbacks over all pairs, the call's median of 5, and
+    the fill and walk kernels alone against their plain versions.
+    Returns the entries of the kernels line."""
+    from machineboss_tpu_torch.algo import traceback_device as tb
+    from machineboss_tpu_torch.algo.dp_host import ViterbiMatrix
+    from machineboss_tpu_torch.algo.viterbi_device import \
+        device_viterbi_matrices
+    from machineboss_tpu_torch.ops.host_oracle import viterbi_2d_f64
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
+    from machineboss_tpu_torch.ops.lowering import LoweredMachine
+    ev = evaluated(machine)
+    lowered_m = LoweredMachine(ev, dtype=np.float32)   # once, as a caller
+    banded = envelopes is not None                     # looping over batches
+    fill_name = "viterbi_banded_wavefront" if banded else "viterbi_wavefront"
+    wrappers = counts()
+    expect = {k: 0 for k in wrappers}
+    expect[fill_name] = len(pairs) if banded else 1
+    expect["lattice_walk"] = len(pairs) if banded else 1
+
+    def trans(path):
+        return [(t.in_, t.out, t.dest) for t in path.trans]
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    mats = device_viterbi_matrices(ev, pairs, lowered=lowered_m,
+                                   envelopes=envelopes, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == expect, "%s: launches %s, expected %s" % (name, got, expect))
+    lls = np.array([m.log_like() for m in mats])
+    check(np.isfinite(lls).all() and (lls > NEG).all(),
+          "%s: scores not all finite" % name)
+    paths = [m.path(machine) for m in mats]
+    fallbacks = sum(m._full is not None for m in mats)
+    check(fallbacks == 0 or cpu_fallbacks,
+          "%s: %d pairs fell back to the full readback" % (name, fallbacks))
+
+    tok_in = [np.array(ev.input_tokenizer.tokenize(sp.input.seq),
+                       np.int32) - 1 for sp in pairs]
+    tok_out = [np.array(ev.output_tokenizer.tokenize(sp.output.seq),
+                        np.int32) - 1 for sp in pairs]
+    # gates: the f64 score on 8 pairs (the banded pair against the host's
+    # banded fill, which is float64), the host's alignment on n_host
+    hosts = [ViterbiMatrix(ev, pairs[b], env=envelopes[b] if banded else None)
+             for b in range(min(n_host, len(pairs)))]
+    for b, host in enumerate(hosts):
+        check(trans(host.traceback(machine)) == trans(paths[b]),
+              "%s: pair %d is not aligned as the host aligns it" % (name, b))
+    if banded:
+        ref = np.array([h.log_like() for h in hosts])
+    else:
+        m64 = maxplus_mats(ev, np.float64)
+        ref = np.array([viterbi_2d_f64(*m64, tok_in[b], tok_out[b])
+                        for b in range(min(8, len(pairs)))])
+    gate = score_err(lls[:len(ref)], ref)
+    check(gate <= GATE_TOL, "%s: f64 gate %.3g nats" % (name, gate))
+
+    cpu_fb = None
+    if cpu_fallbacks:
+        # the same pairs through the CPU path: the same fallbacks, scores
+        # and alignments
+        cpu = device_viterbi_matrices(ev, pairs, envelopes=envelopes,
+                                      engine="kernel", device="cpu")
+        cpu_paths = [m.path(machine) for m in cpu]
+        cpu_fb = sum(m._full is not None for m in cpu)
+        check(cpu_fb == fallbacks, "%s: %d fallbacks on the card, %d on the "
+              "CPU" % (name, fallbacks, cpu_fb))
+        check(all(trans(a) == trans(b) for a, b in zip(cpu_paths, paths)),
+              "%s: the CPU path aligns differently" % name)
+        check(all(a.log_like() == b.log_like() for a, b in zip(cpu, mats)),
+              "%s: the CPU path scores differently" % name)
+
+    call_s, align_s = [], []
+    for _ in range(5):
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = device_viterbi_matrices(ev, pairs, lowered=lowered_m,
+                                        envelopes=envelopes, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        again_paths = [m.path(machine) for m in again]
+        t2 = time.perf_counter()
+        call_s.append(t1 - t0)
+        align_s.append(t2 - t0)
+        check({k: w.launches - before[k] for k, w in wrappers.items()}
+              == expect, "%s: a repeated call launched otherwise" % name)
+    check(all(trans(a) == trans(b) for a, b in zip(again_paths, paths)),
+          "%s: a repeated call aligns differently" % name)
+    call_ms = float(np.median(call_s)) * 1e3
+    align_ms = float(np.median(align_s)) * 1e3
+
+    # the kernels alone, and their plain versions, at the path's shapes
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*maxplus_mats(ev)), dev)
+    il = [len(t) for t in tok_in]
+    ol = [len(t) for t in tok_out]
+    if banded:
+        lo, hi = vk.envelope_diag_bands(envelopes[0])
+        geom = vk.band_geometry(il[0], ol[0], lo, hi, dev)
+        t_it = torch.from_numpy(tok_in[0]).to(dev)
+        t_ot = torch.from_numpy(tok_out[0]).to(dev)
+        fill = lambda: vk.viterbi_banded_wavefront(ops, geom, t_it, t_ot)
+        fill_plain = lambda: vk.viterbi_banded_forward_plain(ops, geom, t_it,
+                                                             t_ot)
+        Li, Lo, bases = il[0], ol[0], geom.bases
+        in_bytes = tensor_bytes([t_it, t_ot, geom.meta])
+        shape = {"Wb": geom.Wb, "n_diags": Li + Lo + 1,
+                 "band_cells": int(envelopes[0].n_cells())}
+    else:
+        batch, Li, Lo = ragged_batch(tok_in, tok_out, dev)
+        fill = lambda: vk.viterbi_wavefront(ops, *batch)
+        fill_plain = lambda: vk.viterbi_forward_plain(ops, *batch)
+        bases = np.zeros(Li + Lo + 1, np.int32)
+        in_bytes = tensor_bytes(batch)
+        shape = {"padded": [Li, Lo]}
+    kern = fill()
+    plain_ms, plain = event_ms(fill_plain)
+    err = max_abs_diff(kern, plain)
+    check(err <= VITERBI_VS_PLAIN_TOL,
+          "%s: fill kernel vs plain %.3g nats" % (name, err))
+    del plain
+    fill_ms = cuda_ms(fill, 5)
+    lat = kern[:, None].contiguous() if banded else kern
+    walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
+    wargs = tb.walk_tensors(walker, bases, tok_in, tok_out)
+    walked = tb.lattice_walk(walker, lat, *wargs)
+    walk_plain_ms, walked_plain = event_ms(
+        lambda: tb.lattice_walk_plain(walker, lat, *wargs))
+    walk_equal(name, walked, walked_plain)
+    walk_ms = cuda_ms(lambda: tb.lattice_walk(walker, lat, *wargs), 5)
+
+    lattice_bytes = tensor_bytes([kern])
+    op_bytes = tensor_bytes([t for t in (ops.up, ops.left, ops.diag, ops.c0)
+                             if t is not None])
+    if banded:
+        # the band's cells, each with every present class's S*S terms
+        n_cls = sum(ops.classes)
+        flops = 2.0 * ops.S * ops.S * n_cls * envelopes[0].n_cells()
+        fill_bound, fill_by = bound(flops, lattice_bytes + op_bytes + in_bytes)
+    else:
+        fill_bound, fill_by, flops = viterbi_bound(ops, il, ol, lattice_bytes,
+                                                   op_bytes + in_bytes)
+    # the walk: per visited cell 4*S candidates (an add and a compare), 4*S
+    # lattice floats and 4*S edge weights read, 4*S record floats written
+    n_cells = float(walked[0].sum())
+    walk_flops = 2.0 * 4 * ops.S * n_cells
+    walk_bytes = 3.0 * 4 * ops.S * 4 * n_cells
+    walk_bound, walk_by = bound(walk_flops, walk_bytes)
+    readback = tensor_bytes(list(walked))
+    S = ops.S
+    state_cells = float(envelopes[0].n_cells()) * S if banded else \
+        float(((np.array(il) + 1) * (np.array(ol) + 1)).sum()) * S
+    emit({"phase": name, "B": len(pairs), "S": S, "classes": ops.classes,
+          "lens": [[min(il), max(il)], [min(ol), max(ol)]], **shape,
+          "launches": {k: v for k, v in got.items() if v},
+          "f64_gate_max_abs": gate, "f64_gate_pairs": len(ref),
+          "host_alignments_equal": len(hosts), "fallbacks": fallbacks,
+          "cpu_fallbacks": cpu_fb, "path_steps": len(paths[0].trans),
+          "first_call_s": first_s, "call_ms_median5": call_ms,
+          "call_and_paths_ms_median5": align_ms,
+          "fill_kernel_ms": fill_ms, "walk_kernel_ms": walk_ms,
+          "kernels_share_of_call": (fill_ms + walk_ms) / call_ms,
+          "fill_plain_ms": plain_ms, "walk_plain_ms": walk_plain_ms,
+          "fill_max_abs_vs_plain": err, "walk_vs_plain": "equal",
+          "walk_cells": n_cells, "lattice_bytes": lattice_bytes,
+          "readback_bytes": readback,
+          "readback_share_of_lattice": readback / lattice_bytes,
+          "fill_flops": flops, "fill_bound_ms": fill_bound,
+          "fill_bound_by": fill_by,
+          "fill_share_of_bound": fill_bound / fill_ms,
+          "walk_bound_ms": walk_bound, "walk_bound_by": walk_by,
+          "state_cells_per_s": state_cells / (call_ms / 1e3),
+          "fill_state_cells_per_s": state_cells / (fill_ms / 1e3),
+          "card": card, "nvidia_smi": smi})
+    line = "296 (_viterbi_banded_kernel)" if banded else "48 (_viterbi_kernel)"
+    return [
+        {"name": fill_name, "route": "cuda", "path": name,
+         "source": "machineboss_tpu_torch/csrc/%s.cu" % fill_name,
+         "replaces": "machineboss_tpu/ops/pallas/viterbi_kernel.py:" + line,
+         "launches": got[fill_name], "max_abs_err": err, "ms": fill_ms,
+         "plain_ms": plain_ms, "bound_ms": fill_bound, "bound_by": fill_by,
+         "library_ms": None},
+        {"name": "lattice_walk", "route": "cuda", "path": name,
+         "source": "machineboss_tpu_torch/csrc/lattice_walk.cu",
+         "replaces": "machineboss_tpu/algo/traceback_device.py:113 (the "
+                     "jitted while_loop of make_lattice_walker; no Pallas "
+                     "kernel)",
+         "launches": got["lattice_walk"], "max_abs_err": 0.0, "ms": walk_ms,
+         "plain_ms": walk_plain_ms, "bound_ms": walk_bound,
+         "bound_by": walk_by, "library_ms": None}]
+
+
+def alignment_paths(dev, card, smi):
+    """The three alignment paths; returns the kernels line's entries (one
+    per kernel: the fills from their own paths, the walk from
+    viterbi_dense)."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.core.seqpair import (Envelope, NamedSeq,
+                                                    SeqPair)
+    from machineboss_tpu_torch.testmachines import (
+        align_pair, build_random_transducer, prot2dna_pairs)
+    sym = np.array(list("ACGT"))
+    B, L = 64, 128
+    rng = np.random.RandomState(0)
+    x = sym[rng.randint(0, 4, (B, L))]
+    y = sym[rng.randint(0, 4, (B, L))]
+    dense = align_path(
+        "viterbi_dense", build_random_transducer(64, list("ACGT")),
+        [SeqPair(NamedSeq("x", list(x[n])), NamedSeq("y", list(y[n])))
+         for n in range(B)], None, dev, card, smi)
+    sp = align_pair(1500, mutate=0.1, seed=11)
+    banded = align_path(
+        "align_banded", build_random_transducer(64, list("ACGT"), seed=3),
+        [sp], [Envelope(sp, width=16)], dev, card, smi, n_host=1,
+        cpu_fallbacks=True)
+    align_path(
+        "align_prot2dna", make_preset("prot2dna"),
+        [SeqPair(NamedSeq("x", list(p)), NamedSeq("y", list(d)))
+         for p, d in prot2dna_pairs(64, 64, seed=0)], None, dev, card, smi)
+    return [dense[0], banded[0], dense[1]]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -497,6 +935,7 @@ def main():
 
     fullrank_cases(dev)
     scan1d_cases(dev)
+    viterbi_cases(dev)
 
     # -- the prot2dna path ------------------------------------------------
     B, Lp = 512, 64
@@ -579,8 +1018,11 @@ def main():
          for n in range(B)], True, dev, card, smi))
     kernels.append(dense1d_path(dev, card, smi))
 
-    # no single PyTorch call computes a wavefront or this scan: library_ms
-    # is null for every kernel
+    # -- the alignment paths, at full width -------------------------------
+    kernels += alignment_paths(dev, card, smi)
+
+    # no single PyTorch call computes a wavefront, this scan or this walk:
+    # library_ms is null for every kernel
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -15,6 +15,7 @@ import torch
 
 from .dispatch import CompiledMachine
 from .ops.kernels.scan1d_kernel import prepare_scan1d, scan1d_operands
+from .ops.kernels.viterbi_kernel import viterbi_operands
 from .ops.kernels.wavefront_kernel import merged_operands
 from .utils.device import resolve_device
 
@@ -81,3 +82,14 @@ def merged_from_jax_layout(m_ud, m_left, c0, w, Ti, To, classes, sink,
             "mats": {k: np.ascontiguousarray(v) for k, v in mats.items()},
             "c0": c0, "w": np.asarray(w, np.float32).reshape(-1)}
     return merged_operands(plan, resolve_device(device))
+
+
+def viterbi_from_numpy(mu, md, ml, c0, classes, device=None):
+    """The JAX package's maxplus_class_mats output (numpy: the
+    closure-folded, destination-major class matrices mu (To*S, S), md
+    (To*S, Ti*S), ml (Ti*S, S), the start column c0 (S, 1) and the
+    (has_up, has_left, has_diag) flags) -> the Viterbi fills' operands on
+    `device`, so that both packages compute from the same numbers."""
+    return viterbi_operands(
+        (np.asarray(mu), np.asarray(md), np.asarray(ml), np.asarray(c0),
+         tuple(bool(c) for c in classes)), resolve_device(device))

@@ -26,7 +26,10 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
            "merged_wavefront": "merged_wavefront.cu",
            "chained_ragged_wavefront": "chained_ragged_wavefront.cu",
-           "scan1d": "scan1d.cu"}
+           "scan1d": "scan1d.cu",
+           "viterbi_wavefront": "viterbi_wavefront.cu",
+           "viterbi_banded_wavefront": "viterbi_banded_wavefront.cu",
+           "lattice_walk": "lattice_walk.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

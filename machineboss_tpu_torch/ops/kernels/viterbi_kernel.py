@@ -1,0 +1,572 @@
+"""Max-plus (Viterbi) wavefront fill that writes the whole value lattice.
+
+Counterpart of machineboss_tpu's ops/pallas/viterbi_kernel.py: the full
+batched fill (`_viterbi_kernel`) and the envelope-banded fill of one pair
+(`_viterbi_banded_kernel`). Every diagonal slab goes to device memory,
+because the point of the device Viterbi is the lattice that the traceback
+walks (algo/viterbi_device.py).
+
+The host prep (`maxplus_class_mats`, `band_windows`, `envelope_diag_bands`,
+the window geometry) is a numpy copy of the JAX package's and gives the
+same numbers: the max-plus silent closure is folded into every class matrix
+in float64 and the result clamped to float32, so no per-cell closure
+product remains.
+
+What is computed, per cell (i, o) on diagonal d = i + o and destination
+state s', in float32 log space with NEG_INF = -1e30 for "no path":
+
+    v[s'] = max( NEG_INF,
+                 max_s up[y_o][s, s']        + cell(i,   o-1)[s],
+                 max_s left[x_i][s, s']      + cell(i-1, o)[s],
+                 max_s diag[x_i, y_o][s, s'] + cell(i-1, o-1)[s] )
+
+with cell(0, 0) = c0 (closure row 0), absent classes skipped, a neighbour
+outside the lattice (or the band) skipped, and a token outside its
+alphabet treated as matching nothing. Only float32 adds and maxes occur, no
+sums of many terms, so the CUDA kernels, the plain versions here and the
+JAX kernels agree bit for bit on the same `premats`.
+
+Each kernel has two versions with that one recurrence:
+
+- `viterbi_forward_plain` / `viterbi_banded_forward_plain`: torch loops over
+  diagonals, used on the CPU and as the card's comparison;
+- `viterbi_wavefront` / `viterbi_banded_wavefront`: the counted wrappers of
+  the hand-written CUDA kernels (csrc/viterbi_wavefront.cu,
+  csrc/viterbi_banded_wavefront.cu, both on csrc/viterbi_common.cuh). A CUDA
+  tensor launches the kernel or raises; only a CPU tensor takes the plain
+  version.
+
+Slab layout: the full fill returns (n_diags, B, W, S) with W = Li + 1, slab
+d holding cell (i, o = d - i) at index i; the banded fill returns
+(n_diags, Wb, S), slab d holding cell i at window index i - bases[d]. Both
+are what algo/traceback_device's walker reads, without a transpose.
+"""
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ...utils.device import resolve_device
+from ._build import load
+from .lowrank_kernel import _check, _round_up
+
+NEG_INF = -1e30
+_TD = 4          # destination states per thread (csrc/viterbi_common.cuh)
+_BAND_PAD = 8    # the band window's width is rounded up to this many cells
+
+
+def _mp_mat(a, b):
+    """Max-plus matrix product: out[s, s'] = max_m a[s, m] + b[m, s']."""
+    return (a[:, :, None] + b[None, :, :]).max(axis=1)
+
+
+def maxplus_class_mats(a_diag, a_left, a_up, closure):
+    """Closure-folded, transposed class matrices shared by the full and
+    banded MAXPLUS kernels (the host-side _mp_mat folds here are ~2 s at
+    S=64 — build once per machine and pass as `premats`):
+      MU[(ty, s'), s]      = (A_up[ty] (x)mp C)[s, s']
+      MD[(ty, s'), (ti,s)] = (A_diag[ti,ty] (x)mp C)[s, s']
+      ML[(ti, s'), s]      = (A_left[ti] (x)mp C)[s, s']
+    Returns (mu, md, ml, c0_row, classes)."""
+    Ti, To, S, _ = a_diag.shape
+
+    def lg(a):
+        return np.maximum(np.asarray(a, np.float64), NEG_INF)
+
+    dg, lf, up, cl = lg(a_diag), lg(a_left), lg(a_up), lg(closure)
+    has_up = bool((up > NEG_INF / 2).any())
+    has_left = bool((lf > NEG_INF / 2).any())
+    has_diag = bool((dg > NEG_INF / 2).any())
+    if not (has_up or has_left or has_diag):
+        has_diag = True
+    classes = (has_up, has_left, has_diag)
+
+    def clamp32(m):
+        return np.maximum(m, NEG_INF).astype(np.float32)
+
+    mu = np.concatenate([_mp_mat(up[t], cl).T for t in range(To)], axis=0) \
+        if has_up else np.full((8, 128), NEG_INF)
+    md = np.full((To * S, Ti * S), NEG_INF)
+    if has_diag:
+        for ty in range(To):
+            for ti in range(Ti):
+                md[ty * S:(ty + 1) * S, ti * S:(ti + 1) * S] = \
+                    _mp_mat(dg[ti, ty], cl).T
+    else:
+        md = np.full((8, 128), NEG_INF)
+    ml = np.concatenate([_mp_mat(lf[t], cl).T for t in range(Ti)], axis=0) \
+        if has_left else np.full((8, 128), NEG_INF)
+    c0_row = clamp32(cl[0:1, :].T)                       # (S, 1)
+    return clamp32(mu), clamp32(md), clamp32(ml), c0_row, classes
+
+
+def band_windows(lo, hi, pad=128):
+    """Window geometry for per-diagonal bands [lo_d, hi_d).
+
+    Returns (bases, s1, Wb): non-decreasing bases advancing <= 1/step
+    (clamped under lo_d where the band jumps faster — the window is then
+    simply wider), and Wb = lane-aligned max(hi_d - base_d)."""
+    n = len(lo)
+    bases = np.zeros(n, np.int32)
+    for d in range(1, n):
+        bases[d] = min(max(bases[d - 1], 0) + 1, max(lo[d], 0))
+        bases[d] = max(bases[d], bases[d - 1])
+    w = max(int(hi[d] - bases[d]) for d in range(n))
+    Wb = _round_up(max(w, 1), pad)
+    s1 = np.zeros(n, np.int32)
+    s1[1:] = bases[1:] - bases[:-1]
+    assert (s1 >= 0).all() and (s1 <= 1).all()
+    return bases, s1, Wb
+
+
+def envelope_diag_bands(env):
+    """Per-diagonal [lo_d, hi_d) cell-index bands from a row Envelope
+    (core.seqpair.Envelope: in_start[o] <= i < in_end[o])."""
+    Li = env.in_len
+    Lo = env.out_len
+    n_diags = Li + Lo + 1
+    lo = np.full(n_diags, 10**9, np.int64)
+    hi = np.full(n_diags, -10**9, np.int64)
+    cnt = np.zeros(n_diags, np.int64)
+    for o in range(Lo + 1):
+        for i in range(env.in_start[o], env.in_end[o]):
+            d = i + o
+            lo[d] = min(lo[d], i)
+            hi[d] = max(hi[d], i + 1)
+            cnt[d] += 1
+    # The banded kernel fills the bounding interval [lo, hi) of each
+    # diagonal; a non-contiguous cross-section (possible only for
+    # hand-built envelopes, never for the CLI's path +- width
+    # bands) would silently admit out-of-envelope cells and can inflate
+    # the device score vs the host env-restricted ViterbiMatrix.
+    bad = (hi > lo) & (cnt != hi - lo)
+    if bad.any():
+        d = int(np.nonzero(bad)[0][0])
+        raise ValueError(
+            "envelope_diag_bands: diagonal %d cross-section is not "
+            "contiguous (%d cells in [%d, %d)); the banded device kernel "
+            "only supports per-diagonal interval envelopes — use the host "
+            "engine for this envelope" % (d, cnt[d], lo[d], hi[d]))
+    lo = np.where(hi > lo, lo, 0)
+    hi = np.where(hi > lo, hi, 1)
+    return lo, hi
+
+
+# ------------------------------------------------------------------ operands
+
+@dataclass
+class ViterbiOperands:
+    """One machine's maxplus_class_mats as tensors on one device.
+
+    Each present class is a (n_tok, S, SP) float32 tensor of source-major
+    blocks, blk[tok][s, s'] (token x * To + y for diag), the destination
+    axis padded with NEG_INF to SP = round_up(S, 4) so that the kernel
+    reads four destinations as one float4; the plain version reads
+    [..., :S]. An absent class is None."""
+    S: int
+    SP: int
+    Ti: int
+    To: int
+    c0: torch.Tensor
+    up: torch.Tensor = None
+    left: torch.Tensor = None
+    diag: torch.Tensor = None
+
+    @property
+    def classes(self):
+        return (self.up is not None, self.left is not None,
+                self.diag is not None)
+
+
+def viterbi_operands(premats, device):
+    """maxplus_class_mats output (numpy) -> ViterbiOperands on `device` (a
+    torch.device). The alphabet sizes are read off the shapes of the
+    present classes; a side that no present class reads counts 0."""
+    mu, md, ml, c0, classes = premats
+    has_up, has_left, has_diag = classes
+    c0 = np.asarray(c0, np.float32).reshape(-1)
+    S = c0.shape[0]
+    SP = _round_up(S, _TD)
+    Ti = To = 0
+    if has_up:
+        To = mu.shape[0] // S
+    if has_left:
+        Ti = ml.shape[0] // S
+    if has_diag:
+        To, Ti = md.shape[0] // S, md.shape[1] // S
+
+    def blocks(dest_major):
+        """(n_tok, S', S) destination-major -> (n_tok, S, SP) tensor."""
+        n_tok = dest_major.shape[0]
+        out = np.full((n_tok, S, SP), NEG_INF, np.float32)
+        out[:, :, :S] = np.transpose(dest_major, (0, 2, 1))
+        return torch.from_numpy(out).to(device)
+
+    ops = ViterbiOperands(S=S, SP=SP, Ti=Ti, To=To,
+                          c0=torch.from_numpy(c0.copy()).to(device))
+    if has_up:
+        ops.up = blocks(np.asarray(mu, np.float32).reshape(To, S, S))
+    if has_left:
+        ops.left = blocks(np.asarray(ml, np.float32).reshape(Ti, S, S))
+    if has_diag:
+        # md[(ty, s'), (ti, s)] -> [ti * To + ty][s', s]
+        m4 = np.asarray(md, np.float32).reshape(To, S, Ti, S)
+        ops.diag = blocks(np.transpose(m4, (2, 0, 1, 3))
+                          .reshape(Ti * To, S, S))
+    return ops
+
+
+# ------------------------------------------------------------ plain versions
+
+def _class_max(blk, S, tok, has, nbr, neg):
+    """max_s blk[tok][s, s'] + nbr[s] per cell: tok and has (...,) long and
+    bool, nbr (..., S). A cell whose neighbour is missing or whose token
+    lies outside the alphabet gets NEG_INF."""
+    n_tok = blk.shape[0]
+    ok = has & (tok >= 0) & (tok < n_tok)
+    m = blk[torch.clamp(tok, 0, n_tok - 1)][..., :S]          # (..., S, S)
+    cand = (m + nbr[..., :, None]).max(dim=-2).values
+    return torch.where(ok[..., None], cand, neg)
+
+
+def viterbi_forward_plain(ops, in_toks, out_toks, in_lens=None,
+                          out_lens=None):
+    """Plain PyTorch version of the full fill, float32.
+
+    in_toks (B, Li), out_toks (B, Lo) integer tensors on the device of
+    `ops`; in_lens/out_lens (B,) or None for the padded lengths. Returns
+    the (Li + Lo + 1, B, Li + 1, S) slabs; a cell outside its pair's
+    (in_len, out_len) lattice holds NEG_INF."""
+    B, Li = in_toks.shape
+    Lo = out_toks.shape[1]
+    S, To = ops.S, ops.To
+    W = Li + 1
+    dev = ops.c0.device
+    f32 = torch.float32
+    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    il = torch.full((B,), Li, device=dev) if in_lens is None \
+        else in_lens.long()
+    ol = torch.full((B,), Lo, device=dev) if out_lens is None \
+        else out_lens.long()
+    i_idx = torch.arange(W, device=dev)
+    x_tok = in_toks.long()[:, torch.clamp(i_idx - 1, 0, max(Li - 1, 0))] \
+        if Li else torch.zeros((B, W), dtype=torch.long, device=dev)
+    has_x = (i_idx >= 1)[None, :].expand(B, W)
+
+    n_diags = Li + Lo + 1
+    out = torch.full((n_diags, B, W, S), NEG_INF, dtype=f32, device=dev)
+    out[0, :, 0] = ops.c0
+    pad = torch.full((B, 1, S), NEG_INF, dtype=f32, device=dev)
+    for d in range(1, n_diags):
+        o_idx = d - i_idx
+        y_tok = out_toks.long()[:, torch.clamp(o_idx - 1, 0, max(Lo - 1, 0))] \
+            if Lo else torch.zeros((B, W), dtype=torch.long, device=dev)
+        has_y = (o_idx >= 1)[None, :].expand(B, W)
+        p1 = out[d - 1]
+        cur = torch.full((B, W, S), NEG_INF, dtype=f32, device=dev)
+        if ops.up is not None:
+            cur = torch.maximum(cur, _class_max(ops.up, S, y_tok, has_y, p1,
+                                                neg))
+        if ops.left is not None:
+            nbr = torch.cat([pad, p1[:, :-1]], dim=1)
+            cur = torch.maximum(cur, _class_max(ops.left, S, x_tok, has_x,
+                                                nbr, neg))
+        if ops.diag is not None and d >= 2:
+            nbr = torch.cat([pad, out[d - 2][:, :-1]], dim=1)
+            ok = has_x & has_y & (x_tok >= 0) & (x_tok < ops.Ti) \
+                & (y_tok >= 0) & (y_tok < To)
+            cur = torch.maximum(cur, _class_max(
+                ops.diag, S, x_tok * To + y_tok, ok, nbr, neg))
+        valid = (o_idx >= 0)[None, :] & (o_idx[None, :] <= ol[:, None]) \
+            & (i_idx[None, :] <= il[:, None])
+        out[d] = torch.where(valid[:, :, None], cur, neg)
+    return out
+
+
+@dataclass
+class BandGeometry:
+    """Per-diagonal band and window of one pair, on the host (numpy int32)
+    and, as `meta`, on a device: meta[d] = (lo_d, hi_d, base_d)."""
+    Li: int
+    Lo: int
+    lo: np.ndarray
+    hi: np.ndarray
+    bases: np.ndarray
+    Wb: int
+    meta: torch.Tensor = None
+
+
+def band_geometry(Li, Lo, lo, hi, device, pad=_BAND_PAD):
+    n_diags = Li + Lo + 1
+    lo = np.asarray(lo, np.int64)
+    hi = np.asarray(hi, np.int64)
+    if len(lo) != n_diags or len(hi) != n_diags:
+        raise ValueError("band arrays must have Li + Lo + 1 = %d entries"
+                         % n_diags)
+    bases, _, Wb = band_windows(lo, hi, pad=pad)
+    meta = np.stack([lo, hi, bases], axis=1).astype(np.int32)
+    return BandGeometry(Li=Li, Lo=Lo, lo=lo.astype(np.int32),
+                        hi=hi.astype(np.int32), bases=bases, Wb=Wb,
+                        meta=torch.from_numpy(np.ascontiguousarray(meta))
+                        .to(device))
+
+
+def viterbi_banded_forward_plain(ops, geom, in_toks, out_toks):
+    """Plain PyTorch version of the banded fill of ONE pair, float32.
+
+    in_toks (Li,), out_toks (Lo,) integer tensors on the device of `ops`.
+    Returns the (Li + Lo + 1, Wb, S) windows: slab d holds cell i at
+    window index i - bases[d], NEG_INF outside [lo_d, hi_d) and outside
+    the lattice."""
+    Li, Lo, Wb = geom.Li, geom.Lo, geom.Wb
+    S, To = ops.S, ops.To
+    dev = ops.c0.device
+    f32 = torch.float32
+    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    n_diags = Li + Lo + 1
+    xt = in_toks.long()
+    yt = out_toks.long()
+    w_idx = torch.arange(Wb, device=dev)
+    out = torch.full((n_diags, Wb, S), NEG_INF, dtype=f32, device=dev)
+
+    def in_band(d, i):
+        o = d - i
+        return (i >= int(geom.lo[d])) & (i < int(geom.hi[d])) & (i <= Li) \
+            & (o >= 0) & (o <= Lo)
+
+    if int(geom.lo[0]) <= 0 < int(geom.hi[0]):     # base_0 = 0: cell (0, 0)
+        out[0, 0] = ops.c0
+
+    def shifted(slab, shift):
+        """slab values at window index w + shift, NEG_INF off the window."""
+        src = w_idx + shift
+        ok = (src >= 0) & (src < Wb)
+        return torch.where(ok[:, None], slab[torch.clamp(src, 0, Wb - 1)],
+                           neg)
+
+    for d in range(1, n_diags):
+        base = int(geom.bases[d])
+        s1 = base - int(geom.bases[d - 1])
+        i = base + w_idx
+        o = d - i
+        has_x = i >= 1
+        has_y = o >= 1
+        x_tok = xt[torch.clamp(i - 1, 0, max(Li - 1, 0))] if Li \
+            else torch.zeros_like(i)
+        y_tok = yt[torch.clamp(o - 1, 0, max(Lo - 1, 0))] if Lo \
+            else torch.zeros_like(i)
+        cur = torch.full((Wb, S), NEG_INF, dtype=f32, device=dev)
+        if ops.up is not None:
+            cur = torch.maximum(cur, _class_max(
+                ops.up, S, y_tok, has_y, shifted(out[d - 1], s1), neg))
+        if ops.left is not None:
+            cur = torch.maximum(cur, _class_max(
+                ops.left, S, x_tok, has_x, shifted(out[d - 1], s1 - 1), neg))
+        if ops.diag is not None and d >= 2:
+            s2 = base - int(geom.bases[d - 2])
+            ok = has_x & has_y & (x_tok >= 0) & (x_tok < ops.Ti) \
+                & (y_tok >= 0) & (y_tok < To)
+            cur = torch.maximum(cur, _class_max(
+                ops.diag, S, x_tok * To + y_tok, ok,
+                shifted(out[d - 2], s2 - 1), neg))
+        out[d] = torch.where(in_band(d, i)[:, None], cur, neg)
+    return out
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _class_ptrs(ops):
+    return [0 if t is None else t.data_ptr()
+            for t in (ops.up, ops.left, ops.diag)]
+
+
+def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
+                      grid=None):
+    """Max-plus wavefront fill: (Li + Lo + 1, B, Li + 1, S) float32 slabs.
+
+    A CUDA tensor launches csrc/viterbi_wavefront.cu and counts one launch
+    in `viterbi_wavefront.launches`; a CPU tensor takes
+    viterbi_forward_plain. in_toks (B, Li) and out_toks (B, Lo) are int32
+    and contiguous on the device of `ops`; in_lens/out_lens (B,) int32, or
+    None for the padded lengths. A block walks whole pairs and skips the
+    cells beyond its pair's (in_len, out_len): those hold NEG_INF, which no
+    reader of a pair's lattice touches. `grid` is the number of blocks
+    (default: one per pair)."""
+    if in_toks.device.type == "cpu":
+        return viterbi_forward_plain(ops, in_toks, out_toks, in_lens,
+                                     out_lens)
+    if in_toks.device.type != "cuda":
+        raise ValueError("viterbi_wavefront runs on cuda or cpu tensors, "
+                         "not %s" % in_toks.device)
+    dev = ops.c0.device
+    B, Li = in_toks.shape
+    Lo = out_toks.shape[1]
+    _check(in_toks, "in_toks", torch.int32, (B, Li), dev)
+    _check(out_toks, "out_toks", torch.int32, (B, Lo), dev)
+    if in_lens is None:
+        in_lens = torch.full((B,), Li, dtype=torch.int32, device=dev)
+    if out_lens is None:
+        out_lens = torch.full((B,), Lo, dtype=torch.int32, device=dev)
+    _check(in_lens, "in_lens", torch.int32, (B,), dev)
+    _check(out_lens, "out_lens", torch.int32, (B,), dev)
+    grid = max(B, 1) if grid is None else int(grid)
+    if grid < 1:
+        raise ValueError("grid must be >= 1")
+    n_diags = Li + Lo + 1
+    out = torch.empty((n_diags, B, Li + 1, ops.S), dtype=torch.float32,
+                      device=dev)
+    fn = load("viterbi_wavefront").viterbi_wavefront_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 9 + [I] * 8 + [P]
+    fn.restype = I
+    rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), in_lens.data_ptr(),
+            out_lens.data_ptr(), ops.c0.data_ptr(), *_class_ptrs(ops),
+            out.data_ptr(), B, Li, Lo, ops.S, ops.SP, ops.Ti, ops.To, grid,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("viterbi_wavefront launch failed: CUDA error %d"
+                           % rc)
+    viterbi_wavefront.launches += 1
+    return out
+
+
+viterbi_wavefront.launches = 0
+
+
+def viterbi_banded_wavefront(ops, geom, in_toks, out_toks):
+    """Banded max-plus fill of ONE pair: (Li + Lo + 1, Wb, S) float32
+    windows, left on the device for the lattice walk.
+
+    A CUDA tensor launches csrc/viterbi_banded_wavefront.cu (one block
+    walks every diagonal) and counts one launch in
+    `viterbi_banded_wavefront.launches`; a CPU tensor takes
+    viterbi_banded_forward_plain. in_toks (Li,) and out_toks (Lo,) are
+    int32 and contiguous on the device of `ops`, as is geom.meta."""
+    if in_toks.device.type == "cpu":
+        return viterbi_banded_forward_plain(ops, geom, in_toks, out_toks)
+    if in_toks.device.type != "cuda":
+        raise ValueError("viterbi_banded_wavefront runs on cuda or cpu "
+                         "tensors, not %s" % in_toks.device)
+    dev = ops.c0.device
+    Li, Lo, Wb = geom.Li, geom.Lo, geom.Wb
+    n_diags = Li + Lo + 1
+    _check(in_toks, "in_toks", torch.int32, (Li,), dev)
+    _check(out_toks, "out_toks", torch.int32, (Lo,), dev)
+    _check(geom.meta, "geom.meta", torch.int32, (n_diags, 3), dev)
+    out = torch.empty((n_diags, Wb, ops.S), dtype=torch.float32, device=dev)
+    fn = load("viterbi_banded_wavefront").viterbi_banded_wavefront_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 8 + [I] * 7 + [P]
+    fn.restype = I
+    rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), geom.meta.data_ptr(),
+            ops.c0.data_ptr(), *_class_ptrs(ops), out.data_ptr(), Li, Lo, Wb,
+            ops.S, ops.SP, ops.Ti, ops.To,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("viterbi_banded_wavefront launch failed: CUDA "
+                           "error %d" % rc)
+    viterbi_banded_wavefront.launches += 1
+    return out
+
+
+viterbi_banded_wavefront.launches = 0
+
+
+# ----------------------------------------------------------------- factories
+
+def _premats(a_diag, a_left, a_up, closure, premats):
+    return premats if premats is not None else \
+        maxplus_class_mats(a_diag, a_left, a_up, closure)
+
+
+def make_wavefront_viterbi(a_diag, a_left, a_up, closure, B, Li, Lo,
+                           n_chunks=None, premats=None, device=None):
+    """Build the max-plus wavefront fill for fixed machine tensors/shapes.
+
+    Tensors are LOG-space max-plus numpy matrices: a_diag (Ti, To, S, S),
+    a_left (Ti, S, S), a_up (To, S, S), closure (S, S) = the max-plus
+    silent closure (lowering.matrices_2d("maxplus")).
+
+    Returns fn(in_toks (B, Li), out_toks (B, Lo), in_lens=None,
+    out_lens=None) -> (n_diags, B, W, S) diagonal slabs on `device` (None:
+    the card), W = Li + 1, slab d holding cells (i, o=d-i), ready for
+    ops/wavefront.lattice_from_diagonals and the lattice walk. With
+    lengths, cells beyond a pair's own lattice hold NEG_INF.
+
+    `n_chunks` sizes the TPU kernel's VMEM accumulators and is accepted
+    and unused; the JAX factory's `interpret` is not carried."""
+    dev = resolve_device(device)
+    ops = viterbi_operands(_premats(a_diag, a_left, a_up, closure, premats),
+                           dev)
+
+    def as_i32(x):
+        return torch.as_tensor(x, device=dev).to(torch.int32).contiguous()
+
+    def viterbi(in_toks, out_toks, in_lens=None, out_lens=None):
+        it, ot = as_i32(in_toks), as_i32(out_toks)
+        if tuple(it.shape) != (B, Li) or tuple(ot.shape) != (B, Lo):
+            raise ValueError("expected tokens of shape (%d, %d) and (%d, %d)"
+                             % (B, Li, B, Lo))
+        il = None if in_lens is None else as_i32(in_lens)
+        ol = None if out_lens is None else as_i32(out_lens)
+        return viterbi_wavefront(ops, it, ot, il, ol)
+
+    return viterbi
+
+
+def make_wavefront_viterbi_banded(a_diag, a_left, a_up, closure, Li, Lo,
+                                  lo, hi, premats=None, device=None):
+    """Envelope-banded max-plus wavefront for ONE sequence pair.
+
+    lo/hi: per-diagonal [lo_d, hi_d) bands of cell index i (from
+    core.seqpair.Envelope via envelope_diag_bands). Only band cells are
+    computed.
+
+    Returns fn(in_toks (Li,), out_toks (Lo,)) -> the (Li+1, Lo+1, S)
+    float64 numpy lattice with NEG_INF outside the band, for the host
+    traceback. fn.fill_raw gives the (n_diags, Wb, S) windows on `device`
+    (None: the card) for the lattice walk, fn.scatter turns host windows
+    into the full lattice, fn.bases and fn.Wb are the window geometry."""
+    dev = resolve_device(device)
+    ops = viterbi_operands(_premats(a_diag, a_left, a_up, closure, premats),
+                           dev)
+    geom = band_geometry(Li, Lo, lo, hi, dev)
+    S, Wb, bases = ops.S, geom.Wb, geom.bases
+    n_diags = Li + Lo + 1
+
+    # vectorized window geometry
+    ds_g = np.arange(n_diags)[:, None]                    # (n_diags, 1)
+    i_g = bases[:, None].astype(np.int64) + np.arange(Wb)[None, :]
+    o_g = ds_g - i_g
+    in_band = (i_g >= geom.lo[:, None]) & (i_g < geom.hi[:, None]) \
+        & (o_g >= 0) & (o_g <= Lo)
+
+    def fill_raw(in_toks, out_toks):
+        """Device band windows (n_diags, Wb, S): stay on the device, for
+        the lattice walk (algo/traceback_device)."""
+        it = torch.as_tensor(np.asarray(in_toks, np.int32), device=dev) \
+            .contiguous()
+        ot = torch.as_tensor(np.asarray(out_toks, np.int32), device=dev) \
+            .contiguous()
+        if tuple(it.shape) != (Li,) or tuple(ot.shape) != (Lo,):
+            raise ValueError("expected tokens of shape (%d,) and (%d,)"
+                             % (Li, Lo))
+        return viterbi_banded_wavefront(ops, geom, it, ot)
+
+    def scatter(lat):
+        """Host (n_diags, Wb, S) windows -> full (Li+1, Lo+1, S)."""
+        full = np.full((Li + 1, Lo + 1, S), NEG_INF, np.float64)
+        dd, ww = np.nonzero(in_band & (i_g <= Li))
+        full[i_g[dd, ww], o_g[dd, ww]] = lat[dd, ww, :]
+        return full
+
+    def viterbi(in_toks, out_toks):
+        return scatter(fill_raw(in_toks, out_toks).cpu().numpy())
+
+    viterbi.fill_raw = fill_raw
+    viterbi.scatter = scatter
+    viterbi.bases = bases
+    viterbi.Wb = Wb
+    return viterbi

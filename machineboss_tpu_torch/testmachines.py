@@ -4,7 +4,9 @@ Copies of the fixtures the JAX package's bench and tests build (the random
 dense transducer, the dense 1D generator and the ragged length sampler of
 bench.py, the all-class and indel transducers of
 tests/test_pallas_kernel.py), the prot2dna pair sampler and a float64 1D
-oracle, so that the port's checks need nothing outside this package.
+oracle, the mutated long pair of scripts/bench_align.py and the tie-free
+machine of tests/test_device_align.py, so that the port's checks need
+nothing outside this package.
 """
 
 import json
@@ -12,6 +14,7 @@ import json
 import numpy as np
 
 from .core.machine import Machine
+from .core.seqpair import NamedSeq, SeqPair
 
 # standard genetic code (for sampling plausible DNA against prot2dna)
 CODONS = {
@@ -145,3 +148,45 @@ def prot2dna_pairs(B, lengths, seed=0):
         prot = "".join(aas[i] for i in rng.randint(0, len(aas), int(lens[n])))
         pairs.append((prot, "".join(CODONS[a] for a in prot)))
     return pairs
+
+
+def align_pair(L, mutate=0.1, seed=11, alphabet="ACGT"):
+    """One SeqPair for alignment runs: a random sequence of L symbols, a
+    copy with a fraction `mutate` of its positions redrawn, and the
+    column-by-column alignment of the two, from which
+    Envelope(pair, width) cuts its band."""
+    rng = np.random.RandomState(seed)
+    n_sym = len(alphabet)
+    xs = [alphabet[c] for c in rng.randint(0, n_sym, L)]
+    ys = list(xs)
+    for k in rng.choice(L, int(L * mutate), replace=False):
+        ys[k] = alphabet[rng.randint(0, n_sym)]
+    return SeqPair(NamedSeq("x", xs), NamedSeq("y", ys), list(zip(xs, ys)))
+
+
+def build_tiefree_machine():
+    """A one-state pair machine over ACG whose weights make the optimal
+    alignment of its test pair unique: float32 fill noise cannot flip an
+    exact tie."""
+    return Machine.from_json({"state": [
+        {"id": "s", "trans": [
+            {"in": "A", "out": "A", "to": "s", "weight": 0.47},
+            {"in": "A", "out": "C", "to": "s", "weight": 0.09},
+            {"in": "C", "out": "C", "to": "s", "weight": 0.39},
+            {"in": "C", "out": "A", "to": "s", "weight": 0.11},
+            {"in": "G", "out": "G", "to": "s", "weight": 0.3},
+            {"in": "A", "to": "s", "weight": 0.05},
+            {"in": "C", "to": "s", "weight": 0.03},
+            {"in": "G", "to": "s", "weight": 0.04},
+            {"out": "A", "to": "s", "weight": 0.02},
+            {"to": "e", "weight": 0.1}]},
+        {"id": "e", "trans": []}]})
+
+
+def tiefree_pair():
+    """The pair aligned by build_tiefree_machine in the JAX package's CLI
+    test: the deleted symbol (G) appears exactly once."""
+    cols = [("A", "A"), ("C", "C"), ("A", "A"), ("G", ""), ("C", "C"),
+            ("C", "C")]
+    return SeqPair(NamedSeq("x", list("ACAGCC")), NamedSeq("y", list("ACACC")),
+                   cols)

@@ -1,8 +1,9 @@
 """The port's copied host layer equals the JAX package's exactly.
 
 machineboss_tpu_torch keeps its own copies of the numpy-only modules
-(core/*, ops/lowering.py, ops/host_oracle.py, the lowrank host prep, the
-test fixtures). On the same machine they must give bit-identical arrays
+(core/*, utils/logsumexp.py, algo/dp_host.py, ops/lowering.py,
+ops/host_oracle.py, the lowrank host prep, the test fixtures). On the same
+machine they must give bit-identical arrays
 (np.array_equal): the copies change only import paths, so any difference is
 a copying fault. The merged and 1D host preps are held to the JAX
 factories' tensors in tests/test_torch_wavefront_kernel.py and
@@ -177,16 +178,20 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
-    assert set(_build.SOURCES) == {"lowrank_wavefront", "merged_wavefront",
-                                   "chained_ragged_wavefront", "scan1d"}
+    assert set(_build.SOURCES) == {
+        "lowrank_wavefront", "merged_wavefront", "chained_ragged_wavefront",
+        "scan1d", "viterbi_wavefront", "viterbi_banded_wavefront",
+        "lattice_walk"}
     for name, deps in (("merged_wavefront", 2),
                        ("chained_ragged_wavefront", 2),
-                       ("lowrank_wavefront", 1), ("scan1d", 1)):
+                       ("lowrank_wavefront", 1), ("scan1d", 1),
+                       ("viterbi_wavefront", 2),
+                       ("viterbi_banded_wavefront", 2), ("lattice_walk", 1)):
         files = _build.source_files(name)
         assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
         assert all(f.startswith(str(csrc)) for f in files)
     before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
-    assert len(set(before.values())) == 4
+    assert len(set(before.values())) == 7
     with open(csrc / "wavefront_common.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
@@ -197,3 +202,127 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     assert _build._lib_path("scan1d")[1] != after["scan1d"]
     assert _build._lib_path("lowrank_wavefront")[1] == \
         before["lowrank_wavefront"]
+    with open(csrc / "viterbi_common.cuh", "ab") as f:
+        f.write(b"\n// edited\n")
+    changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
+    assert changed == {"scan1d", "viterbi_wavefront",
+                       "viterbi_banded_wavefront"}
+
+
+# ---- the host side of alignment: utils/logsumexp, core/seqpair, algo/dp_host
+
+VERBATIM = ["utils/logsumexp.py", "core/seqpair.py", "algo/dp_host.py"]
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copy_has_the_same_source(rel):
+    """These modules import only by relative paths, so the copy is the
+    original byte for byte."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "machineboss_tpu", rel), "rb") as f:
+        original = f.read()
+    with open(os.path.join(root, "machineboss_tpu_torch", rel), "rb") as f:
+        assert f.read() == original
+
+
+def test_logsumexp_table_equal():
+    from machineboss_tpu.utils import logsumexp as j_lse
+    from machineboss_tpu_torch.utils import logsumexp as t_lse
+    assert np.array_equal(j_lse._TABLE, t_lse._TABLE)
+    rng = np.random.RandomState(0)
+    a = rng.uniform(-30, 2, 200)
+    b = rng.uniform(-30, 2, 200)
+    a[:5] = -np.inf
+    assert np.array_equal(j_lse.lse_vec(a, b), t_lse.lse_vec(a, b))
+    assert [j_lse.lse(x, y) for x, y in zip(a, b)] == \
+        [t_lse.lse(x, y) for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("width", [None, 0, 2, 50])
+def test_envelope_equal(width):
+    from machineboss_tpu.core import seqpair as j_sp
+    from machineboss_tpu_torch.core import seqpair as t_sp
+    rng = np.random.RandomState(4)
+    cols = []
+    for _ in range(30):
+        r = rng.rand()
+        a, b = "ACGT"[rng.randint(4)], "ACGT"[rng.randint(4)]
+        cols.append((a, b) if r < 0.6 else (a, "") if r < 0.8 else ("", b))
+    envs = []
+    for mod in (j_sp, t_sp):
+        sp = mod.SeqPair(mod.NamedSeq("x", [a for a, _ in cols if a]),
+                         mod.NamedSeq("y", [b for _, b in cols if b]), cols)
+        env = mod.Envelope(sp, width)
+        assert env.fits(sp) and env.connected()
+        envs.append((env.in_start, env.in_end, env.n_cells(),
+                     env.to_json_str(), sp.to_json_str()))
+    assert envs[0] == envs[1]
+
+
+@pytest.mark.parametrize("name", ["allclass", "indel", "dense8"])
+def test_host_dp_matrices_equal(name):
+    """The copied host engines fill the same cells and trace the same
+    path as the originals."""
+    from machineboss_tpu.algo import dp_host as j_dp
+    from machineboss_tpu.core.seqpair import NamedSeq as JNamedSeq, \
+        SeqPair as JSeqPair
+    from machineboss_tpu_torch.algo import dp_host as t_dp
+    from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
+    jm, tm = _machines(name)
+    jev = JEvaluated(jm, jm.get_param_defs(True))
+    tev = TEvaluated(tm, tm.get_param_defs(True))
+    alphabet = "AC" if name == "allclass" else "ACGT"
+    rng = np.random.RandomState(6)
+    n = 5 if name == "dense8" else None
+    xs = [alphabet[c] for c in rng.randint(0, len(alphabet), n or 5)]
+    ys = [alphabet[c] for c in rng.randint(0, len(alphabet), n or 4)]
+    jsp = JSeqPair(JNamedSeq("x", xs), JNamedSeq("y", ys))
+    tsp = SeqPair(NamedSeq("x", xs), NamedSeq("y", ys))
+    for cls in ("ForwardMatrix", "ViterbiMatrix", "BackwardMatrix"):
+        a, b = getattr(j_dp, cls)(jev, jsp), getattr(t_dp, cls)(tev, tsp)
+        assert np.array_equal(a.cell, b.cell), cls
+        assert a.log_like() == b.log_like()
+    assert j_dp.RollingForward(jev, jsp).log_like() == \
+        t_dp.RollingForward(tev, tsp).log_like()
+    jv, tv = j_dp.ViterbiMatrix(jev, jsp), t_dp.ViterbiMatrix(tev, tsp)
+    if tv.log_like() > -np.inf:
+        assert jv.traceback(jm).to_json_str(jm) == \
+            tv.traceback(tm).to_json_str(tm)
+
+
+def test_viterbi_2d_f64_equal():
+    from machineboss_tpu.ops.host_oracle import viterbi_2d_f64 as j_v64
+    from machineboss_tpu_torch.ops.host_oracle import viterbi_2d_f64 as t_v64
+    jm, tm = _machines("allclass")
+    jmats = [np.asarray(x) for x in JLowered(
+        JEvaluated(jm, jm.get_param_defs(True)),
+        dtype=np.float64).matrices_2d("maxplus")]
+    tmats = [np.asarray(x) for x in TLowered(
+        TEvaluated(tm, tm.get_param_defs(True)),
+        dtype=np.float64).matrices_2d("maxplus")]
+    for a, b in zip(jmats, tmats):
+        assert np.array_equal(a, b)
+    rng = np.random.RandomState(2)
+    for li, lo in ((5, 6), (0, 3), (4, 0)):
+        it, ot = rng.randint(0, 2, li), rng.randint(0, 2, lo)
+        assert j_v64(*jmats, it, ot) == t_v64(*tmats, it, ot)
+
+
+def test_align_fixtures_equal_the_originals():
+    """testmachines.align_pair draws what scripts/bench_align.py draws, and
+    the tie-free machine is the one of tests/test_device_align.py."""
+    L = 40
+    rng = np.random.RandomState(11)
+    xs = [("ACGT")[c] for c in rng.randint(0, 4, L)]
+    ys = list(xs)
+    for k in rng.choice(L, L // 10, replace=False):
+        ys[k] = ("ACGT")[rng.randint(0, 4)]
+    sp = testmachines.align_pair(L, mutate=0.1, seed=11)
+    assert (sp.input.seq, sp.output.seq) == (xs, ys)
+    assert sp.alignment == list(zip(xs, ys))
+    m = testmachines.build_tiefree_machine()
+    assert m.n_states() == 2 and len(m.states[0].trans) == 10
+    pair = testmachines.tiefree_pair()
+    assert [a for a, _ in pair.alignment if a] == pair.input.seq
+    assert [b for _, b in pair.alignment if b] == pair.output.seq

@@ -44,6 +44,16 @@ def test_importing_the_port_loads_no_jax():
     assert bad == "", bad
 
 
+def test_alignment_modules_are_among_the_probed():
+    """The probe walks the package: the alignment slice's modules are in
+    it, so importing them is what loaded no jax."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"algo/viterbi_device.py", "algo/traceback_device.py",
+            "algo/dp_host.py", "ops/kernels/viterbi_kernel.py",
+            "ops/wavefront.py", "ops/dp2d.py", "core/seqpair.py",
+            "utils/logsumexp.py"} <= rel
+
+
 def test_no_jax_import_in_port_sources():
     hits = []
     for path in _sources():
