@@ -15,7 +15,12 @@
 //
 // The diagonals depend on each other, so ONE block walks all of them with a
 // barrier between two, and writes each (Wb, S) window to the lattice, where
-// it stays for the lattice walk. The output is (n_diags, Wb, S).
+// it stays for the lattice walk. The output is (n_diags, Wb, S). The block
+// reads the two previous windows from three rotating slots of shared memory
+// (one step is latency, and a shared load is shorter than one from L2). A
+// window wider than the slots can hold, 3 * Wb * S floats over 227 KB, is
+// read back from the lattice instead: 65 states from a window of 298 cells,
+// 132 states from 147 cells.
 //
 // What bounds it on this card: neither bytes nor operations but the
 // Li + Lo + 1 dependent steps of one block; each is a few dozen cells wide.
@@ -27,6 +32,8 @@ namespace {
 using namespace viterbi;
 
 constexpr int THREADS = 512;
+// Largest dynamic shared memory a block may ask for (227 KB on sm_90).
+constexpr int MAX_SMEM_BYTES = 232448;
 
 struct Args {
   const int* in_toks;   // (Li,)
@@ -117,7 +124,7 @@ extern "C" int viterbi_banded_wavefront_launch(
   a.lat = (float*)lat;
   a.Li = Li; a.Lo = Lo; a.Wb = Wb; a.S = S; a.SP = SP; a.Ti = Ti; a.To = To;
   const size_t need = (size_t)3 * Wb * S * sizeof(float);
-  a.smem = need <= (size_t)viterbi::MAX_SMEM_BYTES;
+  a.smem = need <= (size_t)MAX_SMEM_BYTES;
   const int bytes = a.smem ? (int)need : 0;
   cudaError_t err = cudaFuncSetAttribute(
       viterbi_banded_wavefront_kernel,

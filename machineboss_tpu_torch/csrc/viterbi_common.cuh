@@ -16,12 +16,11 @@
 // adds and maxes occur, so the result equals the plain PyTorch version and
 // the TPU kernel bit for bit.
 //
-// Design. A block keeps the diagonal it writes and the two before it in
-// three rotating slots of shared memory, beside the copy it writes to the
-// lattice, when they fit (the launch function decides, sizes the dynamic
-// shared memory and sets `smem`); otherwise it reads the two previous
-// diagonals back from the lattice itself (just written by the same block, so
-// they come from L2). Either way there is no scratch state in device memory.
+// Design. A block reads the two previous diagonals back from the lattice
+// itself (just written by the same block, so they come from L2); there is no
+// scratch state in device memory. The banded kernel, whose one block is
+// bound by the latency of its dependent steps, also keeps them in three
+// rotating slots of shared memory when its window fits.
 // A thread computes 4 neighbouring destination states of one cell: per source
 // state it reads one float of the neighbour cell (the same
 // address across the threads of a cell, one broadcast) and one float4 of the
@@ -87,8 +86,5 @@ __device__ __forceinline__ void store4(float* cell, int dg, int S, float4 v) {
   if (s + 2 < S) cell[s + 2] = v.z;
   if (s + 3 < S) cell[s + 3] = v.w;
 }
-
-// Largest dynamic shared memory a block may ask for (227 KB on sm_90).
-constexpr int MAX_SMEM_BYTES = 232448;
 
 }  // namespace viterbi

@@ -8,7 +8,10 @@
 // written as (n_diags, B, W, S), W = Li + 1, which is the layout the lattice
 // walk and lattice_from_diagonals read: no transpose afterwards. A cell
 // beyond its pair's (in_len, out_len) lattice is written as NEG_INF and costs
-// nothing else.
+// nothing else. The two previous diagonals are read back from the lattice,
+// which this block has just written (they come from L2); a copy of them in
+// shared memory was measured and took nothing off this kernel's time, so
+// there is none.
 //
 // What bounds it on this card: the lattice bytes. Every cell's S floats are
 // written once (n_diags * B * W * S * 4 bytes); the arithmetic is S*S add+max
@@ -34,11 +37,9 @@ struct Args {
   const float* diag;    // (Ti * To, S, SP) or null
   float* lat;           // (n_diags, B, W, S)
   int B, Li, Lo, S, SP, Ti, To;
-  int smem;             // 1: three (W, S) diagonal slots in shared memory
 };
 
 __global__ void __launch_bounds__(THREADS) viterbi_wavefront_kernel(Args a) {
-  extern __shared__ float s_diag[];
   const int tid = threadIdx.x;
   const int W = a.Li + 1;
   const int S = a.S, SP = a.SP;
@@ -55,11 +56,9 @@ __global__ void __launch_bounds__(THREADS) viterbi_wavefront_kernel(Args a) {
     float* pair = a.lat + (size_t)b * W * S;
     for (int d = 0; d < n_diags; ++d) {
       float* cur = pair + (size_t)d * slab;
-      float* s_cur = s_diag + (size_t)(d % 3) * W * S;
-      const float* p1 = a.smem ? s_diag + (size_t)((d + 2) % 3) * W * S
-                               : cur - slab;
-      const float* p2 = a.smem ? s_diag + (size_t)((d + 1) % 3) * W * S
-                               : cur - 2 * slab;
+      // the two diagonals before, as this block wrote them to the lattice
+      const float* p1 = cur - slab;
+      const float* p2 = cur - 2 * slab;
       for (int item = tid; item < n_items; item += THREADS) {
         const int i = item / n_dg, dg = item - i * n_dg;
         const int o = d - i;
@@ -84,7 +83,6 @@ __global__ void __launch_bounds__(THREADS) viterbi_wavefront_kernel(Args a) {
           }
         }
         store4(cur + (size_t)i * S, dg, S, acc);
-        if (a.smem) store4(s_cur + (size_t)i * S, dg, S, acc);
       }
       // diagonal d is complete, and visible to the block, before d + 1
       // reads it
@@ -116,13 +114,6 @@ extern "C" int viterbi_wavefront_launch(
   a.diag = (const float*)diag;
   a.lat = (float*)lat;
   a.B = B; a.Li = Li; a.Lo = Lo; a.S = S; a.SP = SP; a.Ti = Ti; a.To = To;
-  const size_t need = (size_t)3 * (Li + 1) * S * sizeof(float);
-  a.smem = need <= (size_t)viterbi::MAX_SMEM_BYTES;
-  const int bytes = a.smem ? (int)need : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      viterbi_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  viterbi_wavefront_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(a);
+  viterbi_wavefront_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -382,7 +382,8 @@ def test_banded_kernel_matches_plain_on_card(seed):
 @pytest.mark.parametrize("banded", [False, True])
 def test_kernel_reads_the_lattice_back_when_shared_memory_is_short(banded):
     """A pair so long that three diagonals exceed a block's shared memory:
-    the kernel then reads the previous diagonals from the lattice."""
+    the banded kernel then reads the previous diagonals from the lattice,
+    as the batched kernel always does."""
     dev = _card()
     mats = _case("allclass")[2]
     S = mats[3].shape[0]
