@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the port from csrc/ (one nvcc process each, all
 at once), holds each against its plain PyTorch version and the float64
-oracles at small sizes, then drives seven paths at full width, each gated
-against a float64 oracle on 8 pairs. Four go through
+oracles at small sizes, then drives eight paths at full width, each gated
+against a float64 oracle on 8 pairs or reads. Four go through
 CompiledMachine.log_forward_batch:
 
   prot2dna       B=512, protein 64 against its 192-base codon DNA
@@ -30,6 +30,13 @@ host engine's alignments:
   align_prot2dna  the prot2dna preset, B=64 proteins of 64 against their
                   192-base codon DNA (viterbi_wavefront and lattice_walk).
 
+One goes through ops.fused_plan7.Plan7Fused (forward_batch_tokens and
+forward_stream):
+
+  plan7           a seeded 86-node amino-acid profile of fn3's shape fused
+                  with the 2-state noise transducer, multihit, B=1024 reads
+                  of 90, eight batches streamed (fused_plan7 kernel).
+
 Prints one JSON line per phase, the kernel table, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 prints its traceback and exits non-zero. Without CUDA it exits 1 and
@@ -52,6 +59,9 @@ ODD_START_VS_F64_TOL = 5e-3      # nats: the S=64, L=100 deep chain
 SCAN1D_VS_F64_TOL = 1e-4         # nats: f32 products over <= 150 positions
 GATE_TOL = 0.01                  # nats: the f64 accuracy gate of bench.py
 VITERBI_VS_PLAIN_TOL = 0.0       # nats: float32 adds and maxes only
+PLAN7_VS_FLAT_TOL = 2e-3         # nats: scaled probability vs log space, L<=24
+PLAN7_VS_F64_TOL = 5e-3          # nats: the composed-machine oracle's bound
+PLAN7_VITERBI_TOL = 1e-4         # nats: max-plus flat solver vs its f64 oracle
 F32_FMA_FLOPS = 67e12            # H100 SXM f32 non-tensor peak (data sheet)
 # That peak counts a fused multiply-add as two operations. The max-plus fills
 # issue an add and a max as two instructions, so they can reach half of it at
@@ -270,6 +280,7 @@ def scan1d_cases(dev):
 
 def counts():
     from machineboss_tpu_torch.algo import traceback_device as tb
+    from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
     from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
@@ -280,7 +291,8 @@ def counts():
             "scan1d": sk.scan1d_forward,
             "viterbi_wavefront": vk.viterbi_wavefront,
             "viterbi_banded_wavefront": vk.viterbi_banded_wavefront,
-            "lattice_walk": tb.lattice_walk}
+            "lattice_walk": tb.lattice_walk,
+            "fused_plan7": fk.fused_plan7_forward_kernel}
 
 
 def drive(name, cm, pairs, kernel, route):
@@ -919,6 +931,290 @@ def alignment_paths(dev, card, smi):
     return [dense[0], banded[0], dense[1]]
 
 
+# ------------------------------------------------------------- fused Plan7
+
+def plan7_model(hmm_text, td_json, dev, **config):
+    """(Plan7Fused on `dev`, the profile, the transducer) from HMMER3 text
+    and transducer JSON."""
+    from machineboss_tpu_torch.core.hmmer import HmmerModel
+    from machineboss_tpu_torch.core.machine import Machine
+    from machineboss_tpu_torch.ops.fused_plan7 import Plan7Fused
+    hmm = HmmerModel()
+    hmm.read(hmm_text)
+    td = Machine.from_json(td_json)
+    return Plan7Fused(hmm, evaluated(td), mode="plan7", device=dev,
+                      **config), hmm, td
+
+
+def plan7_cases(dev):
+    """The fused Plan7 kernel against its plain version, the flat solver
+    and the float64 host oracles, small."""
+    from machineboss_tpu_torch.algo.dp_host import ForwardMatrix
+    from machineboss_tpu_torch.algo.fused_align import FusedViterbiAligner
+    from machineboss_tpu_torch.core.machine import Machine
+    from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
+    from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
+    from machineboss_tpu_torch.testmachines import (
+        AMINO, TOY_HMM_TEXT, TOY_TD_JSON, noise_transducer_json,
+        random_plan7_hmm_text)
+    noise = noise_transducer_json(AMINO)
+    amino19 = random_plan7_hmm_text(19, AMINO, seed=3)
+    amino300 = random_plan7_hmm_text(300, AMINO, seed=3)
+    # the St cases reach the kernel's other instantiations (1, 3, 4 states);
+    # at K=86 with 4 states and at K=300 the large tables do not fit in
+    # shared memory and are read from global memory; at K=300 a thread owns
+    # two profile nodes
+    profiles = {"toy": (TOY_HMM_TEXT, TOY_TD_JSON),
+                "amino19": (amino19, noise),
+                "amino8": (random_plan7_hmm_text(8, AMINO, seed=5), noise),
+                "amino19_St1": (amino19, noise_transducer_json(AMINO, 1)),
+                "amino19_St3": (amino19, noise_transducer_json(AMINO, 3)),
+                "amino19_St4": (amino19, noise_transducer_json(AMINO, 4)),
+                "amino86_St4": (random_plan7_hmm_text(86, AMINO, seed=3),
+                                noise_transducer_json(AMINO, 4)),
+                "amino300": (amino300, noise),
+                "amino300_St3": (amino300, noise_transducer_json(AMINO, 3))}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, multihit, B, L, one_block, oracle in (
+            ("toy", False, 8, 7, False, True),
+            ("toy", True, 8, 7, True, True),
+            ("amino19", True, 16, 24, False, False),
+            ("amino8", True, 8, 10, False, True),
+            ("amino19_St1", True, 16, 24, False, False),
+            ("amino19_St3", True, 16, 24, False, False),
+            ("amino19_St4", False, 16, 24, False, False),
+            ("amino86_St4", True, 16, 24, False, False),
+            ("amino300", True, 8, 24, False, False),
+            ("amino300_St3", False, 8, 24, False, False)):
+        f, hmm, td = plan7_model(*profiles[name], dev, multihit=multihit,
+                                 length=10.0)
+        ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
+        rng = np.random.RandomState(B + L)
+        toks = rng.randint(1, f.n_out, (B, L)).astype(np.int32)
+        lens = rng.randint(1, L + 1, B).astype(np.int32)
+        lens[0], lens[1] = 1, L              # a read of 1, a full-width read
+        toks[2, 0], lens[2] = 0, max(lens[2], 2)   # token 0: no mass left
+        t = torch.from_numpy(toks).to(dev)
+        n = torch.from_numpy(lens).to(dev)
+        kern = fk.fused_plan7_forward_kernel(
+            ops, t, n, reads_per_block=B if one_block else None)
+        plain = fk.fused_plan7_forward_plain(ops, t, n)
+        torch.cuda.synchronize()
+        check(torch.equal(kern[2], plain[2]) and float(kern[2, 2]) == 1.0,
+              "%s: dead flags %s vs %s" % (name, kern[2], plain[2]))
+        kll = fk.decode(kern.cpu().numpy())
+        pll = fk.decode(plain.cpu().numpy())
+        check(kll[2] == fk.NEG_INF, "%s: the dead read scores %r"
+              % (name, kll[2]))
+        err_plain = score_err(kll, pll)
+        # the flat solver reads token 0 as the empty output: leave it out
+        live = np.arange(B) != 2
+        flat = f.forward_batch_tokens(toks[live], lens[live], impl="flat")
+        err_flat = score_err(kll[live], flat)
+        err_f64 = None
+        if oracle:
+            comp = Machine.compose(
+                hmm.plan7_machine(multihit=multihit, length=10.0), td)
+            cev = evaluated(comp)
+            t2s = f.td_ev.output_tokenizer.tok2sym
+            ref = np.array([ForwardMatrix(cev, SeqPair(
+                NamedSeq("i", []), NamedSeq("o", [
+                    t2s[x] for x in toks[b, :lens[b]]]))).log_like()
+                for b in np.where(live)[0][:6]])
+            err_f64 = score_err(kll[live][:6], ref)
+        emit({"phase": "kernel_vs_plain", "kernel": "fused_plan7",
+              "case": name, "multihit": multihit, "B": B, "L": L, "K": f.K,
+              "St": f.St, "n_sym": f.n_out - 1, "one_block": one_block,
+              "tables_in_smem": fk.launch_plan(
+                  f.K, f.St, f.n_out - 1, B, n_sm,
+                  B if one_block else None)[2],
+              "max_abs_vs_plain": err_plain, "max_abs_vs_flat": err_flat,
+              "max_abs_vs_f64": err_f64, "n_dead": int((kll <= NEG).sum())})
+        check(err_plain <= KERNEL_VS_PLAIN_TOL,
+              "%s: kernel vs plain %.3g nats" % (name, err_plain))
+        check(err_flat <= PLAN7_VS_FLAT_TOL,
+              "%s: kernel vs flat %.3g nats" % (name, err_flat))
+        check(err_f64 is None or err_f64 <= PLAN7_VS_F64_TOL,
+              "%s: kernel vs f64 oracle %.3g nats" % (name, err_f64 or 0))
+
+    # the max-plus flat solver on the card against the f64 product-graph
+    # Viterbi, single hit and multihit
+    errs = []
+    reads = ["A", "ACG", "TTACGACGTT", "GT", "GATTACA"]
+    for multihit in (False, True):
+        f, hmm, td = plan7_model(TOY_HMM_TEXT, TOY_TD_JSON, dev,
+                                 multihit=multihit, length=10.0,
+                                 semiring="maxplus")
+        check(not f._kernel_supported(), "Viterbi must stay off the kernel")
+        got = f.forward_batch([list(r) for r in reads])
+        aligner = FusedViterbiAligner(
+            hmm.plan7_machine(multihit=multihit, length=10.0), td)
+        errs.append(score_err(got, [aligner.score(r) for r in reads]))
+    emit({"phase": "plan7_viterbi_flat", "reads": len(reads),
+          "max_abs_vs_f64": max(errs)})
+    check(max(errs) <= PLAN7_VITERBI_TOL,
+          "maxplus flat solver vs f64 %.3g nats" % max(errs))
+
+
+def plan7_path(dev, card, smi):
+    """Fused Plan7 read scoring at full width: an 86-node amino-acid
+    profile of fn3's shape (seeded, random) fused with the 2-state noise
+    transducer, multihit, B=1024 reads of 90 padded to the bucket
+    forward_batch pads to, one blocking call and eight batches streamed.
+    Returns the kernels line's entry."""
+    from machineboss_tpu_torch.ops.fwdback import pad_bucket
+    from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
+    from machineboss_tpu_torch.testmachines import (
+        AMINO, fn3_shaped_hmm_text, noise_transducer_json, plan7_reads)
+    B, Lr, n_stream = 1024, 90, 8
+    text, noise = fn3_shaped_hmm_text(seed=0), noise_transducer_json(AMINO)
+    f, _, _ = plan7_model(text, noise, dev, multihit=True, solver="prefix")
+    reads = plan7_reads(AMINO, B, Lr, seed=0)
+    s2t = f.td_ev.output_tokenizer.sym2tok
+    Lo = pad_bucket(Lr, base=16)
+    toks = np.ones((B, Lo), np.int32)
+    toks[:, :Lr] = np.array([[s2t[c] for c in r] for r in reads], np.int32)
+    lens = np.full(B, Lr, np.int32)
+
+    # the blocking call: one launch of this kernel and of no other
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lls = f.forward_batch_tokens(toks, lens, impl="auto")
+    first_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k == "fused_plan7") for k in wrappers},
+          "plan7: launches %s, expected one of fused_plan7" % got)
+    check(lls.shape == (B,) and np.isfinite(lls).all() and (lls > NEG).all(),
+          "plan7: scores not all finite")
+    # the streamed batches: one launch each, one copy back
+    batches = [(toks, lens)] * n_stream
+    for w in wrappers.values():
+        w.launches = 0
+    streamed = f.forward_stream(batches)
+    got_stream = {k: w.launches for k, w in wrappers.items()}
+    check(got_stream == {k: n_stream * int(k == "fused_plan7")
+                         for k in wrappers},
+          "plan7 stream: launches %s, expected %d of fused_plan7"
+          % (got_stream, n_stream))
+    check(all(np.array_equal(o, lls) for o in streamed),
+          "plan7: a streamed batch differs from the blocking call")
+
+    call_s, stream_s = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = f.forward_batch_tokens(toks, lens)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        f.forward_stream(batches)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t0)
+    check(np.array_equal(again, lls), "plan7: a repeated call differs")
+    call_ms = float(np.median(call_s)) * 1e3
+    stream_ms = float(np.median(stream_s)) * 1e3
+
+    # gates: the flat solver (log space, the prefix matrix), the scan
+    # solver through the per-read route, and the flat solver in float64
+    # on 8 reads
+    flat_ms, flat = event_ms(
+        lambda: f.forward_batch_tokens(toks, lens, impl="flat"))
+    err_flat = score_err(lls, flat)
+    check(err_flat <= GATE_TOL, "plan7: kernel vs flat %.3g nats" % err_flat)
+    f_scan, _, _ = plan7_model(text, noise, dev, multihit=True,
+                               solver="scan")
+    scan = f_scan.forward_batch_tokens(toks, lens, impl="vmap")
+    err_scan = score_err(flat, scan)
+    check(err_scan <= GATE_TOL, "plan7: prefix vs scan %.3g nats" % err_scan)
+    n_gate = 8
+    f64, _, _ = plan7_model(text, noise, dev, multihit=True, solver="prefix",
+                            dtype=torch.float64)
+    ref = f64.forward_batch_tokens(toks[:n_gate], lens[:n_gate], impl="flat")
+    gate = score_err(lls[:n_gate], ref)
+    check(gate <= GATE_TOL, "plan7: f64 gate %.3g nats" % gate)
+
+    # the kernel alone, and its plain version, at the path's shapes
+    ops = f._kernel_ops
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    kern = fk.fused_plan7_forward_kernel(ops, t, n)
+    kll = fk.decode(kern.cpu().numpy())
+    check(score_err(kll, lls) == 0.0, "plan7: kernel alone differs from the "
+          "path")
+    plain_ms, plain = event_ms(lambda: fk.fused_plan7_forward_plain(ops, t, n))
+    check(torch.equal(kern[2], plain[2]), "plan7: dead flags differ")
+    err = score_err(kll, fk.decode(plain.cpu().numpy()))
+    check(err <= KERNEL_VS_PLAIN_TOL,
+          "plan7: kernel vs plain %.3g nats" % err)
+    kernel_ms = cuda_ms(lambda: fk.fused_plan7_forward_kernel(ops, t, n), 10)
+    # the same batch with fewer reads a block (more, smaller blocks): says
+    # whether a row's time is latency between barriers or instruction slots
+    by_reads = {str(r): cuda_ms(lambda: fk.fused_plan7_forward_kernel(
+        ops, t, n, reads_per_block=r), 5) for r in (1, 2, 4, 8)}
+
+    # least time for this run's work. Multiply-adds per read and row (the
+    # start row included): per node 12 St^2 (five cold blocks, two paired
+    # emissions, em0, ei0 twice, ci twice), 5 St^2 more for the multihit
+    # basis maps, 8 St for the scalar recombinations and the along-k
+    # solve, and some 20 St^2 per row for the flanks. The solve costs
+    # (3 St)^2 per node and doubling level in the form the kernel
+    # implements (ceil(log2 K) levels), (3 St)^2 per node as the plain
+    # recurrence, the cheapest form, and (3 St K)^2 / 2 per row as the
+    # closed form with the lower-block-triangular prefix matrix. The bound
+    # takes the cheapest form's count. Tokens, lengths, tables and the
+    # (3, B) result move once.
+    K, St = f.K, f.St
+    rows = float((lens + 1).sum())
+    macs_node = (12 + 5 * int(f.multihit)) * St * St + 8 * St
+    flank = 20 * St * St
+    solve = 9 * St * St
+    macs_row = K * (macs_node + solve) + flank
+    macs_row_doubling = K * (macs_node + solve * fk.n_levels(K)) + flank
+    macs_row_tri = K * macs_node + (3 * St * K) ** 2 / 2 + flank
+    flops = 2.0 * macs_row * rows
+    nbytes = tensor_bytes([t, n, ops.consts, ops.ksc, ops.kco, ops.alev,
+                           ops.emm, ops.emi]) + 3 * B * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    R, TPR, tables, smem = fk.launch_plan(
+        K, St, ops.n_sym, B,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    emit({"phase": "plan7", "B": B, "Lr": Lr, "padded": Lo, "K": K, "St": St,
+          "n_sym": ops.n_sym, "multihit": True, "solver": f._solver,
+          "launches": got["fused_plan7"],
+          "stream_batches": n_stream,
+          "stream_launches": got_stream["fused_plan7"],
+          "reads_per_block": R, "threads_per_read": TPR,
+          "tables_in_smem": tables,
+          "smem_bytes": smem,
+          "kernel_vs_plain_max_abs": err, "kernel_vs_flat_max_abs": err_flat,
+          "prefix_vs_scan_max_abs": err_scan, "f64_gate_max_abs": gate,
+          "f64_gate_reads": n_gate, "score_range": [float(lls.min()),
+                                                    float(lls.max())],
+          "first_call_s": first_s, "call_ms_median5": call_ms,
+          "stream_ms_median5": stream_ms,
+          "reads_per_s_call": B / (call_ms / 1e3),
+          "reads_per_s_stream": n_stream * B / (stream_ms / 1e3),
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "kernel_ms_by_reads_per_block": by_reads,
+          "flat_solver_ms": flat_ms,
+          "kernel_share_of_call": kernel_ms / call_ms,
+          "flops": flops,
+          "flops_doubling_form": 2.0 * macs_row_doubling * rows,
+          "flops_triangular_form": 2.0 * macs_row_tri * rows,
+          "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+          "kernel_share_of_bound": bound_ms / kernel_ms,
+          "card": card, "nvidia_smi": smi})
+    return {"name": "fused_plan7", "route": "cuda",
+            "source": "machineboss_tpu_torch/csrc/fused_plan7.cu",
+            "replaces": "machineboss_tpu/ops/pallas/fused_plan7_kernel.py:61 "
+                        "(_kernel)",
+            "launches": got["fused_plan7"], "max_abs_err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -968,6 +1264,7 @@ def main():
     fullrank_cases(dev)
     scan1d_cases(dev)
     viterbi_cases(dev)
+    plan7_cases(dev)
 
     # -- the prot2dna path ------------------------------------------------
     B, Lp = 512, 64
@@ -1053,8 +1350,11 @@ def main():
     # -- the alignment paths, at full width -------------------------------
     kernels += alignment_paths(dev, card, smi)
 
-    # no single PyTorch call computes a wavefront, this scan or this walk:
-    # library_ms is null for every kernel
+    # -- fused Plan7 read scoring, at full width --------------------------
+    kernels.append(plan7_path(dev, card, smi))
+
+    # no single PyTorch call computes a wavefront, this scan, this walk or
+    # this row solve: library_ms is null for every kernel
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

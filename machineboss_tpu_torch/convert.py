@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .dispatch import CompiledMachine
+from .ops.fused_plan7 import Plan7Fused
 from .ops.kernels.scan1d_kernel import prepare_scan1d, scan1d_operands
 from .ops.kernels.viterbi_kernel import viterbi_operands
 from .ops.kernels.wavefront_kernel import merged_operands
@@ -93,3 +94,39 @@ def viterbi_from_numpy(mu, md, ml, c0, classes, device=None):
     return viterbi_operands(
         (np.asarray(mu), np.asarray(md), np.asarray(ml), np.asarray(c0),
          tuple(bool(c) for c in classes)), resolve_device(device))
+
+
+def plan7_from_numpy(hmm, td_ev, tables, em_stack=None, mb=None,
+                     mloop_star=None, entry=None, scalars=None, device=None,
+                     **config):
+    """A port Plan7Fused that computes from another implementation's
+    tables. `hmm` and `td_ev` are the port's own HmmerModel and
+    EvaluatedMachine of the same profile and transducer, and `config` the
+    constructor's options (mode, local, multihit, length, n_hit, solver,
+    semiring, prob_space, dtype). `tables` maps the names of the JAX class's `_j`
+    dict to numpy arrays; `em_stack`, `mb` (a dict) and `mloop_star` are
+    its flat solver's `_em_stack`, `_mb` and `_mloop_star` where it has
+    built them, `entry` its `_entry_np`, and `scalars` a dict of its
+    log_loop, log_exit, b_to_* and i0_to_* floats."""
+    fused = Plan7Fused(hmm, td_ev, device=device, **config)
+    if entry is not None:
+        fused._entry_np = np.asarray(entry, np.float64)
+    for name, value in (scalars or {}).items():
+        if not hasattr(fused, name):
+            raise ValueError("Plan7Fused has no scalar %r" % name)
+        setattr(fused, name, float(value))
+    tables = {n: v for n, v in tables.items()
+              if n != "entry" and v is not None}
+    unknown = set(tables) - set(fused._j)
+    if unknown:
+        raise ValueError("unknown Plan7Fused tables %s" % sorted(unknown))
+    fused._install(tables)
+
+    if em_stack is not None:
+        fused._em_stack = fused._tensor(em_stack)
+    if mb is not None:
+        if mloop_star is None:
+            raise ValueError("mb needs mloop_star beside it")
+        fused._mb = {n: fused._tensor(v) for n, v in mb.items()}
+        fused._mloop_star = fused._tensor(mloop_star)
+    return fused

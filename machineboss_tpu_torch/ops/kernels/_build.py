@@ -29,7 +29,8 @@ SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
            "scan1d": "scan1d.cu",
            "viterbi_wavefront": "viterbi_wavefront.cu",
            "viterbi_banded_wavefront": "viterbi_banded_wavefront.cu",
-           "lattice_walk": "lattice_walk.cu"}
+           "lattice_walk": "lattice_walk.cu",
+           "fused_plan7": "fused_plan7.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

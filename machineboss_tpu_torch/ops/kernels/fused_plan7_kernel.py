@@ -1,0 +1,486 @@
+"""Fused Plan7 (x) transducer Forward over a read batch: the whole row solve
+in one kernel.
+
+Counterpart of machineboss_tpu's ops/pallas/fused_plan7_kernel.py. The flat
+solver of ops/fused_plan7.py runs some forty tensor ops per token row; this
+is the same solver in SCALED-PROBABILITY space with the row state kept on
+the multiprocessor for the read's whole walk:
+
+  - the row recurrence is linear, so every semiring op is a multiply/add;
+    after every token row the read's state is scaled by the exact power of
+    two of its maximum's binary exponent, and the exponents are summed in
+    an integer: no log, exp or division anywhere in the loop;
+  - the within-row affine solve carry_k = b_k + carry_{k-1} A_k, A_k =
+    exp(a_mat)_k, runs by log-depth doubling: at level l every node
+    k >= 2^l absorbs the node 2^l to its left, b_k += b_{k-2^l} P_l[k], with
+    the row-independent products P_l[k] = A_{k-2^l+1} ... A_k prepared on
+    the host (ceil(log2 K) levels, the scan solver's form in probability
+    space). The JAX kernel takes the closed form instead, one product with
+    the (3St K)^2 lower-block-triangular prefix matrix, which suits a
+    matrix unit and is K / (2 log2 K) times the arithmetic; the doubling
+    also serves profiles built with solver="scan", which carry no prefix
+    matrix;
+  - a read's own token selects its coefficients directly (the JAX kernel
+    accumulates one-hot masks over all output tokens);
+  - multihit runs the row core once without B mass and adds the B
+    contribution through the host's exact basis maps and re-entry closure.
+
+Two versions with one arithmetic:
+
+  - `fused_plan7_forward_plain`: torch, batched over reads, a Python loop
+    over rows and over the doubling's levels; used on the CPU and as the
+    card's comparison;
+  - `fused_plan7_forward_kernel`: the wrapper of the hand-written CUDA
+    kernel (csrc/fused_plan7.cu), ONE launch per batch, each read walking
+    to its own length. A CUDA tensor launches the kernel or raises; only a
+    CPU tensor takes the plain version.
+
+Both return (3, B) float32: the mantissa X[St-1][T], the sum of binary
+exponents, and a dead flag (1.0 for a read that lost all its mass).
+`decode` turns them into float64 log-likelihoods on the host.
+
+Scope: mode='plan7' (always local), Forward, multihit on or off, a
+transducer of at most 4 states. Other combinations stay on the torch
+solvers of ops/fused_plan7.py.
+"""
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ._build import load
+from .lowrank_kernel import _check, _round_up
+
+NEG_INF = -1e30
+
+# columns of the per-node scalar table and panels of the per-node matrix
+# table, in the order csrc/fused_plan7.cu reads them
+KSC_NAMES = ("entry", "m_to_i", "i_to_i", "roll_m", "roll_i", "roll_d",
+             "last")
+KCO_NAMES = ("em0", "ei0", "ci", "mb_M", "mb_Mx", "mb_I", "mb_Ix", "mb_D")
+N_FLANK = 11
+F_N, F_NX, F_B, F_E, F_C, F_CX, F_J, F_JX, F_T = range(9)
+
+_MAX_THREADS = 768           # the kernel's __launch_bounds__
+_MAX_READS = 15              # a block's reads: one named barrier each
+_SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may take
+
+
+def _p(x):
+    """log -> probability (float64 host), -inf-safe."""
+    x = np.asarray(x, np.float64)
+    return np.where(x > NEG_INF / 2, np.exp(np.minimum(x, 80.0)), 0.0)
+
+
+def prepare_fused_plan7(fused):
+    """Host operands of the row-solve kernel for a Plan7Fused: a dict of
+    float32 numpy arrays in probability space.
+
+      consts  cloop, enull0, mloop_star, mb_E (St, St each), first (St,),
+              loop_s, exit_s, e_to_c, then ty0 and en_y (n_sym, St, St
+              each), flattened in this order
+      ksc     (7, K) per-node scalars, rows as KSC_NAMES: the local entry
+              weights, m_to_i, i_to_i, the three transitions into M_k
+              rolled down one node, and the last node's I->E selector
+      kco     (8, K, St, St) per-node matrices, panels as KCO_NAMES (the
+              multihit basis maps are zero for a single-hit model)
+      alev    (n_lev, K, 3St, 3St) the doubling's matrices: level l holds
+              P_l[k] = A_{k-2^l+1} ... A_k for k >= 2^l (zeros below), A =
+              exp(a_mat), n_lev = ceil(log2 K)
+      emm/emi (n_sym, K, St, St) paired-emission panels of the M and I
+              blocks per output symbol
+    """
+    if fused.mode != "plan7" or not fused.local or fused.viterbi:
+        raise ValueError("fused plan7 kernel: plan7/local/Forward only")
+    if fused.St > 4:
+        raise ValueError("fused plan7 kernel: St <= 4")
+    if not hasattr(fused, "_fb"):
+        # the flat layout's tables (the emission stack, the multihit basis
+        # maps and re-entry closure) do not depend on the row solver
+        fused._init_flat()
+    K, St = fused.K, fused.St
+    n_sym = fused.n_out - 1
+
+    def npy(x):
+        return x.detach().double().cpu().numpy()
+
+    j = {n: npy(v) for n, v in fused._j.items() if v is not None}
+    multihit = bool(fused.multihit)
+    zeros = np.zeros((K, St, St))
+    mb = {n: npy(v) for n, v in fused._mb.items()} if multihit else {}
+
+    kco = np.stack([_p(j["em0"]), _p(j["ei0"]), _p(j["ci"])]
+                   + [_p(mb[n]) if multihit else zeros
+                      for n in ("M", "Mx", "I", "Ix", "D")])
+    ksc = np.zeros((len(KSC_NAMES), K))
+    ksc[0] = _p(j["entry"])
+    ksc[1] = _p(j["m_to_i"])
+    ksc[2] = _p(j["i_to_i"])
+    ksc[3] = _p(np.roll(j["m_to_m"], 1))
+    ksc[4] = _p(np.roll(j["i_to_m"], 1))
+    ksc[5] = _p(np.roll(j["d_to_m"], 1))
+    ksc[6, K - 1] = _p(j["i_to_m"][K - 1])     # last-node I->E select
+
+    em_stack = _p(npy(fused._em_stack))        # (n_out, 2K+4, St, St)
+    emm = em_stack[1:, 0:K]
+    emi = em_stack[1:, K:2 * K]
+    en_y = em_stack[1:, 2 * K]
+
+    first_log = np.full((St,), NEG_INF)
+    first_log[0] = 0.0
+    first = (_p(first_log)[None, :] @ _p(j["t_closure"]))[0]
+
+    ident = np.eye(St)
+    consts = np.concatenate([
+        _p(j["cloop"]).ravel(), _p(j["enull0"]).ravel(),
+        (_p(npy(fused._mloop_star)) if multihit else ident).ravel(),
+        (_p(mb["E"]) if multihit else np.zeros((St, St))).ravel(),
+        first,
+        [float(_p(fused.log_loop)), float(_p(fused.log_exit)),
+         0.5 if multihit else 1.0],
+        _p(j["ty0"][1:]).ravel(), en_y.ravel()])
+
+    def f32(x):
+        return np.ascontiguousarray(x, np.float32)
+
+    # the doubling's levels, products taken in float64
+    cur = _p(j["a_mat"])
+    levels, off = [], 1
+    while off < K:
+        lev = cur.copy()
+        lev[:off] = 0.0
+        levels.append(lev)
+        cur = np.concatenate([cur[:off], cur[:-off] @ cur[off:]])
+        off *= 2
+    alev = np.stack(levels) if levels else np.zeros((0, K, 3 * St, 3 * St))
+
+    return {"K": K, "St": St, "n_sym": n_sym, "multihit": multihit,
+            "consts": f32(consts), "ksc": f32(ksc), "kco": f32(kco),
+            "alev": f32(alev), "emm": f32(emm), "emi": f32(emi)}
+
+
+@dataclass
+class Plan7Operands:
+    """One prepare_fused_plan7 result as tensors on one device. On a CUDA
+    device the kernel's layout of the doubling's matrices is added:
+    `alev_k` holds level l's float4 q of node k at [l, q, k] when (3St)^2
+    is a multiple of 4, else its element e at [l, e, k], so that
+    neighbouring nodes read neighbouring addresses."""
+    K: int
+    St: int
+    n_sym: int
+    multihit: bool
+    consts: torch.Tensor
+    ksc: torch.Tensor
+    kco: torch.Tensor
+    alev: torch.Tensor
+    emm: torch.Tensor
+    emi: torch.Tensor
+    alev_k: torch.Tensor = None
+
+    def const_mats(self):
+        """The consts vector cut up: (cloop, enull0, mloop_star, mb_E,
+        first, loop_s, exit_s, e_to_c, ty0, en_y)."""
+        St, n = self.St, self.St * self.St
+        c = self.consts
+        mats = [c[i * n:(i + 1) * n].reshape(St, St) for i in range(4)]
+        at = 4 * n
+        first = c[at:at + St]
+        loop_s, exit_s, e_to_c = c[at + St:at + St + 3]
+        at += St + 3
+        ty0 = c[at:at + self.n_sym * n].reshape(self.n_sym, St, St)
+        en_y = c[at + self.n_sym * n:].reshape(self.n_sym, St, St)
+        return (*mats, first, loop_s, exit_s, e_to_c, ty0, en_y)
+
+
+def plan7_operands(host, device):
+    """Move a prepare_fused_plan7 result to `device` (a torch.device)."""
+    ops = Plan7Operands(
+        K=host["K"], St=host["St"], n_sym=host["n_sym"],
+        multihit=host["multihit"],
+        **{n: torch.tensor(host[n], device=device)
+           for n in ("consts", "ksc", "kco", "alev", "emm", "emi")})
+    if device.type == "cuda":
+        n_lev, K, na = len(host["alev"]), host["K"], 9 * host["St"] ** 2
+        w = 4 if na % 4 == 0 else 1
+        ops.alev_k = torch.tensor(np.ascontiguousarray(
+            host["alev"].reshape(n_lev, K, na // w, w).transpose(0, 2, 1, 3)),
+            device=device)
+    return ops
+
+
+def _vm(v, m):
+    """(..., St) x (..., St, St) -> (..., St), multiply and add."""
+    return (v[..., :, None] * m).sum(dim=-2)
+
+
+def fused_plan7_forward_plain(ops, toks, lens):
+    """Plain PyTorch version of the row-solve kernel, float32. toks (B, L)
+    1-based output tokens (0 or a token past the alphabet contributes
+    nothing), lens (B,), on the device of `ops`. Returns (3, B) float32:
+    mantissa, exponent sum, dead flag."""
+    K, St, n_sym = ops.K, ops.St, ops.n_sym
+    dev = ops.consts.device
+    B, L = toks.shape
+    toks = toks.long()
+    lens = torch.clamp(lens.long(), max=L)
+    (cloop, enull0, mloop_star, mb_E, first, loop_s, exit_s, e_to_c, ty0,
+     en_y) = ops.const_mats()
+    entry, m_to_i, i_to_i, roll_m, roll_i, roll_d, last = \
+        (ops.ksc[i][None, :, None] for i in range(len(KSC_NAMES)))
+    em0, ei0, ci, mb_m, mb_mx, mb_i, mb_ix, mb_d = ops.kco
+    # token 0 and tokens past the alphabet select all-zero coefficients
+    zero_tok = torch.zeros((1, St, St), dtype=torch.float32, device=dev)
+    ty0 = torch.cat([zero_tok, ty0, zero_tok])
+    en_y = torch.cat([zero_tok, en_y, zero_tok])
+    zero_pan = torch.zeros((1, K, St, St), dtype=torch.float32, device=dev)
+    emm = torch.cat([zero_pan, ops.emm, zero_pan])
+    emi = torch.cat([zero_pan, ops.emi, zero_pan])
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    xk = zeros(B, 5, K, St)              # M, Mx, I, Ix, D blocks
+    fl = zeros(B, N_FLANK, St)           # the flank rows
+    expo = torch.zeros(B, dtype=torch.int32, device=dev)
+    dead = torch.zeros(B, dtype=torch.bool, device=dev)
+    one = torch.ones(B, dtype=torch.float32, device=dev)
+
+    n_rows = int(lens.max()) if B else 0
+    for row in range(-1, n_rows):
+        if row < 0:
+            y = torch.zeros(B, dtype=torch.long, device=dev)
+            keep = torch.ones(B, dtype=torch.bool, device=dev)
+        else:
+            y = toks[:, row]
+            y = torch.where((y >= 1) & (y <= n_sym), y, torch.zeros_like(y))
+            keep = row < lens
+        ty = ty0[y]                                          # (B, St, St)
+        eny = en_y[y]
+        cold_k = _vm(xk, ty[:, None, None])                  # (B,5,K,St)
+        cold_f = _vm(fl, ty[:, None])                        # (B,11,St)
+        hot_mx = _vm(xk[:, 0], emm[y])
+        hot_ix = _vm(xk[:, 2], emi[y])
+        hot_nx = _vm(fl[:, F_N], eny)
+        hot_cx = _vm(fl[:, F_C], eny)
+        hot_jx = _vm(fl[:, F_J], eny)
+
+        nx_in = _vm(cold_f[:, F_N], enull0) + hot_nx
+        if row < 0:
+            nx_in = nx_in + first
+        nx_hot = _vm(nx_in, cloop)
+        n_hot = loop_s * nx_hot
+        b0 = exit_s * nx_hot
+
+        # the row core, without B mass when multihit adds it afterwards
+        u = zeros(B, K, St) if ops.multihit else entry * b0[:, None, :]
+        b_mx = _vm(u + cold_k[:, 0], em0) + hot_mx
+        ix_aff = _vm(cold_k[:, 2], ei0) + hot_ix
+        i_aff = m_to_i * b_mx + i_to_i * ix_aff
+        b_ix = _vm(_vm(i_aff, ci), ei0) + ix_aff
+        carry = torch.cat([b_mx, b_ix, zeros(B, K, St)], dim=-1)  # (B,K,3St)
+        for lev in range(len(ops.alev)):
+            off = 1 << lev
+            carry = torch.cat([carry[:, :off], carry[:, off:] + _vm(
+                carry[:, :-off], ops.alev[lev, off:])], dim=1)
+        mx_h = carry[..., 0:St]
+        ix_h = carry[..., St:2 * St]
+        d_h = carry[..., 2 * St:]
+        prev = torch.cat([zeros(B, 1, 3 * St), carry[:, :-1]], dim=1)
+        m_h = (roll_m * prev[..., 0:St] + roll_i * prev[..., St:2 * St]
+               + roll_d * prev[..., 2 * St:]) + u
+        i_h = _vm(m_to_i * mx_h + i_to_i * ix_aff, ci)
+        e_base = (m_h + d_h + last * ix_h).sum(dim=1)        # (B, St)
+
+        if ops.multihit:
+            jx_base = _vm(cold_f[:, F_J], enull0) + hot_jx + 0.5 * e_base
+            c_in = b0 + exit_s * _vm(jx_base, cloop)
+            b_hot = _vm(c_in, mloop_star)
+            bk = b_hot[:, None, :]
+            m_h = m_h + _vm(bk, mb_m)
+            mx_h = mx_h + _vm(bk, mb_mx)
+            i_h = i_h + _vm(bk, mb_i)
+            ix_h = ix_h + _vm(bk, mb_ix)
+            d_h = d_h + _vm(bk, mb_d)
+            b_e = _vm(b_hot, mb_E)
+            e_hot = e_base + b_e
+            jx_hot = _vm(jx_base + 0.5 * b_e, cloop)
+            j_hot = loop_s * jx_hot
+        else:
+            b_hot = b0
+            e_hot = e_base
+            jx_hot = j_hot = zeros(B, St)
+        cx_in = _vm(cold_f[:, F_C], enull0) + hot_cx + e_to_c * e_hot
+        cx_hot = _vm(cx_in, cloop)
+        zf = zeros(B, St)
+        fl_new = torch.stack([n_hot, nx_hot, b_hot, e_hot, loop_s * cx_hot,
+                              cx_hot, j_hot, jx_hot, exit_s * cx_hot, zf, zf],
+                             dim=1) + cold_f
+        xk_new = torch.stack([m_h, mx_h, i_h, ix_h, d_h], dim=1) + cold_k
+
+        if row >= 0:
+            # exact power-of-two renormalisation from the float's bits
+            m = torch.maximum(xk_new.amax(dim=(1, 2, 3)),
+                              fl_new.amax(dim=(1, 2)))
+            alive = m > 0.0
+            bits = torch.where(alive, m, one).view(torch.int32)
+            kexp = (bits >> 23) & 0xFF
+            inv = ((254 - kexp) << 23).view(torch.float32)
+            xk_new = xk_new * inv[:, None, None, None]
+            fl_new = fl_new * inv[:, None, None]
+            expo = torch.where(keep, expo + (kexp - 127), expo)
+            dead = dead | (keep & ~alive)
+        xk = torch.where(keep[:, None, None, None], xk_new, xk)
+        fl = torch.where(keep[:, None, None], fl_new, fl)
+    return torch.stack([fl[:, F_T, St - 1], expo.to(torch.float32),
+                        dead.to(torch.float32)])
+
+
+def n_levels(K):
+    """ceil(log2 K): the doubling's levels for K profile nodes."""
+    return max(K - 1, 0).bit_length()
+
+
+def _smem_floats(K, St, n_sym, R, TPR, tables):
+    """Shared-memory floats of one block, as csrc/fused_plan7.cu lays them
+    out (every region rounded up to 4 floats); `tables`: the doubling's
+    matrices and the paired-emission panels too."""
+    n = St * St
+    total = _round_up(4 * n + St + 3 + 2 * n_sym * n, 4)     # consts
+    total += _round_up(len(KSC_NAMES) * K, 4)
+    total += _round_up(len(KCO_NAMES) * K * n, 4)
+    if tables:
+        total += _round_up(n_levels(K) * K * 9 * n, 4)
+        total += 2 * _round_up(n_sym * K * n, 4)
+    per_read = (_round_up(5 * K * St, 4) + 2 * _round_up(3 * K * St, 4)
+                + _round_up(K * St, 4)
+                + _round_up((TPR // 32) * (St + 1), 4))
+    return total + R * per_read
+
+
+def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None):
+    """(R reads a block, TPR threads a read, large tables in shared
+    memory?, shared bytes) for a batch of B reads on a card of n_sm
+    multiprocessors: one thread per profile node up to 256 a read, enough
+    reads a block that the batch is one wave of blocks, within the
+    kernel's thread, barrier (15 reads a block) and shared-memory limits.
+    The doubling's matrices and the paired-emission panels go to shared
+    memory when both fit beside the state, else both are read through the
+    read-only cache."""
+    TPR = min(_round_up(K, 32), 256)
+    r_max = min(max(_MAX_THREADS // TPR, 1), _MAX_READS)
+    want = reads_per_block if reads_per_block is not None \
+        else max(-(-B // max(n_sm, 1)), 1)
+    if want < 1 or (reads_per_block is not None and want > r_max):
+        raise ValueError("reads_per_block must lie in [1, %d] for K=%d"
+                         % (r_max, K))
+    R = min(want, r_max)
+    while True:
+        for tables in (True, False):
+            nbytes = 4 * _smem_floats(K, St, n_sym, R, TPR, tables)
+            if nbytes <= _SMEM_LIMIT:
+                return R, TPR, tables, nbytes
+        if R == 1 or reads_per_block is not None:
+            raise ValueError(
+                "fused plan7 kernel: K=%d, St=%d needs %d bytes of shared "
+                "memory for %d reads a block, over the %d a block may take"
+                % (K, St, nbytes, R, _SMEM_LIMIT))
+        R -= 1
+
+
+def fused_plan7_forward_kernel(ops, toks, lens, reads_per_block=None):
+    """The row solve over a read batch: (3, B) float32 (mantissa, exponent
+    sum, dead flag).
+
+    A CUDA tensor launches csrc/fused_plan7.cu once for the whole batch
+    (`reads_per_block` reads share a block; default: as launch_plan picks)
+    and counts one launch in `fused_plan7_forward_kernel.launches`; a CPU
+    tensor takes fused_plan7_forward_plain. toks (B, L) 1-based int32 and
+    lens (B,) int32, contiguous, on the device of `ops`."""
+    if toks.device.type == "cpu":
+        return fused_plan7_forward_plain(ops, toks, lens)
+    if toks.device.type != "cuda":
+        raise ValueError("fused_plan7_forward_kernel runs on cuda or cpu "
+                         "tensors, not %s" % toks.device)
+    dev = ops.consts.device
+    B, L = toks.shape
+    _check(toks, "toks", torch.int32, (B, L), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    out = torch.empty((3, B), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if ops.alev_k is None:
+        raise ValueError("operands were prepared for %s, not the card"
+                         % ops.consts.device)
+    R, TPR, tables, nbytes = launch_plan(ops.K, ops.St, ops.n_sym, B, n_sm,
+                                         reads_per_block)
+    lib = load("fused_plan7")
+    fn = lib.fused_plan7_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 9 + [I] * 12 + [P]
+    fn.restype = I
+    rc = fn(ops.consts.data_ptr(), ops.ksc.data_ptr(), ops.kco.data_ptr(),
+            ops.alev_k.data_ptr(), ops.emm.data_ptr(), ops.emi.data_ptr(),
+            toks.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            B, L, ops.K, ops.St, ops.n_sym, n_levels(ops.K),
+            int(ops.multihit), R, TPR, int(tables), nbytes, ops.consts.numel(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fused_plan7 launch failed: CUDA error %d" % rc)
+    fused_plan7_forward_kernel.launches += 1
+    return out
+
+
+fused_plan7_forward_kernel.launches = 0
+
+
+def decode(out, B_=None):
+    """Host decode of the (3, B) result: power-of-two mantissa and
+    exponent -> float64 log-likelihoods, NEG_INF for a dead read or a zero
+    mantissa (the single place that knows the encoding; forward_stream
+    reuses it)."""
+    out = np.asarray(out, np.float64)
+    B_ = out.shape[1] if B_ is None else B_
+    mant, expo, dead = out[0, :B_], out[1, :B_], out[2, :B_] > 0.5
+    with np.errstate(divide="ignore"):
+        ll = np.log(np.maximum(mant, 1e-300)) + expo * np.log(2.0)
+    return np.where(dead | (mant <= 0.0), NEG_INF, ll)
+
+
+def make_fused_plan7_kernel(fused, B, L):
+    """Build the kernel route for a Plan7Fused (mode='plan7', Forward, St
+    <= 4) and fixed shapes. Returns fn(toks (B, L) 1-based integer tokens,
+    lens (B,)) -> (B,) float64 numpy log-likelihoods, computed on the
+    device of `fused`; fn.device_call(toks, lens) takes int32 tensors on
+    that device and returns the (3, B) result there without
+    synchronising; fn.decode is `decode`.
+
+    The JAX factory's `interpret` runs its kernel off the TPU and is not
+    carried: on CPU tensors the route runs the plain version."""
+    if "_kernel_ops" not in fused.__dict__:
+        fused._kernel_ops = plan7_operands(prepare_fused_plan7(fused),
+                                           fused.device)
+    ops = fused._kernel_ops
+    dev = fused.device
+
+    def device_call(toks, lens):
+        if tuple(toks.shape) != (B, L):
+            raise ValueError("expected tokens of shape (%d, %d)" % (B, L))
+        return fused_plan7_forward_kernel(ops, toks, lens)
+
+    def fwd(toks, lens):
+        t = torch.as_tensor(np.asarray(toks), device=dev).to(torch.int32) \
+            .contiguous()
+        n = torch.as_tensor(np.asarray(lens), device=dev).to(torch.int32) \
+            .contiguous()
+        return decode(device_call(t, n).cpu().numpy(), B)
+
+    fwd.device_call = device_call
+    fwd.decode = decode
+    return fwd
+
+
+make_fused_plan7_pallas = make_fused_plan7_kernel

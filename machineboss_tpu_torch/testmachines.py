@@ -190,3 +190,135 @@ def tiefree_pair():
             ("C", "C")]
     return SeqPair(NamedSeq("x", list("ACAGCC")), NamedSeq("y", list("ACACC")),
                    cols)
+
+
+# ------------------------------------------------ fused Plan7 read scoring
+
+AMINO = list("ACDEFGHIKLMNPQRSTVWY")       # HMMER's amino-acid order
+
+# the 3-node DNA profile and the noise transducer of the JAX package's
+# tests/test_fused_plan7.py (also tests/golden/fused/toy.hmm, noise_td.json);
+# HMMER3 stores -ln(p), '*' = impossible
+TOY_HMM_TEXT = """\
+HMMER3/f [3.1b2 | February 2015]
+NAME  toy
+LENG  3
+ALPH  DNA
+HMM          A        C        G        T
+            m->m     m->i     m->d     i->m     i->i     d->m     d->d
+  COMPO   1.38629  1.38629  1.38629  1.38629
+          1.38629  1.38629  1.38629  1.38629
+          0.10536  2.35388  2.99573  0.61519  0.77653  0.00000  *
+      1   0.22314  2.30259  2.99573  2.99573      1 a - - -
+          1.38629  1.38629  1.38629  1.38629
+          0.16252  2.30259  2.99573  0.51083  0.91629  0.35667  1.20397
+      2   2.99573  0.35667  2.30259  1.89712      2 c - - -
+          1.09861  1.60944  1.60944  1.38629
+          0.22314  1.89712  2.99573  0.40048  1.10866  0.30111  1.35667
+      3   2.30259  2.99573  0.28768  1.89712      3 g - - -
+          1.38629  1.38629  1.38629  1.38629
+          0.01005  4.60517  *        0.45676  1.00239  0.00000  *
+//
+"""
+
+TOY_TD_JSON = {"state": [
+    {"id": "loop", "trans": [
+        {"in": "A", "out": "A", "to": "loop", "weight": 0.5},
+        {"in": "A", "out": "C", "to": "loop", "weight": 0.1},
+        {"in": "C", "out": "C", "to": "loop", "weight": 0.5},
+        {"in": "C", "out": "G", "to": "loop", "weight": 0.1},
+        {"in": "G", "out": "G", "to": "loop", "weight": 0.5},
+        {"in": "G", "out": "T", "to": "loop", "weight": 0.1},
+        {"in": "T", "out": "T", "to": "loop", "weight": 0.5},
+        {"in": "T", "out": "A", "to": "loop", "weight": 0.1},
+        {"in": "A", "to": "loop", "weight": 0.08},
+        {"in": "C", "to": "loop", "weight": 0.08},
+        {"in": "G", "to": "loop", "weight": 0.06},
+        {"in": "T", "to": "loop", "weight": 0.06},
+        {"out": "A", "to": "loop", "weight": 0.03},
+        {"out": "G", "to": "loop", "weight": 0.02},
+        {"to": "end", "weight": 0.12}]},
+    {"id": "end", "trans": []}]}
+
+
+def random_plan7_hmm_text(K, alph, seed=0):
+    """HMMER3 text of a seeded random profile of K nodes over `alph`, to be
+    parsed by core.hmmer.HmmerModel.read: per node a Dirichlet match and
+    insert emission row, seven transition probabilities normalised per
+    source state (m->m/i/d, i->m/i, d->m/d; the last node has no m->d and
+    no d->d), a COMPO line, the node-0 insert and begin lines. Scores are
+    -ln p with 5 decimals; '*' is probability zero."""
+    rng = np.random.RandomState(seed)
+    A = len(alph)
+
+    def scores(p):
+        return "  ".join("*" if x <= 0 else "%.5f" % (0.0 - np.log(x)) for x in p)
+
+    def transitions(last):
+        m = rng.dirichlet([20.0, 1.0, 1.0])
+        i = rng.dirichlet([2.0, 1.0])
+        d = rng.dirichlet([2.0, 1.0])
+        if last:
+            m = np.array([m[0] / (m[0] + m[1]), m[1] / (m[0] + m[1]), 0.0])
+            d = np.array([1.0, 0.0])
+        return np.concatenate([m, i, d])
+
+    lines = ["HMMER3/f [3.1b2 | February 2015]", "NAME  random%d" % K,
+             "LENG  %d" % K, "ALPH  %s" % ("amino" if A == 20 else "DNA"),
+             "HMM          " + "        ".join(alph),
+             "            m->m     m->i     m->d     i->m     i->i     "
+             "d->m     d->d",
+             "  COMPO   " + scores(rng.dirichlet(np.full(A, 5.0))),
+             "          " + scores(rng.dirichlet(np.full(A, 5.0))),
+             "          " + scores(transitions(False))]
+    for k in range(K):
+        match = rng.dirichlet(np.full(A, 0.3))
+        lines.append("%7d   %s  %6d %s - - -"
+                     % (k + 1, scores(match), k + 1,
+                        alph[int(np.argmax(match))].lower()))
+        lines.append("          " + scores(rng.dirichlet(np.full(A, 5.0))))
+        lines.append("          " + scores(transitions(k == K - 1)))
+    lines.append("//")
+    return "\n".join(lines) + "\n"
+
+
+def fn3_shaped_hmm_text(seed=0):
+    """A seeded random profile of the shape of Pfam's fn3 (86 nodes over
+    the 20 amino acids), standing in for the fn3.hmm file."""
+    return random_plan7_hmm_text(86, AMINO, seed)
+
+
+def noise_transducer_json(alph, n_states=2):
+    """The two-state noisy identity transducer of bench.py's plan7
+    workload: per symbol a copy (0.03) and a silent absorption (0.005), one
+    spontaneous emission of alph[0] (0.01), and the exit (0.28).
+
+    n_states > 2 gives a ring of n_states - 1 such noise states before the
+    end (a copy moves to the ring's next state, state i emits alph[i] and
+    its weights are scaled by 1 + i / 4); n_states = 1 is the lone noise
+    state, which is also the end."""
+    m = max(n_states - 1, 1)
+    names = ["loop"] if m == 1 else ["loop%d" % i for i in range(m)]
+    states = []
+    for i, name in enumerate(names):
+        w = 1.0 + i / 4.0
+        trans = []
+        for a in alph:
+            trans.append({"in": a, "out": a, "to": names[(i + 1) % m],
+                          "weight": 0.03 * w})
+            trans.append({"in": a, "to": name, "weight": 0.005 * w})
+        trans.append({"out": alph[i], "to": name, "weight": 0.01 * w})
+        if n_states > 1:
+            trans.append({"to": "end", "weight": 0.28 * w})
+        states.append({"id": name, "trans": trans})
+    if n_states > 1:
+        states.append({"id": "end", "trans": []})
+    return {"state": states}
+
+
+def plan7_reads(alph, B, Lr, seed=0):
+    """B uniform random reads of length Lr over `alph`, as bench.py's
+    plan7 workload draws them."""
+    rng = np.random.RandomState(seed)
+    return ["".join(alph[i] for i in rng.randint(0, len(alph), Lr))
+            for _ in range(B)]

@@ -1,0 +1,414 @@
+"""The port's fused-Plan7 row-solve kernel route
+(ops/kernels/fused_plan7_kernel.py) against the JAX Pallas kernel.
+
+fused_plan7_forward_plain (the CPU path of make_fused_plan7_kernel, and the
+card's comparison) is held to the JAX package's make_fused_plan7_pallas in
+interpret mode and to its flat solver, on the toy profile (B=8, L=7, ragged,
+multihit on and off) and on a 19-node amino-acid profile (K not a multiple
+of 8, 20 output symbols; also with noise transducers of 1, 3 and 4
+states), computing from the JAX class's tables. Bounds:
+5e-4 nats against the Pallas kernel (both scaled probability in float32;
+the port solves the along-k recurrence by log-depth doubling where the
+Pallas kernel multiplies by its closed form, so the sums associate
+differently) and 2e-3
+against the flat solver (log space; the reference test's bound). On a CUDA
+card the kernel is held to the plain version within 1e-3 nats, at every
+transducer size it is built for, with the large tables in shared memory
+and read from global memory, and with more profile nodes than threads.
+
+The JAX package is imported inside the tests that use it, so that the card
+tests run where only torch is installed:
+    python -m pytest --noconftest tests/test_torch_fused_plan7_kernel.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from machineboss_tpu_torch import testmachines
+from machineboss_tpu_torch.core.eval import EvaluatedMachine
+from machineboss_tpu_torch.core.hmmer import HmmerModel
+from machineboss_tpu_torch.core.machine import Machine
+from machineboss_tpu_torch.ops.fused_plan7 import Plan7Fused
+from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
+
+VS_PALLAS = 5e-4    # nats, plain vs the JAX kernel in interpret mode
+VS_FLAT = 2e-3      # nats, plain vs the flat solvers
+CARD_BOUND = 1e-3   # nats, kernel vs plain on the card
+VS_F64 = 5e-3       # nats, plain vs the composed machine in float64
+# (profile, multihit) with the 2-state transducer; "aminoK/St": K nodes and
+# an St-state noise transducer
+CASES = [("toy", False), ("toy", True), ("amino19", False),
+         ("amino19", True), ("amino19/1", True), ("amino19/3", True),
+         ("amino19/4", False)]
+IDS = ["toy_single", "toy_multihit", "amino19_single", "amino19_multihit",
+       "amino19_St1_multihit", "amino19_St3_multihit", "amino19_St4_single"]
+
+
+def texts(profile):
+    if profile == "toy":
+        return testmachines.TOY_HMM_TEXT, testmachines.TOY_TD_JSON
+    K, _, St = profile[5:].partition("/")
+    return (testmachines.random_plan7_hmm_text(int(K), testmachines.AMINO,
+                                               seed=3),
+            testmachines.noise_transducer_json(testmachines.AMINO,
+                                               int(St or 2)))
+
+
+def port_model(profile, device="cpu", **config):
+    text, td_json = texts(profile)
+    hmm = HmmerModel()
+    hmm.read(text)
+    td = Machine.from_json(td_json)
+    ev = EvaluatedMachine(td, td.get_param_defs(True))
+    config.setdefault("length", 10.0)
+    return Plan7Fused(hmm, ev, mode="plan7", device=device, **config)
+
+
+def batch(f, B, L, seed):
+    """Ragged reads with a read of length 1 and (L permitting) one of the
+    full width; pad positions hold token 1 as forward_batch pads."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(1, f.n_out, (B, L)).astype(np.int32)
+    lens = rng.randint(1, L + 1, B).astype(np.int32)
+    lens[0], lens[1] = 1, L
+    for b in range(B):
+        toks[b, lens[b]:] = 1
+    return toks, lens
+
+
+def jax_pair(profile, multihit):
+    """(JAX Plan7Fused, port Plan7Fused on the CPU computing from the JAX
+    one's tables, flat-solver tables included)."""
+    from machineboss_tpu.core.eval import EvaluatedMachine as JEvaluated
+    from machineboss_tpu.core.hmmer import HmmerModel as JHmmer
+    from machineboss_tpu.core.machine import Machine as JMachine
+    from machineboss_tpu.ops.fused_plan7 import Plan7Fused as JPlan7
+    from machineboss_tpu_torch.convert import plan7_from_numpy
+    text, td_json = texts(profile)
+    jh = JHmmer()
+    jh.read(text)
+    jtd = JMachine.from_json(td_json)
+    cfg = dict(mode="plan7", multihit=multihit, length=10.0, solver="prefix")
+    jf = JPlan7(jh, JEvaluated(jtd, jtd.get_param_defs(True)), **cfg)
+    jf._init_flat()
+    tf0 = port_model(profile, multihit=multihit, solver="prefix")
+    kw = {}
+    if multihit:
+        kw = {"mb": {n: np.asarray(v) for n, v in jf._mb.items()},
+              "mloop_star": np.asarray(jf._mloop_star)}
+    tf = plan7_from_numpy(
+        tf0.hmm, tf0.td_ev, device="cpu",
+        tables={n: np.asarray(v) for n, v in jf._j.items() if v is not None},
+        em_stack=np.asarray(jf._em_stack), entry=jf._entry_np, **kw, **cfg)
+    return jf, tf
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_matches_pallas_interpret_and_flat(case):
+    from machineboss_tpu.ops.pallas.fused_plan7_kernel import \
+        make_fused_plan7_pallas
+    profile, multihit = case
+    jf, tf = jax_pair(profile, multihit)
+    assert tf.St == jf.St == (int(profile[8:]) if "/" in profile else 2)
+    B, L = (8, 7) if profile == "toy" else (8, 12)
+    toks, lens = batch(tf, B, L, seed=1)
+    want = make_fused_plan7_pallas(jf, B, L, interpret=True)(toks, lens)
+    flat_j = jf.forward_batch_tokens(toks, lens, impl="flat")
+    got = fk.make_fused_plan7_kernel(tf, B, L)(toks, lens)
+    assert got.dtype == np.float64 and got.shape == (B,)
+    assert np.abs(got - want).max() <= VS_PALLAS, (want, got)
+    assert np.abs(got - flat_j).max() <= VS_FLAT
+    flat_t = tf.forward_batch_tokens(toks, lens, impl="flat")
+    assert np.abs(got - flat_t).max() <= VS_FLAT
+    # the public entries on the CPU: the kernel route runs the plain version
+    for impl in ("kernel", "pallas"):
+        again = tf.forward_batch_tokens(toks, lens, impl=impl)
+        assert np.array_equal(again, got)
+    for o in tf.forward_stream([(toks, lens)] * 2, impl="pallas"):
+        assert np.array_equal(o, got)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_prepared_operands_match_the_pallas_factory(case):
+    """prepare_fused_plan7's probability-space operands from the port's own
+    tables: the shapes of the layout the CUDA source reads, and the values
+    the JAX factory bakes (checked through the result above; here the
+    doubling's matrices against the prefix matrix they factor)."""
+    profile, multihit = case
+    f = port_model(profile, multihit=multihit, solver="prefix")
+    host = fk.prepare_fused_plan7(f)
+    K, St, n_sym = f.K, f.St, f.n_out - 1
+    assert (host["K"], host["St"], host["n_sym"]) == (K, St, n_sym)
+    assert host["consts"].shape == (4 * St * St + St + 3
+                                    + 2 * n_sym * St * St,)
+    assert host["ksc"].shape == (len(fk.KSC_NAMES), K)
+    assert host["kco"].shape == (len(fk.KCO_NAMES), K, St, St)
+    n_lev = fk.n_levels(K)
+    assert host["alev"].shape == (n_lev, K, 3 * St, 3 * St)
+    assert (1 << n_lev) >= K > (1 << n_lev) // 2
+    assert host["emm"].shape == host["emi"].shape == (n_sym, K, St, St)
+    assert all(v.dtype == np.float32 for v in host.values()
+               if isinstance(v, np.ndarray))
+    assert (host["kco"][3:] != 0).any() == multihit
+    # carry = b @ t_tri is the solution of carry_k = b_k + carry_{k-1} A_k
+    t_tri = np.exp(f._j["t_tri"].double().numpy())
+    t_tri[f._j["t_tri"].numpy() < -1e29] = 0.0
+    rng = np.random.RandomState(0)
+    b = rng.uniform(0, 1, (K, 3 * St))
+    carry = b.copy()
+    for lev in range(n_lev):
+        off = 1 << lev
+        assert not host["alev"][lev, :off].any()
+        carry[off:] += np.einsum(
+            "ks,ksd->kd", carry[:-off], host["alev"][lev, off:], dtype=np.float64)
+    np.testing.assert_allclose(carry.reshape(-1), b.reshape(-1) @ t_tri,
+                               rtol=1e-5)
+    # the kernel's layout of the same matrices, as a card would get it
+    na = 9 * St * St
+    w = 4 if na % 4 == 0 else 1
+    alev_k = host["alev"].reshape(n_lev, K, na // w, w).transpose(0, 2, 1, 3)
+    assert alev_k[n_lev - 1, 1, K - 1, w - 1] == \
+        host["alev"][n_lev - 1, K - 1].reshape(-1)[w + w - 1]
+
+
+def test_scan_solver_models_take_the_kernel_route():
+    """A profile built with solver='scan' has no prefix matrix; the kernel
+    route solves the recurrence itself and serves it all the same."""
+    f_scan = port_model("amino19", multihit=True, solver="scan")
+    f_pref = port_model("amino19", multihit=True, solver="prefix")
+    assert f_scan._kernel_supported()
+    toks, lens = batch(f_scan, 6, 10, seed=2)
+    a = f_scan.forward_batch_tokens(toks, lens, impl="kernel")
+    b = f_pref.forward_batch_tokens(toks, lens, impl="kernel")
+    assert np.array_equal(a, b)
+    vmap = f_scan.forward_batch_tokens(toks, lens)        # auto: per read
+    assert np.abs(a - vmap).max() <= VS_FLAT
+
+
+@pytest.mark.parametrize("multihit", [False, True])
+def test_dead_read_zero_token_and_empty_read(multihit):
+    """A read that cannot be emitted is dead in the plain version (-1e30)
+    and impossible in the flat solver; token 0 inside a read contributes
+    nothing (dead); a read of length 0 scores the empty output."""
+    text, _ = texts("toy")
+    hmm = HmmerModel()
+    hmm.read(text)
+    td_json = {"state": [
+        {"id": "loop", "trans": [
+            {"in": c, "out": c, "to": "loop", "weight": 0.2} for c in "ACGT"]
+            + [{"out": "T", "to": "loop", "weight": 0.01},
+               {"to": "end", "weight": 0.1}]},
+        {"id": "end", "trans": []}]}
+    td = Machine.from_json(td_json)
+    ev = EvaluatedMachine(td, td.get_param_defs(True))
+    # no state of the profile emits C, and the transducer only copies
+    for node in hmm.node:
+        node.match_emit[1] = node.ins_emit[1] = 0.0
+    hmm.null_emit[1] = hmm.ins0_emit[1] = 0.0
+    f = Plan7Fused(hmm, ev, mode="plan7", multihit=multihit, length=10.0,
+                   device="cpu")
+    s2t = ev.output_tokenizer.sym2tok
+    toks = np.ones((4, 5), np.int32)
+    toks[0, :3] = [s2t["A"], s2t["G"], s2t["T"]]
+    toks[1, :3] = [s2t["A"], s2t["C"], s2t["G"]]      # C cannot be emitted
+    toks[2, :3] = [s2t["A"], 0, s2t["G"]]             # token 0 in the read
+    lens = np.array([3, 3, 3, 0], np.int32)
+    got = f.forward_batch_tokens(toks, lens, impl="kernel")
+    flat = f.forward_batch_tokens(toks, lens, impl="flat")
+    assert got[1] == fk.NEG_INF and got[2] == fk.NEG_INF
+    assert flat[1] < -1e29
+    assert abs(got[0] - flat[0]) <= VS_FLAT and got[0] > -100
+    assert abs(got[3] - flat[3]) <= VS_FLAT and got[3] > -100
+    assert abs(got[3] - f.forward([])) <= VS_FLAT
+    ops = fk.plan7_operands(fk.prepare_fused_plan7(f), torch.device("cpu"))
+    raw = fk.fused_plan7_forward_plain(ops, torch.from_numpy(toks),
+                                       torch.from_numpy(lens))
+    assert raw.shape == (3, 4) and raw.dtype == torch.float32
+    assert raw[2].tolist() == [0.0, 1.0, 1.0, 0.0]
+    assert raw[1, 3] == 0.0                            # no row, no exponent
+
+
+def test_decode():
+    out = np.array([[1.5, 0.0, 2.0, 1.0], [-3.0, 5.0, 1.0, 0.0],
+                    [0.0, 0.0, 1.0, 0.0]])
+    ll = fk.decode(out)
+    assert ll[0] == pytest.approx(np.log(1.5) - 3 * np.log(2.0))
+    assert ll[1] == fk.NEG_INF and ll[2] == fk.NEG_INF and ll[3] == 0.0
+    assert fk.decode(out, 2).shape == (2,)
+
+
+@pytest.mark.parametrize("St,multihit", [(3, False), (3, True), (4, True)])
+def test_plain_matches_the_composed_oracle_for_wider_transducers(St, multihit):
+    """3- and 4-state noise transducers on a 5-node DNA profile: the plain
+    version against the composed machine's float64 Forward."""
+    from machineboss_tpu_torch.algo.dp_host import ForwardMatrix
+    from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
+    dna = list("ACGT")
+    hmm = HmmerModel()
+    hmm.read(testmachines.random_plan7_hmm_text(5, dna, seed=3))
+    td = Machine.from_json(testmachines.noise_transducer_json(dna, St))
+    ev = EvaluatedMachine(td, td.get_param_defs(True))
+    f = Plan7Fused(hmm, ev, mode="plan7", multihit=multihit, length=10.0,
+                   device="cpu")
+    assert f.St == St
+    toks, lens = batch(f, 5, 6, seed=4)
+    got = f.forward_batch_tokens(toks, lens, impl="kernel")
+    comp = Machine.compose(hmm.plan7_machine(multihit=multihit, length=10.0),
+                           td)
+    cev = EvaluatedMachine(comp, comp.get_param_defs(True))
+    t2s = ev.output_tokenizer.tok2sym
+    ref = [ForwardMatrix(cev, SeqPair(NamedSeq("i", []), NamedSeq(
+        "o", [t2s[x] for x in toks[b, :lens[b]]]))).log_like()
+        for b in range(len(lens))]
+    assert np.abs(got - np.array(ref)).max() <= VS_F64
+
+
+@pytest.mark.parametrize("K,St,n_sym,B,n_sm,expect", [
+    (86, 2, 20, 1024, 132, (8, 96, True)),      # the fn3-shaped batch
+    (3, 2, 4, 8, 132, (1, 32, True)),           # a block a read
+    (19, 2, 20, 4000, 132, (15, 32, True)),     # the barrier limit binds
+    (19, 4, 20, 16, 132, (1, 32, True)),
+    (86, 4, 20, 1024, 132, (8, 96, False)),     # tables too big for smem
+    (300, 2, 20, 1024, 132, (3, 256, False)),   # more nodes than threads
+])
+def test_launch_plan(K, St, n_sym, B, n_sm, expect):
+    R, TPR, tables, nbytes = fk.launch_plan(K, St, n_sym, B, n_sm)
+    assert (R, TPR, tables) == expect
+    assert nbytes <= fk._SMEM_LIMIT and R * TPR <= fk._MAX_THREADS
+    assert R <= fk._MAX_READS
+    assert nbytes == 4 * fk._smem_floats(K, St, n_sym, R, TPR, tables)
+
+
+def test_launch_plan_forced_reads_per_block():
+    assert fk.launch_plan(3, 2, 4, 8, 132, reads_per_block=8)[0] == 8
+    with pytest.raises(ValueError, match="reads_per_block"):
+        fk.launch_plan(86, 2, 20, 64, 132, reads_per_block=9)
+    with pytest.raises(ValueError, match="shared"):
+        fk.launch_plan(3000, 4, 20, 8, 132)
+
+
+def test_unsupported_configurations_raise():
+    text, td_json = texts("toy")
+    hmm = HmmerModel()
+    hmm.read(text)
+    td = Machine.from_json(td_json)
+    ev = EvaluatedMachine(td, td.get_param_defs(True))
+    for cfg in (dict(mode="core"), dict(mode="plan7", semiring="maxplus")):
+        f = Plan7Fused(hmm, ev, device="cpu", **cfg)
+        assert not f._kernel_supported()
+        with pytest.raises(ValueError, match="plan7/local/Forward"):
+            f.forward_batch_tokens(np.ones((1, 2), np.int32), [2],
+                                   impl="kernel")
+    f = port_model("toy")
+    with pytest.raises(ValueError, match="shape"):
+        fk.make_fused_plan7_kernel(f, 2, 3).device_call(
+            torch.ones((2, 4), dtype=torch.int32),
+            torch.ones(2, dtype=torch.int32))
+
+
+# ------------------------------------------------------------- on the card
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reads_per_block", [None, 8])
+@pytest.mark.parametrize("case", CASES[:4] + [("amino86", True)],
+                         ids=IDS[:4] + ["amino86_multihit"])
+def test_cuda_kernel_matches_plain(case, reads_per_block):
+    dev = _card()
+    profile, multihit = case
+    f = port_model(profile, device=dev, multihit=multihit)
+    ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
+    B, L = (8, 7) if profile == "toy" else (16, 24)
+    toks, lens = batch(f, B, L, seed=5)
+    toks[3, 0] = 0                                    # a dead read
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    before = fk.fused_plan7_forward_kernel.launches
+    kern = fk.fused_plan7_forward_kernel(ops, t, n,
+                                         reads_per_block=reads_per_block)
+    torch.cuda.synchronize()
+    assert fk.fused_plan7_forward_kernel.launches == before + 1
+    plain = fk.fused_plan7_forward_plain(ops, t, n)
+    assert torch.equal(kern[2], plain[2]) and kern[2, 3] == 1.0
+    kll, pll = fk.decode(kern.cpu().numpy()), fk.decode(plain.cpu().numpy())
+    live = pll > -1e29
+    assert np.abs(kll[live] - pll[live]).max() <= CARD_BOUND
+    assert np.array_equal(kll[~live], pll[~live])
+    flat = f.forward_batch_tokens(toks, lens, impl="flat")
+    assert np.abs(kll[live] - flat[live]).max() <= VS_FLAT
+
+
+# what only these reach in csrc/fused_plan7.cu: the instantiations for 1, 3
+# and 4 states (scalar loads of the doubling's matrices at 1 and 3), the
+# large tables read from global memory (they do not fit beside the state at
+# K=86 with 4 states, nor at K=300 with 2 or 3), a thread owning two profile
+# nodes (K=300 over 256 threads a read)
+WIDE = [("amino19/1", True, 16, True), ("amino19/3", True, 16, True),
+        ("amino19/3", False, 16, True), ("amino19/4", True, 16, True),
+        ("amino86/4", True, 16, False), ("amino300", True, 8, False),
+        ("amino300/3", False, 8, False), ("amino300/1", True, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE, ids=[
+    "%s_%s" % (c[0].replace("/", "_St"), "multihit" if c[1] else "single")
+    for c in WIDE])
+def test_cuda_kernel_other_state_counts_and_table_placements(case):
+    dev = _card()
+    profile, multihit, B, tables = case
+    f = port_model(profile, device=dev, multihit=multihit)
+    ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fk.launch_plan(f.K, f.St, ops.n_sym, B, n_sm)
+    assert plan[2] == tables and (plan[1] < f.K) == (f.K == 300)
+    toks, lens = batch(f, B, 24, seed=7)
+    toks[3, 0] = 0                                    # a dead read
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    kern = fk.fused_plan7_forward_kernel(ops, t, n)
+    plain = fk.fused_plan7_forward_plain(ops, t, n)
+    assert torch.equal(kern[2], plain[2]) and kern[2, 3] == 1.0
+    kll, pll = fk.decode(kern.cpu().numpy()), fk.decode(plain.cpu().numpy())
+    live = pll > -1e29
+    assert live.sum() == B - 1
+    assert np.abs(kll[live] - pll[live]).max() <= CARD_BOUND
+    assert np.array_equal(kll[~live], pll[~live])
+    flat = f.forward_batch_tokens(toks, lens, impl="flat")
+    assert np.abs(kll[live] - flat[live]).max() <= VS_FLAT
+
+
+@pytest.mark.cuda
+def test_cuda_auto_takes_the_kernel_and_streams():
+    dev = _card()
+    f = port_model("amino19", device=dev, multihit=True)
+    toks, lens = batch(f, 16, 12, seed=6)
+    fk.fused_plan7_forward_kernel.launches = 0
+    got = f.forward_batch_tokens(toks, lens)
+    assert fk.fused_plan7_forward_kernel.launches == 1
+    outs = f.forward_stream([(toks, lens)] * 3)
+    assert fk.fused_plan7_forward_kernel.launches == 4
+    for o in outs:
+        assert np.array_equal(o, got)
+    cpu = port_model("amino19", multihit=True)
+    want = cpu.forward_batch_tokens(toks, lens, impl="kernel")
+    assert np.abs(got - want).max() <= CARD_BOUND
+    vit = port_model("amino19", device=dev, multihit=True, semiring="maxplus")
+    vit.forward_batch_tokens(toks, lens)               # auto: the flat solver
+    assert fk.fused_plan7_forward_kernel.launches == 4
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
+    dev = _card()
+    f = port_model("toy", device=dev)
+    ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
+    toks = torch.ones((2, 4), dtype=torch.int64, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises((TypeError, ValueError)):
+        fk.fused_plan7_forward_kernel(ops, toks, lens)

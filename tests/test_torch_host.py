@@ -1,8 +1,9 @@
 """The port's copied host layer equals the JAX package's exactly.
 
 machineboss_tpu_torch keeps its own copies of the numpy-only modules
-(core/*, utils/logsumexp.py, algo/dp_host.py, ops/lowering.py,
-ops/host_oracle.py, the lowrank host prep, the test fixtures). On the same
+(core/*, utils/logsumexp.py, algo/dp_host.py, algo/fused_align.py,
+ops/lowering.py, ops/host_oracle.py, the lowrank host prep, the test
+fixtures). On the same
 machine they must give bit-identical arrays
 (np.array_equal): the copies change only import paths, so any difference is
 a copying fault. The merged and 1D host preps are held to the JAX
@@ -181,17 +182,18 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     assert set(_build.SOURCES) == {
         "lowrank_wavefront", "merged_wavefront", "chained_ragged_wavefront",
         "scan1d", "viterbi_wavefront", "viterbi_banded_wavefront",
-        "lattice_walk"}
+        "lattice_walk", "fused_plan7"}
     for name, deps in (("merged_wavefront", 2),
                        ("chained_ragged_wavefront", 2),
                        ("lowrank_wavefront", 1), ("scan1d", 1),
                        ("viterbi_wavefront", 2),
-                       ("viterbi_banded_wavefront", 2), ("lattice_walk", 1)):
+                       ("viterbi_banded_wavefront", 2), ("lattice_walk", 1),
+                       ("fused_plan7", 1)):
         files = _build.source_files(name)
         assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
         assert all(f.startswith(str(csrc)) for f in files)
     before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
-    assert len(set(before.values())) == 7
+    assert len(set(before.values())) == 8
     with open(csrc / "wavefront_common.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
@@ -211,7 +213,8 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
 
 # ---- the host side of alignment: utils/logsumexp, core/seqpair, algo/dp_host
 
-VERBATIM = ["utils/logsumexp.py", "core/seqpair.py", "algo/dp_host.py"]
+VERBATIM = ["utils/logsumexp.py", "core/seqpair.py", "algo/dp_host.py",
+            "core/hmmer.py", "algo/fused_align.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -326,3 +329,108 @@ def test_align_fixtures_equal_the_originals():
     pair = testmachines.tiefree_pair()
     assert [a for a, _ in pair.alignment if a] == pair.input.seq
     assert [b for _, b in pair.alignment if b] == pair.output.seq
+
+
+# ---- the host side of fused Plan7: core/hmmer, algo/fused_align, fixtures
+
+def _toy_models(mod_hmmer, mod_machine, mod_eval):
+    from machineboss_tpu_torch import testmachines as tm
+    hmm = mod_hmmer.HmmerModel()
+    hmm.read(tm.TOY_HMM_TEXT)
+    td = mod_machine.Machine.from_json(tm.TOY_TD_JSON)
+    return hmm, td, mod_eval.EvaluatedMachine(td, td.get_param_defs(True))
+
+
+@pytest.mark.parametrize("text", ["toy", "amino19", "fn3_shaped"])
+def test_hmmer_models_equal(text):
+    """Both copies of the HMMER3 importer parse the same text (the toy
+    profile, a seeded random one, the fn3-shaped one) into the same model
+    and build the same core and Plan7 machines."""
+    from machineboss_tpu.core import hmmer as j_hmmer
+    from machineboss_tpu_torch.core import hmmer as t_hmmer
+    src = {"toy": testmachines.TOY_HMM_TEXT,
+           "amino19": testmachines.random_plan7_hmm_text(
+               19, testmachines.AMINO, seed=3),
+           "fn3_shaped": testmachines.fn3_shaped_hmm_text()}[text]
+    jh, th = j_hmmer.HmmerModel(), t_hmmer.HmmerModel()
+    jh.read(src)
+    th.read(src)
+    assert len(th.node) == {"toy": 3, "amino19": 19, "fn3_shaped": 86}[text]
+    assert jh.alph == th.alph and jh.null_emit == th.null_emit
+    assert jh.ins0_emit == th.ins0_emit
+    for a, b in zip(jh.node, th.node):
+        for slot in j_hmmer.HmmerNode.__slots__:
+            assert getattr(a, slot) == getattr(b, slot), slot
+    assert jh.calc_match_occupancy() == th.calc_match_occupancy()
+    if text != "fn3_shaped":
+        for build in (lambda h: h.machine(True), lambda h: h.machine(False),
+                      lambda h: h.plan7_machine(multihit=True, length=10.0)):
+            assert json.loads(build(jh).to_json_str()) == \
+                json.loads(build(th).to_json_str())
+
+
+def test_random_plan7_profile_is_normalised():
+    """The seeded profile text: every emission row and every source
+    state's transitions sum to 1 within the 5 printed decimals, the last
+    node has no delete continuation, and the fn3-shaped profile has fn3's
+    shape (86 nodes over the 20 amino acids in HMMER's order)."""
+    from machineboss_tpu_torch.core.hmmer import HmmerModel
+    h = HmmerModel()
+    h.read(testmachines.fn3_shaped_hmm_text(seed=0))
+    assert len(h.node) == 86 and h.alph == list("ACDEFGHIKLMNPQRSTVWY")
+    for n in h.node:
+        assert abs(sum(n.match_emit) - 1) < 1e-3
+        assert abs(sum(n.ins_emit) - 1) < 1e-3
+        assert abs(n.m_to_m + n.m_to_i + n.m_to_d - 1) < 1e-4
+        assert abs(n.i_to_m + n.i_to_i - 1) < 1e-4
+        assert abs(n.d_to_m + n.d_to_d - 1) < 1e-4
+    assert h.node[-1].m_to_d == 0.0 and h.node[-1].d_to_d == 0.0
+    assert abs(h.b_to_m1 + h.b_to_i0 + h.b_to_d1 - 1) < 1e-4
+    again = testmachines.fn3_shaped_hmm_text(seed=0)
+    assert again == testmachines.fn3_shaped_hmm_text()
+    assert again != testmachines.fn3_shaped_hmm_text(seed=1)
+
+
+def test_plan7_fixtures_equal_the_originals():
+    """TOY_HMM_TEXT and TOY_TD_JSON are the JAX package's test fixtures and
+    golden files; the noise transducer and the reads are bench.py's."""
+    import os
+    import test_fused_plan7 as orig
+    assert testmachines.TOY_HMM_TEXT == orig._HMM
+    assert testmachines.TOY_TD_JSON == orig._TD
+    # bench.py emits only alph[0] spontaneously; the test fixture also G
+    loop, end = orig._TD_PROT["state"]
+    assert testmachines.noise_transducer_json(testmachines.AMINO) == {
+        "state": [{"id": "loop", "trans": [
+            t for t in loop["trans"] if "in" in t or t.get("out") != "G"]},
+            end]}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "tests/golden/fused/toy.hmm")) as f:
+        assert f.read() == testmachines.TOY_HMM_TEXT
+    with open(os.path.join(root, "tests/golden/fused/noise_td.json")) as f:
+        assert json.load(f) == testmachines.TOY_TD_JSON
+    rng = np.random.RandomState(0)
+    alph = testmachines.AMINO
+    want = ["".join(alph[i] for i in rng.randint(0, len(alph), 90))
+            for _ in range(5)]
+    assert testmachines.plan7_reads(alph, 5, 90, seed=0) == want
+
+
+@pytest.mark.parametrize("multihit", [False, True])
+def test_fused_viterbi_aligner_equal(multihit):
+    """The copied float64 product-graph Viterbi scores and aligns as the
+    original."""
+    from machineboss_tpu.algo import fused_align as j_fa
+    from machineboss_tpu.core import eval as j_eval, hmmer as j_hmmer, \
+        machine as j_machine
+    from machineboss_tpu_torch.algo import fused_align as t_fa
+    from machineboss_tpu_torch.core import eval as t_eval, hmmer as t_hmmer, \
+        machine as t_machine
+    jh, jtd, _ = _toy_models(j_hmmer, j_machine, j_eval)
+    th, ttd, _ = _toy_models(t_hmmer, t_machine, t_eval)
+    ja = j_fa.FusedViterbiAligner(
+        jh.plan7_machine(multihit=multihit, length=10.0), jtd)
+    ta = t_fa.FusedViterbiAligner(
+        th.plan7_machine(multihit=multihit, length=10.0), ttd)
+    for seq in ("A", "ACG", "TTACGACGTT"):
+        assert ja.score(seq) == ta.score(seq)

@@ -62,3 +62,22 @@ def test_no_jax_import_in_port_sources():
                 hits.append("%s: %s" % (os.path.relpath(path, ROOT),
                                         m.group(0).strip()))
     assert not hits, hits
+
+
+def test_fused_plan7_modules_are_among_the_probed():
+    """The fused Plan7 slice's modules are in the walked package too, and
+    importing them alone loads neither jax nor machineboss_tpu."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"ops/fused_plan7.py", "ops/fused.py", "api.py",
+            "ops/kernels/fused_plan7_kernel.py", "core/hmmer.py",
+            "algo/fused_align.py"} <= rel
+    probe = ("import machineboss_tpu_torch.ops.fused_plan7, "
+             "machineboss_tpu_torch.ops.kernels.fused_plan7_kernel, "
+             "machineboss_tpu_torch.api, machineboss_tpu_torch.ops.fused, "
+             "machineboss_tpu_torch.algo.fused_align, sys; "
+             "assert 'jax' not in sys.modules "
+             "and 'machineboss_tpu' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
