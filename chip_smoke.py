@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the port from csrc/ (one nvcc process each, all
 at once), holds each against its plain PyTorch version and the float64
-oracles at small sizes, then drives eight paths at full width, each gated
-against a float64 oracle on 8 pairs or reads. Four go through
+oracles at small sizes, then drives thirteen paths at full width, each
+gated against a float64 oracle on 8 pairs or reads. Four go through
 CompiledMachine.log_forward_batch:
 
   prot2dna       B=512, protein 64 against its 192-base codon DNA
@@ -37,7 +37,21 @@ forward_stream):
                   with the 2-state noise transducer, multihit, B=1024 reads
                   of 90, eight batches streamed (fused_plan7 kernel).
 
-Prints one JSON line per phase, the kernel table, the card's name and power
+Five go through the kernel factory make_wavefront_forward, one call each:
+
+  dense_chained      dense_uniform's pairs, variant="chained", chain=8
+                     (chained_wavefront; chains 2 and 4 timed too);
+  prot2dna_chained   prot2dna's pairs, variant="lowrank", chain=8
+                     (lowrank_chained_wavefront);
+  dense_generic      dense_uniform's pairs, merged=False
+                     (generic_wavefront);
+  dense_seqscale     dense_uniform's pairs, variant="seqscale"
+                     (seqscale_wavefront; the merged kernel timed on its
+                     plan too);
+  prot2dna_factored  prot2dna's pairs, variant="factored"
+                     (factored_wavefront).
+
+Prints one JSON line per phase, the total time, the kernel table, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 prints its traceback and exits non-zero. Without CUDA it exits 1 and
 prints no result.
@@ -118,10 +132,19 @@ def padded_batch(toks, Li, Lo, device):
     return [torch.from_numpy(x).to(device) for x in (it, ot, il, ol)]
 
 
-def f64_scores(mats, toks):
+_F64 = {}
+
+
+def f64_scores(mats, toks, key=None):
+    """The float64 oracle's scores; with `key`, computed once per run."""
     from machineboss_tpu_torch.ops.host_oracle import forward_2d_f64
+    if key is not None and key in _F64:
+        return _F64[key]
     m64 = [np.asarray(x, np.float64) for x in mats]
-    return np.array([forward_2d_f64(*m64, ti, to) for ti, to in toks])
+    ref = np.array([forward_2d_f64(*m64, ti, to) for ti, to in toks])
+    if key is not None:
+        _F64[key] = ref
+    return ref
 
 
 def lowrank_case(name, cm, toks, dev):
@@ -286,8 +309,13 @@ def counts():
     from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     return {"lowrank_wavefront": lk.lowrank_wavefront,
+            "lowrank_chained_wavefront": lk.lowrank_chained_wavefront,
             "merged_wavefront": wk.merged_wavefront,
             "chained_ragged_wavefront": wk.chained_ragged_wavefront,
+            "chained_wavefront": wk.chained_wavefront,
+            "generic_wavefront": wk.generic_wavefront,
+            "seqscale_wavefront": wk.seqscale_wavefront,
+            "factored_wavefront": wk.factored_wavefront,
             "scan1d": sk.scan1d_forward,
             "viterbi_wavefront": vk.viterbi_wavefront,
             "viterbi_banded_wavefront": vk.viterbi_banded_wavefront,
@@ -351,7 +379,8 @@ def dense_path(name, cm, pairs, ragged, dev, card, smi):
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
     mats = cm._host_mats()
     n_gate = 8
-    gate = score_err(lls[:n_gate], f64_scores(mats, toks[:n_gate]))
+    gate = score_err(lls[:n_gate], f64_scores(mats, toks[:n_gate],
+                                              key=(name, n_gate)))
     check(gate <= GATE_TOL, "%s: f64 gate %.3g nats" % (name, gate))
 
     # the kernel alone, and its plain version, at the path's shapes
@@ -480,6 +509,331 @@ def dense1d_path(dev, card, smi):
             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+# ------------------------------------------ the other 2D Forward variants
+
+WAVE = "machineboss_tpu/ops/pallas/wavefront_kernel.py:"
+# kernel -> (what the TPU kernel was, the f64 bound of its small cases)
+VARIANTS = {
+    "chained_wavefront": (WAVE + "255 (_chained_kernel)", MERGED_VS_F64_TOL),
+    "lowrank_chained_wavefront": (
+        "machineboss_tpu/ops/pallas/lowrank_kernel.py:424 (_body_chained of "
+        "_lowrank_kernel :188, chained mode)", KERNEL_VS_F64_TOL),
+    "generic_wavefront": (WAVE + "1051 (_wavefront_kernel)",
+                          MERGED_VS_F64_TOL),
+    "seqscale_wavefront": (WAVE + "685 (_seqscale_kernel)",
+                           MERGED_VS_F64_TOL),
+    "factored_wavefront": (WAVE + "853 (_factored_kernel)",
+                           KERNEL_VS_F64_TOL)}
+CHAINED_KERNELS = ("chained_wavefront", "lowrank_chained_wavefront")
+
+
+def variant_ops(kernel, mats, dev, grid=None):
+    """(operands, kernel call, plain call) of one variant kernel; both
+    calls take (in_toks, out_toks, in_lens, out_lens, n_chain). `grid`
+    sets the blocks of an unchained kernel (None: its default)."""
+    from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    if kernel == "lowrank_chained_wavefront":
+        plan, host = lk.prepare_lowrank(*mats, chained=True)
+        ops = lk.lowrank_operands(plan, host, mats[0].shape[1], dev)
+    elif kernel == "factored_wavefront":
+        ops = wk.factored_operands(wk.prepare_factored(*mats), dev)
+    else:
+        prep = {"chained_wavefront": wk.prepare_merged,
+                "generic_wavefront": wk.prepare_generic,
+                "seqscale_wavefront": wk.prepare_seqscale}[kernel]
+        ops = wk.merged_operands(prep(*mats), dev)
+    wrapper, plain = {
+        "chained_wavefront": (wk.chained_wavefront, wk.chained_forward_plain),
+        "lowrank_chained_wavefront": (lk.lowrank_chained_wavefront,
+                                      lk.lowrank_chained_forward_plain),
+        "generic_wavefront": (wk.generic_wavefront, wk.generic_forward_plain),
+        "seqscale_wavefront": (wk.seqscale_wavefront,
+                               wk.seqscale_forward_plain),
+        "factored_wavefront": (wk.factored_wavefront,
+                               wk.factored_forward_plain)}[kernel]
+    if kernel in CHAINED_KERNELS:
+        return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4]),
+                lambda *b: plain(ops, *b[:4], n_chain=b[4]))
+    return (ops, lambda *b: wrapper(ops, *b[:4], grid=grid),
+            lambda *b: plain(ops, *b[:4]))
+
+
+def variant_case(kernel, name, mats, it, ot, il, ol, dev, chain=None,
+                 bad=None, f64_tol=None, grid=None, bad_len=None):
+    """One small case of a variant kernel: kernel vs plain vs the f64
+    oracle (the chained kernels at the padded lengths, which they read
+    out). `bad` = (pair, position) puts a token outside the alphabet into
+    the kernel's input, `bad_len` = pair gives that pair an input length
+    past the padded shape: such pairs must come back NaN, the others as
+    the plain version gives them without the fault."""
+    _, run, plain = variant_ops(kernel, mats, dev, grid)
+    if kernel in CHAINED_KERNELS:
+        il = np.full(len(il), it.shape[1])
+        ol = np.full(len(ol), ot.shape[1])
+    batch = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+             for x in (it, ot, il, ol)]
+    kin = list(batch)
+    if bad is not None:
+        kin[0] = batch[0].clone()
+        kin[0][bad] = 99
+    if bad_len is not None:
+        kin[2] = batch[2].clone()
+        kin[2][bad_len] = it.shape[1] + 1
+    kern = run(*kin, chain).cpu().numpy()
+    ref_plain = plain(*batch, chain).cpu().numpy()
+    live = np.ones(len(il), bool)
+    if bad is not None:
+        check(np.isnan(kern[bad[0]]), "%s %s: a bad token scored %r"
+              % (kernel, name, kern[bad[0]]))
+        live[bad[0]] = False
+    if bad_len is not None:
+        check(np.isnan(kern[bad_len]), "%s %s: a bad length scored %r"
+              % (kernel, name, kern[bad_len]))
+        live[bad_len] = False
+    ref = f64_scores(mats, [(it[b][:il[b]], ot[b][:ol[b]])
+                            for b in range(len(il))])
+    err_plain = score_err(kern[live], ref_plain[live])
+    err_f64 = score_err(kern[live], ref[live])
+    emit({"phase": "kernel_vs_plain", "kernel": kernel, "case": name,
+          "B": len(il), "Li": it.shape[1], "Lo": ot.shape[1], "chain": chain,
+          "grid": grid, "bad_token_nan": bad is not None,
+          "bad_length_nan": bad_len is not None, "max_abs_vs_plain": err_plain,
+          "max_abs_vs_f64": err_f64, "f64_range": [float(ref.min()),
+                                                   float(ref.max())],
+          "n_impossible": int((ref <= NEG).sum())})
+    check(err_plain <= KERNEL_VS_PLAIN_TOL,
+          "%s %s: kernel vs plain %.3g nats" % (kernel, name, err_plain))
+    tol = f64_tol or VARIANTS[kernel][1]
+    check(err_f64 <= tol, "%s %s: kernel vs f64 %.3g nats"
+          % (kernel, name, err_f64))
+    return ref
+
+
+def variant_cases(dev):
+    """The five variant kernels against their plain versions, small, on
+    the machines of the merged kernels' cases."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.testmachines import (
+        build_allclass_transducer, build_indel_transducer,
+        build_random_transducer, prot2dna_pairs)
+    p2d = make_preset("prot2dna")
+    ev = evaluated(p2d)
+
+    def machine(kind):
+        return {"indel": lambda: build_indel_transducer(6, list("ACGT")),
+                "allclass": lambda: build_allclass_transducer(5, list("AC")),
+                "dense8": lambda: build_random_transducer(8, list("ACGT"),
+                                                         seed=15),
+                "prot2dna": lambda: p2d}[kind]()
+
+    def toks(kind, mats, B, Li, Lo, seed):
+        if kind == "prot2dna":
+            pairs = prot2dna_pairs(B, Li, seed=seed)
+            return (np.array([[ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+                              for p, _ in pairs], np.int32),
+                    np.array([[ev.output_tokenizer.sym2tok[c] - 1 for c in d]
+                              for _, d in pairs], np.int32))
+        rng = np.random.RandomState(seed)
+        return (rng.randint(0, mats[1].shape[0], (B, Li)).astype(np.int32),
+                rng.randint(0, mats[2].shape[0], (B, Lo)).astype(np.int32))
+
+    shapes = {"indel": (6, 6), "allclass": (7, 7), "dense8": (12, 12),
+              "prot2dna": (6, 18)}
+    for kind in ("indel", "allclass", "dense8", "prot2dna"):
+        mats = lowered(machine(kind))
+        Li, Lo = shapes[kind]
+        # uniform batches of 15 pairs: chains of 1, 3 and 5
+        it, ot = toks(kind, mats, 15, Li, Lo, 15)
+        full = np.full(15, Li), np.full(15, Lo)
+        for kernel in CHAINED_KERNELS:
+            for chain in (1, 3, 5):
+                variant_case(kernel, "%s_c%d" % (kind, chain), mats, it, ot,
+                             *full, dev, chain=chain,
+                             bad=(4, 2) if chain == 3 else None)
+        # ragged batches for the unchained kernels, with a bad token
+        it, ot = toks(kind, mats, 8, Li, Lo, 8)
+        rng = np.random.RandomState(3)
+        il = rng.randint(1, Li + 1, 8)
+        ol = 3 * il if kind == "prot2dna" else rng.randint(1, Lo + 1, 8)
+        il[0], ol[0] = Li, Lo
+        for kernel in ("generic_wavefront", "seqscale_wavefront",
+                       "factored_wavefront"):
+            variant_case(kernel, kind, mats, it, ot, il, ol, dev, bad=(5, 0))
+            if kind == "allclass":
+                # ONE block walks all 8 pairs: pairs after a bad token and
+                # a bad length must score as the plain version scores them
+                variant_case(kernel, kind + "_one_block", mats, it, ot, il,
+                             ol, dev, bad=(2, 0), grid=1, bad_len=4)
+    # empty sides and single cells
+    mats = lowered(machine("allclass"))
+    it, ot = toks("allclass", mats, 6, 7, 7, 8)
+    for kernel in ("generic_wavefront", "seqscale_wavefront",
+                   "factored_wavefront"):
+        variant_case(kernel, "edges", mats, it, ot,
+                     np.array([0, 0, 5, 1, 1, 0]),
+                     np.array([0, 5, 0, 1, 0, 1]), dev)
+    # impossible pairs: the diag-only dense8 scores no pair with il != ol
+    mats = lowered(machine("dense8"))
+    it, ot = toks("dense8", mats, 4, 6, 8, 2)
+    for kernel in VARIANTS:
+        ref = variant_case(kernel, "impossible", mats, it, ot,
+                           np.array([6, 5, 6, 4]), np.array([8, 8, 6, 4]),
+                           dev, chain=2 if kernel in CHAINED_KERNELS else None)
+        check((ref[:2] <= NEG).all() if kernel not in CHAINED_KERNELS
+              else (ref <= NEG).all(), "impossible: the pairs have a path")
+    # the odd stagger: Lo odd, so sigma = Lo + 2 is odd and chain 1 starts
+    # on an odd diagonal, every pair below -88 nats. chained: the 64-state
+    # dense machine at 115 x 115; lowrank: prot2dna, 57 amino acids against
+    # 171 bases (the lowrank factors of the dense machine cancel at this
+    # depth: a machine of its own kind)
+    dense64 = lowered(build_random_transducer(64, list("ACGT"), seed=42))
+    for kernel, kind, mats, Li, Lo in (
+            ("chained_wavefront", "dense64", dense64, 115, 115),
+            ("lowrank_chained_wavefront", "prot2dna", lowered(p2d), 57, 171)):
+        it, ot = toks(kind, mats, 3, Li, Lo, 1)
+        ref = variant_case(kernel, "odd_stagger", mats, it, ot,
+                           np.full(3, Li), np.full(3, Lo), dev, chain=3,
+                           f64_tol=ODD_START_VS_F64_TOL)
+        check((ref < -88).all(), "odd_stagger: the scores are not deep")
+
+
+def variant_flops(kernel, ops, il, ol):
+    """2 x the multiply-adds of the variant's own recurrence on this run's
+    real cells, at one token block per cell: a class counts at a cell whose
+    neighbour of that class lies in the pair's lattice."""
+    il = np.asarray(il, np.float64)
+    ol = np.asarray(ol, np.float64)
+    nb_cells = {"up": ((il + 1) * ol).sum(), "left": (il * (ol + 1)).sum(),
+                "diag": (il * ol).sum()}
+    cells = float(((il + 1) * (ol + 1) - 1).sum())
+    Sa = ops.Sa
+    if kernel == "lowrank_chained_wavefront":
+        return 2.0 * sum(c.rank * Sa * Sa for c in ops.classes) * cells
+    if kernel == "factored_wavefront":
+        return 2.0 * (sum(r * (Sa * Sa + Sa) * nb_cells[n]
+                          for n, _, _, r in ops.classes) + Sa * Sa * cells)
+    macs = Sa * Sa * sum(nb_cells[k] for k in ops.names)
+    if kernel == "generic_wavefront":
+        macs += Sa * Sa * cells                  # the closure product
+    return 2.0 * macs
+
+
+def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
+                 gate_key, chains=(), merged_on_plan=False):
+    """A variant kernel at full width through make_wavefront_forward: every
+    launch count set to 0 just before the factory's function is first
+    called and read just after (the path's kernel once, no other); the
+    call's median of 5; the f64 gate on 8 pairs; the kernel alone by CUDA
+    events, its plain version, the bound and the merged kernel's bound for
+    the same batch. `chains`: other chain counts to time the kernel at;
+    `merged_on_plan`: also time the merged kernel on this kernel's own
+    (untrimmed, closure-folded) plan, the same function at the same state
+    count. Returns the kernels line's entry."""
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
+    mats = cm._host_mats()
+    B = len(toks)
+    Li = max(len(t[0]) for t in toks)
+    Lo = max(len(t[1]) for t in toks)
+    it, ot = np.zeros((B, Li), np.int32), np.zeros((B, Lo), np.int32)
+    for n, (ti, to) in enumerate(toks):
+        it[n, :len(ti)], ot[n, :len(to)] = ti, to
+    il = np.array([len(t[0]) for t in toks], np.int32)
+    ol = np.array([len(t[1]) for t in toks], np.int32)
+    fn = wk.make_wavefront_forward(*mats, B, Li, Lo, device=dev,
+                                   **factory_kw)
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lls = fn(it, ot, il, ol).cpu().numpy()
+    first_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k == kernel) for k in wrappers},
+          "%s: launches %s, expected one of %s" % (name, got, kernel))
+    check(lls.shape == (B,) and np.isfinite(lls).all() and (lls > NEG).all(),
+          "%s: scores not all finite" % name)
+    call_s = []
+    for _ in range(5):
+        before = wrappers[kernel].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fn(it, ot, il, ol).cpu().numpy()
+        call_s.append(time.perf_counter() - t0)
+        check(wrappers[kernel].launches == before + 1,
+              "%s: a call did not launch %s once" % (name, kernel))
+    check(np.array_equal(again, lls), "%s: a repeated call differs" % name)
+    call_ms = float(np.median(call_s)) * 1e3
+    n_gate = 8
+    gate = score_err(lls[:n_gate], f64_scores(mats, toks[:n_gate],
+                                              key=gate_key))
+    check(gate <= GATE_TOL, "%s: f64 gate %.3g nats" % (name, gate))
+
+    # the kernel alone, and its plain version, on the same inputs
+    chain = factory_kw.get("chain")
+    ops, run, plain = variant_ops(kernel, mats, dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    kern = run(*batch, chain).cpu().numpy()
+    check(score_err(kern, lls) == 0.0,
+          "%s: kernel alone differs from the path" % name)
+    plain_ms, ref_plain = event_ms(lambda: plain(*batch, chain))
+    err = score_err(kern, ref_plain.cpu().numpy())
+    check(err <= KERNEL_VS_PLAIN_TOL,
+          "%s: kernel vs plain %.3g nats" % (name, err))
+    kernel_ms = cuda_ms(lambda: run(*batch, chain), 5)
+    by_chain = {}
+    for c in chains:
+        other = run(*batch, c).cpu().numpy()
+        check(score_err(other, kern) <= KERNEL_VS_PLAIN_TOL,
+              "%s: chain %d scores otherwise" % (name, c))
+        by_chain[str(c)] = cuda_ms(lambda: run(*batch, c), 5)
+    if chains:
+        by_chain[str(chain)] = kernel_ms
+    merged_on_plan_ms = None
+    if merged_on_plan:
+        other = wk.merged_wavefront(ops, *batch).cpu().numpy()
+        check(score_err(other, kern) <= KERNEL_VS_PLAIN_TOL,
+              "%s: the merged kernel on this plan scores otherwise" % name)
+        merged_on_plan_ms = cuda_ms(lambda: wk.merged_wavefront(ops, *batch),
+                                    5)
+
+    flops = variant_flops(kernel, ops, il, ol)
+    # the kernel's operands as it reads them: tokens, lengths, the padded
+    # start and readout vectors, the packed blocks or factors
+    operands = [getattr(ops, k) for k in ("c0_pad", "w_pad", "mt", "e", "tk",
+                                          "ek", "ct")
+                if getattr(ops, k, None) is not None]
+    nbytes = tensor_bytes(batch + operands) + B * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    merged = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    merged_flops = variant_flops("merged_wavefront", merged, il, ol)
+    merged_bound_ms, _ = bound(merged_flops, nbytes)
+    S = mats[3].shape[0]
+    state_cells = float(((il + 1.0) * (ol + 1.0)).sum()) * S
+    emit({"phase": name, "kernel": kernel, "B": B, "S": S, "Sa": ops.Sa,
+          "shape": [Li, Lo], "factory": factory_kw, "launches": got[kernel],
+          "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
+          "first_call_s": first_s, "call_ms_median5": call_ms,
+          "kernel_ms": kernel_ms, "kernel_ms_by_chain": by_chain or None,
+          "plain_ms": plain_ms, "kernel_vs_plain_max_abs": err,
+          "kernel_share_of_call": kernel_ms / call_ms,
+          "state_cells_per_s": state_cells / (call_ms / 1e3),
+          "kernel_state_cells_per_s": state_cells / (kernel_ms / 1e3),
+          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+          "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
+          "merged_flops": merged_flops, "merged_bound_ms": merged_bound_ms,
+          "merged_kernel_ms_on_this_plan": merged_on_plan_ms,
+          "card": card, "nvidia_smi": smi})
+    src = "lowrank_wavefront" if kernel == "lowrank_chained_wavefront" \
+        else kernel
+    return {"name": kernel, "route": "cuda", "path": name,
+            "source": "machineboss_tpu_torch/csrc/%s.cu" % src,
+            "replaces": VARIANTS[kernel][0], "launches": got[kernel],
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 # ---------------------------------------------------------------- alignment
@@ -1216,6 +1570,7 @@ def plan7_path(dev, card, smi):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1262,6 +1617,7 @@ def main():
                   for a, b in lens], dev)
 
     fullrank_cases(dev)
+    variant_cases(dev)
     scan1d_cases(dev)
     viterbi_cases(dev)
     plan7_cases(dev)
@@ -1275,7 +1631,8 @@ def main():
                                             "lowrank_wavefront", "lowrank")
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
     n_gate = 8
-    gate = score_err(lls[:n_gate], f64_scores(cm._host_mats(), toks[:n_gate]))
+    gate = score_err(lls[:n_gate], f64_scores(cm._host_mats(), toks[:n_gate],
+                                              key=("prot2dna", n_gate)))
     check(gate <= GATE_TOL, "f64 gate %.3g nats" % gate)
 
     # the kernel alone, and its plain version, at the main path's shapes
@@ -1318,6 +1675,7 @@ def main():
           "kernel_share_of_bound": bound_ms / kernel_ms,
           "card": card, "nvidia_smi": smi})
 
+    p2d_cm, p2d_pairs = cm, pairs
     kernels = [{
         "name": "lowrank_wavefront", "route": "cuda",
         "source": "machineboss_tpu_torch/csrc/lowrank_wavefront.cu",
@@ -1337,15 +1695,34 @@ def main():
     x = sym[rng.randint(0, 4, (B, L))]
     y = sym[rng.randint(0, 4, (B, L))]
     lens = ragged_lens(rng, B, L)
-    kernels.append(dense_path(
-        "dense_uniform", dense,
-        [("".join(x[n]), "".join(y[n])) for n in range(B)], False, dev, card,
-        smi))
+    dense_pairs = [("".join(x[n]), "".join(y[n])) for n in range(B)]
+    kernels.append(dense_path("dense_uniform", dense, dense_pairs, False,
+                              dev, card, smi))
     kernels.append(dense_path(
         "dense_ragged", dense,
         [("".join(x[n, :lens[n]]), "".join(y[n, :lens[n]]))
          for n in range(B)], True, dev, card, smi))
     kernels.append(dense1d_path(dev, card, smi))
+
+    # -- the other 2D Forward variants, at full width ----------------------
+    dense_key, p2d_key = ("dense_uniform", 8), ("prot2dna", 8)
+    kernels.append(variant_path(
+        "dense_chained", "chained_wavefront", dense, dense_pairs,
+        {"variant": "chained", "chain": 8}, dev, card, smi, dense_key,
+        chains=(2, 4)))
+    kernels.append(variant_path(
+        "prot2dna_chained", "lowrank_chained_wavefront", p2d_cm, p2d_pairs,
+        {"variant": "lowrank", "chain": 8}, dev, card, smi, p2d_key))
+    kernels.append(variant_path(
+        "dense_generic", "generic_wavefront", dense, dense_pairs,
+        {"merged": False}, dev, card, smi, dense_key))
+    kernels.append(variant_path(
+        "dense_seqscale", "seqscale_wavefront", dense, dense_pairs,
+        {"variant": "seqscale"}, dev, card, smi, dense_key,
+        merged_on_plan=True))
+    kernels.append(variant_path(
+        "prot2dna_factored", "factored_wavefront", p2d_cm, p2d_pairs,
+        {"variant": "factored"}, dev, card, smi, p2d_key))
 
     # -- the alignment paths, at full width -------------------------------
     kernels += alignment_paths(dev, card, smi)
@@ -1355,6 +1732,8 @@ def main():
 
     # no single PyTorch call computes a wavefront, this scan, this walk or
     # this row solve: library_ms is null for every kernel
+    check(len(kernels) == 13, "the kernels line has %d entries" % len(kernels))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

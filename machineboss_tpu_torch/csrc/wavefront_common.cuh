@@ -1,14 +1,18 @@
-// Shared device code of the full-rank wavefront kernels (merged_wavefront.cu
-// and chained_ragged_wavefront.cu), for Hopper (sm_90a).
+// Shared device code of the full-rank wavefront kernels (merged_wavefront.cu,
+// chained_ragged_wavefront.cu, chained_wavefront.cu, generic_wavefront.cu,
+// seqscale_wavefront.cu and the helpers of factored_wavefront.cu), for Hopper
+// (sm_90a).
 //
-// walk_pair() walks ONE pair's lattice with the whole thread block and
-// returns its Forward log-likelihood. It is what
-// machineboss_tpu/ops/pallas/wavefront_kernel.py::_merged_kernel computes
-// for one lane window, and what ::_chained_ragged_kernel computes for one
-// chain element; the two CUDA kernels differ only in how they hand pairs to
-// blocks. The host prep is prepare_merged (ops/kernels/wavefront_kernel.py):
-// the silent closure is folded into each present class, F[tok] = C^T A[tok]^T,
-// trailing sink states are trimmed (Sa states remain).
+// cell_update() is the per-cell step that every one of them takes: the
+// class products of one cell for 4 destination states. walk_pair() walks ONE
+// pair's lattice with the whole thread block and returns its Forward
+// log-likelihood: it is what machineboss_tpu/ops/pallas/wavefront_kernel.py::
+// _merged_kernel computes for one lane window, and what
+// ::_chained_ragged_kernel computes for one chain element; those two CUDA
+// kernels differ only in how they hand pairs to blocks. The host prep is
+// prepare_merged (ops/kernels/wavefront_kernel.py): the silent closure is
+// folded into each present class, F[tok] = C^T A[tok]^T, trailing sink
+// states are trimmed (Sa states remain).
 //
 // Per cell (i, o) of the pair, diagonal d = i + o, carried as scaled
 // probabilities p (Sa floats) with a per-cell log scale m:
@@ -23,6 +27,9 @@
 //     zeroed;
 //   * the readout at (il, ol) is m + log(p[Sa-1]), or m + log(w . p) when the
 //     sink states were trimmed.
+// The other kernels change one of those rules, by cell_update's MODE: the
+// generic kernel takes mu over all three neighbours (MU_ALL), the seqscale
+// kernel has no per-cell scale at all (NO_SCALE).
 //
 // What the TPU kernels did that this code does not: the transposed
 // (S, cells) slabs and their lane rolls, the 128-lane windows, two diagonals
@@ -63,6 +70,10 @@ constexpr int TD = 4;        // destination states per thread
 constexpr int MAX_CLS = 3;
 
 enum { KIND_UP = 0, KIND_LEFT = 1, KIND_DIAG = 2 };
+// how cell_update weighs the class terms: by exp(m_c - mu) with mu the max
+// over the present classes' neighbours (merged), or over all three
+// neighbours in the lattice (generic); or not at all (one scale per pair)
+enum { MU_PRESENT = 0, MU_ALL = 1, NO_SCALE = 2 };
 
 // Per-class descriptor, laid out as the host passes it (DESC_LEN ints).
 struct ClassDesc {
@@ -77,7 +88,7 @@ struct Plan {
   int n_cls;
 };
 
-// What both launch functions take besides the pair assignment.
+// What every launch function takes besides the pair assignment.
 struct Args {
   const int* in_toks;
   const int* out_toks;
@@ -86,11 +97,20 @@ struct Args {
   const float* c0;     // (SaP,) start vector, zero padded
   const float* wvec;   // (SaP,) sink readout vector, zero padded
   const float* mt;     // packed class blocks
-  float* pbuf;         // gridDim.x * 3 * W * SaP
-  float* mbuf;         // gridDim.x * 3 * W
+  float* pbuf;         // blocks * 3 * W * SaP
+  float* mbuf;         // blocks * 3 * W
   float* out;          // (B,)
   int B, Li, Lo, Sa, SaP, To, rescale_every, sink;
   Plan plan;
+};
+
+// One cell of one pair: its coordinates in the pair's lattice, the pair's
+// tokens, and the flag that a token outside its alphabet sets.
+struct Cell {
+  int i, o;
+  const int* xt;
+  const int* yt;
+  int* bad;
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -107,6 +127,134 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float quiet_nan() {
   return __int_as_float(0x7fc00000);
+}
+
+// sum_s src[s] * blk[s][0..3]: 4 destination states of one (SaP, SaP)
+// source-major block against one source vector (both zero padded to SaP).
+__device__ __forceinline__ float4 block_dot(const float* sp, const float* mp,
+                                            int SaP) {
+  float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int s = 0; s < SaP; s += 4) {
+    const float4 pv = *reinterpret_cast<const float4*>(sp + s);
+    const float4 r0 = __ldg(
+        reinterpret_cast<const float4*>(mp + (size_t)s * SaP));
+    const float4 r1 = __ldg(
+        reinterpret_cast<const float4*>(mp + (size_t)(s + 1) * SaP));
+    const float4 r2 = __ldg(
+        reinterpret_cast<const float4*>(mp + (size_t)(s + 2) * SaP));
+    const float4 r3 = __ldg(
+        reinterpret_cast<const float4*>(mp + (size_t)(s + 3) * SaP));
+    t.x = fmaf(pv.x, r0.x, t.x); t.y = fmaf(pv.x, r0.y, t.y);
+    t.z = fmaf(pv.x, r0.z, t.z); t.w = fmaf(pv.x, r0.w, t.w);
+    t.x = fmaf(pv.y, r1.x, t.x); t.y = fmaf(pv.y, r1.y, t.y);
+    t.z = fmaf(pv.y, r1.z, t.z); t.w = fmaf(pv.y, r1.w, t.w);
+    t.x = fmaf(pv.z, r2.x, t.x); t.y = fmaf(pv.z, r2.y, t.y);
+    t.z = fmaf(pv.z, r2.z, t.z); t.w = fmaf(pv.z, r2.w, t.w);
+    t.x = fmaf(pv.w, r3.x, t.x); t.y = fmaf(pv.w, r3.y, t.y);
+    t.z = fmaf(pv.w, r3.z, t.z); t.w = fmaf(pv.w, r3.w, t.w);
+  }
+  return t;
+}
+
+// The class terms of cell c for destination states dg*TD .. dg*TD+3: p1/m1
+// hold diagonal d-1 and p2/m2 diagonal d-2 as (W, SaP) / (W,) slots (m1, m2
+// unused with NO_SCALE). Sets mu to the cell's new log scale before any
+// rescale (NEG_INF without a weighted neighbour; unset with NO_SCALE).
+template <int MODE>
+__device__ __forceinline__ float4 cell_update(const Args& a, const Cell& c,
+                                              int dg, const float* p1,
+                                              const float* p2,
+                                              const float* m1,
+                                              const float* m2, float& mu) {
+  const int i = c.i, o = c.o, SaP = a.SaP;
+  float mc[MAX_CLS];
+  const float* src[MAX_CLS];
+  const float* blk[MAX_CLS];
+  mu = NEG_INF;
+  if (MODE == MU_ALL) {
+    if (o >= 1) mu = fmaxf(mu, m1[i]);
+    if (i >= 1) mu = fmaxf(mu, m1[i - 1]);
+    if (i >= 1 && o >= 1) mu = fmaxf(mu, m2[i - 1]);
+  }
+  for (int q = 0; q < a.plan.n_cls; ++q) {
+    const ClassDesc& k = a.plan.cls[q];
+    float mv = NEG_INF;
+    int tok = 0;
+    bool in_lattice = false;
+    const float* sp = p1;
+    if (k.kind == KIND_UP) {
+      if (o >= 1) {
+        in_lattice = true;
+        mv = MODE == NO_SCALE ? 0.f : m1[i];
+        tok = __ldg(c.yt + o - 1);
+        sp = p1 + (size_t)i * SaP;
+      }
+    } else if (k.kind == KIND_LEFT) {
+      if (i >= 1) {
+        in_lattice = true;
+        mv = MODE == NO_SCALE ? 0.f : m1[i - 1];
+        tok = __ldg(c.xt + i - 1);
+        sp = p1 + (size_t)(i - 1) * SaP;
+      }
+    } else {
+      if (i >= 1 && o >= 1) {
+        in_lattice = true;
+        mv = MODE == NO_SCALE ? 0.f : m2[i - 1];
+        tok = __ldg(c.xt + i - 1) * a.To + __ldg(c.yt + o - 1);
+        sp = p2 + (size_t)(i - 1) * SaP;
+      }
+    }
+    if (in_lattice && (tok < 0 || tok >= k.n_tok)) {
+      *c.bad = 1;
+      tok = 0;
+      mv = NEG_INF;
+    }
+    mc[q] = mv;
+    src[q] = sp;
+    blk[q] = a.mt + k.mt_off + (size_t)tok * SaP * SaP + dg * TD;
+    if (MODE == MU_PRESENT) mu = fmaxf(mu, mv);
+  }
+  const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q = 0; q < a.plan.n_cls; ++q) {
+    if (!(mc[q] > NEG_INF / 2)) continue;
+    const float w = MODE == NO_SCALE ? 1.f : expf(mc[q] - mu_safe);
+    const float4 t = block_dot(src[q], blk[q], SaP);
+    acc.x = fmaf(w, t.x, acc.x); acc.y = fmaf(w, t.y, acc.y);
+    acc.z = fmaf(w, t.z, acc.z); acc.w = fmaf(w, t.w, acc.w);
+  }
+  return acc;
+}
+
+// One warp: divides cell pc by its max over the Sa states and adds the log
+// of that max to *mc; a cell whose max is not positive is zeroed and its
+// scale set to NEG_INF.
+__device__ __forceinline__ void rescale_cell(float* pc, float* mc, int Sa,
+                                             int lane) {
+  float mx = -3.4e38f;
+  for (int s = lane; s < Sa; s += 32) mx = fmaxf(mx, pc[s]);
+  mx = warp_max(mx);
+  const bool has = mx > 0.f;
+  const float den = fmaxf(mx, 1e-37f);
+  for (int s = lane; s < Sa; s += 32) pc[s] = has ? pc[s] / den : 0.f;
+  if (lane == 0) *mc = has ? *mc + logf(den) : NEG_INF;
+}
+
+// One warp: the score of readout cell pc with log scale m, m + log(p[Sa-1])
+// or, when sink, m + log(w . p); NEG_INF where that is not positive.
+__device__ __forceinline__ float readout_warp(const float* pc, float m,
+                                              const float* wvec, int Sa,
+                                              int sink, int lane) {
+  float e;
+  if (sink) {
+    e = 0.f;
+    for (int s = lane; s < Sa; s += 32) e = fmaf(pc[s], wvec[s], e);
+    e = warp_sum(e);
+  } else {
+    e = pc[Sa - 1];
+  }
+  return e > 0.f ? m + logf(fmaxf(e, 1e-37f)) : NEG_INF;
 }
 
 // Walks pair b with the whole block. Thread 0 returns the score; every
@@ -148,78 +296,10 @@ __device__ float walk_pair(const Args& a, int b, int* s_bad) {
     const int n_items = (hi - lo + 1) * n_dg;
     for (int item = tid; item < n_items; item += THREADS) {
       const int c = item / n_dg, dg = item - c * n_dg;
-      const int i = lo + c, o = d - i;
-      float mc[MAX_CLS];
-      const float* src[MAX_CLS];
-      const float* blk[MAX_CLS];
-      float mu = NEG_INF;
-      for (int q = 0; q < a.plan.n_cls; ++q) {
-        const ClassDesc& k = a.plan.cls[q];
-        float mv = NEG_INF;
-        int tok = 0;
-        bool in_lattice = false;
-        const float* sp = p1;
-        if (k.kind == KIND_UP) {
-          if (o >= 1) {
-            in_lattice = true;
-            mv = m1[i]; tok = __ldg(yt + o - 1);
-            sp = p1 + (size_t)i * SaP;
-          }
-        } else if (k.kind == KIND_LEFT) {
-          if (i >= 1) {
-            in_lattice = true;
-            mv = m1[i - 1]; tok = __ldg(xt + i - 1);
-            sp = p1 + (size_t)(i - 1) * SaP;
-          }
-        } else {
-          if (i >= 1 && o >= 1) {
-            in_lattice = true;
-            mv = m2[i - 1];
-            tok = __ldg(xt + i - 1) * a.To + __ldg(yt + o - 1);
-            sp = p2 + (size_t)(i - 1) * SaP;
-          }
-        }
-        if (in_lattice && (tok < 0 || tok >= k.n_tok)) {
-          *s_bad = 1;
-          tok = 0;
-          mv = NEG_INF;
-        }
-        mc[q] = mv;
-        src[q] = sp;
-        blk[q] = a.mt + k.mt_off + (size_t)tok * SaP * SaP + dg * TD;
-        mu = fmaxf(mu, mv);
-      }
-      const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int q = 0; q < a.plan.n_cls; ++q) {
-        if (!(mc[q] > NEG_INF / 2)) continue;
-        const float w = expf(mc[q] - mu_safe);
-        const float* sp = src[q];
-        const float* mp = blk[q];
-        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 2
-        for (int s = 0; s < SaP; s += 4) {
-          const float4 pv = *reinterpret_cast<const float4*>(sp + s);
-          const float4 r0 = __ldg(
-              reinterpret_cast<const float4*>(mp + (size_t)s * SaP));
-          const float4 r1 = __ldg(
-              reinterpret_cast<const float4*>(mp + (size_t)(s + 1) * SaP));
-          const float4 r2 = __ldg(
-              reinterpret_cast<const float4*>(mp + (size_t)(s + 2) * SaP));
-          const float4 r3 = __ldg(
-              reinterpret_cast<const float4*>(mp + (size_t)(s + 3) * SaP));
-          t.x = fmaf(pv.x, r0.x, t.x); t.y = fmaf(pv.x, r0.y, t.y);
-          t.z = fmaf(pv.x, r0.z, t.z); t.w = fmaf(pv.x, r0.w, t.w);
-          t.x = fmaf(pv.y, r1.x, t.x); t.y = fmaf(pv.y, r1.y, t.y);
-          t.z = fmaf(pv.y, r1.z, t.z); t.w = fmaf(pv.y, r1.w, t.w);
-          t.x = fmaf(pv.z, r2.x, t.x); t.y = fmaf(pv.z, r2.y, t.y);
-          t.z = fmaf(pv.z, r2.z, t.z); t.w = fmaf(pv.z, r2.w, t.w);
-          t.x = fmaf(pv.w, r3.x, t.x); t.y = fmaf(pv.w, r3.y, t.y);
-          t.z = fmaf(pv.w, r3.z, t.z); t.w = fmaf(pv.w, r3.w, t.w);
-        }
-        acc.x = fmaf(w, t.x, acc.x); acc.y = fmaf(w, t.y, acc.y);
-        acc.z = fmaf(w, t.z, acc.z); acc.w = fmaf(w, t.w, acc.w);
-      }
+      const int i = lo + c;
+      float mu;
+      const float4 acc = cell_update<MU_PRESENT>(
+          a, Cell{i, d - i, xt, yt, s_bad}, dg, p1, p2, m1, m2, mu);
       *reinterpret_cast<float4*>(p0 + (size_t)i * SaP + dg * TD) = acc;
       if (dg == 0) m0[i] = mu;
     }
@@ -228,16 +308,8 @@ __device__ float walk_pair(const Args& a, int b, int* s_bad) {
     // rescale on two consecutive diagonals of every rescale_every
     if (d % a.rescale_every <= 1) {
       const int warp = tid >> 5, lane = tid & 31;
-      for (int i = lo + warp; i <= hi; i += THREADS / 32) {
-        float* pc = p0 + (size_t)i * SaP;
-        float mx = -3.4e38f;
-        for (int s = lane; s < Sa; s += 32) mx = fmaxf(mx, pc[s]);
-        mx = warp_max(mx);
-        const bool has = mx > 0.f;
-        const float den = fmaxf(mx, 1e-37f);
-        for (int s = lane; s < Sa; s += 32) pc[s] = has ? pc[s] / den : 0.f;
-        if (lane == 0) m0[i] = has ? m0[i] + logf(den) : NEG_INF;
-      }
+      for (int i = lo + warp; i <= hi; i += THREADS / 32)
+        rescale_cell(p0 + (size_t)i * SaP, m0 + i, Sa, lane);
       __syncthreads();
     }
   }
@@ -246,17 +318,8 @@ __device__ float walk_pair(const Args& a, int b, int* s_bad) {
   float v = NEG_INF;
   if (tid < 32) {
     const int slot = dfin % 3;
-    const float* pc = pb + ((size_t)slot * W + il) * SaP;
-    float e;
-    if (a.sink) {
-      e = 0.f;
-      for (int s = tid; s < Sa; s += 32) e = fmaf(pc[s], a.wvec[s], e);
-      e = warp_sum(e);
-    } else {
-      e = pc[Sa - 1];
-    }
-    const float m = mb[slot * W + il];
-    v = e > 0.f ? m + logf(fmaxf(e, 1e-37f)) : NEG_INF;
+    v = readout_warp(pb + ((size_t)slot * W + il) * SaP, mb[slot * W + il],
+                     a.wvec, Sa, a.sink, tid);
     if (*s_bad) v = quiet_nan();                           // bad token
   }
   return v;

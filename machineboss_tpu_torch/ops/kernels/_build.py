@@ -26,6 +26,10 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
            "merged_wavefront": "merged_wavefront.cu",
            "chained_ragged_wavefront": "chained_ragged_wavefront.cu",
+           "chained_wavefront": "chained_wavefront.cu",
+           "generic_wavefront": "generic_wavefront.cu",
+           "seqscale_wavefront": "seqscale_wavefront.cu",
+           "factored_wavefront": "factored_wavefront.cu",
            "scan1d": "scan1d.cu",
            "viterbi_wavefront": "viterbi_wavefront.cu",
            "viterbi_banded_wavefront": "viterbi_banded_wavefront.cu",

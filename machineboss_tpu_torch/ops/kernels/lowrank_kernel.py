@@ -14,16 +14,21 @@ package's and gives the same plan:
    before it).
 
 The Forward itself has two versions with one recurrence, rescale schedule,
-NEG_INF convention and readout:
+NEG_INF convention and readout, in each of two modes:
 
-- `lowrank_forward_plain`: a straightforward torch loop over diagonals in
-  float32, used on the CPU and as the card's comparison;
-- `lowrank_wavefront`: the wrapper of the hand-written CUDA kernel
-  (csrc/lowrank_wavefront.cu). A CUDA tensor launches the kernel or raises;
-  only a CPU tensor takes the plain version.
+- `lowrank_forward_plain` (plain mode) and `lowrank_chained_forward_plain`
+  (chained mode: `chain` uniform-length pairs per strip, staggered by
+  Lo + 2 diagonals, the lengths ignored): the torch walk of
+  ops/kernels/plain_walk.py in float32, used on the CPU and as the card's
+  comparison;
+- `lowrank_wavefront` and `lowrank_chained_wavefront`: the wrappers of the
+  hand-written CUDA kernel's two entries (csrc/lowrank_wavefront.cu). A
+  CUDA tensor launches the kernel or raises; only a CPU tensor takes the
+  plain version.
 
 `make_lowrank_forward` keeps the JAX factory's signature and return
-contract, fn(in_toks, out_toks, in_lens, out_lens) -> (B,).
+contract, fn(in_toks, out_toks, in_lens, out_lens) -> (B,); chain > 1 is
+chained mode, chain None, 0 or 1 plain mode, as in the JAX factory.
 """
 
 import ctypes
@@ -35,8 +40,7 @@ import torch
 from ...utils.device import resolve_device
 from ._build import load
 from .factorize import factorize_token_tensor
-
-NEG_INF = -1e30
+from .plain_walk import check_chain, walk_chained, walk_plain
 
 # shared memory the kernel's class operands may take per block: two blocks
 # fit on one SM with room left for the L1 cache that serves M and E
@@ -249,95 +253,50 @@ def lowrank_operands(plan, mats, To, device):
 
 
 def lowrank_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
-                          rescale_every=4):
+                          rescale_every=4, diag_offset=None):
     """Plain PyTorch version of the lowrank wavefront, float32.
 
     in_toks (B, Li), out_toks (B, Lo), in_lens/out_lens (B,) integer
-    tensors on the device of `ops`. Cells are indexed by i on each
-    diagonal d = i + o, slab (B, Li+1, Sa); the loop stops at the batch's
-    last readout diagonal. Returns (B,) log-likelihoods."""
-    B, Li = in_toks.shape
-    Lo = out_toks.shape[1]
-    Sa, To = ops.Sa, ops.To
-    W = Li + 1
-    dev = ops.c0.device
-    f32 = torch.float32
-    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
-    i_idx = torch.arange(W, device=dev)
-    b_idx = torch.arange(B, device=dev)
-    il = in_lens.long()
-    dfin = il + out_lens.long()
-    x_tok = in_toks.long()[:, torch.clamp(i_idx - 1, 0, max(Li - 1, 0))] \
-        if Li else torch.zeros((B, W), dtype=torch.long, device=dev)
+    tensors on the device of `ops`; the walk is plain_walk.walk_plain with
+    the lowrank class term. `diag_offset` (B,), if given, is the absolute
+    diagonal each pair starts on, which the rescale rule reads (the chained
+    schedule). Returns (B,) log-likelihoods."""
+    Sa = ops.Sa
+    by_name = {cs.name: (cs, M, E) for cs, (M, E) in zip(ops.classes,
+                                                         ops.mats)}
 
-    p1 = torch.zeros((B, W, Sa), dtype=f32, device=dev)
-    p1[:, 0] = ops.c0
-    m1 = torch.full((B, W), NEG_INF, dtype=f32, device=dev)
-    m1[:, 0] = 0.0
-    p2 = torch.zeros_like(p1)
-    m2 = torch.full_like(m1, NEG_INF)
+    def term(name, q, tok):
+        cs, M, E = by_name[name]
+        B, W = tok.shape
+        sc = E.t()[tok]                            # (B, W, R*Sa)
+        if cs.side == "src":
+            return (q.repeat(1, 1, cs.rank) * sc) @ M.t()
+        out = (q @ M.t()) * sc
+        return out.reshape(B, W, cs.rank, Sa).sum(dim=2)
 
-    def readout(p, m):
-        end = p[b_idx, il, Sa - 1]
-        return torch.where(end > 0, m[b_idx, il]
-                           + torch.log(torch.clamp(end, min=1e-37)), neg)
+    return walk_plain(ops.c0, term, [cs.name for cs in ops.classes],
+                      in_toks, out_toks, in_lens, out_lens, ops.To,
+                      rescale_every, diag_offset=diag_offset)
 
-    res = torch.where(dfin == 0, readout(p1, m1), neg)
-    zp = torch.zeros((B, 1, Sa), dtype=f32, device=dev)
-    zm = torch.full((B, 1), NEG_INF, dtype=f32, device=dev)
-    n_diag = int(dfin.max()) if B else 0
-    for d in range(1, n_diag + 1):
-        o_idx = d - i_idx
-        valid = (o_idx >= 0) & (o_idx <= Lo)
-        y_tok = out_toks.long()[:, torch.clamp(o_idx - 1, 0, max(Lo - 1, 0))] \
-            if Lo else torch.zeros((B, W), dtype=torch.long, device=dev)
-        nb = {"up": (p1, m1),
-              "left": (torch.cat([zp, p1[:, :-1]], 1),
-                       torch.cat([zm, m1[:, :-1]], 1)),
-              "diag": (torch.cat([zp, p2[:, :-1]], 1),
-                       torch.cat([zm, m2[:, :-1]], 1))}
-        tok = {"up": y_tok, "left": x_tok, "diag": x_tok * To + y_tok}
-        mu = torch.full((B, W), NEG_INF, dtype=f32, device=dev)
-        for cs in ops.classes:
-            mu = torch.maximum(mu, nb[cs.name][1])
-        mu_safe = torch.where(mu > NEG_INF / 2, mu, torch.zeros_like(mu))
-        cur = torch.zeros((B, W, Sa), dtype=f32, device=dev)
-        for cs, (M, E) in zip(ops.classes, ops.mats):
-            p_op, m_op = nb[cs.name]
-            w = torch.where(m_op > NEG_INF / 2, torch.exp(m_op - mu_safe),
-                            torch.zeros_like(m_op))
-            sc = E.t()[tok[cs.name]]               # (B, W, R*Sa)
-            q = p_op * w[:, :, None]
-            if cs.side == "src":
-                z = q.repeat(1, 1, cs.rank) * sc
-                cur = cur + z @ M.t()
-            else:
-                out = (q @ M.t()) * sc
-                cur = cur + out.reshape(B, W, cs.rank, Sa).sum(dim=2)
-        m_new = torch.where(valid[None, :], mu, neg)
-        cur = torch.where(valid[None, :, None], cur, torch.zeros_like(cur))
-        # rescale on TWO consecutive diagonals so both parities (the diag
-        # class lives on one of them) are renormalised
-        if d % rescale_every <= 1:
-            mx = cur.max(dim=-1).values
-            has = (mx > 0) & valid[None, :]
-            den = torch.clamp(mx, min=1e-37)
-            cur = torch.where(has[:, :, None], cur / den[:, :, None],
-                              torch.zeros_like(cur))
-            m_new = torch.where(has, m_new + torch.log(den), neg)
-        res = torch.where(dfin == d, readout(cur, m_new), res)
-        p2, m2, p1, m1 = p1, m1, cur, m_new
-    return res
+
+def lowrank_chained_forward_plain(ops, in_toks, out_toks, in_lens=None,
+                                  out_lens=None, n_chain=4, rescale_every=4):
+    """Plain PyTorch version of the lowrank chained mode
+    (plain_walk.walk_chained over lowrank_forward_plain): every pair read
+    out at (Li, Lo), the rescale rule on the absolute diagonal."""
+    return walk_chained(lowrank_forward_plain, ops, in_toks, out_toks,
+                        n_chain, rescale_every)
 
 
 def _chunk_cells(Li, k_total):
-    per_cell = (k_total + 6) * 4
+    # Z, two per-class rows (weights, tokens) and a state per cell
+    per_cell = (k_total + 7) * 4
     cap = (SMEM_BUDGET - 16) // per_cell // _TC * _TC
     if cap < _TC:
         raise ValueError(
             "lowrank kernel: the class operands take %d rows per cell; "
             "shared memory (%d bytes a block) holds at most %d"
-            % (k_total, SMEM_BUDGET, (SMEM_BUDGET - 16) // (_TC * 4) - 6))
+            % (k_total, SMEM_BUDGET, (SMEM_BUDGET - 16) // (_TC * 4) - 7))
     return min(_round_up(Li + 1, _TC), cap)
 
 
@@ -366,10 +325,57 @@ def lowrank_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     if in_toks.device.type == "cpu":
         return lowrank_forward_plain(ops, in_toks, out_toks, in_lens,
                                      out_lens, rescale_every)
+    B, Li, Lo = _check_batch("lowrank_wavefront", ops, in_toks, out_toks,
+                             in_lens, out_lens, rescale_every, ops.mt)
+    out = torch.empty(B, dtype=torch.float32, device=ops.c0.device)
+    _launch("lowrank_wavefront", ops, [in_toks, out_toks, in_lens, out_lens],
+            out, [], B, Li, Lo, B, rescale_every, [])
+    lowrank_wavefront.launches += 1
+    return out
+
+
+lowrank_wavefront.launches = 0
+
+
+def lowrank_chained_wavefront(ops, in_toks, out_toks, in_lens=None,
+                              out_lens=None, n_chain=4, rescale_every=4):
+    """Lowrank chained mode over a uniform-length batch: (B,) float32
+    log-likelihoods, every pair read out at (Li, Lo) (the lengths are
+    ignored; B must be a multiple of n_chain, Li and Lo at least 1).
+
+    A CUDA tensor launches the chained entry of csrc/lowrank_wavefront.cu
+    (one block per strip of n_chain pairs n = k * (B / n_chain) + w) and
+    counts one launch in `lowrank_chained_wavefront.launches`; a CPU tensor
+    takes lowrank_chained_forward_plain. A pair with a token outside its
+    alphabet comes back NaN."""
+    if in_toks.device.type == "cpu":
+        return lowrank_chained_forward_plain(ops, in_toks, out_toks,
+                                             n_chain=n_chain,
+                                             rescale_every=rescale_every)
+    B, Li, Lo = _check_batch("lowrank_chained_wavefront", ops, in_toks,
+                             out_toks, None, None, rescale_every, ops.mt)
+    check_chain(B, Li, Lo, n_chain)
+    dev = ops.c0.device
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    bad = torch.zeros(B, dtype=torch.int32, device=dev)
+    _launch("lowrank_chained", ops, [in_toks, out_toks], out, [bad], B, Li,
+            Lo, B // n_chain, rescale_every, [n_chain])
+    lowrank_chained_wavefront.launches += 1
+    return out
+
+
+lowrank_chained_wavefront.launches = 0
+
+
+def _check_batch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
+                 rescale_every, ready):
+    """The checks every wrapper makes on a CUDA call; returns (B, Li, Lo).
+    `ready` is an operand that only the card's layout has (None if the
+    operands were prepared for the CPU); in_lens/out_lens None: not read."""
     if in_toks.device.type != "cuda":
-        raise ValueError("lowrank_wavefront runs on cuda or cpu tensors, "
-                         "not %s" % in_toks.device)
-    if ops.mt is None:
+        raise ValueError("%s runs on cuda or cpu tensors, not %s"
+                         % (kernel, in_toks.device))
+    if ready is None:
         raise ValueError("operands were prepared for %s, not the card"
                          % ops.c0.device)
     if rescale_every < 1:
@@ -379,35 +385,44 @@ def lowrank_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     Lo = out_toks.shape[1]
     _check(in_toks, "in_toks", torch.int32, (B, Li), dev)
     _check(out_toks, "out_toks", torch.int32, (B, Lo), dev)
-    _check(in_lens, "in_lens", torch.int32, (B,), dev)
-    _check(out_lens, "out_lens", torch.int32, (B,), dev)
-    CC = _chunk_cells(Li, ops.k_total)
-    W = Li + 1
-    out = torch.empty(B, dtype=torch.float32, device=dev)
-    pbuf = torch.empty(max(B * 3 * W * ops.SaP, 1), dtype=torch.float32,
-                       device=dev)
-    mbuf = torch.empty(max(B * 3 * W, 1), dtype=torch.float32, device=dev)
-    lib = load("lowrank_wavefront")
-    fn = lib.lowrank_wavefront_launch
+    if in_lens is not None:
+        _check(in_lens, "in_lens", torch.int32, (B,), dev)
+        _check(out_lens, "out_lens", torch.int32, (B,), dev)
+    return B, Li, Lo
+
+
+def _call(lib, entry, ptrs, ints, desc, tail, dev):
+    """Call `entry`_launch of kernel library `lib` with pointer args, int
+    args, the descriptor array, more int args and the current stream;
+    raise on a nonzero return (the launch was refused)."""
+    fn = getattr(load(lib), entry + "_launch")
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 10 + [I] * 8 + [ctypes.POINTER(I), I, I, P]
+    fn.argtypes = ([P] * len(ptrs) + [I] * len(ints) + [ctypes.POINTER(I)]
+                   + [I] * len(tail) + [P])
     fn.restype = I
-    desc = ops.desc
-    rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), in_lens.data_ptr(),
-            out_lens.data_ptr(), ops.c0_pad.data_ptr(), ops.mt.data_ptr(),
-            ops.e.data_ptr(), pbuf.data_ptr(), mbuf.data_ptr(),
-            out.data_ptr(), B, Li, Lo, ops.Sa, ops.SaP, ops.To,
-            rescale_every, len(ops.classes),
-            desc.ctypes.data_as(ctypes.POINTER(I)), CC, ops.k_total,
+    rc = fn(*[t.data_ptr() for t in ptrs], *ints,
+            desc.ctypes.data_as(ctypes.POINTER(I)), *tail,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("lowrank_wavefront launch failed: CUDA error %d"
-                           % rc)
-    lowrank_wavefront.launches += 1
-    return out
+        raise RuntimeError("%s launch failed: CUDA error %d" % (entry, rc))
 
 
-lowrank_wavefront.launches = 0
+def _launch(entry, ops, inputs, out, extra, B, Li, Lo, n_blocks,
+            rescale_every, tail):
+    """Launch `entry` of the lowrank library: inputs, c0, M, E, the slots of
+    `n_blocks` blocks, out and `extra` pointers, the shapes and plan, then
+    the chunk size, k_total and the `tail` ints."""
+    dev = ops.c0.device
+    W = Li + 1
+    pbuf = torch.empty(max(n_blocks * 3 * W * ops.SaP, 1),
+                       dtype=torch.float32, device=dev)
+    mbuf = torch.empty(max(n_blocks * 3 * W, 1), dtype=torch.float32,
+                       device=dev)
+    _call("lowrank_wavefront", entry,
+          inputs + [ops.c0_pad, ops.mt, ops.e, pbuf, mbuf, out] + extra,
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every,
+           len(ops.classes)], ops.desc,
+          [_chunk_cells(Li, ops.k_total), ops.k_total] + tail, dev)
 
 
 def make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
@@ -416,14 +431,16 @@ def make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
 
     Log-space numpy tensors as lowering.matrices_2d returns them. Returns
     fn(in_toks (B,Li), out_toks (B,Lo), in_lens, out_lens) -> (B,) float32
-    log-likelihoods on `device` (None: the card). Chained mode (chain=N)
-    is not ported yet."""
-    if chain is not None:
-        raise NotImplementedError(
-            "lowrank chained mode (chain=%r) is not ported yet: ROADMAP.md "
-            "queue A, item 10" % (chain,))
+    log-likelihoods on `device` (None: the card). chain=N with N > 1 packs
+    N staggered equal-length pairs per strip (chained mode: B a multiple of
+    N, Li and Lo at least 1, the lengths ignored); chain None, 0 or 1 is
+    plain mode, as in the JAX factory."""
+    chained = bool(chain) and chain > 1
+    if chained:
+        check_chain(B, Li, Lo, chain)
     dev = resolve_device(device)
-    plan, mats = prepare_lowrank(a_diag, a_left, a_up, closure)
+    plan, mats = prepare_lowrank(a_diag, a_left, a_up, closure,
+                                 chained=chained)
     ops = lowrank_operands(plan, mats, a_diag.shape[1], dev)
 
     def forward(in_toks, out_toks, in_lens, out_lens):
@@ -432,6 +449,9 @@ def make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
         if tuple(args[0].shape) != (B, Li) or tuple(args[1].shape) != (B, Lo):
             raise ValueError("expected tokens of shape (%d, %d) and (%d, %d)"
                              % (B, Li, B, Lo))
+        if chained:
+            return lowrank_chained_wavefront(ops, *args, n_chain=chain,
+                                             rescale_every=rescale_every)
         return lowrank_wavefront(ops, *args, rescale_every=rescale_every)
 
     return forward

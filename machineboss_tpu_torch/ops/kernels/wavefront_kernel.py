@@ -1,9 +1,29 @@
-"""Closure-folded wavefront Forward for full-rank machines.
+"""Wavefront 2D Forward for full-rank machines: every kernel of the JAX
+factory.
 
-Counterpart of machineboss_tpu's ops/pallas/wavefront_kernel.py for the two
-kernels the batch router reaches: `_merged_kernel` (any batch) and
-`_chained_ragged_kernel` (ragged batches). The host prep (`prepare_merged`)
-is a numpy copy of the JAX factory's and gives the same numbers:
+Counterpart of machineboss_tpu's ops/pallas/wavefront_kernel.py. Each
+variant of `make_wavefront_forward` has a host prep (numpy, giving the
+numbers the JAX factory hands its kernel), a plain PyTorch version (float32
+torch, used on the CPU and as the card's comparison) and the counted wrapper
+of a hand-written CUDA kernel (a CUDA tensor launches the kernel or raises;
+only a CPU tensor takes the plain version):
+
+- merged=True: prepare_merged, merged_forward_plain, merged_wavefront;
+- variant="chained_ragged": prepare_merged, chained_ragged_forward_plain,
+  chained_ragged_wavefront;
+- variant="chained": prepare_merged, chained_forward_plain,
+  chained_wavefront;
+- merged=False (generic): prepare_generic, generic_forward_plain,
+  generic_wavefront;
+- variant="seqscale": prepare_seqscale, seqscale_forward_plain,
+  seqscale_wavefront;
+- variant="factored": prepare_factored, factored_forward_plain,
+  factored_wavefront.
+
+Each wrapper `x_wavefront` launches csrc/x_wavefront.cu.
+"lowrank" delegates to ops/kernels/lowrank_kernel.py.
+
+The merged family's prep (`prepare_merged`):
 
 1. the log-space class tensors go to probability space in float64;
 2. absent transition classes (up / left / diag) are dropped; a machine with
@@ -15,8 +35,8 @@ is a numpy copy of the JAX factory's and gives the same numbers:
    vector when the readout state has only silent incoming transitions; the
    readout is then w . p_active with w = solve(C_aa, C[active, End]).
 
-What the recurrence computes, per pair, on the cells (i, o) of its own
-lattice, diagonal d = i + o, in scaled probability p (Sa floats) with a
+What the merged recurrence computes, per pair, on the cells (i, o) of its
+own lattice, diagonal d = i + o, in scaled probability p (Sa floats) with a
 per-cell log scale m: each present class reads one neighbour (up (i, o-1)
 by the y token and left (i-1, o) by the x token on d-1, diag (i-1, o-1) by
 (x, y) on d-2); mu = max of the neighbours' m; cur = sum over classes of
@@ -24,43 +44,50 @@ F_class[tok] @ (p_nb * exp(m_nb - mu)). On diagonals with
 d % rescale_every <= 1 (both parities: diag-class mass lives on one) p is
 divided by its max over states and the log of the max goes to m; a cell
 whose max is not positive is zeroed. The readout at (il, ol) is
-m + log(p[Sa-1]), or m + log(w . p) when sink-trimmed.
+m + log(p[Sa-1]), or m + log(w . p) when sink-trimmed (ops/kernels/
+plain_walk.py has this walk in torch).
 
-Each kernel has two versions with that one recurrence:
+What the other variants change:
 
-- `merged_forward_plain` / `chained_ragged_forward_plain`: torch loops over
-  diagonals in float32, used on the CPU and as the card's comparison;
-- `merged_wavefront` / `chained_ragged_wavefront`: the wrappers of the
-  hand-written CUDA kernels (csrc/merged_wavefront.cu,
-  csrc/chained_ragged_wavefront.cu, both built on
-  csrc/wavefront_common.cuh). A CUDA tensor launches the kernel or raises;
-  only a CPU tensor takes the plain version.
-
-What chained_ragged adds to merged is scheduling. The TPU kernel sorts a
-ragged batch by length and chains sequences back to back in each lane
-window so that no lane idles behind the longest pair. The CUDA counterpart
-is a persistent kernel with a work queue: a fixed grid of blocks, the pairs
-in the same sorted order (stable, descending output length), each block
-taking the next pair from an atomic counter when its own is finished, and
-writing the score to the pair's original index.
+- chained_ragged: scheduling only. The TPU kernel sorts a ragged batch by
+  length and chains sequences back to back in each lane window; the CUDA
+  counterpart is a persistent kernel with a work queue (the pairs in the
+  same sorted order, stable, descending output length, each block taking
+  the next pair from an atomic counter).
+- chained: `chain` uniform-length pairs per lane window, staggered by
+  sigma = Lo + 2 diagonals; lengths are ignored (every pair is read out at
+  (Li, Lo)); pair n = k * (B / chain) + w is chain k of window w, and the
+  rescale rule reads the absolute diagonal sigma * k + d.
+- generic (merged=False): the class tensors NOT folded, the closure as its
+  own product per cell (cur = C^T u), mu over all three neighbours, the
+  rescale on every diagonal, no sink trim (readout at S-1).
+- seqscale: the closure folded over the full state vector (no sink trim),
+  ONE log scale per pair: no per-neighbour weights, and on
+  d % rescale_every <= 1 both live diagonals are multiplied by the
+  reciprocal of the pair's max.
+- factored: each class factored per destination column,
+  A[t, s, s'] = sum_r T_r[s, s'] E_r[t, s'] (factorize.py); per cell R
+  shared products scaled by the token's E, then the closure product; the
+  merged kernel's sink trim, scales and rescale.
 """
 
-import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ...utils.device import resolve_device
-from ._build import load
-from .lowrank_kernel import _check, _round_up, make_lowrank_forward
+from .factorize import factorize_token_tensor
+from .lowrank_kernel import (_call, _check_batch, _round_up,
+                             make_lowrank_forward)
+from .plain_walk import NEG_INF, check_chain, walk_chained, walk_plain
 
-NEG_INF = -1e30
 _TD = 4          # destination states per thread (csrc/wavefront_common.cuh)
 _KINDS = {"up": 0, "left": 1, "diag": 2}
 # blocks the kernels' grids take per multiprocessor when the caller names
 # no grid: enough resident warps to hide the L2 latency of the class blocks
 _BLOCKS_PER_SM = 4
+_ZTOL = 1e-290   # a class whose probability mass sums below this is absent
 
 
 def ragged_span(in_lens, out_lens, n_chain):
@@ -80,6 +107,19 @@ def ragged_span(in_lens, out_lens, n_chain):
     return span
 
 
+def _prob(a_diag, a_left, a_up, closure):
+    """The log-space tensors in probability space, float64, as the JAX
+    factory takes them (exp of the log clamped at -700)."""
+    return tuple(np.exp(np.maximum(np.asarray(x, np.float64), -700))
+                 for x in (a_diag, a_left, a_up, closure))
+
+
+def _classes(diag_p, left_p, up_p):
+    """(has_up, has_left, has_diag): which classes carry mass."""
+    return (float(up_p.sum()) > _ZTOL, float(left_p.sum()) > _ZTOL,
+            float(diag_p.sum()) > _ZTOL)
+
+
 def prepare_merged(a_diag, a_left, a_up, closure):
     """Host prep of the merged kernel family: fold the closure into every
     present class, trim trailing sink states.
@@ -90,18 +130,12 @@ def prepare_merged(a_diag, a_left, a_up, closure):
     source, token x*To + y for diag} for the present classes, c0 (Sa,)
     start vector and w (Sa,) sink readout vector (zeros when not
     trimmed)."""
-    diag_p = np.exp(np.maximum(np.asarray(a_diag, np.float64), -700))
-    left_p = np.exp(np.maximum(np.asarray(a_left, np.float64), -700))
-    up_p = np.exp(np.maximum(np.asarray(a_up, np.float64), -700))
-    closure_p = np.exp(np.maximum(np.asarray(closure, np.float64), -700))
+    diag_p, left_p, up_p, closure_p = _prob(a_diag, a_left, a_up, closure)
     Ti, To, S, _ = a_diag.shape
     closure_t = np.ascontiguousarray(closure_p.T).astype(np.float32)
 
     # class presence: absent transition classes are specialized away
-    ztol = 1e-290
-    has_up = float(up_p.sum()) > ztol
-    has_left = float(left_p.sum()) > ztol
-    has_diag = float(diag_p.sum()) > ztol
+    has_up, has_left, has_diag = _classes(diag_p, left_p, up_p)
     if not (has_up or has_left or has_diag):
         # degenerate (no symbol transitions): keep the UP class, whose
         # path needs no input tokens
@@ -134,15 +168,15 @@ def prepare_merged(a_diag, a_left, a_up, closure):
     eye = np.eye(S)
     is_sink = np.array([
         float(diag_p[:, :, s, :].sum() + left_p[:, s, :].sum()
-              + up_p[:, s, :].sum()) < ztol
-        and float(np.abs(closure_p[s] - eye[s]).sum()) < ztol
+              + up_p[:, s, :].sum()) < _ZTOL
+        and float(np.abs(closure_p[s] - eye[s]).sum()) < _ZTOL
         for s in range(S)])
     n_trail = 0
     while n_trail < S - 1 and is_sink[S - 1 - n_trail]:
         n_trail += 1
     readout_silent_in = (
         float(diag_p[:, :, :, S - 1].sum() + left_p[:, :, S - 1].sum()
-              + up_p[:, :, S - 1].sum()) < ztol)
+              + up_p[:, :, S - 1].sum()) < _ZTOL)
     if n_trail > 0 and readout_silent_in:
         Sa, sink = S - n_trail, True
         c_aa = np.asarray(closure_p[:Sa, :Sa], np.float64)
@@ -155,15 +189,88 @@ def prepare_merged(a_diag, a_left, a_up, closure):
             "w": w_vec}
 
 
+def prepare_generic(a_diag, a_left, a_up, closure):
+    """Host prep of the generic (unmerged) kernel: the class tensors as
+    they are, not closure-folded, and the closure's transpose, over all S
+    states (no sink trim), float32 as the JAX factory builds diag2,
+    left_cat, up_cat and closure_t.
+
+    Returns a plan dict in prepare_merged's form (Sa = S, sink False, mats
+    of the present classes as destination x source blocks A[tok]^T, c0 =
+    C[0, :]) plus `closure`, the (S, S) destination x source C^T."""
+    diag_p, left_p, up_p, closure_p = _prob(a_diag, a_left, a_up, closure)
+    Ti, To, S, _ = a_diag.shape
+    present = dict(zip(("up", "left", "diag"),
+                       _classes(diag_p, left_p, up_p)))
+    blocks = {"up": np.transpose(up_p, (0, 2, 1)),
+              "left": np.transpose(left_p, (0, 2, 1)),
+              "diag": np.transpose(diag_p, (0, 1, 3, 2))
+              .reshape(Ti * To, S, S)}
+    closure_t = np.ascontiguousarray(closure_p.T).astype(np.float32)
+    return {"Ti": Ti, "To": To, "Sa": S, "sink": False,
+            "classes": (present["up"], present["left"], present["diag"]),
+            "mats": {k: np.ascontiguousarray(v).astype(np.float32)
+                     for k, v in blocks.items() if present[k]},
+            "c0": np.ascontiguousarray(closure_t[:, 0]),
+            "w": np.zeros(S, np.float32), "closure": closure_t}
+
+
+def prepare_seqscale(a_diag, a_left, a_up, closure):
+    """Host prep of the seqscale kernel: the closure folded into every
+    class over the full state vector (no sink trim), as the JAX factory
+    builds m_ud (To*S, S + Ti*S) and m_left (S, Ti*S) for it.
+
+    Returns a plan dict in prepare_merged's form (Sa = S, sink False) whose
+    mats are the present classes' blocks cut from m_ud and m_left, plus
+    `m_ud` and `m_left` themselves (float32)."""
+    diag_p, left_p, up_p, closure_p = _prob(a_diag, a_left, a_up, closure)
+    Ti, To, S, _ = a_diag.shape
+    ct64 = np.asarray(closure_p, np.float64).T
+    cu_blocks = [ct64 @ np.asarray(up_p[t], np.float64).T for t in range(To)]
+    cd = np.zeros((To * S, Ti * S))
+    for to in range(To):
+        for ti in range(Ti):
+            cd[to * S:(to + 1) * S, ti * S:(ti + 1) * S] = \
+                ct64 @ np.asarray(diag_p[ti, to], np.float64).T
+    m_ud = np.concatenate([np.concatenate(cu_blocks, axis=0), cd], axis=1) \
+        if To else np.zeros((0, S + Ti * S))
+    m_left = np.concatenate(
+        [ct64 @ np.asarray(left_p[t], np.float64).T for t in range(Ti)],
+        axis=1) if Ti else np.zeros((S, 0))
+    m_ud = np.ascontiguousarray(m_ud).astype(np.float32)
+    m_left = np.ascontiguousarray(m_left).astype(np.float32)
+    has_up, has_left, has_diag = _classes(diag_p, left_p, up_p)
+    mats = {}
+    if has_up:
+        mats["up"] = np.array([m_ud[t * S:(t + 1) * S, :S]
+                               for t in range(To)]).reshape(To, S, S)
+    if has_left:
+        mats["left"] = np.array([m_left[:, t * S:(t + 1) * S]
+                                 for t in range(Ti)]).reshape(Ti, S, S)
+    if has_diag:
+        mats["diag"] = np.array(
+            [m_ud[to * S:(to + 1) * S, S + ti * S:S + (ti + 1) * S]
+             for ti in range(Ti) for to in range(To)]).reshape(Ti * To, S, S)
+    closure_t = np.ascontiguousarray(closure_p.T).astype(np.float32)
+    return {"Ti": Ti, "To": To, "Sa": S, "sink": False,
+            "classes": (has_up, has_left, has_diag),
+            "mats": {k: np.ascontiguousarray(v) for k, v in mats.items()},
+            "c0": np.ascontiguousarray(closure_t[:, 0]),
+            "w": np.zeros(S, np.float32), "m_ud": m_ud, "m_left": m_left}
+
+
 @dataclass
 class MergedOperands:
-    """One machine's prepare_merged plan as tensors on one device.
+    """One machine's prepare_merged (or prepare_generic, prepare_seqscale)
+    plan as tensors on one device.
 
     `mats` holds each present class's (n_tok, Sa, Sa) destination x source
-    blocks (the plain version's operands). On a CUDA device the kernel's
-    layout is added: every block transposed to source-major and zero-padded
-    to (SaP, SaP), SaP = round_up(Sa, 4), all classes packed into `mt`,
-    with one descriptor row per class in `desc` (kind, n_tok, mt_off)."""
+    blocks (the plain version's operands), `closure` the generic plan's
+    (Sa, Sa) destination x source C^T (None otherwise). On a CUDA device the
+    kernel's layout is added: every block transposed to source-major and
+    zero-padded to (SaP, SaP), SaP = round_up(Sa, 4), all classes packed
+    into `mt`, with one descriptor row per class in `desc` (kind, n_tok,
+    mt_off), and the closure source-major and padded in `ct`."""
     Sa: int
     Ti: int
     To: int
@@ -171,27 +278,40 @@ class MergedOperands:
     c0: torch.Tensor
     w: torch.Tensor
     mats: dict = field(default_factory=dict)
+    closure: torch.Tensor = None
     SaP: int = 0
     c0_pad: torch.Tensor = None
     w_pad: torch.Tensor = None
     mt: torch.Tensor = None
     desc: np.ndarray = None
+    ct: torch.Tensor = None
 
     @property
     def names(self):
         return [k for k in ("up", "left", "diag") if k in self.mats]
 
 
+def _padded(m, SaP):
+    """(..., n, n) float32 blocks zero-padded to (..., SaP, SaP)."""
+    out = np.zeros(m.shape[:-2] + (SaP, SaP), np.float32)
+    out[..., :m.shape[-2], :m.shape[-1]] = m
+    return out
+
+
 def merged_operands(plan, device):
-    """Move a prepare_merged plan to `device` (a torch.device)."""
+    """Move a prepare_merged, prepare_generic or prepare_seqscale plan to
+    `device` (a torch.device)."""
     Sa = plan["Sa"]
+    closure = plan.get("closure")
     ops = MergedOperands(
         Sa=Sa, Ti=plan["Ti"], To=plan["To"], sink=bool(plan["sink"]),
         c0=torch.tensor(np.asarray(plan["c0"], np.float32), device=device),
         w=torch.tensor(np.asarray(plan["w"], np.float32)[:Sa],
                        device=device),
         mats={k: torch.tensor(plan["mats"][k], device=device)
-              for k in ("up", "left", "diag") if k in plan["mats"]})
+              for k in ("up", "left", "diag") if k in plan["mats"]},
+        closure=None if closure is None
+        else torch.tensor(closure, device=device))
     if device.type != "cuda":
         return ops
     SaP = _round_up(max(Sa, 1), _TD)
@@ -199,8 +319,7 @@ def merged_operands(plan, device):
     for name in ops.names:
         m = plan["mats"][name]
         n_tok = m.shape[0]
-        mt = np.zeros((n_tok, SaP, SaP), np.float32)
-        mt[:, :Sa, :Sa] = np.transpose(m, (0, 2, 1))   # [tok, src, dest]
+        mt = _padded(np.transpose(m, (0, 2, 1)), SaP)  # [tok, src, dest]
         desc.append([_KINDS[name], n_tok, off])
         parts.append(mt.ravel())
         off += mt.size
@@ -213,97 +332,42 @@ def merged_operands(plan, device):
     ops.mt = torch.tensor(np.concatenate(parts + [np.zeros(4, np.float32)]),
                           device=device)
     ops.desc = np.ascontiguousarray(desc, np.int32).reshape(-1)
+    if closure is not None:
+        ops.ct = torch.tensor(_padded(np.asarray(closure).T, SaP),
+                              device=device)
     return ops
 
 
-def merged_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
-                         rescale_every=4):
-    """Plain PyTorch version of the merged wavefront, float32.
-
-    in_toks (B, Li), out_toks (B, Lo), in_lens/out_lens (B,) integer
-    tensors on the device of `ops`. Cells are indexed by i on each diagonal
-    d = i + o, slab (B, Li+1, Sa); the loop stops at the batch's last
-    readout diagonal. A class's token block is selected after one wide
-    product against all of its blocks. Returns (B,) log-likelihoods."""
-    B, Li = in_toks.shape
-    Lo = out_toks.shape[1]
-    Sa, To = ops.Sa, ops.To
-    W = Li + 1
-    dev = ops.c0.device
-    f32 = torch.float32
-    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
-    i_idx = torch.arange(W, device=dev)
-    b_idx = torch.arange(B, device=dev)
-    il = in_lens.long()
-    dfin = il + out_lens.long()
-    x_tok = in_toks.long()[:, torch.clamp(i_idx - 1, 0, max(Li - 1, 0))] \
-        if Li else torch.zeros((B, W), dtype=torch.long, device=dev)
+def _merged_term(ops):
+    """The class term of the merged layout for walk_plain: a class's token
+    block is selected after one wide product against all of its blocks."""
+    Sa = ops.Sa
     # [src, (tok, dest)] per class: one product serves every token
     wide = {k: m.permute(2, 0, 1).reshape(Sa, -1) for k, m in ops.mats.items()}
 
-    p1 = torch.zeros((B, W, Sa), dtype=f32, device=dev)
-    p1[:, 0] = ops.c0
-    m1 = torch.full((B, W), NEG_INF, dtype=f32, device=dev)
-    m1[:, 0] = 0.0
-    p2 = torch.zeros_like(p1)
-    m2 = torch.full_like(m1, NEG_INF)
+    def term(name, q, tok):
+        B, W = tok.shape
+        n_tok = ops.mats[name].shape[0]
+        if n_tok == 0:
+            return torch.zeros_like(q)
+        out_all = (q @ wide[name]).reshape(B, W, n_tok, Sa)
+        idx = tok[:, :, None, None].expand(-1, -1, 1, Sa)
+        return torch.gather(out_all, 2, idx)[:, :, 0]
+    return term
 
-    def readout(p, m):
-        cell = p[b_idx, il]
-        end = (cell * ops.w).sum(dim=-1) if ops.sink else cell[:, Sa - 1]
-        return torch.where(end > 0, m[b_idx, il]
-                           + torch.log(torch.clamp(end, min=1e-37)), neg)
 
-    res = torch.where(dfin == 0, readout(p1, m1), neg)
-    zp = torch.zeros((B, 1, Sa), dtype=f32, device=dev)
-    zm = torch.full((B, 1), NEG_INF, dtype=f32, device=dev)
-    n_diag = int(dfin.max()) if B else 0
-    for d in range(1, n_diag + 1):
-        o_idx = d - i_idx
-        valid = (o_idx >= 0) & (o_idx <= Lo)
-        y_tok = out_toks.long()[:, torch.clamp(o_idx - 1, 0, max(Lo - 1, 0))] \
-            if Lo else torch.zeros((B, W), dtype=torch.long, device=dev)
-        has_y = (o_idx >= 1)[None, :]
-        has_x = (i_idx >= 1)[None, :]
-        # neighbour slab, its log scale, the cell's token and whether the
-        # neighbour exists for the cell
-        nb = {"up": (p1, m1, y_tok, has_y),
-              "left": (torch.cat([zp, p1[:, :-1]], 1),
-                       torch.cat([zm, m1[:, :-1]], 1), x_tok, has_x),
-              "diag": (torch.cat([zp, p2[:, :-1]], 1),
-                       torch.cat([zm, m2[:, :-1]], 1),
-                       x_tok * To + y_tok, has_x & has_y)}
-        mu = torch.full((B, W), NEG_INF, dtype=f32, device=dev)
-        for name in ops.names:
-            _, m_op, _, has = nb[name]
-            mu = torch.maximum(mu, torch.where(has, m_op, neg))
-        mu_safe = torch.where(mu > NEG_INF / 2, mu, torch.zeros_like(mu))
-        cur = torch.zeros((B, W, Sa), dtype=f32, device=dev)
-        for name in ops.names:
-            p_op, m_op, tok, has = nb[name]
-            w = torch.where(has & (m_op > NEG_INF / 2),
-                            torch.exp(m_op - mu_safe), torch.zeros_like(m_op))
-            n_tok = ops.mats[name].shape[0]
-            if n_tok == 0:
-                continue
-            out_all = ((p_op * w[:, :, None]) @ wide[name]) \
-                .reshape(B, W, n_tok, Sa)
-            idx = tok[:, :, None, None].expand(-1, -1, 1, Sa)
-            cur = cur + torch.gather(out_all, 2, idx)[:, :, 0]
-        m_new = torch.where(valid[None, :], mu, neg)
-        cur = torch.where(valid[None, :, None], cur, torch.zeros_like(cur))
-        # rescale on TWO consecutive diagonals so both parities (the diag
-        # class lives on one of them) are renormalised
-        if d % rescale_every <= 1:
-            mx = cur.max(dim=-1).values
-            has = (mx > 0) & valid[None, :]
-            den = torch.clamp(mx, min=1e-37)
-            cur = torch.where(has[:, :, None], cur / den[:, :, None],
-                              torch.zeros_like(cur))
-            m_new = torch.where(has, m_new + torch.log(den), neg)
-        res = torch.where(dfin == d, readout(cur, m_new), res)
-        p2, m2, p1, m1 = p1, m1, cur, m_new
-    return res
+def merged_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
+                         rescale_every=4, diag_offset=None):
+    """Plain PyTorch version of the merged wavefront, float32.
+
+    in_toks (B, Li), out_toks (B, Lo), in_lens/out_lens (B,) integer
+    tensors on the device of `ops`. `diag_offset` (B,), if given, is the
+    absolute diagonal each pair starts on, which the rescale rule reads
+    (the chained schedule). Returns (B,) log-likelihoods."""
+    return walk_plain(ops.c0, _merged_term(ops), ops.names, in_toks,
+                      out_toks, in_lens, out_lens, ops.To, rescale_every,
+                      readout_w=ops.w if ops.sink else None,
+                      diag_offset=diag_offset)
 
 
 def sorted_order(out_lens):
@@ -328,54 +392,289 @@ def chained_ragged_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
     return res
 
 
+def chained_forward_plain(ops, in_toks, out_toks, in_lens=None,
+                          out_lens=None, n_chain=4, rescale_every=4):
+    """Plain PyTorch version of the chained schedule
+    (plain_walk.walk_chained over merged_forward_plain): every pair read
+    out at (Li, Lo), the rescale rule on the absolute diagonal."""
+    return walk_chained(merged_forward_plain, ops, in_toks, out_toks,
+                        n_chain, rescale_every)
+
+
+def generic_forward_plain(ops, in_toks, out_toks, in_lens, out_lens):
+    """Plain PyTorch version of the generic kernel (a prepare_generic
+    plan): mu over all three neighbours, the unfolded class terms, the
+    closure product C^T u per cell, the rescale on every diagonal, readout
+    at S-1. Returns (B,) log-likelihoods."""
+    return walk_plain(ops.c0, _merged_term(ops), ops.names, in_toks,
+                      out_toks, in_lens, out_lens, ops.To, rescale_every=1,
+                      mu_all=True, closure_t=ops.closure)
+
+
+def seqscale_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
+                           rescale_every=4):
+    """Plain PyTorch version of the seqscale kernel (a prepare_seqscale
+    plan), float32: ONE log scale M per pair, no per-neighbour weights;
+    cur = sum over classes of F_class[tok] @ p_nb on the pair's own cells
+    (i <= il, o <= ol); on d % rescale_every <= 1 both live diagonals are
+    multiplied by the reciprocal of the pair's max over them (a factor of 1
+    when it is 0) and M absorbs its log. Readout M + log(p[S-1]). Returns
+    (B,)."""
+    B, Li = in_toks.shape
+    Lo = out_toks.shape[1]
+    Sa, To = ops.Sa, ops.To
+    W = Li + 1
+    dev = ops.c0.device
+    f32 = torch.float32
+    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    i_idx = torch.arange(W, device=dev)
+    b_idx = torch.arange(B, device=dev)
+    il = in_lens.long()
+    ol = out_lens.long()
+    dfin = il + ol
+    x_tok = in_toks.long()[:, torch.clamp(i_idx - 1, 0, max(Li - 1, 0))] \
+        if Li else torch.zeros((B, W), dtype=torch.long, device=dev)
+    term = _merged_term(ops)
+
+    p1 = torch.zeros((B, W, Sa), dtype=f32, device=dev)
+    p1[:, 0] = ops.c0
+    p2 = torch.zeros_like(p1)
+    M = torch.zeros(B, dtype=f32, device=dev)
+
+    def readout(p):
+        end = p[b_idx, il, Sa - 1]
+        return torch.where(end > 0, M + torch.log(torch.clamp(end, min=1e-37)),
+                           neg)
+
+    res = torch.where(dfin == 0, readout(p1), neg)
+    zp = torch.zeros((B, 1, Sa), dtype=f32, device=dev)
+    n_diag = int(dfin.max()) if B else 0
+    for d in range(1, n_diag + 1):
+        o_idx = d - i_idx
+        in_pair = ((o_idx >= 0)[None, :] & (i_idx[None, :] <= il[:, None])
+                   & (o_idx[None, :] <= ol[:, None]))
+        y_tok = out_toks.long()[:, torch.clamp(o_idx - 1, 0, max(Lo - 1, 0))] \
+            if Lo else torch.zeros((B, W), dtype=torch.long, device=dev)
+        has_y = (o_idx >= 1)[None, :, None]
+        has_x = (i_idx >= 1)[None, :, None]
+        nb = {"up": (p1 * has_y, y_tok),
+              "left": (torch.cat([zp, p1[:, :-1]], 1) * has_x, x_tok),
+              "diag": (torch.cat([zp, p2[:, :-1]], 1) * (has_x & has_y),
+                       x_tok * To + y_tok)}
+        cur = torch.zeros((B, W, Sa), dtype=f32, device=dev)
+        for name in ops.names:
+            cur = cur + term(name, *nb[name])
+        cur = torch.where(in_pair[:, :, None], cur, torch.zeros_like(cur))
+        if d % rescale_every <= 1:
+            mx = torch.maximum(cur.amax(dim=(1, 2)), p1.amax(dim=(1, 2)))
+            f = torch.where(mx > 0, mx, torch.ones_like(mx))
+            inv = (1.0 / f)[:, None, None]
+            cur = cur * inv
+            p1 = p1 * inv
+            M = M + torch.log(f)
+        res = torch.where(dfin == d, readout(cur), res)
+        p2, p1 = p1, cur
+    return res
+
+
+def prepare_factored(a_diag, a_left, a_up, closure):
+    """Host prep of the factored kernel, as the JAX factory's: sink-state
+    trim (exact-zero criterion), then each class tensor factored per
+    destination column, A[t, s, s'] = sum_r T_r[s, s'] E_r[t, s'].
+
+    Returns a dict: Ti, To, Sa, sink, w (Sa,) sink readout vector (zeros
+    when not trimmed), c0 (Sa,), closure (Sa, Sa) C^T (destination x
+    source), and classes: [(name, mt (r*Sa, Sa) with mt[(r, s'), s] =
+    T_r[s, s'], e (r*Sa, n_tok) with e[(r, s'), t] = E_r[t, s'], r)] for
+    the classes of rank > 0, in the order up, left, diag. Every array is
+    float32."""
+    def pz(a):
+        a64 = np.asarray(a, np.float64)
+        return np.where(a64 > -1e29, np.exp(np.minimum(a64, 700.0)), 0.0)
+
+    diag_z, left_z, up_z, clo_z = (pz(a_diag), pz(a_left), pz(a_up),
+                                   pz(closure))
+    Ti, To, S, _ = diag_z.shape
+    eye = np.eye(S)
+    is_sink = np.array([
+        float(diag_z[:, :, s, :].sum() + left_z[:, s, :].sum()
+              + up_z[:, s, :].sum()) == 0.0
+        and float(np.abs(clo_z[s] - eye[s]).sum()) == 0.0
+        for s in range(S)])
+    n_trail = 0
+    while n_trail < S - 1 and is_sink[S - 1 - n_trail]:
+        n_trail += 1
+    readout_silent_in = (
+        float(diag_z[:, :, :, S - 1].sum() + left_z[:, :, S - 1].sum()
+              + up_z[:, :, S - 1].sum()) == 0.0)
+    Sa, sink = S, False
+    w_vec = np.zeros(S, np.float32)
+    if n_trail > 0 and readout_silent_in:
+        Sa, sink = S - n_trail, True
+        w_vec = np.linalg.solve(clo_z[:Sa, :Sa], clo_z[:Sa, S - 1]) \
+            .astype(np.float32)
+        diag_z = diag_z[:, :, :Sa, :Sa]
+        left_z = left_z[:, :Sa, :Sa]
+        up_z = up_z[:, :Sa, :Sa]
+        clo_z = clo_z[:Sa, :Sa]
+    classes = []
+    for name, tensor, n_tok in (("up", up_z, To), ("left", left_z, Ti),
+                                ("diag", diag_z.reshape(Ti * To, Sa, Sa),
+                                 Ti * To)):
+        ts, es, r = factorize_token_tensor(tensor)
+        if not r:
+            continue
+        mt = np.ascontiguousarray(
+            np.transpose(ts, (0, 2, 1)).reshape(r * Sa, Sa)).astype(np.float32)
+        e = np.ascontiguousarray(
+            np.transpose(es, (0, 2, 1)).reshape(r * Sa, n_tok)) \
+            .astype(np.float32)
+        classes.append((name, mt, e, r))
+    clo_t = np.ascontiguousarray(clo_z.T).astype(np.float32)
+    return {"Ti": Ti, "To": To, "Sa": Sa, "sink": sink, "w": w_vec,
+            "c0": np.ascontiguousarray(clo_t[:, 0]), "closure": clo_t,
+            "classes": classes}
+
+
+@dataclass
+class FactoredOperands:
+    """A prepare_factored plan as tensors on one device.
+
+    `classes` holds (name, Tm (Sa, r*Sa) with Tm[s, (r, s')] = T_r[s, s'],
+    Et (n_tok, r, Sa) with Et[t, r, s'] = E_r[t, s'], r) for the plain
+    version. On a CUDA device the kernel's layout is added: the factors T
+    as [SaP][r][SaP] and the token scales E as [n_tok][r][SaP] (zero
+    padded, SaP = round_up(Sa, 4)) packed into `tk` and `ek`, one
+    descriptor row per class in `desc` (kind, n_tok, rank, t_off, e_off),
+    C^T source-major and padded in `ct`."""
+    Sa: int
+    To: int
+    sink: bool
+    c0: torch.Tensor
+    w: torch.Tensor
+    closure: torch.Tensor
+    classes: list
+    SaP: int = 0
+    c0_pad: torch.Tensor = None
+    w_pad: torch.Tensor = None
+    tk: torch.Tensor = None
+    ek: torch.Tensor = None
+    ct: torch.Tensor = None
+    desc: np.ndarray = None
+
+    @property
+    def names(self):
+        return [c[0] for c in self.classes]
+
+
+def factored_operands(plan, device):
+    """Move a prepare_factored plan to `device` (a torch.device)."""
+    Sa = plan["Sa"]
+    classes = []
+    for name, mt, e, r in plan["classes"]:
+        n_tok = e.shape[1]
+        classes.append((name, torch.tensor(np.ascontiguousarray(mt.T),
+                                           device=device),
+                        torch.tensor(np.ascontiguousarray(
+                            e.T.reshape(n_tok, r, Sa)), device=device), r))
+    ops = FactoredOperands(
+        Sa=Sa, To=plan["To"], sink=bool(plan["sink"]),
+        c0=torch.tensor(plan["c0"], device=device),
+        w=torch.tensor(np.asarray(plan["w"], np.float32)[:Sa], device=device),
+        closure=torch.tensor(plan["closure"], device=device), classes=classes)
+    if device.type != "cuda":
+        return ops
+    SaP = _round_up(max(Sa, 1), _TD)
+    t_parts, e_parts, desc = [], [], []
+    t_off = e_off = 0
+    for name, mt, e, r in plan["classes"]:
+        n_tok = e.shape[1]
+        tk = np.zeros((SaP, r, SaP), np.float32)
+        tk[:Sa, :, :Sa] = np.transpose(mt.reshape(r, Sa, Sa), (2, 0, 1))
+        ek = np.zeros((n_tok, r, SaP), np.float32)
+        ek[:, :, :Sa] = np.transpose(e.reshape(r, Sa, n_tok), (2, 0, 1))
+        desc.append([_KINDS[name], n_tok, r, t_off, e_off])
+        t_parts.append(tk.ravel())
+        e_parts.append(ek.ravel())
+        t_off += tk.size
+        e_off += ek.size
+    pad = np.zeros((2, SaP), np.float32)
+    pad[0, :Sa] = plan["c0"]
+    pad[1, :Sa] = np.asarray(plan["w"])[:Sa]
+    empty = [np.zeros(4, np.float32)]
+    ops.SaP = SaP
+    ops.c0_pad = torch.tensor(pad[0], device=device)
+    ops.w_pad = torch.tensor(pad[1], device=device)
+    ops.tk = torch.tensor(np.concatenate(t_parts + empty), device=device)
+    ops.ek = torch.tensor(np.concatenate(e_parts + empty), device=device)
+    ops.ct = torch.tensor(_padded(plan["closure"].T, SaP), device=device)
+    ops.desc = np.ascontiguousarray(desc, np.int32).reshape(-1)
+    return ops
+
+
+def factored_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
+                           rescale_every=4):
+    """Plain PyTorch version of the factored kernel (a prepare_factored
+    plan), float32: per class sum_r (T_r^T q) * E_r[tok], then the closure
+    C^T per cell, with the merged kernel's scales, rescale and readout.
+    Returns (B,) log-likelihoods."""
+    by_name = {c[0]: c for c in ops.classes}
+    Sa = ops.Sa
+
+    def term(name, q, tok):
+        _, Tm, Et, r = by_name[name]
+        B, W = tok.shape
+        out = (q @ Tm).reshape(B, W, r, Sa)
+        return (out * Et[tok]).sum(dim=2)
+
+    return walk_plain(ops.c0, term, ops.names, in_toks, out_toks, in_lens,
+                      out_lens, ops.To, rescale_every,
+                      readout_w=ops.w if ops.sink else None,
+                      closure_t=ops.closure)
+
+
+# ------------------------------------------------------------ the wrappers
+
 def _default_grid(dev, B):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(B, _BLOCKS_PER_SM * sms))
 
 
-def _launch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
-            rescale_every, grid, queue):
-    """Checks shared by both wrappers, scratch allocation and the launch.
-    `queue` is None (merged) or (order, counter) device tensors."""
-    if in_toks.device.type != "cuda":
-        raise ValueError("%s runs on cuda or cpu tensors, not %s"
-                         % (kernel, in_toks.device))
-    if ops.mt is None:
-        raise ValueError("operands were prepared for %s, not the card"
-                         % ops.c0.device)
-    if rescale_every < 1:
-        raise ValueError("rescale_every must be >= 1")
-    dev = ops.c0.device
-    B, Li = in_toks.shape
-    Lo = out_toks.shape[1]
-    _check(in_toks, "in_toks", torch.int32, (B, Li), dev)
-    _check(out_toks, "out_toks", torch.int32, (B, Lo), dev)
-    _check(in_lens, "in_lens", torch.int32, (B,), dev)
-    _check(out_lens, "out_lens", torch.int32, (B,), dev)
+def _grid(dev, B, grid):
     grid = _default_grid(dev, B) if grid is None else int(grid)
     if grid < 1:
         raise ValueError("grid must be >= 1")
-    W = Li + 1
+    return grid
+
+
+def _slots(n_blocks, W, SaP, dev, extra=False):
+    """The diagonal state of the pairs `n_blocks` blocks are walking: three
+    rotating (W, SaP) slots and their log scales per block (and a fourth
+    slot for the unclosed terms when `extra`)."""
+    f32 = torch.float32
+    out = [torch.empty(max(n_blocks * 3 * W * SaP, 1), dtype=f32, device=dev),
+           torch.empty(max(n_blocks * 3 * W, 1), dtype=f32, device=dev)]
+    if extra:
+        out.append(torch.empty(max(n_blocks * W * SaP, 1), dtype=f32,
+                               device=dev))
+    return out
+
+
+def _launch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
+            rescale_every, grid, queue):
+    """The merged and chained_ragged launch. `queue` is None (merged) or
+    (order, counter) device tensors."""
+    B, Li, Lo = _check_batch(kernel, ops, in_toks, out_toks, in_lens,
+                             out_lens, rescale_every, ops.mt)
+    dev = ops.c0.device
+    grid = _grid(dev, B, grid)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    # the diagonal state of the pair a block is walking: three rotating
-    # (W, SaP) slots and their log scales, per block of the grid
-    pbuf = torch.empty(grid * 3 * W * ops.SaP, dtype=torch.float32,
-                       device=dev)
-    mbuf = torch.empty(grid * 3 * W, dtype=torch.float32, device=dev)
-    fn = getattr(load(kernel), kernel + "_launch")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    n_ptr = 10 + (2 if queue else 0)
-    fn.argtypes = [P] * n_ptr + [I] * 9 + [ctypes.POINTER(I), I, P]
-    fn.restype = I
-    ptrs = [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.w_pad,
-            ops.mt, pbuf, mbuf, out] + list(queue or ())
-    desc = ops.desc
-    rc = fn(*[t.data_ptr() for t in ptrs], B, Li, Lo, ops.Sa, ops.SaP,
-            ops.To, rescale_every, int(ops.sink), len(ops.names),
-            desc.ctypes.data_as(ctypes.POINTER(I)), grid,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("%s launch failed: CUDA error %d" % (kernel, rc))
+    pbuf, mbuf = _slots(grid, Li + 1, ops.SaP, dev)
+    _call(kernel, kernel,
+          [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.w_pad,
+           ops.mt, pbuf, mbuf, out] + list(queue or ()),
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
+           len(ops.names)], ops.desc, [grid], dev)
     return out
 
 
@@ -430,6 +729,130 @@ def chained_ragged_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
 chained_ragged_wavefront.launches = 0
 
 
+def chained_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
+                      n_chain=4, rescale_every=4):
+    """Chained wavefront Forward over a uniform-length batch: (B,) float32
+    log-likelihoods, every pair read out at (Li, Lo) (the lengths are
+    ignored; B must be a multiple of n_chain, Li and Lo at least 1).
+
+    A CUDA tensor launches csrc/chained_wavefront.cu (one block per strip
+    of n_chain pairs n = k * (B / n_chain) + w) and counts one launch in
+    `chained_wavefront.launches`; a CPU tensor takes
+    chained_forward_plain. Token tensors are int32 and contiguous, on the
+    device of `ops` (a prepare_merged plan). A pair with a token outside
+    its alphabet comes back NaN."""
+    if in_toks.device.type == "cpu":
+        return chained_forward_plain(ops, in_toks, out_toks, n_chain=n_chain,
+                                     rescale_every=rescale_every)
+    B, Li, Lo = _check_batch("chained_wavefront", ops, in_toks, out_toks,
+                             None, None, rescale_every, ops.mt)
+    check_chain(B, Li, Lo, n_chain)
+    dev = ops.c0.device
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    bad = torch.zeros(B, dtype=torch.int32, device=dev)
+    pbuf, mbuf = _slots(B // n_chain, Li + 1, ops.SaP, dev)
+    _call("chained_wavefront", "chained_wavefront",
+          [in_toks, out_toks, ops.c0_pad, ops.w_pad, ops.mt, pbuf, mbuf, out,
+           bad],
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
+           len(ops.names)], ops.desc, [n_chain], dev)
+    chained_wavefront.launches += 1
+    return out
+
+
+chained_wavefront.launches = 0
+
+
+def generic_wavefront(ops, in_toks, out_toks, in_lens, out_lens, grid=None):
+    """Generic (unmerged) wavefront Forward: (B,) float32 log-likelihoods.
+
+    `ops` is a prepare_generic plan (merged_operands). A CUDA tensor
+    launches csrc/generic_wavefront.cu (block g walks pairs g, g + grid,
+    ...; default grid as merged_wavefront) and counts one launch in
+    `generic_wavefront.launches`; a CPU tensor takes
+    generic_forward_plain. The rescale runs on every diagonal, as in the
+    JAX kernel. Other arguments as merged_wavefront."""
+    if in_toks.device.type == "cpu":
+        return generic_forward_plain(ops, in_toks, out_toks, in_lens,
+                                     out_lens)
+    B, Li, Lo = _check_batch("generic_wavefront", ops, in_toks, out_toks,
+                             in_lens, out_lens, 1, ops.ct)
+    dev = ops.c0.device
+    grid = _grid(dev, B, grid)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    pbuf, mbuf, ubuf = _slots(grid, Li + 1, ops.SaP, dev, extra=True)
+    _call("generic_wavefront", "generic_wavefront",
+          [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.mt, ops.ct,
+           pbuf, mbuf, ubuf, out],
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, len(ops.names)], ops.desc,
+          [grid], dev)
+    generic_wavefront.launches += 1
+    return out
+
+
+generic_wavefront.launches = 0
+
+
+def seqscale_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
+                       rescale_every=4, grid=None):
+    """Per-pair-scale wavefront Forward: (B,) float32 log-likelihoods.
+
+    `ops` is a prepare_seqscale plan (merged_operands). A CUDA tensor
+    launches csrc/seqscale_wavefront.cu (block g walks pairs g, g + grid,
+    ...) and counts one launch in `seqscale_wavefront.launches`; a CPU
+    tensor takes seqscale_forward_plain. Other arguments as
+    merged_wavefront."""
+    if in_toks.device.type == "cpu":
+        return seqscale_forward_plain(ops, in_toks, out_toks, in_lens,
+                                      out_lens, rescale_every)
+    B, Li, Lo = _check_batch("seqscale_wavefront", ops, in_toks, out_toks,
+                             in_lens, out_lens, rescale_every, ops.mt)
+    dev = ops.c0.device
+    grid = _grid(dev, B, grid)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    pbuf = _slots(grid, Li + 1, ops.SaP, dev)[0]
+    _call("seqscale_wavefront", "seqscale_wavefront",
+          [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.mt, pbuf,
+           out],
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every,
+           len(ops.names)], ops.desc, [grid], dev)
+    seqscale_wavefront.launches += 1
+    return out
+
+
+seqscale_wavefront.launches = 0
+
+
+def factored_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
+                       rescale_every=4, grid=None):
+    """Destination-factored wavefront Forward: (B,) float32
+    log-likelihoods.
+
+    `ops` is a FactoredOperands. A CUDA tensor launches
+    csrc/factored_wavefront.cu (block g walks pairs g, g + grid, ...) and
+    counts one launch in `factored_wavefront.launches`; a CPU tensor takes
+    factored_forward_plain. Other arguments as merged_wavefront."""
+    if in_toks.device.type == "cpu":
+        return factored_forward_plain(ops, in_toks, out_toks, in_lens,
+                                      out_lens, rescale_every)
+    B, Li, Lo = _check_batch("factored_wavefront", ops, in_toks, out_toks,
+                             in_lens, out_lens, rescale_every, ops.tk)
+    dev = ops.c0.device
+    grid = _grid(dev, B, grid)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    pbuf, mbuf, ubuf = _slots(grid, Li + 1, ops.SaP, dev, extra=True)
+    _call("factored_wavefront", "factored_wavefront",
+          [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.w_pad,
+           ops.tk, ops.ek, ops.ct, pbuf, mbuf, ubuf, out],
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
+           len(ops.classes)], ops.desc, [grid], dev)
+    factored_wavefront.launches += 1
+    return out
+
+
+factored_wavefront.launches = 0
+
+
 def make_wavefront_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
                            device=None, merged=False, rescale_every=4,
                            variant=None, n_abs_hint=None, chain=None):
@@ -439,14 +862,17 @@ def make_wavefront_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
     fn(in_toks (B,Li), out_toks (B,Lo), in_lens (B,), out_lens (B,)) ->
     (B,) float32 log-likelihoods on `device` (None: the card).
 
-    merged=True, variant=None builds the merged kernel;
-    variant="chained_ragged" the ragged schedule (B must be a multiple of
-    `chain`, default 4, and the padded shapes non-empty, as the JAX factory
-    asks; `chain` and `n_abs_hint` size the TPU kernel's lane windows and
-    grid and are accepted and unused here, where a work queue takes their
-    place); variant="lowrank" delegates to make_lowrank_forward. The other
-    variants of the JAX factory ("chained", "seqscale", "factored", and the
-    generic kernel of merged=False) are not ported yet.
+    As the JAX factory: variant=None builds the merged kernel with
+    merged=True and the generic kernel with merged=False (the default);
+    variant="chained" the chained schedule over uniform lengths (`chain`
+    pairs per window, default 4; B a multiple of it, Li and Lo at least 1;
+    the lengths are ignored; `merged` is ignored); variant="chained_ragged"
+    the ragged schedule (the same conditions on B, Li, Lo; `chain` and
+    `n_abs_hint` size the TPU kernel's lane windows and grid and are
+    accepted and unused here, where a work queue takes their place);
+    variant="seqscale" the one-scale-per-pair kernel; variant="factored"
+    the destination-factored kernel; variant="lowrank" delegates to
+    make_lowrank_forward (with `chain`).
 
     The JAX factory's `precision`, `split`, `n_chunks` and `interpret` are
     knobs of the TPU's matrix unit and compiler and are not carried: every
@@ -455,26 +881,33 @@ def make_wavefront_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
         return make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
                                     device=device,
                                     rescale_every=rescale_every, chain=chain)
-    if variant in ("chained", "seqscale", "factored"):
-        raise NotImplementedError(
-            "wavefront variant %r is not ported yet: ROADMAP.md queue A, "
-            "item 10" % (variant,))
-    if variant not in (None, "chained_ragged"):
+    if variant not in (None, "chained", "chained_ragged", "seqscale",
+                       "factored"):
         raise ValueError("unknown wavefront variant %r" % (variant,))
-    if variant is None and not merged:
-        raise NotImplementedError(
-            "the generic unmerged wavefront kernel (merged=False) is not "
-            "ported yet: ROADMAP.md queue A, item 10")
-    if variant == "chained_ragged":
+    if variant in ("chained", "chained_ragged"):
         n_chain = chain or 4
-        if B % n_chain:
-            raise ValueError("chained_ragged: B must be a multiple of chain")
-        if Li < 1 or Lo < 1:
-            raise ValueError("chained_ragged: needs non-empty sequences")
+        check_chain(B, Li, Lo, n_chain)
     dev = resolve_device(device)
-    ops = merged_operands(prepare_merged(a_diag, a_left, a_up, closure), dev)
-    wrapper = chained_ragged_wavefront if variant == "chained_ragged" \
-        else merged_wavefront
+    kw = {"rescale_every": rescale_every}
+    if variant == "factored":
+        ops = factored_operands(
+            prepare_factored(a_diag, a_left, a_up, closure), dev)
+        wrapper = factored_wavefront
+    elif variant == "seqscale":
+        ops = merged_operands(
+            prepare_seqscale(a_diag, a_left, a_up, closure), dev)
+        wrapper = seqscale_wavefront
+    elif variant is None and not merged:
+        ops = merged_operands(
+            prepare_generic(a_diag, a_left, a_up, closure), dev)
+        wrapper, kw = generic_wavefront, {}
+    else:
+        ops = merged_operands(
+            prepare_merged(a_diag, a_left, a_up, closure), dev)
+        wrapper = {None: merged_wavefront, "chained": chained_wavefront,
+                   "chained_ragged": chained_ragged_wavefront}[variant]
+        if variant == "chained":
+            kw["n_chain"] = n_chain
 
     def forward(in_toks, out_toks, in_lens, out_lens):
         args = [torch.as_tensor(x, device=dev).to(torch.int32).contiguous()
@@ -482,6 +915,6 @@ def make_wavefront_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
         if tuple(args[0].shape) != (B, Li) or tuple(args[1].shape) != (B, Lo):
             raise ValueError("expected tokens of shape (%d, %d) and (%d, %d)"
                              % (B, Li, B, Lo))
-        return wrapper(ops, *args, rescale_every=rescale_every)
+        return wrapper(ops, *args, **kw)
 
     return forward

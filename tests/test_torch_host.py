@@ -181,11 +181,14 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     assert set(_build.SOURCES) == {
         "lowrank_wavefront", "merged_wavefront", "chained_ragged_wavefront",
-        "scan1d", "viterbi_wavefront", "viterbi_banded_wavefront",
-        "lattice_walk", "fused_plan7"}
+        "chained_wavefront", "generic_wavefront", "seqscale_wavefront",
+        "factored_wavefront", "scan1d", "viterbi_wavefront",
+        "viterbi_banded_wavefront", "lattice_walk", "fused_plan7"}
     for name, deps in (("merged_wavefront", 2),
                        ("chained_ragged_wavefront", 2),
-                       ("lowrank_wavefront", 1), ("scan1d", 1),
+                       ("chained_wavefront", 3), ("generic_wavefront", 2),
+                       ("seqscale_wavefront", 2), ("factored_wavefront", 2),
+                       ("lowrank_wavefront", 2), ("scan1d", 1),
                        ("viterbi_wavefront", 2),
                        ("viterbi_banded_wavefront", 2), ("lattice_walk", 1),
                        ("fused_plan7", 1)):
@@ -193,17 +196,25 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
         assert all(f.startswith(str(csrc)) for f in files)
     before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
-    assert len(set(before.values())) == 8
+    assert len(set(before.values())) == 12
     with open(csrc / "wavefront_common.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
     changed = {n for n in before if before[n] != after[n]}
-    assert changed == {"merged_wavefront", "chained_ragged_wavefront"}
+    assert changed == {"merged_wavefront", "chained_ragged_wavefront",
+                       "chained_wavefront", "generic_wavefront",
+                       "seqscale_wavefront", "factored_wavefront"}
+    # the chained schedule's header: both chained kernels and no other
+    with open(csrc / "strip.cuh", "ab") as f:
+        f.write(b"\n// edited\n")
+    changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
+    assert changed == {"chained_wavefront", "lowrank_wavefront"}
+    after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
     with open(csrc / "scan1d.cu", "ab") as f:
         f.write(b"\n// edited\n")
     assert _build._lib_path("scan1d")[1] != after["scan1d"]
     assert _build._lib_path("lowrank_wavefront")[1] == \
-        before["lowrank_wavefront"]
+        after["lowrank_wavefront"]
     with open(csrc / "viterbi_common.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     changed = {n for n in after if _build._lib_path(n)[1] != after[n]}

@@ -81,3 +81,44 @@ def test_fused_plan7_modules_are_among_the_probed():
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_wavefront_variant_modules_are_among_the_probed():
+    """The 2D Forward variants' modules are in the walked package, and
+    importing them alone loads neither jax nor machineboss_tpu."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"ops/kernels/wavefront_kernel.py", "ops/kernels/lowrank_kernel.py",
+            "ops/kernels/plain_walk.py", "ops/kernels/factorize.py"} <= rel
+    probe = ("import machineboss_tpu_torch.ops.kernels.wavefront_kernel "
+             "as wk, machineboss_tpu_torch.ops.kernels.lowrank_kernel as lk, "
+             "sys; "
+             "[getattr(wk, n) for n in ('chained_wavefront', "
+             "'generic_wavefront', 'seqscale_wavefront', "
+             "'factored_wavefront', 'prepare_generic', 'prepare_seqscale', "
+             "'prepare_factored')]; lk.lowrank_chained_wavefront; "
+             "assert 'jax' not in sys.modules "
+             "and 'machineboss_tpu' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_every_kernel_source_is_built_and_calls_no_library():
+    """Every csrc/*.cu is a library that _build.py builds, and every csrc
+    file includes only CUDA's runtime header, stdint.h and the package's
+    own headers: no PyTorch, cuBLAS, cuDNN or CUTLASS kernel."""
+    from machineboss_tpu_torch.ops.kernels import _build
+    csrc = os.path.join(PKG, "csrc")
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert sorted(_build.SOURCES.values()) == sources
+    assert len(sources) == 12
+    local = set(os.listdir(csrc))
+    for name in os.listdir(csrc):
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        for inc in re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text,
+                              re.M):
+            assert inc in local | {"cuda_runtime.h", "stdint.h"}, (name, inc)
+        assert not re.search(r"\b(cublas|cudnn)\w*\s*\(|"
+                             r"\b(cutlass|cute|torch|at|c10)::", text), name

@@ -28,6 +28,11 @@ CARD_BOUND = 1e-3    # nats, kernel vs plain on the card
 CASES = ["prot2dna", "allclass", "dense8", "edges"]
 # a diagonal of 101 cells takes two of the kernel's shared-memory chunks
 CARD_CASES = CASES + ["prot2dna_long"]
+# chained mode, uniform lengths: name -> (machine case, B, chain)
+CHAINED = {"prot2dna_c2": ("prot2dna", 4, 2),
+           "allclass_c3": ("allclass", 6, 3), "dense8_c2": ("dense8", 4, 2),
+           "prot2dna_c1": ("prot2dna", 3, 1),
+           "allclass_c5": ("allclass", 5, 5)}
 _cache = {}
 
 
@@ -35,6 +40,8 @@ def _case(name):
     """(log-space matrices_2d, it, ot, il, ol) as numpy, from seeds."""
     if name in _cache:
         return _cache[name]
+    if name in CHAINED:
+        return _chained_case(name)
     if name.startswith("prot2dna"):
         m = make_preset("prot2dna")
         B, Lp = (8, 6) if name == "prot2dna" else (2, 100)
@@ -80,6 +87,31 @@ def _case(name):
     return _cache[name]
 
 
+def _chained_case(name):
+    """A uniform-length batch of B pairs of a machine case (prot2dna: B
+    proteins of 6 and their codon DNA; the others: seeded random tokens at
+    the case's padded shape)."""
+    kind, B, _ = CHAINED[name]
+    mats, it, ot, _, _ = _case(kind)
+    if kind == "prot2dna":
+        m = make_preset("prot2dna")
+        ev = EvaluatedMachine(m, m.get_param_defs(True))
+        pairs = testmachines.prot2dna_pairs(B, 6, seed=B)
+        it = np.array([[ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+                       for p, _ in pairs], np.int32)
+        ot = np.array([[ev.output_tokenizer.sym2tok[c] - 1 for c in d]
+                       for _, d in pairs], np.int32)
+    else:
+        rng = np.random.RandomState(B)
+        it = rng.randint(0, mats[1].shape[0], (B, it.shape[1])) \
+            .astype(np.int32)
+        ot = rng.randint(0, mats[2].shape[0], (B, ot.shape[1])) \
+            .astype(np.int32)
+    _cache[name] = (mats, it, ot, np.full(B, it.shape[1], np.int32),
+                    np.full(B, ot.shape[1], np.int32))
+    return _cache[name]
+
+
 def _f64(name):
     key = ("f64", name)
     if key not in _cache:
@@ -91,12 +123,27 @@ def _f64(name):
     return _cache[key]
 
 
-def _port(name, device="cpu", rescale_every=4):
+def _port(name, device="cpu", rescale_every=4, chain=None):
     mats, it, ot, il, ol = _case(name)
     B, Li = it.shape
+    if chain is None and name in CHAINED:
+        chain = CHAINED[name][2]
     fn = lk.make_lowrank_forward(*mats, B, Li, ot.shape[1], device=device,
-                                 rescale_every=rescale_every)
+                                 rescale_every=rescale_every, chain=chain)
     return fn(it, ot, il, ol).cpu().numpy()
+
+
+def _jax(name, chain=None):
+    import jax.numpy as jnp
+    from machineboss_tpu.ops.pallas.lowrank_kernel import \
+        make_lowrank_forward as j_make
+    mats, it, ot, il, ol = _case(name)
+    B, Li = it.shape
+    if chain is None and name in CHAINED:
+        chain = CHAINED[name][2]
+    jfn = j_make(*mats, B, Li, ot.shape[1], interpret=True, chain=chain)
+    return np.array(jfn(jnp.array(it), jnp.array(ot), jnp.array(il),
+                        jnp.array(ol)))
 
 
 def _assert_close(dev, ref, bound):
@@ -110,15 +157,7 @@ def _assert_close(dev, ref, bound):
 
 @pytest.mark.parametrize("name", CASES)
 def test_plain_matches_jax_interpret(name):
-    import jax.numpy as jnp
-    from machineboss_tpu.ops.pallas.lowrank_kernel import \
-        make_lowrank_forward as j_make
-    mats, it, ot, il, ol = _case(name)
-    B, Li = it.shape
-    jfn = j_make(*mats, B, Li, ot.shape[1], interpret=True)
-    jres = np.array(jfn(jnp.array(it), jnp.array(ot), jnp.array(il),
-                        jnp.array(ol)))
-    _assert_close(_port(name), jres, JAX_BOUND)
+    _assert_close(_port(name), _jax(name), JAX_BOUND)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -146,10 +185,97 @@ def test_cpu_wrapper_takes_plain_without_launch():
     assert torch.equal(out, lk.lowrank_forward_plain(ops, *batch))
 
 
-def test_chained_mode_not_ported():
-    mats, it, ot, il, ol = _case("dense8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lk.make_lowrank_forward(*mats, 2, 20, 20, device="cpu", chain=2)
+@pytest.mark.parametrize("name", list(CHAINED))
+def test_chained_plain_matches_jax_interpret(name):
+    _assert_close(_port(name), _jax(name), JAX_BOUND)
+
+
+@pytest.mark.parametrize("name", list(CHAINED))
+def test_chained_plain_matches_f64(name):
+    _assert_close(_port(name), _f64(name), JAX_BOUND)
+
+
+@pytest.mark.parametrize("chain", [0, 1])
+@pytest.mark.parametrize("name", ["prot2dna", "allclass"])
+def test_chain_one_is_plain_mode(name, chain):
+    """As the JAX factory (chained = bool(chain) and chain > 1), chain 0 and
+    1 score in plain mode: the pairs' own lengths, the plain kernel."""
+    before = lk.lowrank_chained_wavefront.launches
+    res = _port(name, chain=chain)
+    assert lk.lowrank_chained_wavefront.launches == before
+    assert np.array_equal(res, _port(name))
+    _assert_close(res, _jax(name, chain=chain), JAX_BOUND)
+
+
+def test_prepare_lowrank_chained_equals_jax():
+    """Chained mode has no static token scale: every class's scale is
+    built from its tokens in the kernel; the factors are plain mode's."""
+    from machineboss_tpu.ops.pallas.lowrank_kernel import \
+        prepare_lowrank as j_prepare
+    mats = _case("prot2dna")[0]
+    plan, host = lk.prepare_lowrank(*mats, chained=True)
+    j_plan, j_host = j_prepare(*mats, chained=True)
+    assert [c.static_sc for c in plan["classes"]] == [False, False]
+    assert [tuple(vars(c).values()) for c in plan["classes"]] == \
+        [tuple(vars(c).values()) for c in j_plan["classes"]]
+    plain_plan, plain_host = lk.prepare_lowrank(*mats)
+    assert [c.static_sc for c in plain_plan["classes"]] == [False, True]
+    for (M, E), (jM, jE), (pM, pE) in zip(host, j_host, plain_host):
+        assert np.array_equal(M, jM) and np.array_equal(E, jE)
+        assert np.array_equal(M, pM) and np.array_equal(E, pE)
+
+
+def test_chained_cpu_wrapper_and_checks():
+    mats, it, ot, il, ol = _case("allclass_c3")
+    plan, host = lk.prepare_lowrank(*mats, chained=True)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
+                              torch.device("cpu"))
+    batch = [torch.from_numpy(x) for x in (it, ot, il, ol)]
+    before = lk.lowrank_chained_wavefront.launches
+    out = lk.lowrank_chained_wavefront(ops, *batch, n_chain=3)
+    assert lk.lowrank_chained_wavefront.launches == before
+    assert torch.equal(out, lk.lowrank_chained_forward_plain(
+        ops, *batch, n_chain=3))
+    # the lengths are ignored: every pair is read out at (Li, Lo)
+    assert torch.equal(out, lk.lowrank_chained_forward_plain(
+        ops, *batch[:2], n_chain=3))
+    with pytest.raises(ValueError, match="multiple of chain"):
+        lk.make_lowrank_forward(*mats, 6, 7, 7, device="cpu", chain=4)
+    with pytest.raises(ValueError, match="non-empty"):
+        lk.make_lowrank_forward(*mats, 6, 0, 7, device="cpu", chain=3)
+    # through the wavefront factory too
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    fn = wk.make_wavefront_forward(*mats, 6, 7, 7, device="cpu",
+                                   variant="lowrank", chain=3)
+    assert torch.equal(fn(it, ot, il, ol), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CHAINED))
+def test_chained_kernel_matches_plain_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    chained = CHAINED[name][2] > 1
+    before = lk.lowrank_chained_wavefront.launches
+    kern = _port(name, device="cuda")
+    assert lk.lowrank_chained_wavefront.launches == before + chained
+    _assert_close(kern, _port(name), CARD_BOUND)
+    _assert_close(kern, _f64(name), JAX_BOUND)
+
+
+@pytest.mark.cuda
+def test_chained_kernel_flags_a_bad_token_as_nan_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mats, it, ot, il, ol = _case("allclass_c3")
+    dev = torch.device("cuda")
+    plan, host = lk.prepare_lowrank(*mats, chained=True)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1], dev)
+    it = it.copy()
+    it[4, 3] = 7                         # outside the 2-letter alphabet
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    res = lk.lowrank_chained_wavefront(ops, *batch, n_chain=3).cpu().numpy()
+    assert np.isnan(res[4]) and np.isfinite(res[np.arange(6) != 4]).all()
 
 
 @pytest.mark.cuda

@@ -305,17 +305,6 @@ def test_cpu_wrappers_take_plain_without_launch():
         assert torch.equal(out, plain(ops, *batch))
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"variant": "chained", "chain": 2}, {"variant": "seqscale"},
-    {"variant": "factored"}, {"merged": False}])
-def test_unported_variants_name_their_roadmap_item(kwargs):
-    mats = _case("dense8")[0]
-    kw = {"merged": True, **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, "
-                                                  "item 10"):
-        wk.make_wavefront_forward(*mats, 2, 20, 20, device="cpu", **kw)
-
-
 def test_factory_argument_checks():
     mats = _case("dense8")[0]
     with pytest.raises(ValueError, match="multiple of chain"):
