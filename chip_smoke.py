@@ -77,6 +77,7 @@ PLAN7_VS_FLAT_TOL = 2e-3         # nats: scaled probability vs log space, L<=24
 PLAN7_VS_F64_TOL = 5e-3          # nats: the composed-machine oracle's bound
 PLAN7_VITERBI_TOL = 1e-4         # nats: max-plus flat solver vs its f64 oracle
 F32_FMA_FLOPS = 67e12            # H100 SXM f32 non-tensor peak (data sheet)
+TF32_FLOPS = 495e12              # H100 SXM TF32 tensor peak, dense
 # That peak counts a fused multiply-add as two operations. The max-plus fills
 # issue an add and a max as two instructions, so they can reach half of it at
 # most: their operations bound is lower than the card can do, never higher.
@@ -171,6 +172,90 @@ def lowrank_case(name, cm, toks, dev):
           "%s: kernel vs plain %.3g nats" % (name, err_plain))
     check(err_f64 <= KERNEL_VS_F64_TOL,
           "%s: kernel vs f64 %.3g nats" % (name, err_f64))
+
+
+def lowrank_queue_cases(dev):
+    """The lowrank kernel where its layout or its queue differs from the
+    main path: ONE block (one or two walkers) takes every pair of a batch
+    holding a bad token and a bad length; the 64-state dense machine's
+    factors (256 KB) stream through shared memory."""
+    from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
+    from machineboss_tpu_torch.testmachines import (
+        build_allclass_transducer, build_random_transducer)
+    mats = lowered(build_allclass_transducer(5, list("AC")))
+    rng = np.random.RandomState(8)
+    B, L = 8, 12
+    it = rng.randint(0, 2, (B, L)).astype(np.int32)
+    ot = rng.randint(0, 2, (B, L)).astype(np.int32)
+    il = rng.randint(4, L + 1, B).astype(np.int32)
+    ol = rng.randint(4, L + 1, B).astype(np.int32)
+    plan, host = lk.prepare_lowrank(*mats)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1], dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    plain = lk.lowrank_forward_plain(ops, *batch).cpu().numpy()
+    ref = f64_scores(mats, [(it[b][:il[b]], ot[b][:ol[b]]) for b in range(B)])
+    kin = [x.clone() for x in batch]
+    kin[0][2, 0] = 99                     # a bad token
+    kin[2][5] = L + 1                     # a bad length
+    live = np.array([b not in (2, 5) for b in range(B)])
+    for walkers in (1, 2):
+        kern = lk.lowrank_wavefront(ops, *kin, grid=1,
+                                    walkers=walkers).cpu().numpy()
+        check(np.isnan(kern[2]) and np.isnan(kern[5]),
+              "one_block: bad pairs scored %r %r" % (kern[2], kern[5]))
+        err_plain = score_err(kern[live], plain[live])
+        err_f64 = score_err(kern[live], ref[live])
+        emit({"phase": "kernel_vs_plain", "kernel": "lowrank_wavefront",
+              "case": "allclass_one_block", "B": B, "grid": 1,
+              "walkers": walkers, "bad_token_nan": True,
+              "bad_length_nan": True, "max_abs_vs_plain": err_plain,
+              "max_abs_vs_f64": err_f64})
+        check(err_plain <= KERNEL_VS_PLAIN_TOL,
+              "one_block: kernel vs plain %.3g nats" % err_plain)
+        check(err_f64 <= KERNEL_VS_F64_TOL,
+              "one_block: kernel vs f64 %.3g nats" % err_f64)
+
+    mats = lowered(build_random_transducer(64, list("ACGT")))
+    B, L = 4, 16
+    rng = np.random.RandomState(4)
+    it = rng.randint(0, 4, (B, L)).astype(np.int32)
+    ot = rng.randint(0, 4, (B, L)).astype(np.int32)
+    il = np.array([16, 9, 12, 16], np.int32)
+    ol = np.array([16, 10, 12, 5], np.int32)
+    plan, host = lk.prepare_lowrank(*mats)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1], dev)
+    cfg = lk.launch_config(ops, B, L, L)
+    check(not cfg["resident"], "dense64: the factors did not stream")
+    check(lk.smem_bytes_on_card(ops, cfg, L, L) == cfg["smem"],
+          "dense64: the kernel's shared layout differs from launch_plan's")
+    fn = lk.make_lowrank_forward(*mats, B, L, L, device=dev)
+    kern = fn(it, ot, il, ol).cpu().numpy()
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    plain = lk.lowrank_forward_plain(ops, *batch).cpu().numpy()
+    ref = f64_scores(mats, [(it[b][:il[b]], ot[b][:ol[b]]) for b in range(B)])
+    err_plain, err_f64 = score_err(kern, plain), score_err(kern, ref)
+    emit({"phase": "kernel_vs_plain", "kernel": "lowrank_wavefront",
+          "case": "dense64_streamed", "B": B, "Li": L, "Lo": L, "Sa": ops.Sa,
+          "classes": [[c.name, c.side, c.rank] for c in ops.classes],
+          "factor_bytes": ops.n_mt * ops.slab * 4, "launch": cfg,
+          "max_abs_vs_plain": err_plain, "max_abs_vs_f64": err_f64})
+    check(err_plain <= KERNEL_VS_PLAIN_TOL,
+          "dense64_streamed: kernel vs plain %.3g nats" % err_plain)
+    check(err_f64 <= KERNEL_VS_F64_TOL,
+          "dense64_streamed: kernel vs f64 %.3g nats" % err_f64)
+
+
+def lowrank_bounds(flops, nbytes, kernel_ms):
+    """The lowrank kernel's bound twice: against the f32 FMA rate (the
+    function's own arithmetic) and against the rate its design runs at
+    (3xTF32: 3 x the FLOP over the TF32 tensor peak); each with the
+    kernel's share of it. The kernels line takes the lesser bound."""
+    f32_ms, f32_by = bound(flops, nbytes)
+    tf32_ms = max(3.0 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    return {"bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
+            "share_of_f32_bound": f32_ms / kernel_ms,
+            "bound_3xtf32_ms": tf32_ms,
+            "share_of_3xtf32_bound": tf32_ms / kernel_ms}
 
 
 def lowered(machine):
@@ -732,6 +817,7 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
     `merged_on_plan`: also time the merged kernel on this kernel's own
     (untrimmed, closure-folded) plan, the same function at the same state
     count. Returns the kernels line's entry."""
+    from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
     mats = cm._host_mats()
@@ -806,8 +892,17 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
     operands = [getattr(ops, k) for k in ("c0_pad", "w_pad", "mt", "e", "tk",
                                           "ek", "ct")
                 if getattr(ops, k, None) is not None]
+    if kernel == "lowrank_chained_wavefront":   # the factors, as the main path
+        operands = [ops.c0] + [x for me in ops.mats for x in me]
     nbytes = tensor_bytes(batch + operands) + B * 4
     bound_ms, bound_by = bound(flops, nbytes)
+    lowrank_extra = {}
+    if kernel == "lowrank_chained_wavefront":
+        lowrank_extra = lowrank_bounds(flops, nbytes, kernel_ms)
+        bound_ms = min(bound_ms, lowrank_extra["bound_3xtf32_ms"])
+        cfg = lk.launch_config(ops, B, Li, Lo)
+        lowrank_extra.update({"launch": cfg, "factors": "resident"
+                              if cfg["resident"] else "streamed"})
     merged = wk.merged_operands(wk.prepare_merged(*mats), dev)
     merged_flops = variant_flops("merged_wavefront", merged, il, ol)
     merged_bound_ms, _ = bound(merged_flops, nbytes)
@@ -826,7 +921,7 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
           "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
           "merged_flops": merged_flops, "merged_bound_ms": merged_bound_ms,
           "merged_kernel_ms_on_this_plan": merged_on_plan_ms,
-          "card": card, "nvidia_smi": smi})
+          **lowrank_extra, "card": card, "nvidia_smi": smi})
     src = "lowrank_wavefront" if kernel == "lowrank_chained_wavefront" \
         else kernel
     return {"name": kernel, "route": "cuda", "path": name,
@@ -1597,10 +1692,11 @@ def main():
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     build_s = _build.build_all()
-    emit({"phase": "build", "seconds": build_s,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k, v in _build.build_logs.items()}})
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in _build.build_logs.items()}
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "lowrank_ptxas": ptxas.get("lowrank_wavefront")})
 
     # -- kernel vs plain, two machines -----------------------------------
     p2d = CompiledMachine(make_preset("prot2dna"), device=dev)
@@ -1615,6 +1711,7 @@ def main():
     lowrank_case("allclass", ac,
                  [(list(rng.randint(0, 2, a)), list(rng.randint(0, 2, b)))
                   for a, b in lens], dev)
+    lowrank_queue_cases(dev)
 
     fullrank_cases(dev)
     variant_cases(dev)
@@ -1648,8 +1745,19 @@ def main():
     check(err_main <= KERNEL_VS_PLAIN_TOL,
           "main shapes: kernel vs plain %.3g nats" % err_main)
     check(score_err(kern, lls) == 0.0, "kernel alone differs from main path")
+    cfg = lk.launch_config(ops, B, Li, Lo)
+    check(lk.smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],
+          "the kernel's shared layout differs from launch_plan's")
     kernel_ms = cuda_ms(lambda: lk.lowrank_wavefront(ops, *batch), 10)
     plain_ms = cuda_ms(lambda: lk.lowrank_forward_plain(ops, *batch), 3)
+    # one walker a block against two, in turns (1, 2, 2, 1), same scores
+    by_walkers = {1: [], 2: []}
+    for walkers in (1, 2, 2, 1):
+        other = lk.lowrank_wavefront(ops, *batch, walkers=walkers)
+        check(np.array_equal(other.cpu().numpy(), kern),
+              "walkers=%d scores otherwise" % walkers)
+        by_walkers[walkers].append(cuda_ms(
+            lambda: lk.lowrank_wavefront(ops, *batch, walkers=walkers), 5))
 
     # least time for this run's work: every real cell (i <= il, o <= ol,
     # but the start cell) does sum_c rank_c * Sa * Sa MACs; inputs and the
@@ -1661,9 +1769,14 @@ def main():
     flops = 2.0 * macs_per_cell * cells
     nbytes = tensor_bytes(batch + [x for me in ops.mats for x in me]
                           + [ops.c0]) + B * 4
-    bound_ms, bound_by = bound(flops, nbytes)
+    bounds = lowrank_bounds(flops, nbytes, kernel_ms)
+    bound_ms = min(bounds["bound_f32_ms"], bounds["bound_3xtf32_ms"])
+    bound_by = "operations" if bound_ms > nbytes / HBM_BYTES_PER_S * 1e3 \
+        else "bytes"
     state_cells = B * (Lp + 1) * (3 * Lp + 1) * mats[3].shape[0]
     emit({"phase": "main_path", "B": B, "Lp": Lp, "Lo": 3 * Lp,
+          "launch": cfg, "factors": "resident" if cfg["resident"]
+          else "streamed", "kernel_ms_by_walkers": by_walkers, **bounds,
           "padded": [Li, Lo], "launches_first_call": launches,
           "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
           "first_call_s": first_s, "call_ms_median5": call_ms,
@@ -1671,7 +1784,7 @@ def main():
           "kernel_share_of_call": kernel_ms / call_ms,
           "state_cells_per_s": state_cells / (call_ms / 1e3),
           "kernel_state_cells_per_s": state_cells / (kernel_ms / 1e3),
-          "flops": flops, "bound_ms": bound_ms,
+          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
           "kernel_share_of_bound": bound_ms / kernel_ms,
           "card": card, "nvidia_smi": smi})
 

@@ -1,80 +1,99 @@
 // Low-rank wavefront Forward for structured transducers, for Hopper (sm_90a).
 //
-// Replaces machineboss_tpu/ops/pallas/lowrank_kernel.py::_lowrank_kernel, in
-// its plain mode (lowrank_wavefront_kernel) and its chained mode
-// (lowrank_chained_kernel, _body_chained there). The host prep is the same
-// (prepare_lowrank in ops/kernels/lowrank_kernel.py): the silent closure is
-// folded into each neighbour class, dead states are pruned (Sa live states)
-// and every class is factored at its minimum rank on the source or
-// destination side.
+// Replaces machineboss_tpu/ops/pallas/lowrank_kernel.py::_lowrank_kernel in
+// both its modes: plain (one pair per lane window) and chained
+// (_body_chained, n_chain uniform-length pairs staggered by Lo + 2
+// diagonals). The host prep is the same (prepare_lowrank in
+// ops/kernels/lowrank_kernel.py): the silent closure is folded into each
+// neighbour class, dead states are pruned (Sa live states) and every class
+// is factored at its minimum rank on the source or destination side.
 //
-// What it computes, per pair b, on the cells (i, o) of its own lattice,
-// diagonal d = i + o, carried as scaled probabilities p (Sa floats) with a
-// per-cell log scale m:
+// What it computes, per pair b, on the cells (i, o) of its lattice, diagonal
+// d = i + o, carried as scaled probabilities p (Sa floats) with a per-cell
+// log scale m:
 //   * each present class reads one neighbour: up (i, o-1) and left (i-1, o)
 //     on d-1, diag (i-1, o-1) on d-2; w_c = exp(m_c - mu), mu = max m_c;
 //   * a src-side class adds  M_c @ concat_r(p_c * w_c * E_c[r-block, tok]),
 //     a dest-side class adds sum_r (M_c @ (p_c * w_c))[r-block] * E_c[., tok];
-//   * on diagonals with d % rescale_every <= 1 (both parities) p is divided
-//     by its max over states and the log of that max is added to m;
+//   * on diagonals with (d + off) % rescale_every <= 1 (both parities) p is
+//     divided by its max over states and the log of that max is added to m;
 //   * the readout is m + log(p[Sa-1]) at cell (il, ol).
-// Chained mode walks n_chain uniform-length pairs per strip on the schedule
-// of strip.cuh (stagger sigma = Lo + 2, one block per strip): the rescale
-// fires on the absolute step, chain k restarts at (0, 0) with m = 0 and is
-// read out at (Li, Lo); the lengths are ignored. The TPU kernel's chained
-// mode builds the left class's token scale in the kernel (prepare_lowrank
-// with chained=True has no static scale); this kernel reads every class's
-// token column of E in the kernel in both modes, so the operands are the
-// same.
+// Plain mode: off = 0, the pair's own lengths. Chained mode: the pairs'
+// lengths are ignored (every pair is read out at the padded (Li, Lo)) and
+// pair n starts on absolute diagonal off = (Lo + 2) * (n / (B / n_chain)),
+// which the rescale rule reads; its start cell is rescaled when off > 0 and
+// its own step fires (plain_walk.walk_plain with diag_offset). A token
+// outside its class's alphabet makes the pair NaN, and so does a length
+// outside the padded shape in plain mode.
 //
-// What the TPU kernel did that this one does not: the bf16 hi/lo 3-pass
-// products, the one-hot token matrices, the 128-lane cell windows and the
-// two diagonals per grid step are workarounds for the MXU and Mosaic; the
-// per-lane (f, k) chain scratch and streamed token rows of chained mode
-// become a column's chain and token computed from the step. Here every
-// product is a plain f32 FMA (at least as accurate as the 3-pass split), a
-// token's column of E is read directly, and the diagonal loop runs inside
-// the block.
+// What bounds it on this card: operations. A cell does sum_c rank_c * Sa^2
+// multiply-adds (3.0e4 at prot2dna, 3.9e11 FLOP for its B=512 batch: 5.75 ms
+// at the f32 non-tensor 67 TFLOP/s); the bytes that must move are tokens,
+// lengths and the 0.2 MB of factors. The products here run on the tensor
+// cores in TF32 with the 3xTF32 split (one TF32 pass is ruled out: the
+// signed SVD factors cancel; scripts/lowrank_variants.py measures one
+// pass), so the rate the design runs at is 3 x those FLOP over 495 TFLOP/s
+// TF32 dense, 2.3 ms, before the padding of the tiles (states to 16, cells
+// to 8, k to 8) and below what mma.sync reaches (wgmma is later work).
 //
-// Design: plain mode, one thread block per pair, so pairs share no state and
-// no block waits on another; the block loops over its own il+ol diagonals
-// only, so the padding the batch API adds costs nothing. Chained mode, one
-// block per strip. The diagonal state lives in a global scratch of three
-// rotating (Li+1, SaP) slots per block (L2-resident; the active part per
-// block is 3*(il+1)*SaP floats). For each chunk of cells on a diagonal the
-// block builds the class operands Z (k rows x cells) in shared memory, then
-// each thread accumulates a tile of 8 cells x 4 destination states over k,
-// reading the transposed M_c (k-major, so neighbouring threads read
-// neighbouring addresses) through the read-only cache. lr_step() is that
-// diagonal step; the two kernels differ only in how a column maps to a pair
-// and a cell (PairCells, StripCells).
-//
-// What bounds it on this card: the work is f32 FMAs, sum over classes of
-// rank * Sa * Sa per cell (3.0e4 for prot2dna), and the bytes that must move
-// are only tokens, lengths and the small M/E tables. No tensor cores are
-// used (wgmma is later work), so the bound is the H100's f32 non-tensor
-// rate. Each FMA needs one M value (read-only cache) and one Z value
-// (shared memory); the 8x4 register tile cuts that to 12 loads per 32 FMAs
-// so that the loads do not bound the loop before the FMA pipes do. Chained
-// mode has B / n_chain blocks for 132 multiprocessors.
+// Design, against what held the first CUDA version back:
+//  1. A persistent grid: one block per multiprocessor (or fewer for a small
+//     batch) takes pairs from an atomic counter in the host's order
+//     (longest first in plain mode), so the factor tables load once per
+//     block and the diagonal scratch in global memory is grid x walkers
+//     pairs, not B.
+//  2. The factor tables in shared memory, packed by the host in the A
+//     fragment order of mma.m16n8k8 (one float4 per lane per 16x8 tile).
+//     When all 16-row tiles fit beside the operand chunk they are copied in
+//     once per block (resident); otherwise groups of 16-row tiles are
+//     streamed through a double-buffered ring with cp.async, the next
+//     group's copy overlapping the current group's products (streamed).
+//     One kernel, the size parameter `seg_mt` (tiles per group) decides. The
+//     token scales E go to shared memory too where they fit.
+//  3. The class products on the tensor cores: mma.sync m16n8k8 TF32, each
+//     operand split into hi (x rounded to TF32) and lo = x - hi, and
+//     acc += hi_a hi_b + (hi_a lo_b + lo_a hi_b) in f32 (the small terms in
+//     their own accumulator, issued after the big ones). Destination states
+//     are the 16-row side, the cells of a diagonal the 8-column side. A
+//     src-side class multiplies the token-scaled operand; a dest-side class
+//     keeps one accumulator tile per rank and scales it by E[(r, d), tok] in
+//     the epilogue. mma.sync and not wgmma: the split happens in registers
+//     after one shared load; wgmma would need a resident hi and lo copy of
+//     its shared operand.
+//  4. Less latency between barriers: a warp builds one cell's operand column
+//     at a time, its loads issued before its stores (no per-element division
+//     or class search); the pair's tokens, the cells' log scales and the
+//     rescale divisors live in shared memory, so a diagonal reads only its
+//     neighbours' states from global memory; the rescale is folded into the
+//     products (each cell's max by a shared atomicMax on the float's bits,
+//     exact for the positive maxima that matter) and its division into the
+//     weights of the next reads (w / den, once per neighbour cell).
+//     Two pair walkers run in a block, each a group of warps with its own
+//     named barrier (bar.sync 1 + walker), sharing the resident factors, so
+//     one walker's loads overlap the other's products.
+//  5. Chained mode is the same per-pair walk with a diagonal offset: no
+//     strip schedule, the whole grid busy.
+//  6. One walker computes a pair, in a fixed order, with no atomic sums (a
+//     max does not depend on the order): the scores do not depend on the
+//     grid or the walkers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "strip.cuh"
-
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;
-constexpr int TC = 8;        // cells per thread tile
-constexpr int TD = 4;        // destination states per thread tile
+constexpr int THREADS = 512;
 constexpr int MAX_CLS = 3;
+constexpr int NG_MAX = 3;        // 8-cell tiles per warp item
+constexpr int PV = 4;            // states a lane loads per pass of the build
+constexpr int FRAG_A = 128;      // floats of one 16x8 A tile, fragment order
+constexpr int FRAG_B = 64;       // floats of one 8x8 B tile, fragment order
+constexpr int SMEM_MAX = 232448; // a block's shared memory on sm_90
+constexpr int NO_MAX = (int)0x80000000;  // below every float's bits
 
 enum { KIND_UP = 0, KIND_LEFT = 1, KIND_DIAG = 2 };
 enum { SIDE_SRC = 0, SIDE_DEST = 1 };
-// what a column holds on a step
-enum { CELL_LIVE = 0, CELL_START = 1, CELL_DEAD = 2 };
 
 // Per-class descriptor, laid out as the host passes it (DESC_LEN ints).
 struct ClassDesc {
@@ -82,79 +101,74 @@ struct ClassDesc {
   int side;    // SIDE_*
   int rank;
   int n_tok;
-  int K;       // rows of this class's Z block (= rows of MT)
-  int N;       // columns of MT: SaP (src) or rank*SaP (dest)
-  int mt_off;  // float offset of this class's MT in the packed buffer
-  int e_off;   // float offset of this class's E (rank*Sa, n_tok) block
-  int z_off;   // first Z row of this class in shared memory
+  int KT;      // k-tiles (8 rows) of this class's operand
+  int na;      // A tile groups per 16-row tile: 1 (src) or rank (dest)
+  int a_off;   // float offset of this class inside a 16-row slab
+  int e_off;   // float offset of this class's ET (n_tok x rank*Sa)
+  int z_row;   // first operand row of this class (a multiple of 8)
 };
 constexpr int DESC_LEN = 9;
 
-struct Plan {
-  ClassDesc cls[MAX_CLS];
-  int n_cls;
-};
-
-struct LrArgs {
+struct Args {
   const int* in_toks;
   const int* out_toks;
+  const int* in_lens;
+  const int* out_lens;
   const float* c0;
-  const float* mt;
-  const float* emat;
+  const float* a;      // n_mt slabs of packed A tiles
+  const float* et;     // every class's ET, packed
   float* pbuf;
-  float* mbuf;
   float* out;
-  int Li, Lo, Sa, SaP, To, rescale_every;
-  Plan plan;
-  int CC, k_total;
+  const int* order;
+  int* counter;
+  int B, Li, Lo, Sa, SaP, To, rescale_every, n_chain;
+  int n_cls;
+  ClassDesc cls[MAX_CLS];
+  int n_mt, slab, KZ, CC, seg_mt, walkers;
+  int et_floats;       // ET floats copied to shared memory (0: read global)
 };
 
-// the block's shared memory: Z (k_total x CC), per-cell class weights and
-// tokens (MAX_CLS x CC each), per-cell states (CC), the bad-token flag
-struct Smem {
+// Shared memory: the A tiles (all n_mt slabs, or a ring of two groups of
+// seg_mt), the token scales ET when they fit (et_floats, a multiple of 4),
+// then per walker: the operand chunk Z (KZ/8 k-tiles of CC/8 B tiles,
+// stride zstride), the chunk's tokens per class, the bad-token flag and the
+// next pair's slot (4), the pair's tokens (Li + Lo), and per cell of three
+// diagonal slots its log scale and its rescale divisor (3 W each) and the
+// current diagonal's max bits (W), W = Li + 1; rounded up to 4 floats.
+__host__ __device__ inline int zstride(int CC) { return CC / 8 * FRAG_B + 8; }
+__host__ __device__ inline long a_floats(int n_mt, int slab, int seg_mt) {
+  return seg_mt >= n_mt ? (long)n_mt * slab : 2L * seg_mt * slab;
+}
+__host__ __device__ inline long walker_floats(int KZ, int CC, int Li,
+                                              int Lo) {
+  const long n = (long)(KZ / 8) * zstride(CC) + MAX_CLS * CC + 4 + Li + Lo +
+                 7L * (Li + 1);
+  return (n + 3) / 4 * 4;
+}
+long smem_bytes(int n_mt, int slab, int seg_mt, int KZ, int CC, int walkers,
+                int et_floats, int Li, int Lo) {
+  return (a_floats(n_mt, slab, seg_mt) + et_floats +
+          walkers * walker_floats(KZ, CC, Li, Lo)) * (long)sizeof(float);
+}
+
+struct Walker {
+  const float* et;   // the token scales: in shared memory, or global
   float* Z;
-  float* w;
-  int* tok;
-  int* state;
+  int* tok;          // the chunk's tokens, per class
   int* bad;
+  int* next;
+  int* xs;           // the pair's tokens
+  int* ys;
+  float* ms;         // log scales, 3 slots of W cells
+  float* dn;         // rescale divisors (1: none, 0: zeroed), 3 slots
+  int* mx;           // the current diagonal's max over states, float bits
+  int id, tid, nthr, warp, nwarps, lane;
+  float* pb;         // global: 3 slots of W cells of SaP states
 };
 
-struct CellInfo {
-  int state;   // CELL_*
-  int o;
-  const int* xt;
-  const int* yt;
-  int* bad;
-};
-
-// plain mode: every column of diagonal d in [lo, hi] is a live cell of the
-// block's own pair
-struct PairCells {
-  const int* xt;
-  const int* yt;
-  int* bad;
-  __device__ CellInfo at(int d, int i) const {
-    return CellInfo{CELL_LIVE, d - i, xt, yt, bad};
-  }
-};
-
-// chained mode: column i at step t holds a cell of chain k of strip w
-struct StripCells {
-  strip::Strip st;
-  const int* in_toks;
-  const int* out_toks;
-  int* bad;
-  int w;
-  __device__ CellInfo at(int t, int i) const {
-    int k, o;
-    if (!strip::cell(st, t, i, k, o))
-      return CellInfo{CELL_DEAD, 0, nullptr, nullptr, nullptr};
-    const int n = strip::pair(st, k, w);
-    return CellInfo{i == 0 && o == 0 ? CELL_START : CELL_LIVE, o,
-                    in_toks + (size_t)n * st.Li, out_toks + (size_t)n * st.Lo,
-                    bad + n};
-  }
-};
+__device__ __forceinline__ void wbar(const Walker& w) {
+  asm volatile("bar.sync %0, %1;" ::"r"(w.id + 1), "r"(w.nthr) : "memory");
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -162,358 +176,502 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ Smem smem_layout(float4* smem4, int CC, int k_total) {
-  Smem sm;
-  sm.Z = reinterpret_cast<float*>(smem4);
-  sm.w = sm.Z + (size_t)k_total * CC;
-  sm.tok = reinterpret_cast<int*>(sm.w + MAX_CLS * CC);
-  sm.state = sm.tok + MAX_CLS * CC;
-  sm.bad = sm.state + CC;
-  return sm;
+// x = hi + lo: hi is x rounded to TF32 (10 explicit mantissa bits, to
+// nearest, ties away from zero: cvt.rna.tf32.f32, done here by an integer
+// add and mask), lo = x - hi exactly in f32, of which the tensor core reads
+// the TF32 part (it ignores the low 13 bits of a TF32 operand)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// One diagonal (plain mode) or step (chained mode) d over columns lo..hi:
-// the class products chunk by chunk, then the rescale. Every thread calls
-// it; it ends synchronised.
-template <class Cells>
-__device__ void lr_step(const LrArgs& a, const Cells& cells, int d, int lo,
-                        int hi, float* pb, float* mb, const Smem& sm) {
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Operand element (row k, cell column c) of the chunk, in B fragment order:
+// b0 = B[t][g], b1 = B[t + 4][g] for lane g * 4 + t.
+__device__ __forceinline__ int zpos(int k, int c, int zs) {
+  return (k >> 3) * zs + (c >> 3) * FRAG_B +
+         (((c & 7) * 4 + (k & 3)) << 1) + ((k >> 2) & 1);
+}
+
+// Copy the 16-row slabs mt0 .. mt0 + nmt - 1 into `dst` (asynchronously).
+__device__ void load_slabs(const Args& a, float* dst, int mt0, int nmt,
+                           const Walker& w) {
+  const float* src = a.a + (size_t)mt0 * a.slab;
+  const int n4 = nmt * a.slab / 4;
+  for (int v = w.tid; v < n4; v += w.nthr)
+    cp_async16(dst + v * 4, src + v * 4);
+  cp_async_commit();
+}
+
+// The rescale of a cell whose max over states has the bits `bits`: its
+// divisor (0 when the max is not positive: the cell is zeroed) and its new
+// log scale.
+__device__ __forceinline__ void rescale_cell(int bits, float* dn, float* ms) {
+  const float mx = __int_as_float(bits);
+  const bool has = mx > 0.f;
+  const float den = fmaxf(mx, 1e-37f);
+  *dn = has ? den : 0.f;
+  *ms = has ? *ms + logf(den) : NEG_INF;
+}
+
+// Build the operand chunk of cells cs .. cs + ncc - 1 of diagonal d (slots
+// s0, s1 = d-1, s2 = d-2): one cell per warp, every lane computing the
+// cell's class weights and tokens and loading its states s0p + lane + 32 j
+// of every neighbour before anything is stored, so that the loads overlap;
+// lane 0 writes the cell's new log scale, its divisor and its tokens.
+__device__ void build(const Args& a, const Walker& w, int d, int cs, int ncc,
+                      int s0, int s1, int s2, bool fire) {
+  const int Sa = a.Sa, SaP = a.SaP, CC = a.CC, zs = zstride(CC);
   const int W = a.Li + 1;
-  const int Sa = a.Sa, SaP = a.SaP, CC = a.CC, To = a.To;
-  const Plan& plan = a.plan;
-  const int slot0 = d % 3, slot1 = (d + 2) % 3, slot2 = (d + 1) % 3;
-  float* p0 = pb + (size_t)slot0 * W * SaP;
-  const float* p1 = pb + (size_t)slot1 * W * SaP;
-  const float* p2 = pb + (size_t)slot2 * W * SaP;
-  float* m0 = mb + slot0 * W;
-  const float* m1 = mb + slot1 * W;
-  const float* m2 = mb + slot2 * W;
-  const int n_dg = SaP / TD;
-
-  for (int cs = lo; cs <= hi; cs += CC) {
-    const int ncc = min(CC, hi - cs + 1);
-    const int ncc8 = (ncc + TC - 1) / TC * TC;
-
-    // phase A: per-cell neighbour scales, tokens and the new log scale
-    for (int c = tid; c < ncc; c += THREADS) {
-      const int i = cs + c;
-      const CellInfo ci = cells.at(d, i);
-      sm.state[c] = ci.state;
-      if (ci.state != CELL_LIVE) {
-        for (int q = 0; q < plan.n_cls; ++q) {
-          sm.w[q * CC + c] = 0.f;
-          sm.tok[q * CC + c] = 0;
-        }
-        m0[i] = ci.state == CELL_START ? 0.f : NEG_INF;
-        continue;
-      }
-      const int o = ci.o;
-      float mc[MAX_CLS];
-      float mu = NEG_INF;
-      for (int q = 0; q < plan.n_cls; ++q) {
-        const ClassDesc& k = plan.cls[q];
-        float mv = NEG_INF;
-        int tok = 0;
+  const float* p1 = w.pb + (size_t)s1 * W * SaP;
+  const float* p2 = w.pb + (size_t)s2 * W * SaP;
+  for (int c = w.warp; c < ncc; c += w.nwarps) {
+    const int i = cs + c, o = d - i;
+    float wq[MAX_CLS], dq[MAX_CLS];
+    int tq[MAX_CLS];
+    const float* src[MAX_CLS];
+    float mu = NEG_INF;
+#pragma unroll
+    for (int q = 0; q < MAX_CLS; ++q) {
+      float mv = NEG_INF, dv = 1.f;
+      int tok = 0;
+      src[q] = nullptr;
+      if (q < a.n_cls) {
+        const ClassDesc& k = a.cls[q];
+        int sl = s1, cell = -1;
         if (k.kind == KIND_UP) {
-          if (o >= 1) { mv = m1[i]; tok = ci.yt[o - 1]; }
+          if (o >= 1) { cell = i; tok = w.ys[o - 1]; }
         } else if (k.kind == KIND_LEFT) {
-          if (i >= 1) { mv = m1[i - 1]; tok = ci.xt[i - 1]; }
-        } else {
-          if (i >= 1 && o >= 1) {
-            mv = m2[i - 1];
-            tok = ci.xt[i - 1] * To + ci.yt[o - 1];
-          }
+          if (i >= 1) { cell = i - 1; tok = w.xs[i - 1]; }
+        } else if (i >= 1 && o >= 1) {
+          sl = s2;
+          cell = i - 1;
+          tok = w.xs[i - 1] * a.To + w.ys[o - 1];
         }
-        if (tok < 0 || tok >= k.n_tok) { *ci.bad = 1; tok = 0; }
-        mc[q] = mv;
-        sm.tok[q * CC + c] = tok;
-        mu = fmaxf(mu, mv);
-      }
-      const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
-      for (int q = 0; q < plan.n_cls; ++q)
-        sm.w[q * CC + c] = mc[q] > NEG_INF / 2 ? expf(mc[q] - mu_safe) : 0.f;
-      m0[i] = mu;
-    }
-    __syncthreads();
-
-    // phase B: class operands Z[k][c] in shared memory
-    const int total = a.k_total * ncc8;
-    for (int idx = tid; idx < total; idx += THREADS) {
-      const int kr = idx / ncc8, c = idx - kr * ncc8;
-      float z = 0.f;
-      if (c < ncc) {
-        int q = 0;
-        while (q + 1 < plan.n_cls && kr >= plan.cls[q + 1].z_off) ++q;
-        const ClassDesc& k = plan.cls[q];
-        const float w = sm.w[q * CC + c];
-        if (w != 0.f) {
-          const int i = cs + c;
-          const int kk = kr - k.z_off;
-          const int s = k.side == SIDE_SRC ? kk % Sa : kk;
-          const float* src = k.kind == KIND_UP ? p1 + (size_t)i * SaP
-              : k.kind == KIND_LEFT ? p1 + (size_t)(i - 1) * SaP
-              : p2 + (size_t)(i - 1) * SaP;
-          z = src[s] * w;
-          if (k.side == SIDE_SRC)
-            z *= __ldg(a.emat + k.e_off + (size_t)kk * k.n_tok
-                       + sm.tok[q * CC + c]);
+        if (cell >= 0) {
+          mv = w.ms[sl * W + cell];
+          dv = w.dn[sl * W + cell];
+          src[q] = (sl == s1 ? p1 : p2) + (size_t)cell * SaP;
+        }
+        if (tok < 0 || tok >= k.n_tok) {
+          if (w.lane == 0) *w.bad = 1;
+          tok = 0;
         }
       }
-      sm.Z[(size_t)kr * CC + c] = z;
+      wq[q] = mv;
+      dq[q] = dv;
+      tq[q] = tok;
+      mu = fmaxf(mu, mv);
     }
-    __syncthreads();
-
-    // phase C: per-thread 8-cell x 4-state tiles over k
-    const int n_items = (ncc8 / TC) * n_dg;
-    for (int item = tid; item < n_items; item += THREADS) {
-      const int cg = item / n_dg, dg = item - cg * n_dg;
-      float acc[TC][TD];
+    const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
+    for (int s0p = 0; s0p < Sa; s0p += 32 * PV) {
+      float pv[MAX_CLS][PV];
 #pragma unroll
-      for (int c = 0; c < TC; ++c)
+      for (int q = 0; q < MAX_CLS; ++q)
 #pragma unroll
-        for (int j = 0; j < TD; ++j) acc[c][j] = 0.f;
-
-      for (int q = 0; q < plan.n_cls; ++q) {
-        const ClassDesc& k = plan.cls[q];
-        const float* zc = sm.Z + (size_t)k.z_off * CC + cg * TC;
-        const int n_r = k.side == SIDE_SRC ? 1 : k.rank;
-        for (int r = 0; r < n_r; ++r) {
-          const float* mcol = a.mt + k.mt_off + r * SaP + dg * TD;
-          float t[TC][TD];
+        for (int j = 0; j < PV; ++j) {
+          const int s = s0p + w.lane + 32 * j;
+          pv[q][j] = src[q] != nullptr && s < Sa ? src[q][s] : 0.f;
+        }
+      if (s0p == 0) {
+        // the weights, with the neighbour's pending rescale folded in:
+        // w / den (the plain version divides p by den first, so the two
+        // differ by rounding only), one division per neighbour
 #pragma unroll
-          for (int c = 0; c < TC; ++c)
+        for (int q = 0; q < MAX_CLS; ++q) {
+          const float wv =
+              wq[q] > NEG_INF / 2 ? expf(wq[q] - mu_safe) : 0.f;
+          wq[q] = wv == 0.f ? 0.f : dq[q] == 1.f ? wv : wv / dq[q];
+        }
+        if (w.lane == 0) {
+          w.ms[s0 * W + i] = mu;
+          w.dn[s0 * W + i] = 1.f;
+          if (fire) w.mx[i] = NO_MAX;
 #pragma unroll
-            for (int j = 0; j < TD; ++j) t[c][j] = 0.f;
-#pragma unroll 4
-          for (int kk = 0; kk < k.K; ++kk) {
-            const float4 mv = __ldg(
-                reinterpret_cast<const float4*>(mcol + (size_t)kk * k.N));
-            const float4 za =
-                *reinterpret_cast<const float4*>(zc + (size_t)kk * CC);
-            const float4 zb =
-                *reinterpret_cast<const float4*>(zc + (size_t)kk * CC + 4);
-            const float zv[TC] = {za.x, za.y, za.z, za.w,
-                                  zb.x, zb.y, zb.z, zb.w};
-            const float mvv[TD] = {mv.x, mv.y, mv.z, mv.w};
+          for (int q = 0; q < MAX_CLS; ++q)
+            if (q < a.n_cls) w.tok[q * CC + c] = tq[q];
+        }
+      }
 #pragma unroll
-            for (int c = 0; c < TC; ++c)
+      for (int q = 0; q < MAX_CLS; ++q) {
+        if (q >= a.n_cls) break;
+        const ClassDesc& k = a.cls[q];
+        const float wv = wq[q];
+        const float* e = w.et + k.e_off + tq[q] * k.rank * Sa;
 #pragma unroll
-              for (int j = 0; j < TD; ++j)
-                t[c][j] = fmaf(zv[c], mvv[j], t[c][j]);
-          }
+        for (int j = 0; j < PV; ++j) {
+          const int s = s0p + w.lane + 32 * j;
+          if (s >= Sa) break;
+          const float z = wv != 0.f ? pv[q][j] * wv : 0.f;
           if (k.side == SIDE_SRC) {
-#pragma unroll
-            for (int c = 0; c < TC; ++c)
-#pragma unroll
-              for (int j = 0; j < TD; ++j) acc[c][j] += t[c][j];
+            for (int r = 0; r < k.rank; ++r)
+              w.Z[zpos(k.z_row + r * Sa + s, c, zs)] =
+                  wv != 0.f ? z * e[r * Sa + s] : 0.f;
           } else {
+            w.Z[zpos(k.z_row + s, c, zs)] = z;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The class products of one group of 16-row tiles (mt0 .. mt0 + nmt - 1,
+// their slabs at `As`) for the chunk's nt cell tiles, written to p0; on a
+// rescale diagonal each cell's max over states goes to w.mx.
+__device__ void products(const Args& a, const Walker& w, const float* As,
+                         int mt0, int nmt, int cs, int ncc, float* p0,
+                         bool fire) {
+  const int Sa = a.Sa, SaP = a.SaP, CC = a.CC, zs = zstride(CC);
+  const int nt = (ncc + 7) / 8;
+  int ng = (nmt * nt + w.nwarps - 1) / w.nwarps;
+  ng = min(NG_MAX, max(1, ng));
+  const int groups = (nt + ng - 1) / ng;
+  ng = (nt + groups - 1) / groups;
+  const int g = w.lane >> 2, t = w.lane & 3;
+  for (int item = w.warp; item < nmt * groups; item += w.nwarps) {
+    const int ml = item / groups;
+    const int nt0 = (item - ml * groups) * ng;
+    const int nn = min(ng, nt - nt0);
+    const int mt = mt0 + ml;
+    const float* slab = As + (size_t)ml * a.slab;
+    float acc[NG_MAX][4];
 #pragma unroll
-            for (int c = 0; c < TC; ++c) {
-              const int cc = cg * TC + c;
-              if (cc >= ncc) continue;
-              const int tok = sm.tok[q * CC + cc];
+    for (int j = 0; j < NG_MAX; ++j)
 #pragma unroll
-              for (int j = 0; j < TD; ++j) {
-                const int dst = dg * TD + j;
-                if (dst < Sa)
-                  acc[c][j] += t[c][j] *
-                      __ldg(a.emat + k.e_off
-                            + (size_t)(r * Sa + dst) * k.n_tok + tok);
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int q = 0; q < a.n_cls; ++q) {
+      const ClassDesc& k = a.cls[q];
+      const float* zq = w.Z + (k.z_row >> 3) * zs + nt0 * FRAG_B + w.lane * 2;
+      for (int r = 0; r < k.na; ++r) {
+        const float* ar = slab + k.a_off + r * k.KT * FRAG_A + w.lane * 4;
+        float tb[NG_MAX][4], ts[NG_MAX][4];
+#pragma unroll
+        for (int j = 0; j < NG_MAX; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tb[j][e] = ts[j][e] = 0.f;
+#pragma unroll 2
+        for (int kt = 0; kt < k.KT; ++kt) {
+          const float4 av = *reinterpret_cast<const float4*>(ar + kt * FRAG_A);
+          uint32_t ah[4], al[4];
+          split(av.x, ah[0], al[0]);
+          split(av.y, ah[1], al[1]);
+          split(av.z, ah[2], al[2]);
+          split(av.w, ah[3], al[3]);
+          uint32_t bh[NG_MAX][2], bl[NG_MAX][2];
+#pragma unroll
+          for (int j = 0; j < NG_MAX; ++j) {
+            if (j < nn) {
+              const float2 bv = *reinterpret_cast<const float2*>(
+                  zq + kt * zs + j * FRAG_B);
+              split(bv.x, bh[j][0], bl[j][0]);
+              split(bv.y, bh[j][1], bl[j][1]);
+            }
+          }
+          // the big products first, then the two small ones: products into
+          // one accumulator are issued NG_MAX apart
+#pragma unroll
+          for (int j = 0; j < NG_MAX; ++j)
+            if (j < nn) mma_tf32(tb[j], ah, bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int j = 0; j < NG_MAX; ++j)
+            if (j < nn) mma_tf32(ts[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+          for (int j = 0; j < NG_MAX; ++j)
+            if (j < nn) mma_tf32(ts[j], al, bh[j][0], bh[j][1]);
+        }
+        // epilogue: c0 = C[g][2t], c1 = C[g][2t+1], c2/c3 rows g + 8
+#pragma unroll
+        for (int j = 0; j < NG_MAX; ++j) {
+          if (j >= nn) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = tb[j][e] + ts[j][e];
+            if (k.side == SIDE_SRC) {
+              acc[j][e] += v;
+            } else {
+              const int dst = mt * 16 + g + (e >> 1) * 8;
+              const int col = (nt0 + j) * 8 + 2 * t + (e & 1);
+              if (dst < Sa && col < ncc) {
+                const int tok = w.tok[q * CC + col];
+                acc[j][e] += v * w.et[k.e_off + tok * k.rank * Sa +
+                                      r * Sa + dst];
               }
             }
           }
         }
       }
+    }
 #pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        const int cc = cg * TC + c;
-        if (cc >= ncc) continue;
-        float4 v = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
-        if (sm.state[cc] == CELL_START)       // a chain starts: c0, m = 0
-          v = *reinterpret_cast<const float4*>(a.c0 + dg * TD);
-        *reinterpret_cast<float4*>(p0 + (size_t)(cs + cc) * SaP + dg * TD) =
-            v;
+    for (int j = 0; j < NG_MAX; ++j) {
+      if (j >= nn) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int dst = mt * 16 + g + (e >> 1) * 8;
+        const int col = (nt0 + j) * 8 + 2 * t + (e & 1);
+        if (dst < Sa && col < ncc)
+          p0[(size_t)(cs + col) * SaP + dst] = acc[j][e];
+      }
+      if (fire) {
+        // each cell's max over this tile's 16 rows (the padded rows hold
+        // 0), across the lanes of one t, then one atomic per cell
+        float m0 = fmaxf(acc[j][0], acc[j][2]);
+        float m1 = fmaxf(acc[j][1], acc[j][3]);
+        for (int off = 4; off < 32; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        const int col = (nt0 + j) * 8 + 2 * t;
+        if (g == 0 && col < ncc)
+          atomicMax(w.mx + cs + col, __float_as_int(m0));
+        if (g == 0 && col + 1 < ncc)
+          atomicMax(w.mx + cs + col + 1, __float_as_int(m1));
       }
     }
-    __syncthreads();
-  }
-
-  // phase D: rescale on two consecutive diagonals of every rescale_every
-  if (d % a.rescale_every <= 1) {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int i = lo + warp; i <= hi; i += THREADS / 32) {
-      if (cells.at(d, i).state == CELL_DEAD) continue;
-      float* pc = p0 + (size_t)i * SaP;
-      float mx = -3.4e38f;
-      for (int s = lane; s < Sa; s += 32) mx = fmaxf(mx, pc[s]);
-      mx = warp_max(mx);
-      const bool has = mx > 0.f;
-      const float den = fmaxf(mx, 1e-37f);
-      for (int s = lane; s < Sa; s += 32) pc[s] = has ? pc[s] / den : 0.f;
-      if (lane == 0) m0[i] = has ? m0[i] + logf(den) : NEG_INF;
-    }
-    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-lowrank_wavefront_kernel(LrArgs a, const int* __restrict__ in_lens,
-                         const int* __restrict__ out_lens) {
-  extern __shared__ float4 smem4[];
-  const Smem sm = smem_layout(smem4, a.CC, a.k_total);
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int W = a.Li + 1;
-  const int SaP = a.SaP;
-  const int il = in_lens[b];
-  const int ol = out_lens[b];
-  if (il < 0 || il > a.Li || ol < 0 || ol > a.Lo) {
-    if (tid == 0) a.out[b] = __int_as_float(0x7fc00000);   // NaN: bad length
-    return;
+// One diagonal d over cells lo..hi, in chunks of at most CC cells, then the
+// rescale's divisors. Every thread of the walker calls it; it ends
+// synchronised.
+__device__ void step(const Args& a, const Walker& w, float* A, int d, int lo,
+                     int hi, int off) {
+  const int W = a.Li + 1, SaP = a.SaP;
+  const int s0 = d % 3, s1 = (d + 2) % 3, s2 = (d + 1) % 3;
+  float* p0 = w.pb + (size_t)s0 * W * SaP;
+  const bool fire = (d + off) % a.rescale_every <= 1;
+  const bool resident = a.seg_mt >= a.n_mt;
+  const int n = hi - lo + 1;
+  const int nch = (n + a.CC - 1) / a.CC;
+  const int per = ((n + nch - 1) / nch + 7) / 8 * 8;
+  for (int cs = lo; cs <= hi; cs += per) {
+    const int ncc = min(per, hi - cs + 1);
+    if (!resident) load_slabs(a, A, 0, min(a.seg_mt, a.n_mt), w);
+    build(a, w, d, cs, ncc, s0, s1, s2, fire);
+    if (resident) {
+      wbar(w);
+      products(a, w, A, 0, a.n_mt, cs, ncc, p0, fire);
+    } else {
+      const int n_seg = (a.n_mt + a.seg_mt - 1) / a.seg_mt;
+      const size_t ring = (size_t)a.seg_mt * a.slab;
+      for (int sg = 0; sg < n_seg; ++sg) {
+        if (sg + 1 < n_seg) {
+          const int nxt = (sg + 1) * a.seg_mt;
+          load_slabs(a, A + ((sg + 1) & 1) * ring, nxt,
+                     min(a.seg_mt, a.n_mt - nxt), w);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        wbar(w);
+        const int mt0 = sg * a.seg_mt;
+        products(a, w, A + (sg & 1) * ring, mt0, min(a.seg_mt, a.n_mt - mt0),
+                 cs, ncc, p0, fire);
+        if (sg + 1 < n_seg) wbar(w);
+      }
+    }
+    wbar(w);
   }
-  float* pb = a.pbuf + (size_t)b * 3 * W * SaP;
-  float* mb = a.mbuf + (size_t)b * 3 * W;
-  if (tid == 0) *sm.bad = 0;
+  // rescale on two consecutive diagonals of every rescale_every: the
+  // divisors; the states are divided where they are next read
+  if (fire) {
+    for (int i = lo + w.tid; i <= hi; i += w.nthr)
+      rescale_cell(w.mx[i], w.dn + s0 * W + i, w.ms + s0 * W + i);
+    wbar(w);
+  }
+}
 
-  // d = 0: only cell (0, 0), p = c0 (closure row 0), m = 0
-  for (int s = tid; s < SaP; s += THREADS) pb[s] = a.c0[s];
-  if (tid == 0) mb[0] = 0.f;
-  __syncthreads();
+// Walk pair b from its start cell to its readout and write its score.
+__device__ void walk_pair(const Args& a, const Walker& w, float* A, int b) {
+  const int W = a.Li + 1;
+  int il, ol, off = 0;
+  if (a.n_chain > 0) {
+    il = a.Li;
+    ol = a.Lo;
+    off = (a.Lo + 2) * (b / (a.B / a.n_chain));
+  } else {
+    il = a.in_lens[b];
+    ol = a.out_lens[b];
+    if (il < 0 || il > a.Li || ol < 0 || ol > a.Lo) {
+      if (w.tid == 0) a.out[b] = __int_as_float(0x7fc00000);  // bad length
+      return;
+    }
+  }
+  // d = 0: only cell (0, 0), p = c0 (closure row 0), m = 0; the tokens
+  for (int s = w.tid; s < a.SaP; s += w.nthr) w.pb[s] = a.c0[s];
+  for (int v = w.tid; v < a.Li; v += w.nthr)
+    w.xs[v] = a.in_toks[(size_t)b * a.Li + v];
+  for (int v = w.tid; v < a.Lo; v += w.nthr)
+    w.ys[v] = a.out_toks[(size_t)b * a.Lo + v];
+  if (w.warp == 0) {
+    // the chained start cell takes its step's rescale
+    float mx = -3.4e38f;
+    for (int s = w.lane; s < a.Sa; s += 32) mx = fmaxf(mx, a.c0[s]);
+    mx = warp_max(mx);
+    if (w.lane == 0) {
+      *w.bad = 0;
+      w.ms[0] = 0.f;
+      w.dn[0] = 1.f;
+      if (off > 0 && off % a.rescale_every <= 1)
+        rescale_cell(__float_as_int(mx), w.dn, w.ms);
+    }
+  }
+  wbar(w);
   const int dfin = il + ol;
-  const PairCells cells{a.in_toks + (size_t)b * a.Li,
-                        a.out_toks + (size_t)b * a.Lo, sm.bad};
   for (int d = 1; d <= dfin; ++d)
-    lr_step(a, cells, d, max(0, d - ol), min(d, il), pb, mb, sm);
-
-  if (tid == 0) {
+    step(a, w, A, d, max(0, d - ol), min(d, il), off);
+  if (w.tid == 0) {
     const int slot = dfin % 3;
-    const float e = pb[((size_t)slot * W + il) * SaP + a.Sa - 1];
-    const float m = mb[slot * W + il];
+    const float den = w.dn[slot * W + il];
+    float e = w.pb[((size_t)slot * W + il) * a.SaP + a.Sa - 1];
+    e = den == 1.f ? e : den > 0.f ? e / den : 0.f;
+    const float m = w.ms[slot * W + il];
     float v = e > 0.f ? m + logf(fmaxf(e, 1e-37f)) : NEG_INF;
-    if (*sm.bad) v = __int_as_float(0x7fc00000);           // NaN: bad token
+    if (*w.bad) v = __int_as_float(0x7fc00000);              // bad token
     a.out[b] = v;
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-lowrank_chained_kernel(LrArgs a, strip::Strip st, int* bad) {
+__global__ void __launch_bounds__(THREADS, 1)
+lowrank_wavefront_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  const Smem sm = smem_layout(smem4, a.CC, a.k_total);
-
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int W = a.Li + 1;
-  const int SaP = a.SaP;
-  float* pb = a.pbuf + (size_t)w * 3 * W * SaP;
-  float* mb = a.mbuf + (size_t)w * 3 * W;
-
-  // t = 0: chain 0's cell (0, 0), p = c0, m = 0
-  for (int s = tid; s < SaP; s += THREADS) pb[s] = a.c0[s];
-  if (tid == 0) mb[0] = 0.f;
+  float* sm = reinterpret_cast<float*>(smem4);
+  const bool resident = a.seg_mt >= a.n_mt;
+  float* A = sm;
+  const long af = a_floats(a.n_mt, a.slab, a.seg_mt) + a.et_floats;
+  const long wf = walker_floats(a.KZ, a.CC, a.Li, a.Lo);
+  if (resident) {
+    const float4* src = reinterpret_cast<const float4*>(a.a);
+    float4* dst = reinterpret_cast<float4*>(A);
+    for (long v = threadIdx.x; v < (long)a.n_mt * a.slab / 4; v += THREADS)
+      dst[v] = src[v];
+  }
+  float* et_s = sm + (af - a.et_floats);
+  for (long v = threadIdx.x; v < a.et_floats; v += THREADS) et_s[v] = a.et[v];
+  // zero the walkers' regions: operand rows past a class's K and columns
+  // past a chunk's cells are never written, and must not hold NaN
+  for (long v = af + threadIdx.x; v < af + a.walkers * wf; v += THREADS)
+    sm[v] = 0.f;
   __syncthreads();
-  const StripCells cells{st, a.in_toks, a.out_toks, bad, w};
-  const int n_steps = strip::steps(st);
-  for (int t = 1; t < n_steps; ++t) {
-    lr_step(a, cells, t, strip::col_lo(st, t), strip::col_hi(st, t), pb, mb,
-            sm);
-    const int k = strip::readout_chain(st, t);
-    if (k >= 0 && tid == 0) {
-      const int n = strip::pair(st, k, w);
-      const int slot = t % 3;
-      const float e = pb[((size_t)slot * W + a.Li) * SaP + a.Sa - 1];
-      const float m = mb[slot * W + a.Li];
-      float v = e > 0.f ? m + logf(fmaxf(e, 1e-37f)) : NEG_INF;
-      if (bad[n]) v = __int_as_float(0x7fc00000);          // NaN: bad token
-      a.out[n] = v;
-    }
-  }
-}
 
-bool make_lr_args(LrArgs& a, const void* in_toks, const void* out_toks,
-                  const void* c0, const void* mt, const void* emat,
-                  void* pbuf, void* mbuf, void* out, int Li, int Lo, int Sa,
-                  int SaP, int To, int rescale_every, int n_cls,
-                  const int* desc, int chunk_cells, int k_total) {
-  if (n_cls < 0 || n_cls > MAX_CLS || rescale_every < 1 || chunk_cells < TC ||
-      chunk_cells % TC != 0)
-    return false;
-  a.in_toks = (const int*)in_toks;
-  a.out_toks = (const int*)out_toks;
-  a.c0 = (const float*)c0;
-  a.mt = (const float*)mt;
-  a.emat = (const float*)emat;
-  a.pbuf = (float*)pbuf;
-  a.mbuf = (float*)mbuf;
-  a.out = (float*)out;
-  a.Li = Li; a.Lo = Lo; a.Sa = Sa; a.SaP = SaP; a.To = To;
-  a.rescale_every = rescale_every;
-  a.plan.n_cls = n_cls;
-  for (int q = 0; q < n_cls; ++q) {
-    const int* v = desc + q * DESC_LEN;
-    a.plan.cls[q] = ClassDesc{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
-                              v[8]};
+  Walker w;
+  w.nthr = THREADS / a.walkers;
+  w.id = threadIdx.x / w.nthr;
+  w.tid = threadIdx.x - w.id * w.nthr;
+  w.warp = w.tid >> 5;
+  w.nwarps = w.nthr >> 5;
+  w.lane = threadIdx.x & 31;
+  const int W = a.Li + 1;
+  float* base = sm + af + w.id * wf;
+  w.et = a.et_floats > 0 ? et_s : a.et;
+  w.Z = base;
+  w.tok = reinterpret_cast<int*>(base + (long)(a.KZ / 8) * zstride(a.CC));
+  w.bad = w.tok + MAX_CLS * a.CC;
+  w.next = w.bad + 1;
+  w.xs = w.bad + 4;
+  w.ys = w.xs + a.Li;
+  w.ms = reinterpret_cast<float*>(w.ys + a.Lo);
+  w.dn = w.ms + 3 * W;
+  w.mx = reinterpret_cast<int*>(w.dn + 3 * W);
+  const size_t slot = (size_t)blockIdx.x * a.walkers + w.id;
+  w.pb = a.pbuf + slot * 3 * W * a.SaP;
+
+  for (;;) {
+    wbar(w);                   // everyone has read the previous *next
+    if (w.tid == 0) *w.next = atomicAdd(a.counter, 1);
+    wbar(w);
+    const int k = *w.next;
+    if (k >= a.B) break;
+    const int b = a.order[k];
+    if (b < 0 || b >= a.B) continue;       // not an index of this batch
+    walk_pair(a, w, A, b);
   }
-  a.CC = chunk_cells;
-  a.k_total = k_total;
-  return true;
 }
 
 }  // namespace
 
-extern "C" int lowrank_wavefront_smem_bytes(int chunk_cells, int k_total) {
-  return (int)(((size_t)k_total * chunk_cells + 2 * MAX_CLS * chunk_cells
-                + chunk_cells + 4) * sizeof(float));
+extern "C" long lowrank_wavefront_smem_bytes(int n_mt, int slab, int seg_mt,
+                                             int KZ, int CC, int walkers,
+                                             int et_floats, int Li, int Lo) {
+  return smem_bytes(n_mt, slab, seg_mt, KZ, CC, walkers, et_floats, Li, Lo);
 }
 
-// Launches the plain-mode kernel on `stream` (one block per pair) and
-// returns cudaGetLastError(): nonzero means the launch was refused.
+// Launches the kernel on `stream` with `grid` blocks of `walkers` pair
+// walkers each and returns cudaGetLastError(): nonzero means the launch was
+// refused. et_floats > 0 copies that many floats of `et` (all of it, padded
+// to a multiple of 4) into shared memory. n_chain = 0 is plain mode (the
+// lengths are read); n_chain >= 1 chained mode (B a multiple of n_chain,
+// the lengths not read). `order` holds the B pair indices in the order the
+// walkers take them; `counter` is one int that the caller has set to 0.
 extern "C" int lowrank_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* in_lens,
-    const void* out_lens, const void* c0, const void* mt, const void* emat,
-    void* pbuf, void* mbuf, void* out, int B, int Li, int Lo, int Sa, int SaP,
-    int To, int rescale_every, int n_cls, const int* desc, int chunk_cells,
-    int k_total, void* stream) {
-  LrArgs a;
-  if (!make_lr_args(a, in_toks, out_toks, c0, mt, emat, pbuf, mbuf, out, Li,
-                    Lo, Sa, SaP, To, rescale_every, n_cls, desc, chunk_cells,
-                    k_total))
+    const void* out_lens, const void* c0, const void* a_tiles,
+    const void* et, void* pbuf, void* out, const void* order, void* counter,
+    int B, int Li, int Lo, int Sa, int SaP, int To, int rescale_every,
+    int n_cls, const int* desc, int n_mt, int slab, int KZ, int CC,
+    int seg_mt, int walkers, int et_floats, int grid, int n_chain,
+    void* stream) {
+  if (n_cls < 0 || n_cls > MAX_CLS || rescale_every < 1 || CC < 8 ||
+      CC % 8 != 0 || KZ % 8 != 0 || slab % FRAG_A != 0 || seg_mt < 1 ||
+      (walkers != 1 && walkers != 2) || (seg_mt < n_mt && walkers != 1) ||
+      grid < 1 || n_chain < 0 || Sa > n_mt * 16 || SaP < Sa ||
+      et_floats < 0 || et_floats % 4 != 0 || Li < 0 || Lo < 0 ||
+      (n_chain > 0 && (B % n_chain != 0 || Li < 1 || Lo < 1)))
     return (int)cudaErrorInvalidValue;
-  const int smem = lowrank_wavefront_smem_bytes(chunk_cells, k_total);
+  Args a;
+  a.in_toks = (const int*)in_toks;
+  a.out_toks = (const int*)out_toks;
+  a.in_lens = (const int*)in_lens;
+  a.out_lens = (const int*)out_lens;
+  a.c0 = (const float*)c0;
+  a.a = (const float*)a_tiles;
+  a.et = (const float*)et;
+  a.pbuf = (float*)pbuf;
+  a.out = (float*)out;
+  a.order = (const int*)order;
+  a.counter = (int*)counter;
+  a.B = B; a.Li = Li; a.Lo = Lo; a.Sa = Sa; a.SaP = SaP; a.To = To;
+  a.rescale_every = rescale_every;
+  a.n_chain = n_chain;
+  a.n_cls = n_cls;
+  for (int q = 0; q < n_cls; ++q) {
+    const int* v = desc + q * DESC_LEN;
+    a.cls[q] = ClassDesc{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
+                         v[8]};
+    if (a.cls[q].z_row % 8 != 0 || a.cls[q].z_row + 8 * a.cls[q].KT > KZ)
+      return (int)cudaErrorInvalidValue;
+  }
+  a.n_mt = n_mt; a.slab = slab; a.KZ = KZ; a.CC = CC; a.seg_mt = seg_mt;
+  a.walkers = walkers;
+  a.et_floats = et_floats;
+  const long smem =
+      smem_bytes(n_mt, slab, seg_mt, KZ, CC, walkers, et_floats, Li, Lo);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       lowrank_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  lowrank_wavefront_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      a, (const int*)in_lens, (const int*)out_lens);
-  return (int)cudaGetLastError();
-}
-
-// Launches the chained-mode kernel on `stream` (one block per strip of
-// n_chain uniform-length pairs) and returns cudaGetLastError(). `bad` holds
-// B ints that the caller has set to 0.
-extern "C" int lowrank_chained_launch(
-    const void* in_toks, const void* out_toks, const void* c0, const void* mt,
-    const void* emat, void* pbuf, void* mbuf, void* out, void* bad, int B,
-    int Li, int Lo, int Sa, int SaP, int To, int rescale_every, int n_cls,
-    const int* desc, int chunk_cells, int k_total, int n_chain,
-    void* stream) {
-  LrArgs a;
-  strip::Strip st;
-  if (!strip::make_strip(st, B, Li, Lo, n_chain) ||
-      !make_lr_args(a, in_toks, out_toks, c0, mt, emat, pbuf, mbuf, out, Li,
-                    Lo, Sa, SaP, To, rescale_every, n_cls, desc, chunk_cells,
-                    k_total))
-    return (int)cudaErrorInvalidValue;
-  const int smem = lowrank_wavefront_smem_bytes(chunk_cells, k_total);
-  cudaError_t err = cudaFuncSetAttribute(
-      lowrank_chained_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0) return 0;
-  lowrank_chained_kernel<<<st.n_strips, THREADS, smem,
-                           (cudaStream_t)stream>>>(a, st, (int*)bad);
+  lowrank_wavefront_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

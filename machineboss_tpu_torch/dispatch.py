@@ -14,8 +14,9 @@ router. Ported so far is `log_forward_batch` for dense machines:
 Each kernel route launches its CUDA kernel on the card and runs the
 kernel's plain PyTorch version on the CPU. With engine="auto" the CPU
 takes, as the JAX package does off its accelerator, the wavefront engine
-for full-rank machines and the sequential scan (ops/dp1d) for 1D ones;
-engine="kernel" forces the kernel routes on any device.
+for every dense 2D machine, structured or full-rank, and the sequential
+scan (ops/dp1d) for 1D ones; engine="kernel" forces the kernel routes on
+any device.
 
 Non-dense machines (the sparse engine) are a later slice and raise
 NotImplementedError; the single-pair log_forward/log_viterbi are not
@@ -101,16 +102,16 @@ class CompiledMachine:
         ragged schedule) or 'wavefront'.
 
         engine: 'auto' takes the kernel routes on the card and, on the
-        CPU, the wavefront engine for full-rank machines; 'kernel' (alias
-        'pallas', the JAX package's name for it) forces the kernel routes
-        on any device; 'wavefront' forces the torch wavefront engine."""
+        CPU, the wavefront engine for every dense 2D machine, as the JAX
+        package does off its accelerator; 'kernel' (alias 'pallas', the
+        JAX package's name for it) forces the kernel routes on any device;
+        'wavefront' forces the torch wavefront engine."""
         _check_engine(engine)
-        if engine == "wavefront":
+        if engine == "wavefront" or (engine == "auto"
+                                     and self.device.type == "cpu"):
             return "wavefront"
         if self.lowrank_ratio() < LOWRANK_MAX_RATIO:
             return "lowrank"
-        if engine == "auto" and self.device.type == "cpu":
-            return "wavefront"
         return "fullrank"
 
     def log_forward_batch(self, pairs, engine="auto", pad_multiple=16,

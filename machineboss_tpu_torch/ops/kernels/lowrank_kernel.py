@@ -22,9 +22,12 @@ NEG_INF convention and readout, in each of two modes:
   ops/kernels/plain_walk.py in float32, used on the CPU and as the card's
   comparison;
 - `lowrank_wavefront` and `lowrank_chained_wavefront`: the wrappers of the
-  hand-written CUDA kernel's two entries (csrc/lowrank_wavefront.cu). A
-  CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-  plain version.
+  hand-written CUDA kernel (csrc/lowrank_wavefront.cu), one persistent
+  per-pair walk that serves both modes, each wrapper with its own launch
+  count. A CUDA tensor launches the kernel or raises; only a CPU tensor
+  takes the plain version. `pack_lowrank` lays the plan out for the
+  kernel (factors in mma.m16n8k8 fragment order) and `launch_plan` the
+  block (walkers, chunk, resident or streamed factors, shared bytes).
 
 `make_lowrank_forward` keeps the JAX factory's signature and return
 contract, fn(in_toks, out_toks, in_lens, out_lens) -> (B,); chain > 1 is
@@ -42,11 +45,12 @@ from ._build import load
 from .factorize import factorize_token_tensor
 from .plain_walk import check_chain, walk_chained, walk_plain
 
-# shared memory the kernel's class operands may take per block: two blocks
-# fit on one SM with room left for the L1 cache that serves M and E
-SMEM_BUDGET = 100 * 1024
-_TC = 8          # cells per thread tile (csrc/lowrank_wavefront.cu)
-_TD = 4          # destination states per thread tile
+# csrc/lowrank_wavefront.cu: the shared memory a block may take on sm_90,
+# the class descriptor's length, and the least cells per chunk worth a
+# second walker in a block
+SMEM_MAX = 232448
+DESC_LEN = 9
+_MIN_CC_TWO_WALKERS = 16
 _KINDS = {"up": 0, "left": 1, "diag": 2}
 _SIDES = {"src": 0, "dest": 1}
 
@@ -187,22 +191,95 @@ class LowrankOperands:
     """One machine's prepared lowrank plan as tensors on one device.
 
     `mats` holds each class's (M, E) as prepare_lowrank returns them (the
-    plain version's operands). On a CUDA device the kernel's layout is
-    added: every M transposed to k-major (MT, K x N) with the destination
-    states padded to SaP = round_up(Sa, 4), all classes packed into `mt`,
-    their E blocks into `e`, and one descriptor row per class in `desc`
-    (kind, side, rank, n_tok, K, N, mt_off, e_off, z_off)."""
+    plain version's operands). On a CUDA device the kernel's layout
+    (`pack_lowrank`) is added: the A tiles `a` (n_mt slabs of `slab`
+    floats), the transposed token scales `et`, one descriptor row per class
+    in `desc`, the operand rows KZ, and the start vector padded to SaP.
+    `et_floats` is the length of `et`, padded to a multiple of 4."""
     Sa: int
     To: int
     classes: tuple
     c0: torch.Tensor
     mats: list
     SaP: int = 0
-    k_total: int = 0
+    n_mt: int = 0
+    slab: int = 0
+    KZ: int = 0
+    et_floats: int = 0
     c0_pad: torch.Tensor = None
-    mt: torch.Tensor = None
-    e: torch.Tensor = None
+    a: torch.Tensor = None
+    et: torch.Tensor = None
     desc: np.ndarray = None
+
+
+def pack_lowrank(classes, mats, Sa):
+    """The kernel's layout of a prepare_lowrank plan (numpy).
+
+    Every class is one or more A matrices with the destination states as
+    rows, padded to n_mt tiles of 16, and the class's operand rows as
+    columns, padded to KT k-tiles of 8: a src-side class one (Sa, R*Sa)
+    matrix M, a dest-side class R matrices M[r*Sa:(r+1)*Sa] of (Sa, Sa).
+    Each 16x8 tile is stored in the A fragment order of mma.m16n8k8 (lane
+    g*4 + t holds rows g, g+8 of columns t, t+4: A[g,t], A[g+8,t], A[g,t+4],
+    A[g+8,t+4]), and the tiles of one 16-row tile are contiguous: a slab
+    holds, per class, its `na` matrices' KT tiles. E is stored transposed
+    (n_tok, R*Sa), so a token's column is contiguous.
+
+    Returns (a (n_mt * slab,), et, desc (n_cls, DESC_LEN) int32, n_mt,
+    slab, KZ): desc rows (kind, side, rank, n_tok, KT, na, a_off, e_off,
+    z_row), z_row the class's first operand row (k-tiles of all classes
+    stacked, KZ rows in all)."""
+    n_mt = max(1, (Sa + 15) // 16)
+    desc, parts, ets = [], [], []
+    a_off = e_off = z_row = 0
+    for cs, (M, E) in zip(classes, mats):
+        R = cs.rank
+        if cs.side == "src":
+            na, K = 1, R * Sa
+            mats_c = np.asarray(M, np.float32)[None]
+        else:
+            na, K = R, Sa
+            mats_c = np.asarray(M, np.float32).reshape(R, Sa, Sa)
+        KT = max(1, (K + 7) // 8)
+        pad = np.zeros((na, n_mt * 16, KT * 8), np.float32)
+        pad[:, :Sa, :K] = mats_c
+        # (na, mt, h, g, kt, c, t) -> (mt, na, kt, g, t, c, h): row h*8+g,
+        # column c*4+t, register c*2+h
+        frag = pad.reshape(na, n_mt, 2, 8, KT, 2, 4) \
+            .transpose(1, 0, 4, 3, 6, 5, 2).reshape(n_mt, -1)
+        parts.append(frag)
+        et = np.ascontiguousarray(np.asarray(E, np.float32).T)
+        ets.append(et.ravel())
+        desc.append([_KINDS[cs.name], _SIDES[cs.side], R, cs.n_tok, KT, na,
+                     a_off, e_off, z_row])
+        a_off += frag.shape[1]
+        e_off += et.size
+        z_row += KT * 8
+    slab = a_off
+    a = (np.concatenate(parts, axis=1) if parts
+         else np.zeros((n_mt, 0), np.float32))
+    return (np.ascontiguousarray(a).reshape(-1),
+            np.concatenate(ets) if ets else np.zeros(0, np.float32),
+            np.asarray(desc, np.int32).reshape(-1, DESC_LEN), n_mt, slab,
+            z_row)
+
+
+def unpack_lowrank(a, et, desc, n_mt, slab, Sa):
+    """The inverse of pack_lowrank: each class's (M, E) as prepare_lowrank
+    gave them."""
+    a = np.asarray(a).reshape(n_mt, slab)
+    out = []
+    for _, side, R, n_tok, KT, na, a_off, e_off, _ in desc:
+        frag = a[:, a_off:a_off + na * KT * 128] \
+            .reshape(n_mt, na, KT, 8, 4, 2, 2).transpose(1, 0, 6, 3, 2, 5, 4)
+        pad = frag.reshape(na, n_mt * 16, KT * 8)
+        if side == _SIDES["src"]:
+            M = pad[0, :Sa, :R * Sa]
+        else:
+            M = pad[:, :Sa, :Sa].reshape(R * Sa, Sa)
+        E = et[e_off:e_off + n_tok * R * Sa].reshape(n_tok, R * Sa).T
+        out.append((np.ascontiguousarray(M), np.ascontiguousarray(E)))
+    return out
 
 
 def lowrank_operands(plan, mats, To, device):
@@ -216,38 +293,18 @@ def lowrank_operands(plan, mats, To, device):
               for M, E in mats])
     if device.type != "cuda":
         return ops
-    SaP = _round_up(max(Sa, 1), _TD)
-    mt_parts, e_parts, desc = [], [], []
-    mt_off = e_off = z_off = 0
-    for cs, (M, E) in zip(plan["classes"], mats):
-        R = cs.rank
-        if cs.side == "src":
-            K, N = R * Sa, SaP
-            mt_c = np.zeros((K, N), np.float32)
-            mt_c[:, :Sa] = M.T                     # MT[(r,s), d] = M[d, (r,s)]
-        else:
-            K, N = Sa, R * SaP
-            mt_c = np.zeros((K, R, SaP), np.float32)
-            # MT[s, (r, d)] = M[(r, d), s]
-            mt_c[:, :, :Sa] = M.reshape(R, Sa, Sa).transpose(2, 0, 1)
-            mt_c = mt_c.reshape(K, N)
-        desc.append([_KINDS[cs.name], _SIDES[cs.side], R, cs.n_tok, K, N,
-                     mt_off, e_off, z_off])
-        mt_parts.append(mt_c.ravel())
-        e_parts.append(np.ascontiguousarray(E, np.float32).ravel())
-        mt_off += mt_c.size
-        e_off += E.size
-        z_off += K
-    c0_pad = np.zeros(SaP, np.float32)
+    a, et, desc, ops.n_mt, ops.slab, ops.KZ = pack_lowrank(
+        plan["classes"], mats, Sa)
+    ops.SaP = _round_up(max(Sa, 1), 4)
+    c0_pad = np.zeros(ops.SaP, np.float32)
     c0_pad[:Sa] = plan["c0"][:, 0]
-    empty = np.zeros(4, np.float32)
-    ops.SaP = SaP
-    ops.k_total = z_off
+    ops.et_floats = _round_up(max(et.size, 1), 4)
+    et_pad = np.zeros(ops.et_floats, np.float32)
+    et_pad[:et.size] = et
     ops.c0_pad = torch.tensor(c0_pad, device=device)
-    ops.mt = torch.tensor(np.concatenate(mt_parts) if mt_parts else empty,
-                          device=device)
-    ops.e = torch.tensor(np.concatenate(e_parts) if e_parts else empty,
+    ops.a = torch.tensor(a if a.size else np.zeros(4, np.float32),
                          device=device)
+    ops.et = torch.tensor(et_pad, device=device)
     ops.desc = np.ascontiguousarray(desc, np.int32).reshape(-1)
     return ops
 
@@ -288,16 +345,65 @@ def lowrank_chained_forward_plain(ops, in_toks, out_toks, in_lens=None,
                         n_chain, rescale_every)
 
 
-def _chunk_cells(Li, k_total):
-    # Z, two per-class rows (weights, tokens) and a state per cell
-    per_cell = (k_total + 7) * 4
-    cap = (SMEM_BUDGET - 16) // per_cell // _TC * _TC
-    if cap < _TC:
-        raise ValueError(
-            "lowrank kernel: the class operands take %d rows per cell; "
-            "shared memory (%d bytes a block) holds at most %d"
-            % (k_total, SMEM_BUDGET, (SMEM_BUDGET - 16) // (_TC * 4) - 7))
-    return min(_round_up(Li + 1, _TC), cap)
+def _walker_bytes(KZ, CC, Li, Lo):
+    # the operand chunk (KZ/8 k-tiles of CC/8 8x8 tiles and 8 floats of
+    # padding), the chunk's tokens per class, the bad flag and the queue
+    # slot, the pair's tokens, the log scales and rescale divisors of three
+    # diagonal slots and one diagonal's maxima (csrc/lowrank_wavefront.cu)
+    n = KZ // 8 * (CC // 8 * 64 + 8) + 3 * CC + 4 + Li + Lo + 7 * (Li + 1)
+    return _round_up(n, 4) * 4
+
+
+def launch_plan(ops, Li, Lo, walkers=None):
+    """How the kernel lays out a block for this plan and padded lengths:
+    a dict with `walkers` (pair walkers per block, 1 or 2), `CC`
+    (cells per operand chunk), `seg_mt` (16-row factor tiles per copy;
+    n_mt when all are resident), `resident`, `et_floats` (the token scales
+    kept in shared memory, 0 when they are read from global memory) and
+    `smem` (bytes).
+
+    The factor tiles stay resident when they fit beside the operand chunk;
+    otherwise they stream through a ring of two groups of seg_mt tiles, with
+    one walker. `walkers` None takes two where each chunk holds at least 16
+    cells (or the whole diagonal), else one. The token scales go to shared
+    memory where they fit too. A plan that fits no way raises ValueError."""
+    if walkers not in (None, 1, 2):
+        raise ValueError("walkers must be 1 or 2")
+    cells = _round_up(Li + 1, 8)
+    a_res = ops.n_mt * ops.slab * 4
+
+    def wbytes(cc):
+        return _walker_bytes(ops.KZ, cc, Li, Lo)
+
+    def fit(room):
+        cc = cells
+        while cc >= 8 and wbytes(cc) > room:
+            cc -= 8
+        return cc
+
+    for nw in ((walkers,) if walkers else (2, 1)):
+        for et in (ops.et_floats, 0):
+            cc = fit((SMEM_MAX - a_res - et * 4) // nw)
+            least = 8 if walkers or nw == 1 \
+                else min(cells, _MIN_CC_TWO_WALKERS)
+            if cc >= least:
+                return {"walkers": nw, "CC": cc, "seg_mt": ops.n_mt,
+                        "resident": True, "et_floats": et,
+                        "smem": a_res + et * 4 + nw * wbytes(cc)}
+    if walkers != 2:
+        for seg in range(ops.n_mt - 1, 0, -1):
+            for et in (ops.et_floats, 0):
+                base = (2 * seg * ops.slab + et) * 4
+                cc = fit(SMEM_MAX - base)
+                if cc >= 8:
+                    return {"walkers": 1, "CC": cc, "seg_mt": seg,
+                            "resident": False, "et_floats": et,
+                            "smem": base + wbytes(cc)}
+    raise ValueError(
+        "lowrank kernel: %d factor floats per 16 states and %d operand rows "
+        "do not fit a block's %d bytes of shared memory%s"
+        % (ops.slab, ops.KZ, SMEM_MAX,
+           " with two walkers" if walkers == 2 else ""))
 
 
 def _check(t, name, dtype, shape, device):
@@ -314,22 +420,25 @@ def _check(t, name, dtype, shape, device):
 
 
 def lowrank_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                      rescale_every=4):
+                      rescale_every=4, grid=None, walkers=None):
     """Lowrank wavefront Forward: (B,) float32 log-likelihoods.
 
-    A CUDA tensor launches csrc/lowrank_wavefront.cu (one block per pair)
-    and counts one launch in `lowrank_wavefront.launches`; a CPU tensor
-    takes lowrank_forward_plain. Token and length tensors are int32 and
-    contiguous, on the device of `ops`. A pair whose length exceeds the
+    A CUDA tensor launches csrc/lowrank_wavefront.cu (a persistent grid of
+    `grid` blocks, default one per multiprocessor, each with `walkers` pair
+    walkers (launch_plan) that take the pairs longest first from an atomic
+    counter) and counts one launch in `lowrank_wavefront.launches`; a CPU
+    tensor takes lowrank_forward_plain. Token and length tensors are int32
+    and contiguous, on the device of `ops`. A pair whose length exceeds the
     padded shape or whose token lies outside its alphabet comes back NaN."""
     if in_toks.device.type == "cpu":
         return lowrank_forward_plain(ops, in_toks, out_toks, in_lens,
                                      out_lens, rescale_every)
     B, Li, Lo = _check_batch("lowrank_wavefront", ops, in_toks, out_toks,
-                             in_lens, out_lens, rescale_every, ops.mt)
-    out = torch.empty(B, dtype=torch.float32, device=ops.c0.device)
-    _launch("lowrank_wavefront", ops, [in_toks, out_toks, in_lens, out_lens],
-            out, [], B, Li, Lo, B, rescale_every, [])
+                             in_lens, out_lens, rescale_every, ops.a)
+    order = torch.argsort((in_lens + out_lens).long(), descending=True,
+                          stable=True).to(torch.int32)
+    out = _launch(ops, [in_toks, out_toks, in_lens, out_lens], order, B, Li,
+                  Lo, rescale_every, 0, grid, walkers)
     lowrank_wavefront.launches += 1
     return out
 
@@ -338,28 +447,29 @@ lowrank_wavefront.launches = 0
 
 
 def lowrank_chained_wavefront(ops, in_toks, out_toks, in_lens=None,
-                              out_lens=None, n_chain=4, rescale_every=4):
+                              out_lens=None, n_chain=4, rescale_every=4,
+                              grid=None, walkers=None):
     """Lowrank chained mode over a uniform-length batch: (B,) float32
     log-likelihoods, every pair read out at (Li, Lo) (the lengths are
     ignored; B must be a multiple of n_chain, Li and Lo at least 1).
 
-    A CUDA tensor launches the chained entry of csrc/lowrank_wavefront.cu
-    (one block per strip of n_chain pairs n = k * (B / n_chain) + w) and
-    counts one launch in `lowrank_chained_wavefront.launches`; a CPU tensor
-    takes lowrank_chained_forward_plain. A pair with a token outside its
-    alphabet comes back NaN."""
+    A CUDA tensor launches csrc/lowrank_wavefront.cu in chained mode: the
+    persistent grid of lowrank_wavefront walks every pair on its own, pair
+    n starting on absolute diagonal (Lo + 2) * (n // (B / n_chain)), which
+    the rescale rule reads; it counts one launch in
+    `lowrank_chained_wavefront.launches`. A CPU tensor takes
+    lowrank_chained_forward_plain. A pair with a token outside its alphabet
+    comes back NaN."""
     if in_toks.device.type == "cpu":
         return lowrank_chained_forward_plain(ops, in_toks, out_toks,
                                              n_chain=n_chain,
                                              rescale_every=rescale_every)
     B, Li, Lo = _check_batch("lowrank_chained_wavefront", ops, in_toks,
-                             out_toks, None, None, rescale_every, ops.mt)
+                             out_toks, None, None, rescale_every, ops.a)
     check_chain(B, Li, Lo, n_chain)
-    dev = ops.c0.device
-    out = torch.empty(B, dtype=torch.float32, device=dev)
-    bad = torch.zeros(B, dtype=torch.int32, device=dev)
-    _launch("lowrank_chained", ops, [in_toks, out_toks], out, [bad], B, Li,
-            Lo, B // n_chain, rescale_every, [n_chain])
+    order = torch.arange(B, dtype=torch.int32, device=in_toks.device)
+    out = _launch(ops, [in_toks, out_toks, in_toks, out_toks], order, B, Li,
+                  Lo, rescale_every, n_chain, grid, walkers)
     lowrank_chained_wavefront.launches += 1
     return out
 
@@ -391,6 +501,55 @@ def _check_batch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
     return B, Li, Lo
 
 
+def launch_config(ops, B, Li, Lo, grid=None, walkers=None):
+    """launch_plan's layout plus the grid a launch takes: `grid` blocks
+    (default one per multiprocessor, no more than the batch needs)."""
+    plan = launch_plan(ops, Li, Lo, walkers)
+    if grid is None:
+        sms = torch.cuda.get_device_properties(
+            ops.c0.device).multi_processor_count
+        grid = max(1, min(sms, -(-B // plan["walkers"])))
+    if int(grid) < 1:
+        raise ValueError("grid must be >= 1")
+    plan["grid"] = int(grid)
+    return plan
+
+
+def _launch(ops, inputs, order, B, Li, Lo, rescale_every, n_chain, grid,
+            walkers):
+    """Launch the lowrank kernel: `inputs` (tokens and lengths; in chained
+    mode any int32 tensors, the lengths are not read), the operands, the
+    diagonal states of grid x walkers walkers, the queue; raise if the
+    launch was refused."""
+    dev = ops.c0.device
+    cfg = launch_config(ops, B, Li, Lo, grid, walkers)
+    n_walk = cfg["grid"] * cfg["walkers"]
+    f32 = torch.float32
+    pbuf = torch.empty(max(n_walk * 3 * (Li + 1) * ops.SaP, 1), dtype=f32,
+                       device=dev)
+    out = torch.empty(B, dtype=f32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    _call("lowrank_wavefront", "lowrank_wavefront",
+          inputs + [ops.c0_pad, ops.a, ops.et, pbuf, out,
+                    order.contiguous(), counter],
+          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every,
+           len(ops.classes)], ops.desc,
+          [ops.n_mt, ops.slab, ops.KZ, cfg["CC"], cfg["seg_mt"],
+           cfg["walkers"], cfg["et_floats"], cfg["grid"], n_chain], dev)
+    return out
+
+
+def smem_bytes_on_card(ops, cfg, Li, Lo):
+    """The shared bytes the kernel's own layout takes for `cfg` (a
+    launch_plan for padded lengths Li, Lo), from the built library: must
+    equal cfg["smem"]."""
+    fn = load("lowrank_wavefront").lowrank_wavefront_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_long
+    return fn(ops.n_mt, ops.slab, cfg["seg_mt"], ops.KZ, cfg["CC"],
+              cfg["walkers"], cfg["et_floats"], Li, Lo)
+
+
 def _call(lib, entry, ptrs, ints, desc, tail, dev):
     """Call `entry`_launch of kernel library `lib` with pointer args, int
     args, the descriptor array, more int args and the current stream;
@@ -407,34 +566,25 @@ def _call(lib, entry, ptrs, ints, desc, tail, dev):
         raise RuntimeError("%s launch failed: CUDA error %d" % (entry, rc))
 
 
-def _launch(entry, ops, inputs, out, extra, B, Li, Lo, n_blocks,
-            rescale_every, tail):
-    """Launch `entry` of the lowrank library: inputs, c0, M, E, the slots of
-    `n_blocks` blocks, out and `extra` pointers, the shapes and plan, then
-    the chunk size, k_total and the `tail` ints."""
-    dev = ops.c0.device
-    W = Li + 1
-    pbuf = torch.empty(max(n_blocks * 3 * W * ops.SaP, 1),
-                       dtype=torch.float32, device=dev)
-    mbuf = torch.empty(max(n_blocks * 3 * W, 1), dtype=torch.float32,
-                       device=dev)
-    _call("lowrank_wavefront", entry,
-          inputs + [ops.c0_pad, ops.mt, ops.e, pbuf, mbuf, out] + extra,
-          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every,
-           len(ops.classes)], ops.desc,
-          [_chunk_cells(Li, ops.k_total), ops.k_total] + tail, dev)
-
-
 def make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
-                         device=None, rescale_every=4, chain=None):
+                         precision="highest", n_chunks=None,
+                         interpret=False, split=True, rescale_every=4,
+                         chain=None, sc_fma=True, device=None):
     """Build the low-rank wavefront Forward for fixed tensors/shapes.
 
     Log-space numpy tensors as lowering.matrices_2d returns them. Returns
     fn(in_toks (B,Li), out_toks (B,Lo), in_lens, out_lens) -> (B,) float32
-    log-likelihoods on `device` (None: the card). chain=N with N > 1 packs
-    N staggered equal-length pairs per strip (chained mode: B a multiple of
-    N, Li and Lo at least 1, the lengths ignored); chain None, 0 or 1 is
-    plain mode, as in the JAX factory."""
+    log-likelihoods on `device` (None: the card). chain=N with N > 1 walks
+    the pairs on the chained schedule (B a multiple of N, Li and Lo at
+    least 1, the lengths ignored); chain None, 0 or 1 is plain mode, as in
+    the JAX factory.
+
+    `precision` (HIGHEST in the JAX factory), `n_chunks`, `interpret`,
+    `split` and `sc_fma` are the JAX factory's knobs of the TPU layout
+    (matrix-unit precision, VMEM chunks, Pallas interpret mode, the bf16
+    hi/lo split, the token-scale product): accepted with its defaults and
+    unused. The card's products are 3xTF32
+    on the tensor cores, the CPU's float32."""
     chained = bool(chain) and chain > 1
     if chained:
         check_chain(B, Li, Lo, chain)

@@ -195,8 +195,8 @@ def scan1d_loglike(out, lens, g):
     return np.where(dead | (mant <= 0.0), NEG_INF, ll)
 
 
-def make_forward_1d_kernel(trans, closure, B, L, device=None,
-                           renorm_every=4):
+def make_forward_1d_kernel(trans, closure, B, L, unroll=8, split=None,
+                           renorm_every=4, interpret=False, device=None):
     """Build the batched 1D Forward for fixed shapes.
 
     trans (n_tok, S, S) log transfer matrices (silent closure folded,
@@ -204,9 +204,11 @@ def make_forward_1d_kernel(trans, closure, B, L, device=None,
     0-based integer tokens, lens (B,)) -> (B,) float64 numpy
     log-likelihoods, computed on `device` (None: the card).
 
-    The JAX factory's `unroll` and `split` amortise the TPU grid's step
-    cost and shape its matrix-unit products, and `interpret` runs its
-    kernel off the TPU: none is carried. It also rounds renorm_every down
+    `unroll` and `split` (which amortise the TPU grid's step cost and
+    shape its matrix-unit products) and `interpret` (Pallas interpret mode
+    off the TPU) are the JAX factory's knobs of the TPU layout: accepted
+    with its defaults and unused. The JAX factory also rounds renorm_every
+    down
     to a divisor of its unroll; here any renorm_every >= 1 is taken as it
     is (the scaling is an exact power of two, so the schedule does not
     change the result)."""
@@ -224,3 +226,7 @@ def make_forward_1d_kernel(trans, closure, B, L, device=None,
         return scan1d_loglike(out.cpu().numpy(), np.asarray(lens), ops.g)
 
     return fwd
+
+
+# the JAX package's name for the 1D factory
+make_forward_1d_pallas = make_forward_1d_kernel

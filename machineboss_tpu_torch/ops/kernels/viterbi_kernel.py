@@ -482,7 +482,8 @@ def _premats(a_diag, a_left, a_up, closure, premats):
 
 
 def make_wavefront_viterbi(a_diag, a_left, a_up, closure, B, Li, Lo,
-                           n_chunks=None, premats=None, device=None):
+                           n_chunks=None, interpret=False, premats=None,
+                           device=None):
     """Build the max-plus wavefront fill for fixed machine tensors/shapes.
 
     Tensors are LOG-space max-plus numpy matrices: a_diag (Ti, To, S, S),
@@ -495,8 +496,9 @@ def make_wavefront_viterbi(a_diag, a_left, a_up, closure, B, Li, Lo,
     ops/wavefront.lattice_from_diagonals and the lattice walk. With
     lengths, cells beyond a pair's own lattice hold NEG_INF.
 
-    `n_chunks` sizes the TPU kernel's VMEM accumulators and is accepted
-    and unused; the JAX factory's `interpret` is not carried."""
+    `n_chunks` (the TPU kernel's VMEM accumulators) and `interpret`
+    (Pallas interpret mode off the TPU) are the JAX factory's knobs of the
+    TPU layout: accepted with its defaults and unused."""
     dev = resolve_device(device)
     ops = viterbi_operands(_premats(a_diag, a_left, a_up, closure, premats),
                            dev)
@@ -517,7 +519,8 @@ def make_wavefront_viterbi(a_diag, a_left, a_up, closure, B, Li, Lo,
 
 
 def make_wavefront_viterbi_banded(a_diag, a_left, a_up, closure, Li, Lo,
-                                  lo, hi, premats=None, device=None):
+                                  lo, hi, interpret=False, premats=None,
+                                  device=None):
     """Envelope-banded max-plus wavefront for ONE sequence pair.
 
     lo/hi: per-diagonal [lo_d, hi_d) bands of cell index i (from
@@ -528,7 +531,9 @@ def make_wavefront_viterbi_banded(a_diag, a_left, a_up, closure, Li, Lo,
     float64 numpy lattice with NEG_INF outside the band, for the host
     traceback. fn.fill_raw gives the (n_diags, Wb, S) windows on `device`
     (None: the card) for the lattice walk, fn.scatter turns host windows
-    into the full lattice, fn.bases and fn.Wb are the window geometry."""
+    into the full lattice, fn.bases and fn.Wb are the window geometry.
+    `interpret` (Pallas interpret mode off the TPU) is the JAX factory's
+    knob of the TPU layout: accepted with its default and unused."""
     dev = resolve_device(device)
     ops = viterbi_operands(_premats(a_diag, a_left, a_up, closure, premats),
                            dev)

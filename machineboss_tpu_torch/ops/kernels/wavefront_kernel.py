@@ -854,8 +854,10 @@ factored_wavefront.launches = 0
 
 
 def make_wavefront_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
-                           device=None, merged=False, rescale_every=4,
-                           variant=None, n_abs_hint=None, chain=None):
+                           precision="highest", n_chunks=None,
+                           interpret=False, split=True, merged=False,
+                           rescale_every=4, variant=None, n_abs_hint=None,
+                           chain=None, device=None):
     """Build the wavefront Forward for fixed machine tensors and shapes.
 
     Log-space numpy tensors as lowering.matrices_2d returns them. Returns
@@ -874,9 +876,12 @@ def make_wavefront_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
     the destination-factored kernel; variant="lowrank" delegates to
     make_lowrank_forward (with `chain`).
 
-    The JAX factory's `precision`, `split`, `n_chunks` and `interpret` are
-    knobs of the TPU's matrix unit and compiler and are not carried: every
-    product here is a float32 multiply-add."""
+    `precision` (the matrix unit's, HIGHEST in the JAX factory), `n_chunks`
+    (VMEM chunks), `interpret` (Pallas interpret mode off the TPU) and
+    `split` (the bf16 hi/lo products) are the JAX factory's knobs of the
+    TPU layout: accepted with its defaults and unused. The full-rank
+    kernels' products are float32 multiply-adds, the lowrank kernel's
+    3xTF32 on the tensor cores."""
     if variant == "lowrank":
         return make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
                                     device=device,

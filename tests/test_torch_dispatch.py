@@ -1,9 +1,8 @@
 """The port's CompiledMachine.log_forward_batch against the JAX package's.
 
-On the CPU the port routes prot2dna to the plain lowrank version and the
-JAX package to its jnp wavefront: two algorithms, so the bound is the
-lowrank bound, 5e-3 nats. Full-rank machines take the wavefront engine in
-both packages: 1e-4 nats (same algorithm, other summation order). With
+On the CPU, with engine="auto", both packages take their wavefront
+engine for every dense 2D machine, structured (prot2dna) or full-rank:
+1e-4 nats (same algorithm, other summation order). With
 engine="kernel" the port takes its kernel routes (their plain versions on
 the CPU): merged, chained_ragged and the 1D scan, each within 2e-3 nats of
 the JAX package's log_forward_batch on the same pairs.
@@ -50,9 +49,10 @@ def test_log_forward_batch_matches_jax_and_f64():
     jcm, tcm = _prot2dna()
     pairs = _pairs(8, 3, 8, seed=4)
     port = tcm.log_forward_batch(pairs)
+    assert tcm.last_route == "wavefront"
     assert port.shape == (8,) and np.isfinite(port).all()
     np.testing.assert_allclose(port, jcm.log_forward_batch(pairs), rtol=0,
-                               atol=LOWRANK_BOUND)
+                               atol=WAVEFRONT_BOUND)
     mats = [np.asarray(x, np.float64) for x in tcm._host_mats()]
     ref = [forward_2d_f64(*mats, tcm.in_toks(i), tcm.out_toks(o))
            for i, o in pairs]
@@ -60,10 +60,17 @@ def test_log_forward_batch_matches_jax_and_f64():
 
 
 def test_router_picks_lowrank_for_prot2dna():
+    """The lowrank route is the card's (and engine="kernel"'s) for
+    prot2dna; engine="auto" on the CPU takes the wavefront engine, as the
+    JAX class does off its accelerator."""
     _, tcm = _prot2dna()
-    assert tcm.route() == "lowrank"
+    assert tcm.route() == "wavefront"
+    assert tcm.route("kernel") == "lowrank"
     assert tcm.lowrank_ratio() < 0.6
     assert tcm.route("wavefront") == "wavefront"
+    on_card = CompiledMachine(make_preset("prot2dna"), device="cpu")
+    on_card.device = torch.device("cuda")   # decided before any launch
+    assert on_card.route() == "lowrank"
 
 
 def test_full_rank_cpu_takes_wavefront_like_jax():

@@ -7,6 +7,15 @@ bound at L=20 (tests/test_pallas_kernel.py), because its signed SVD
 factors cancel. On a CUDA card the kernel is held to the plain version at
 1e-3 nats (the same f32 recurrence, summed in another order).
 
+The kernel's layout (pack_lowrank: the factors in mma.m16n8k8 fragment
+order, E transposed) unpacks to prepare_lowrank's M and E bit for bit, and
+its 3xTF32 products are emulated here on the CPU (each operand split into
+two TF32 values, three products summed in float32): on prot2dna at full
+width and on the all-class machine they stay within the f64 bounds above
+and within 1e-3 nats of the plain version. The streamed-factor fixture is
+the 64-state dense machine (one dest-side diag class of rank 16, 256 KB of
+factor tiles).
+
 The JAX package is imported inside the tests that use it, so that the card
 test runs where only torch is installed:
     python -m pytest --noconftest tests/test_torch_lowrank.py -m cuda
@@ -50,6 +59,10 @@ def _case(name):
         lens[0] = Lp
         pairs = testmachines.prot2dna_pairs(B, lens, seed=2)
         Li, Lo = Lp, 3 * Lp
+    elif name == "dense64":
+        m = testmachines.build_random_transducer(64, list("ACGT"))
+        B, L = 3, 10
+        Li = Lo = L
     elif name in ("allclass", "edges"):
         m = testmachines.build_allclass_transducer(5, list("AC"))
         B, L = 6, 7
@@ -73,7 +86,8 @@ def _case(name):
             il[n], ol[n] = len(p), len(dna)
     else:
         n_in, n_out = mats[1].shape[0], mats[2].shape[0]
-        rng = np.random.RandomState(8 if name == "allclass" else 6)
+        rng = np.random.RandomState({"allclass": 8, "dense64": 4}
+                                    .get(name, 6))
         it[:] = rng.randint(0, n_in, (B, Li))
         ot[:] = rng.randint(0, n_out, (B, Lo))
         il = np.full(B, Li, np.int32)
@@ -288,3 +302,258 @@ def test_kernel_matches_plain_on_card(name):
     assert lk.lowrank_wavefront.launches == before + 1
     _assert_close(kern, _port(name), CARD_BOUND)
     _assert_close(kern, _f64(name), JAX_BOUND)
+
+
+# ---- the kernel's layout and arithmetic, on the CPU
+
+def _plan(name):
+    mats = _case(name)[0]
+    plan, host = lk.prepare_lowrank(*mats)
+    return plan, host
+
+
+@pytest.mark.parametrize("name", ["prot2dna", "allclass", "dense8",
+                                  "dense64"])
+def test_packed_layout_unpacks_bit_for_bit(name):
+    plan, host = _plan(name)
+    Sa = plan["Sa"]
+    a, et, desc, n_mt, slab, KZ = lk.pack_lowrank(plan["classes"], host, Sa)
+    assert a.dtype == np.float32 and a.size == n_mt * slab
+    assert n_mt * 16 >= Sa and slab % 128 == 0 and KZ % 8 == 0
+    # the classes' operand rows are stacked in k-tiles, in class order
+    assert list(desc[:, 8]) == list(np.cumsum([0] + [8 * k for k in
+                                                     desc[:-1, 4]]))
+    assert KZ == 8 * desc[:, 4].sum()
+    for (M, E), (uM, uE) in zip(host, lk.unpack_lowrank(a, et, desc, n_mt,
+                                                       slab, Sa)):
+        assert np.array_equal(uM, M) and np.array_equal(uE, E)
+
+
+def test_launch_plan_keeps_prot2dna_resident_and_streams_dense64():
+    from types import SimpleNamespace
+
+    def ops(name):
+        plan, host = _plan(name)
+        _, et, _, n_mt, slab, KZ = lk.pack_lowrank(plan["classes"], host,
+                                                   plan["Sa"])
+        return SimpleNamespace(n_mt=n_mt, slab=slab, KZ=KZ,
+                               et_floats=-(-et.size // 4) * 4)
+
+    p2d = ops("prot2dna")
+    two = lk.launch_plan(p2d, 64, 192)
+    assert two["resident"] and two["walkers"] == 2 and two["CC"] >= 16
+    assert two["et_floats"] == p2d.et_floats       # token scales shared too
+    one = lk.launch_plan(p2d, 64, 192, walkers=1)
+    # the token scales take the room of one 8-cell tile of a diagonal
+    assert one["resident"] and one["CC"] == 64 and one["et_floats"] > 0
+    for cfg in (two, one):
+        assert cfg["smem"] <= lk.SMEM_MAX and cfg["seg_mt"] == p2d.n_mt
+    d64 = ops("dense64")
+    assert d64.n_mt * d64.slab * 4 == 256 * 1024
+    cfg = lk.launch_plan(d64, 200, 200)
+    assert not cfg["resident"] and cfg["walkers"] == 1
+    assert 1 <= cfg["seg_mt"] < d64.n_mt and cfg["smem"] <= lk.SMEM_MAX
+    with pytest.raises(ValueError, match="two walkers"):
+        lk.launch_plan(d64, 200, 200, walkers=2)
+    with pytest.raises(ValueError, match="do not fit"):
+        lk.launch_plan(SimpleNamespace(n_mt=4, slab=128 * 256, KZ=2048,
+                                       et_floats=4), 64, 64)
+    with pytest.raises(ValueError, match="walkers"):
+        lk.launch_plan(p2d, 64, 192, walkers=3)
+
+
+def _tf32(x, rounded=True):
+    """x cut to 10 explicit mantissa bits: rounded to nearest, ties away
+    from zero (cvt.rna.tf32.f32), or truncated (what the tensor core reads
+    of a float32 operand)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (0x1000 if rounded else 0)) & -0x2000).view(torch.float32)
+
+
+def _mm3(x, y):
+    """x @ y as the kernel's 3xTF32 split: hi = x rounded to TF32, lo the
+    TF32 part of x - hi; hi_x hi_y + (hi_x lo_y + lo_x hi_y) in float32."""
+    xh, yh = _tf32(x), _tf32(y)
+    xl, yl = _tf32(x - xh, False), _tf32(y - yh, False)
+    return xh @ yh + (xh @ yl + xl @ yh)
+
+
+def _forward_3xtf32(ops, it, ot, il, ol):
+    """lowrank_forward_plain with every class product split as the
+    kernel's tensor-core products are."""
+    from machineboss_tpu_torch.ops.kernels.plain_walk import walk_plain
+    by_name = {cs.name: (cs, M, E) for cs, (M, E) in zip(ops.classes,
+                                                         ops.mats)}
+
+    def term(name, q, tok):
+        cs, M, E = by_name[name]
+        B, W = tok.shape
+        sc = E.t()[tok]
+        if cs.side == "src":
+            return _mm3(q.repeat(1, 1, cs.rank) * sc, M.t())
+        out = _mm3(q, M.t()) * sc
+        return out.reshape(B, W, cs.rank, ops.Sa).sum(dim=2)
+
+    return walk_plain(ops.c0, term, [cs.name for cs in ops.classes],
+                      *[torch.from_numpy(x) for x in (it, ot, il, ol)],
+                      ops.To)
+
+
+def _p2d_full():
+    """prot2dna at chip_smoke's main-path width: B=4 proteins of 64 and
+    their 192-base DNA."""
+    if "p2d_full" not in _cache:
+        m = make_preset("prot2dna")
+        ev = EvaluatedMachine(m, m.get_param_defs(True))
+        mats = tuple(np.asarray(x) for x in
+                     LoweredMachine(ev, dtype=np.float32).matrices_2d())
+        pairs = testmachines.prot2dna_pairs(4, 64, seed=5)
+        it = np.array([[ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+                       for p, _ in pairs], np.int32)
+        ot = np.array([[ev.output_tokenizer.sym2tok[c] - 1 for c in d]
+                       for _, d in pairs], np.int32)
+        il, ol = np.full(4, 64, np.int32), np.full(4, 192, np.int32)
+        m64 = [x.astype(np.float64) for x in mats]
+        ref = np.array([forward_2d_f64(*m64, it[b], ot[b]) for b in range(4)])
+        _cache["p2d_full"] = (mats, it, ot, il, ol, ref)
+    return _cache["p2d_full"]
+
+
+@pytest.mark.parametrize("name", ["prot2dna_full", "allclass"])
+def test_3xtf32_products_hold_the_f64_bound(name):
+    """Before any card time: the kernel's split products keep the lowrank
+    Forward within the f64 bounds (5e-3 nats on the small machine, the
+    0.01 gate at prot2dna's full width) and within the card bound of the
+    float32 plain version."""
+    if name == "prot2dna_full":
+        mats, it, ot, il, ol, ref = _p2d_full()
+        bound = 0.01
+    else:
+        mats, it, ot, il, ol = _case(name)
+        ref, bound = _f64(name), JAX_BOUND
+    plan, host = lk.prepare_lowrank(*mats)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
+                              torch.device("cpu"))
+    split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
+    plain = lk.lowrank_forward_plain(
+        ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    _assert_close(split, ref, bound)
+    _assert_close(split, plain, CARD_BOUND)
+
+
+def test_streamed_fixture_plain_matches_f64():
+    """The 64-state dense machine (the streamed-factor plan) at 10 x 10:
+    the plain version within the lowrank bound of the f64 oracle."""
+    _assert_close(_port("dense64"), _f64("dense64"), JAX_BOUND)
+
+
+# ---- the kernel on the card
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _ops(mats, dev, chained=False):
+    plan, host = lk.prepare_lowrank(*mats, chained=chained)
+    return lk.lowrank_operands(plan, host, mats[0].shape[1], dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walkers", [1, 2])
+@pytest.mark.parametrize("grid", [1, 2])
+def test_kernel_grid_below_batch_with_faults_on_card(grid, walkers):
+    """Fewer walkers than pairs, so each takes several pairs from the
+    queue; pair 2 holds a bad token and pair 4 a bad length: both NaN, the
+    pairs after them as the plain version scores them."""
+    dev = _card()
+    mats, it, ot, il, ol = _case("allclass")
+    bad_it, bad_il = it.copy(), il.copy()
+    bad_it[2, 0] = 7                      # outside the 2-letter alphabet
+    bad_il[4] = it.shape[1] + 1           # past the padded shape
+    ops = _ops(mats, dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (bad_it, ot, bad_il, ol)]
+    kern = lk.lowrank_wavefront(ops, *batch, grid=grid,
+                                walkers=walkers).cpu().numpy()
+    assert np.isnan(kern[2]) and np.isnan(kern[4])
+    live = np.array([b not in (2, 4) for b in range(len(il))])
+    _assert_close(kern[live], _port("allclass")[live], CARD_BOUND)
+
+
+@pytest.mark.cuda
+def test_streamed_factors_match_plain_on_card():
+    dev = _card()
+    mats, it, ot, il, ol = _case("dense64")
+    ops = _ops(mats, dev)
+    assert not lk.launch_plan(ops, it.shape[1], ot.shape[1])["resident"]
+    before = lk.lowrank_wavefront.launches
+    kern = _port("dense64", device="cuda")
+    assert lk.lowrank_wavefront.launches == before + 1
+    _assert_close(kern, _port("dense64"), CARD_BOUND)
+    _assert_close(kern, _f64("dense64"), JAX_BOUND)
+
+
+@pytest.mark.cuda
+def test_walkers_and_grid_do_not_change_the_scores_on_card():
+    """One walker computes a pair in a fixed order: the scores are equal
+    bit for bit whatever the grid and the walkers per block."""
+    dev = _card()
+    mats, it, ot, il, ol = _case("prot2dna_long")
+    ops = _ops(mats, dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    runs = [lk.lowrank_wavefront(ops, *batch, grid=g, walkers=w)
+            .cpu().numpy() for g, w in ((None, None), (1, 1), (1, 2),
+                                        (3, 1))]
+    for r in runs[1:]:
+        assert np.array_equal(r, runs[0])
+
+
+@pytest.mark.cuda
+def test_impossible_pairs_on_card():
+    """The diag-only dense8 machine has no path for il != ol."""
+    dev = _card()
+    mats = _case("dense8")[0]
+    rng = np.random.RandomState(2)
+    it = rng.randint(0, 4, (4, 6)).astype(np.int32)
+    ot = rng.randint(0, 4, (4, 8)).astype(np.int32)
+    il = np.array([6, 5, 6, 4], np.int32)
+    ol = np.array([8, 8, 6, 4], np.int32)
+    ops = _ops(mats, dev)
+    kern = lk.lowrank_wavefront(
+        ops, *[torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)])
+    kern = kern.cpu().numpy()
+    assert (kern[:2] <= -1e29).all() and (kern[2:] > -1e29).all()
+    plain = lk.lowrank_forward_plain(
+        _ops(mats, torch.device("cpu")),
+        *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    _assert_close(kern, plain, CARD_BOUND)
+
+
+@pytest.mark.cuda
+def test_chained_odd_stagger_below_88_nats_on_card():
+    """prot2dna, 3 pairs of 57 amino acids against 171 bases on 3 chains:
+    Lo + 2 = 173 is odd, so chain 1 starts on an odd diagonal, and every
+    pair scores below -88 nats."""
+    dev = _card()
+    m = make_preset("prot2dna")
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    mats = tuple(np.asarray(x) for x in
+                 LoweredMachine(ev, dtype=np.float32).matrices_2d())
+    pairs = testmachines.prot2dna_pairs(3, 57, seed=1)
+    it = np.array([[ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+                   for p, _ in pairs], np.int32)
+    ot = np.array([[ev.output_tokenizer.sym2tok[c] - 1 for c in d]
+                   for _, d in pairs], np.int32)
+    m64 = [x.astype(np.float64) for x in mats]
+    ref = np.array([forward_2d_f64(*m64, it[b], ot[b]) for b in range(3)])
+    assert (ref < -88).all()
+    ops = _ops(mats, dev, chained=True)
+    kern = lk.lowrank_chained_wavefront(
+        ops, *[torch.from_numpy(x).to(dev) for x in (it, ot)],
+        n_chain=3).cpu().numpy()
+    plain = lk.lowrank_chained_forward_plain(
+        _ops(mats, torch.device("cpu"), chained=True),
+        *[torch.from_numpy(x) for x in (it, ot)], n_chain=3).numpy()
+    _assert_close(kern, plain, CARD_BOUND)
+    _assert_close(kern, ref, JAX_BOUND)
