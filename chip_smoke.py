@@ -245,11 +245,12 @@ def lowrank_queue_cases(dev):
           "dense64_streamed: kernel vs f64 %.3g nats" % err_f64)
 
 
-def lowrank_bounds(flops, nbytes, kernel_ms):
-    """The lowrank kernel's bound twice: against the f32 FMA rate (the
-    function's own arithmetic) and against the rate its design runs at
-    (3xTF32: 3 x the FLOP over the TF32 tensor peak); each with the
-    kernel's share of it. The kernels line takes the lesser bound."""
+def tf32_bounds(flops, nbytes, kernel_ms):
+    """A 3xTF32 kernel's bound (lowrank, factored) twice: against the f32
+    FMA rate (the function's own arithmetic) and against the rate its
+    design runs at (3xTF32: 3 x the FLOP over the TF32 tensor peak); each
+    with the kernel's share of it. The kernels line takes the lesser
+    bound."""
     f32_ms, f32_by = bound(flops, nbytes)
     tf32_ms = max(3.0 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     return {"bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
@@ -614,10 +615,11 @@ VARIANTS = {
 CHAINED_KERNELS = ("chained_wavefront", "lowrank_chained_wavefront")
 
 
-def variant_ops(kernel, mats, dev, grid=None):
+def variant_ops(kernel, mats, dev, grid=None, walkers=None):
     """(operands, kernel call, plain call) of one variant kernel; both
     calls take (in_toks, out_toks, in_lens, out_lens, n_chain). `grid`
-    sets the blocks of an unchained kernel (None: its default)."""
+    sets the blocks of an unchained kernel (None: its default), `walkers`
+    the factored kernel's pairs a block."""
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     if kernel == "lowrank_chained_wavefront":
@@ -642,19 +644,23 @@ def variant_ops(kernel, mats, dev, grid=None):
     if kernel in CHAINED_KERNELS:
         return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4]),
                 lambda *b: plain(ops, *b[:4], n_chain=b[4]))
-    return (ops, lambda *b: wrapper(ops, *b[:4], grid=grid),
+    kw = {"grid": grid}
+    if walkers is not None:
+        kw["walkers"] = walkers
+    return (ops, lambda *b: wrapper(ops, *b[:4], **kw),
             lambda *b: plain(ops, *b[:4]))
 
 
 def variant_case(kernel, name, mats, it, ot, il, ol, dev, chain=None,
-                 bad=None, f64_tol=None, grid=None, bad_len=None):
+                 bad=None, f64_tol=None, grid=None, bad_len=None,
+                 walkers=None):
     """One small case of a variant kernel: kernel vs plain vs the f64
     oracle (the chained kernels at the padded lengths, which they read
     out). `bad` = (pair, position) puts a token outside the alphabet into
     the kernel's input, `bad_len` = pair gives that pair an input length
     past the padded shape: such pairs must come back NaN, the others as
     the plain version gives them without the fault."""
-    _, run, plain = variant_ops(kernel, mats, dev, grid)
+    _, run, plain = variant_ops(kernel, mats, dev, grid, walkers)
     if kernel in CHAINED_KERNELS:
         il = np.full(len(il), it.shape[1])
         ol = np.full(len(ol), ot.shape[1])
@@ -684,7 +690,7 @@ def variant_case(kernel, name, mats, it, ot, il, ol, dev, chain=None,
     err_f64 = score_err(kern[live], ref[live])
     emit({"phase": "kernel_vs_plain", "kernel": kernel, "case": name,
           "B": len(il), "Li": it.shape[1], "Lo": ot.shape[1], "chain": chain,
-          "grid": grid, "bad_token_nan": bad is not None,
+          "grid": grid, "walkers": walkers, "bad_token_nan": bad is not None,
           "bad_length_nan": bad_len is not None, "max_abs_vs_plain": err_plain,
           "max_abs_vs_f64": err_f64, "f64_range": [float(ref.min()),
                                                    float(ref.max())],
@@ -785,6 +791,49 @@ def variant_cases(dev):
         check((ref < -88).all(), "odd_stagger: the scores are not deep")
 
 
+def factored_cases(dev):
+    """The factored kernel where its layout or its queue differs from the
+    main path: fewer walkers than pairs (one and two a block) over a batch
+    holding a bad token and a bad length; prot2dna pairs of 57 amino acids
+    against 171 bases, every score below -88 nats; the scores equal bit for
+    bit whatever the grid and the walkers."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    from machineboss_tpu_torch.testmachines import (build_allclass_transducer,
+                                                    prot2dna_pairs)
+    mats = lowered(build_allclass_transducer(5, list("AC")))
+    rng = np.random.RandomState(8)
+    B, L = 8, 12
+    it = rng.randint(0, 2, (B, L)).astype(np.int32)
+    ot = rng.randint(0, 2, (B, L)).astype(np.int32)
+    il = rng.randint(4, L + 1, B).astype(np.int32)
+    ol = rng.randint(4, L + 1, B).astype(np.int32)
+    for grid in (1, 2):
+        for walkers in (1, 2):
+            variant_case("factored_wavefront", "allclass_grid%d" % grid, mats,
+                         it, ot, il, ol, dev, bad=(2, 0), bad_len=5,
+                         grid=grid, walkers=walkers)
+    p2d = make_preset("prot2dna")
+    ev = evaluated(p2d)
+    mats = lowered(p2d)
+    pairs = prot2dna_pairs(3, 57, seed=1)
+    it = np.array([[ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+                   for p, _ in pairs], np.int32)
+    ot = np.array([[ev.output_tokenizer.sym2tok[c] - 1 for c in d]
+                   for _, d in pairs], np.int32)
+    il, ol = np.full(3, 57), np.full(3, 171)
+    ref = variant_case("factored_wavefront", "prot2dna_deep", mats, it, ot,
+                       il, ol, dev)
+    check((ref < -88).all(), "prot2dna_deep: the scores are not deep")
+    ops = wk.factored_operands(wk.prepare_factored(*mats), dev)
+    batch = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+             for x in (it, ot, il, ol)]
+    runs = [wk.factored_wavefront(ops, *batch, grid=g, walkers=w)
+            .cpu().numpy() for g, w in ((None, None), (1, 2), (2, 1))]
+    check(all(np.array_equal(r, runs[0]) for r in runs[1:]),
+          "factored: the scores depend on the grid or the walkers")
+
+
 def variant_flops(kernel, ops, il, ol):
     """2 x the multiply-adds of the variant's own recurrence on this run's
     real cells, at one token block per cell: a class counts at a cell whose
@@ -804,6 +853,27 @@ def variant_flops(kernel, ops, il, ol):
     if kernel == "generic_wavefront":
         macs += Sa * Sa * cells                  # the closure product
     return 2.0 * macs
+
+
+def factored_variants(ops, batch, kern):
+    """The factored kernel against a variant that undoes one design
+    choice, timed in turns (default, variant, variant, default), with the
+    same scores bit for bit: one walker a block (no lockstep pair sharing
+    the streamed tables, in larger groups). Returns {variant: {which: [ms,
+    ms]}}."""
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    out = {}
+    for label, kw in (("one_walker", {"walkers": 1}),):
+        times = {"default": [], label: []}
+        for which in ("default", label, label, "default"):
+            args = kw if which == label else {}
+            other = wk.factored_wavefront(ops, *batch, **args).cpu().numpy()
+            check(np.array_equal(other, kern),
+                  "factored %s scores otherwise" % which)
+            times[which].append(cuda_ms(
+                lambda: wk.factored_wavefront(ops, *batch, **args), 3))
+        out[label] = times
+    return out
 
 
 def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
@@ -894,15 +964,41 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
                 if getattr(ops, k, None) is not None]
     if kernel == "lowrank_chained_wavefront":   # the factors, as the main path
         operands = [ops.c0] + [x for me in ops.mats for x in me]
+    if kernel == "factored_wavefront":          # the plan's own tensors
+        operands = [ops.c0, ops.w, ops.closure] + [
+            x for c in ops.classes for x in c[1:3]]
     nbytes = tensor_bytes(batch + operands) + B * 4
     bound_ms, bound_by = bound(flops, nbytes)
-    lowrank_extra = {}
+    tf32_extra = {}
     if kernel == "lowrank_chained_wavefront":
-        lowrank_extra = lowrank_bounds(flops, nbytes, kernel_ms)
-        bound_ms = min(bound_ms, lowrank_extra["bound_3xtf32_ms"])
+        tf32_extra = tf32_bounds(flops, nbytes, kernel_ms)
+        bound_ms = min(bound_ms, tf32_extra["bound_3xtf32_ms"])
         cfg = lk.launch_config(ops, B, Li, Lo)
-        lowrank_extra.update({"launch": cfg, "factors": "resident"
-                              if cfg["resident"] else "streamed"})
+        tf32_extra.update({"launch": cfg, "factors": "resident"
+                           if cfg["resident"] else "streamed"})
+    if kernel == "factored_wavefront":
+        # both bounds of the whole function, and the one of the kernel's
+        # own arithmetic: the class products on the f32 pipes, the closure
+        # as 3xTF32 on the tensor cores (the kernels line takes this one)
+        tf32_extra = tf32_bounds(flops, nbytes, kernel_ms)
+        closure_flops = 2.0 * ops.Sa * ops.Sa * float(
+            ((il + 1.0) * (ol + 1.0) - 1).sum())
+        mixed_ms = max((flops - closure_flops) / F32_FMA_FLOPS
+                       + 3.0 * closure_flops / TF32_FLOPS,
+                       nbytes / HBM_BYTES_PER_S) * 1e3
+        tf32_extra.update({"bound_own_arithmetic_ms": mixed_ms,
+                           "share_of_own_arithmetic_bound":
+                               mixed_ms / kernel_ms})
+        bound_ms = mixed_ms
+        cfg = wk.factored_launch_config(ops, B, Li, Lo)
+        check(wk.factored_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],
+              "%s: the kernel's shared layout differs from the plan's" % name)
+        tf32_extra.update({
+            "launch": cfg, "walkers": cfg["walkers"],
+            "shared_bytes": cfg["smem"],
+            "tables": "resident" if cfg["resident"] else "streamed",
+            "table_bytes": tensor_bytes([ops.tab]),
+            "variants_ms": factored_variants(ops, batch, kern)})
     merged = wk.merged_operands(wk.prepare_merged(*mats), dev)
     merged_flops = variant_flops("merged_wavefront", merged, il, ol)
     merged_bound_ms, _ = bound(merged_flops, nbytes)
@@ -921,7 +1017,7 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
           "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
           "merged_flops": merged_flops, "merged_bound_ms": merged_bound_ms,
           "merged_kernel_ms_on_this_plan": merged_on_plan_ms,
-          **lowrank_extra, "card": card, "nvidia_smi": smi})
+          **tf32_extra, "card": card, "nvidia_smi": smi})
     src = "lowrank_wavefront" if kernel == "lowrank_chained_wavefront" \
         else kernel
     return {"name": kernel, "route": "cuda", "path": name,
@@ -995,27 +1091,34 @@ def viterbi_cases(dev):
         align_pair, build_allclass_transducer, build_indel_transducer,
         build_random_transducer)
 
-    def full_case(name, machine, tok_in, tok_out, grid=None):
+    def full_case(name, machine, tok_in, tok_out, grid=None, walk=True,
+                  **layout):
         ev = evaluated(machine)
         ops = vk.viterbi_operands(vk.maxplus_class_mats(*maxplus_mats(ev)),
                                   dev)
         batch, Li, Lo = ragged_batch(tok_in, tok_out, dev)
-        kern = vk.viterbi_wavefront(ops, *batch, grid=grid)
+        kern = vk.viterbi_wavefront(ops, *batch, grid=grid, **layout)
         plain = vk.viterbi_forward_plain(ops, *batch)
         torch.cuda.synchronize()
         err = max_abs_diff(kern, plain)
-        walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
-        wargs = tb.walk_tensors(walker, np.zeros(Li + Lo + 1), tok_in, tok_out)
-        wk_ = tb.lattice_walk(walker, kern, *wargs)
-        wp = tb.lattice_walk_plain(walker, kern, *wargs)
-        torch.cuda.synchronize()
-        walk_equal(name, wk_, wp)
+        wk_ = None
+        if walk:          # (a token outside the alphabet has no edges)
+            walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
+            wargs = tb.walk_tensors(walker, np.zeros(Li + Lo + 1), tok_in,
+                                    tok_out)
+            wk_ = tb.lattice_walk(walker, kern, *wargs)
+            wp = tb.lattice_walk_plain(walker, kern, *wargs)
+            torch.cuda.synchronize()
+            walk_equal(name, wk_, wp)
         emit({"phase": "kernel_vs_plain",
-              "kernel": "viterbi_wavefront+lattice_walk", "case": name,
+              "kernel": "viterbi_wavefront+lattice_walk" if walk
+              else "viterbi_wavefront", "case": name,
               "B": len(tok_in), "Li": Li, "Lo": Lo, "S": ops.S,
-              "classes": ops.classes, "grid": grid, "max_abs_vs_plain": err,
-              "walk_ok": [bool(x) for x in wk_[3].cpu()],
-              "walk_cells": [int(x) for x in wk_[0].cpu()]})
+              "classes": ops.classes, "grid": grid, "layout": layout,
+              "max_abs_vs_plain": err,
+              "walk_ok": [bool(x) for x in wk_[3].cpu()] if walk else None,
+              "walk_cells": [int(x) for x in wk_[0].cpu()] if walk
+              else None})
         check(err <= VITERBI_VS_PLAIN_TOL,
               "%s: viterbi kernel vs plain %.3g nats" % (name, err))
         return wk_
@@ -1024,11 +1127,26 @@ def viterbi_cases(dev):
         return ([rng.randint(0, n_sym, a).astype(np.int32) for a, _ in lens],
                 [rng.randint(0, n_sym, b).astype(np.int32) for _, b in lens])
 
-    # all three classes, ragged lengths, an empty side and an empty pair
+    # all three classes, ragged lengths, an empty side and an empty pair:
+    # one and two blocks a pair, the previous diagonals in shared slots or
+    # read back from the lattice, one walker taking every pair
     rng = np.random.RandomState(0)
     ti, to = toks(rng, 2, [(6, 5), (0, 5), (3, 0), (0, 0), (6, 2), (4, 4)])
-    full_case("allclass_ragged", build_allclass_transducer(5, list("AC")),
-              ti, to)
+    allclass = build_allclass_transducer(5, list("AC"))
+    full_case("allclass_ragged", allclass, ti, to)
+    for cluster in (1, 2):
+        for slots in (True, False):
+            full_case("allclass_ragged", allclass, ti, to, cluster=cluster,
+                      slots=slots)
+        full_case("allclass_ragged_one_walker", allclass, ti, to, grid=1,
+                  cluster=cluster)
+    # tokens outside the alphabet match nothing
+    bad_in = [t.copy() for t in ti]
+    bad_in[0][2] = 9
+    bad_out = [t.copy() for t in to]
+    bad_out[1][0] = 7
+    full_case("allclass_bad_tokens", allclass, bad_in, bad_out, walk=False,
+              cluster=2)
     # no diag class
     rng = np.random.RandomState(5)
     ti, to = toks(rng, 2, [(5, 5)] * 3)
@@ -1147,6 +1265,30 @@ def event_ms(fn):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1), out
+
+
+def fill_variants(ops, batch, kern):
+    """The batched fill against variants that undo one design choice each,
+    timed in turns (default, variant, variant, default), each giving the
+    same lattice bit for bit: one block a pair (no cluster), the previous
+    diagonals read back from the lattice (no slots), a token's block loaded
+    for every cell (no token grouping: pieces of one cell), the source
+    states in one chunk an item. Returns {variant: {which: [ms, ms]}}."""
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
+    out = {}
+    for label, kw in (("one_block_a_pair", {"cluster": 1}),
+                      ("read_back", {"slots": False}),
+                      ("no_token_grouping", {"piece": 1}),
+                      ("one_source_chunk", {"chunks": 1})):
+        times = {"default": [], label: []}
+        for which in ("default", label, label, "default"):
+            args = kw if which == label else {}
+            check(torch.equal(vk.viterbi_wavefront(ops, *batch, **args), kern),
+                  "fill %s differs" % which)
+            times[which].append(cuda_ms(
+                lambda: vk.viterbi_wavefront(ops, *batch, **args), 3))
+        out[label] = times
+    return out
 
 
 def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
@@ -1281,6 +1423,18 @@ def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
           "%s: fill kernel vs plain %.3g nats" % (name, err))
     del plain
     fill_ms = cuda_ms(fill, 5)
+    fill_layout = None
+    if not banded:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        cfg = vk.fill_launch_plan(ops, len(pairs), Li, Lo, sms)
+        check(vk.fill_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],
+              "%s: the fill's shared layout differs from the plan's" % name)
+        fill_layout = {
+            "cluster": cfg["cluster"], "grid": cfg["grid"],
+            "previous_diagonals": "shared slots (%d)" % cfg["n_slots"]
+            if cfg["n_slots"] else "read back from the lattice",
+            "shared_bytes": cfg["smem"],
+            "variants_ms": fill_variants(ops, batch, kern)}
     lat = kern[:, None].contiguous() if banded else kern
     walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
     wargs = tb.walk_tensors(walker, bases, tok_in, tok_out)
@@ -1321,6 +1475,7 @@ def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
           "kernels_share_of_call": (fill_ms + walk_ms) / call_ms,
           "fill_plain_ms": plain_ms, "walk_plain_ms": walk_plain_ms,
           "fill_max_abs_vs_plain": err, "walk_diff_vs_plain": walk_err,
+          "fill_layout": fill_layout,
           "walk_cells": n_cells, "lattice_bytes": lattice_bytes,
           "readback_bytes": readback,
           "readback_share_of_lattice": readback / lattice_bytes,
@@ -1696,7 +1851,9 @@ def main():
                  if "registers" in ln or "spill" in ln]
              for k, v in _build.build_logs.items()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
-          "lowrank_ptxas": ptxas.get("lowrank_wavefront")})
+          "lowrank_ptxas": ptxas.get("lowrank_wavefront"),
+          "factored_ptxas": ptxas.get("factored_wavefront"),
+          "viterbi_fill_ptxas": ptxas.get("viterbi_wavefront")})
 
     # -- kernel vs plain, two machines -----------------------------------
     p2d = CompiledMachine(make_preset("prot2dna"), device=dev)
@@ -1715,6 +1872,7 @@ def main():
 
     fullrank_cases(dev)
     variant_cases(dev)
+    factored_cases(dev)
     scan1d_cases(dev)
     viterbi_cases(dev)
     plan7_cases(dev)
@@ -1769,7 +1927,7 @@ def main():
     flops = 2.0 * macs_per_cell * cells
     nbytes = tensor_bytes(batch + [x for me in ops.mats for x in me]
                           + [ops.c0]) + B * 4
-    bounds = lowrank_bounds(flops, nbytes, kernel_ms)
+    bounds = tf32_bounds(flops, nbytes, kernel_ms)
     bound_ms = min(bounds["bound_f32_ms"], bounds["bound_3xtf32_ms"])
     bound_by = "operations" if bound_ms > nbytes / HBM_BYTES_PER_S * 1e3 \
         else "bytes"

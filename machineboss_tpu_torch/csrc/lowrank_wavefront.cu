@@ -77,17 +77,17 @@
 //     max does not depend on the order): the scores do not depend on the
 //     grid or the walkers.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_mma.cuh"
 
 namespace {
+
+using namespace tf32mma;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 512;
 constexpr int MAX_CLS = 3;
 constexpr int NG_MAX = 3;        // 8-cell tiles per warp item
 constexpr int PV = 4;            // states a lane loads per pass of the build
-constexpr int FRAG_A = 128;      // floats of one 16x8 A tile, fragment order
 constexpr int FRAG_B = 64;       // floats of one 8x8 B tile, fragment order
 constexpr int SMEM_MAX = 232448; // a block's shared memory on sm_90
 constexpr int NO_MAX = (int)0x80000000;  // below every float's bits
@@ -167,43 +167,7 @@ struct Walker {
 };
 
 __device__ __forceinline__ void wbar(const Walker& w) {
-  asm volatile("bar.sync %0, %1;" ::"r"(w.id + 1), "r"(w.nthr) : "memory");
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// x = hi + lo: hi is x rounded to TF32 (10 explicit mantissa bits, to
-// nearest, ties away from zero: cvt.rna.tf32.f32, done here by an integer
-// add and mask), lo = x - hi exactly in f32, of which the tensor core reads
-// the TF32 part (it ignores the low 13 bits of a TF32 operand)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  named_bar(w.id + 1, w.nthr);
 }
 
 // Operand element (row k, cell column c) of the chunk, in B fragment order:

@@ -16,23 +16,31 @@
 // adds and maxes occur, so the result equals the plain PyTorch version and
 // the TPU kernel bit for bit.
 //
-// Design. A block reads the two previous diagonals back from the lattice
-// itself (just written by the same block, so they come from L2); there is no
-// scratch state in device memory. The banded kernel, whose one block is
-// bound by the latency of its dependent steps, also keeps them in three
-// rotating slots of shared memory when its window fits.
-// A thread computes 4 neighbouring destination states of one cell: per source
-// state it reads one float of the neighbour cell (the same
-// address across the threads of a cell, one broadcast) and one float4 of the
-// cell's own token block, stored source-major and padded to SP = 4 * ceil(S/4)
-// columns, through the read-only cache. A cell reads only its own token's
-// S x S block, so it costs S*S add+max per class, where the TPU kernel
-// computed every token's block and selected afterwards.
+// The two fills differ in what bounds them on this card, and so in design:
 //
-// What the TPU kernels did that this code does not: lane-rotated matrix
-// copies and their K rolls, one-hot token rows, all-token accumulators with a
-// select, transposed (S, cells) slabs, n_chunks, and the banded kernel's
-// (8, 128) meta blocks and static roll variants.
+// - The batched fill (viterbi_wavefront.cu) does S*S add+max per class per
+//   cell for a whole batch: operations, and for the 65-state ACGT machine
+//   the lattice bytes almost as much. It walks each pair with a cluster of
+//   one or two blocks, keeps the previous diagonals in shared-memory slots
+//   where they fit (read back from the lattice, they made the first CUDA
+//   version half as slow again at S = 132), and groups the cells of a
+//   diagonal by token so that each class block is read once per token (its
+//   own notes).
+// - The banded fill (viterbi_banded_wavefront.cu) walks ONE pair's band, a
+//   few dozen cells a diagonal: bound by the latency of its Li + Lo + 1
+//   dependent steps. A thread computes 4 neighbouring destination states of
+//   one cell with class_max below: per source state one float of the
+//   neighbour cell (the same address across the threads of a cell, one
+//   broadcast) and one float4 of the cell's own token block, stored
+//   source-major and padded to SP = 4 * ceil(S/4) columns, through the
+//   read-only cache. It keeps the previous diagonals in three shared slots
+//   when its window fits, else reads them back from the lattice.
+//
+// What the TPU kernels did that neither does: lane-rotated matrix copies and
+// their K rolls, one-hot token rows, all-token accumulators with a select
+// (a cell here reads only its own token's block), transposed (S, cells)
+// slabs, n_chunks, and the banded kernel's (8, 128) meta blocks and static
+// roll variants.
 
 #pragma once
 

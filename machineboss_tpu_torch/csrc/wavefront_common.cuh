@@ -1,7 +1,6 @@
 // Shared device code of the full-rank wavefront kernels (merged_wavefront.cu,
-// chained_ragged_wavefront.cu, chained_wavefront.cu, generic_wavefront.cu,
-// seqscale_wavefront.cu and the helpers of factored_wavefront.cu), for Hopper
-// (sm_90a).
+// chained_ragged_wavefront.cu, chained_wavefront.cu, generic_wavefront.cu and
+// seqscale_wavefront.cu), for Hopper (sm_90a).
 //
 // cell_update() is the per-cell step that every one of them takes: the
 // class products of one cell for 4 destination states. walk_pair() walks ONE

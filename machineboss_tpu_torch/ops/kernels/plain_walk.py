@@ -38,11 +38,12 @@ NEG_INF = -1e30
 
 def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
                rescale_every=4, readout_w=None, mu_all=False, closure_t=None,
-               diag_offset=None):
+               diag_offset=None, closure_mm=None):
     """(B,) float32 log-likelihoods. c0 (Sa,) is the start cell (0, 0) with
     m = 0; kinds the present classes in order; token and length tensors are
-    integer tensors on c0's device. The loop stops at the batch's last
-    readout diagonal."""
+    integer tensors on c0's device. `closure_mm(x, y)`, if given, takes the
+    place of x @ y in the closure product. The loop stops at the batch's
+    last readout diagonal."""
     B, Li = in_toks.shape
     Lo = out_toks.shape[1]
     Sa = c0.shape[0]
@@ -125,7 +126,8 @@ def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
                             torch.exp(m_op - mu_safe), torch.zeros_like(m_op))
             cur = cur + term(name, p_op * w[:, :, None], tok)
         if closure_t is not None:
-            cur = cur @ closure_t.t()
+            cur = closure_mm(cur, closure_t.t()) if closure_mm is not None \
+                else cur @ closure_t.t()
         m_new = torch.where(valid, mu, neg)
         cur = torch.where(valid[:, :, None], cur, torch.zeros_like(cur))
         # rescale on TWO consecutive diagonals so both parities (the diag

@@ -53,6 +53,8 @@ from ._build import load
 from .lowrank_kernel import _check, _round_up
 
 NEG_INF = -1e30
+SMEM_MAX = 232448   # a block's shared memory on sm_90
+_PIECE = 8          # the most cells a piece (csrc/viterbi_wavefront.cu CB)
 _TD = 4          # destination states per thread (csrc/viterbi_common.cuh)
 _BAND_PAD = 8    # the band window's width is rounded up to this many cells
 
@@ -382,18 +384,96 @@ def _class_ptrs(ops):
             for t in (ops.up, ops.left, ops.diag)]
 
 
+def _n_toks(ops):
+    """The tokens of each class's blocks, (up, left, diag); 0: absent."""
+    return tuple(0 if t is None else int(t.shape[0])
+                 for t in (ops.up, ops.left, ops.diag))
+
+
+def fill_smem_bytes(Li, Lo, S, n_slots, n_toks):
+    """Shared bytes of a block of the batched fill (the layout of
+    csrc/viterbi_wavefront.cu): n_slots (W, S) diagonals, the pair's
+    tokens, and per class the diagonal's cells bucketed by token."""
+    W = Li + 1
+    n = _round_up(n_slots * W * S, 4) + _round_up(Li, 4) \
+        + _round_up(Lo, 4) + 4
+    for nt in n_toks:
+        n += _round_up(W, 4) + _round_up(nt + 1, 4) + _round_up(nt, 4) \
+            + 4 * (W + nt)
+    return 4 * n
+
+
+def fill_launch_plan(ops, B, Li, Lo, sms, grid=None, cluster=None,
+                     slots=None, piece=None, chunks=None):
+    """How the batched fill walks a batch: a dict with `grid` (pair
+    walkers, default one per pair), `cluster` (blocks a pair: 2 when the
+    batch has fewer pairs than the card's `sms` multiprocessors and the
+    states make two column groups, else 1), `n_slots` (previous diagonals
+    in shared memory: 3 with a diag class, else 2; 0 when they do not fit,
+    and the neighbours are read back from the lattice), `piece` (the most
+    cells of one token that share a load of its block, 1 to 8, default 8),
+    `chunks` (the source states an item takes, in 1 to 8 chunks; 0, the
+    default: the kernel takes, per diagonal, as many as make two items a
+    thread, at most 3) and `smem` (bytes). `cluster` (1 or 2), `slots` (True: keep
+    them, False: read back), `piece` and `chunks` force a choice; a plan
+    that does not fit raises ValueError."""
+    n_toks = _n_toks(ops)
+    if cluster not in (None, 1, 2):
+        raise ValueError("cluster must be 1 or 2")
+    if cluster is None:
+        cluster = 2 if B < sms and ops.SP // _TD >= 2 else 1
+    want = 3 if ops.diag is not None else 2
+    fits = fill_smem_bytes(Li, Lo, ops.S, want, n_toks) <= SMEM_MAX
+    if slots is None:
+        slots = fits
+    elif slots and not fits:
+        raise ValueError("viterbi fill: %d diagonals of %d cells x %d states "
+                         "do not fit a block's %d bytes of shared memory"
+                         % (want, Li + 1, ops.S, SMEM_MAX))
+    n_slots = want if slots else 0
+    smem = fill_smem_bytes(Li, Lo, ops.S, n_slots, n_toks)
+    if smem > SMEM_MAX:
+        raise ValueError("viterbi fill: the token buckets of %d cells do not "
+                         "fit a block's %d bytes of shared memory"
+                         % (Li + 1, SMEM_MAX))
+    grid = max(B, 1) if grid is None else int(grid)
+    if grid < 1:
+        raise ValueError("grid must be >= 1")
+    piece = _PIECE if piece is None else int(piece)
+    if not 1 <= piece <= _PIECE:
+        raise ValueError("piece must be 1 to %d" % _PIECE)
+    chunks = 0 if chunks is None else int(chunks)
+    if not 0 <= chunks <= 8:
+        raise ValueError("chunks must be 0 to 8")
+    return {"grid": grid, "cluster": cluster, "n_slots": n_slots,
+            "piece": piece, "chunks": chunks, "smem": smem}
+
+
+def fill_smem_bytes_on_card(ops, cfg, Li, Lo):
+    """The shared bytes the kernel's own layout takes for `cfg` (a
+    fill_launch_plan), from the built library: must equal cfg["smem"]."""
+    fn = load("viterbi_wavefront").viterbi_wavefront_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_long
+    return fn(Li, Lo, ops.S, cfg["n_slots"], *_n_toks(ops))
+
+
 def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
-                      grid=None):
+                      grid=None, cluster=None, slots=None, piece=None,
+                      chunks=None):
     """Max-plus wavefront fill: (Li + Lo + 1, B, Li + 1, S) float32 slabs.
 
     A CUDA tensor launches csrc/viterbi_wavefront.cu and counts one launch
     in `viterbi_wavefront.launches`; a CPU tensor takes
     viterbi_forward_plain. in_toks (B, Li) and out_toks (B, Lo) are int32
     and contiguous on the device of `ops`; in_lens/out_lens (B,) int32, or
-    None for the padded lengths. A block walks whole pairs and skips the
-    cells beyond its pair's (in_len, out_len): those hold NEG_INF, which no
-    reader of a pair's lattice touches. `grid` is the number of blocks
-    (default: one per pair)."""
+    None for the padded lengths. `grid` pair walkers (default one per pair)
+    take pairs b, b + grid, ...; each is a cluster of `cluster` blocks
+    that share the destination states, and keeps the previous diagonals in
+    shared memory or reads them back (`slots`), and loads a token's block
+    once for up to `piece` cells of that token, over the source states in
+    `chunks`; fill_launch_plan chooses all four by default. The cells beyond a pair's (in_len, out_len) hold
+    NEG_INF, which no reader of a pair's lattice touches."""
     if in_toks.device.type == "cpu":
         return viterbi_forward_plain(ops, in_toks, out_toks, in_lens,
                                      out_lens)
@@ -411,19 +491,22 @@ def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
         out_lens = torch.full((B,), Lo, dtype=torch.int32, device=dev)
     _check(in_lens, "in_lens", torch.int32, (B,), dev)
     _check(out_lens, "out_lens", torch.int32, (B,), dev)
-    grid = max(B, 1) if grid is None else int(grid)
-    if grid < 1:
-        raise ValueError("grid must be >= 1")
+    cfg = fill_launch_plan(
+        ops, B, Li, Lo,
+        torch.cuda.get_device_properties(dev).multi_processor_count, grid,
+        cluster, slots, piece, chunks)
     n_diags = Li + Lo + 1
     out = torch.empty((n_diags, B, Li + 1, ops.S), dtype=torch.float32,
                       device=dev)
     fn = load("viterbi_wavefront").viterbi_wavefront_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 9 + [I] * 8 + [P]
+    fn.argtypes = [P] * 9 + [I] * 14 + [P]
     fn.restype = I
     rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), in_lens.data_ptr(),
             out_lens.data_ptr(), ops.c0.data_ptr(), *_class_ptrs(ops),
-            out.data_ptr(), B, Li, Lo, ops.S, ops.SP, ops.Ti, ops.To, grid,
+            out.data_ptr(), B, Li, Lo, ops.S, ops.SP, ops.To, *_n_toks(ops),
+            cfg["n_slots"], cfg["cluster"], cfg["piece"], cfg["chunks"],
+            cfg["grid"],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("viterbi_wavefront launch failed: CUDA error %d"

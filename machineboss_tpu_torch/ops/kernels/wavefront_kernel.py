@@ -71,6 +71,7 @@ What the other variants change:
   merged kernel's sink trim, scales and rescale.
 """
 
+import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -78,6 +79,7 @@ import torch
 
 from ...utils.device import resolve_device
 from .factorize import factorize_token_tensor
+from ._build import load
 from .lowrank_kernel import (_call, _check_batch, _round_up,
                              make_lowrank_forward)
 from .plain_walk import NEG_INF, check_chain, walk_chained, walk_plain
@@ -542,11 +544,11 @@ class FactoredOperands:
 
     `classes` holds (name, Tm (Sa, r*Sa) with Tm[s, (r, s')] = T_r[s, s'],
     Et (n_tok, r, Sa) with Et[t, r, s'] = E_r[t, s'], r) for the plain
-    version. On a CUDA device the kernel's layout is added: the factors T
-    as [SaP][r][SaP] and the token scales E as [n_tok][r][SaP] (zero
-    padded, SaP = round_up(Sa, 4)) packed into `tk` and `ek`, one
-    descriptor row per class in `desc` (kind, n_tok, rank, t_off, e_off),
-    C^T source-major and padded in `ct`."""
+    version. On a CUDA device the kernel's layout (`pack_factored`) is
+    added: the units of A tiles `tab`, the token scales `ek`
+    ([n_tok][r][SaP] per class, SaP = round_up(Sa, 4)), one descriptor row
+    per class in `desc` (kind, n_tok, rank, e_off), the unit counts and
+    the padded start and readout vectors."""
     Sa: int
     To: int
     sink: bool
@@ -555,16 +557,112 @@ class FactoredOperands:
     closure: torch.Tensor
     classes: list
     SaP: int = 0
+    NR: int = 0
+    KT: int = 0
+    n_mt: int = 0
+    nbp: int = 0
+    e_floats: int = 0
     c0_pad: torch.Tensor = None
     w_pad: torch.Tensor = None
-    tk: torch.Tensor = None
+    tab: torch.Tensor = None
     ek: torch.Tensor = None
-    ct: torch.Tensor = None
     desc: np.ndarray = None
 
     @property
     def names(self):
         return [c[0] for c in self.classes]
+
+
+# csrc/factored_wavefront.cu: the class descriptor's length, the most ranks
+# summed over the classes, the least streamed group (in units) worth a
+# second walker in a block, and a block's shared memory on sm_90
+FDESC_LEN = 4
+_FAC_MAX_NR = 128
+_FAC_MIN_SEG_TWO = 2
+SMEM_MAX = 232448
+
+
+def _frag_tiles(mats, Sa):
+    """(n, Sa, Sa) destination-major matrices -> (n_mt, n, KT, 128): each
+    16 x 8 tile in the A fragment order of mma.m16n8k8 (lane g*4 + t holds
+    A[g, t], A[g+8, t], A[g, t+4], A[g+8, t+4])."""
+    n = len(mats)
+    n_mt, KT = -(-Sa // 16), -(-Sa // 8)
+    pad = np.zeros((n, n_mt * 16, KT * 8), np.float32)
+    pad[:, :Sa, :Sa] = mats
+    # (n, mt, h, g, kt, c, t) -> (mt, n, kt, g, t, c, h)
+    return pad.reshape(n, n_mt, 2, 8, KT, 2, 4) \
+        .transpose(1, 0, 4, 3, 6, 5, 2).reshape(n_mt, n, KT, 128)
+
+
+def _unfrag_tiles(tiles, n, Sa):
+    """The inverse of _frag_tiles: (n_mt, n, KT, 128) -> (n, Sa, Sa)."""
+    n_mt, KT = -(-Sa // 16), -(-Sa // 8)
+    pad = np.asarray(tiles).reshape(n_mt, n, KT, 8, 4, 2, 2) \
+        .transpose(1, 0, 6, 3, 2, 5, 4).reshape(n, n_mt * 16, KT * 8)
+    return pad[:, :Sa, :Sa]
+
+
+def pack_factored(plan):
+    """The kernel's layout of a prepare_factored plan (numpy).
+
+    The tables are "units" of 16 destination rows by every source state,
+    KT * 128 floats each (KT = ceil(Sa / 8)): first the stage-A units of
+    the matrices T_r^T (destination x source), rank row k (the classes'
+    ranks in class order) of destination tile m at index k * n_mt + m,
+    each source-major ([KT * 8 source states][16 rows], for the f32
+    register tiles); then the n_mt stage-B units of C^T, each KT A tiles
+    in mma.m16n8k8 fragment order. E is stored per class as
+    [n_tok][r][SaP]. Returns (tab (NU * KT * 128,), ek, desc (n_cls,
+    FDESC_LEN) int32 rows (kind, n_tok, rank, e_off), n_mt, KT, NR,
+    SaP)."""
+    Sa = plan["Sa"]
+    SaP = _round_up(max(Sa, 1), _TD)
+    mats, e_parts, desc = [], [], []
+    e_off = 0
+    for name, mt, e, r in plan["classes"]:
+        n_tok = e.shape[1]
+        mats.append(np.asarray(mt, np.float32).reshape(r, Sa, Sa))
+        ek = np.zeros((n_tok, r, SaP), np.float32)
+        ek[:, :, :Sa] = np.transpose(e.reshape(r, Sa, n_tok), (2, 0, 1))
+        desc.append([_KINDS[name], n_tok, r, e_off])
+        e_parts.append(ek.ravel())
+        e_off += ek.size
+    rows = np.concatenate(mats) if mats else np.zeros((0, Sa, Sa), np.float32)
+    NR = len(rows)
+    n_mt, KP = -(-Sa // 16), -(-Sa // 8) * 8
+    pad = np.zeros((NR, n_mt * 16, KP), np.float32)
+    pad[:, :Sa, :Sa] = rows
+    # (NR, mt, 16 rows, KP) -> (NR, mt, KP, 16): source-major units
+    stage_a = pad.reshape(NR, n_mt, 16, KP).transpose(0, 1, 3, 2)
+    stage_b = _frag_tiles(np.asarray(plan["closure"], np.float32)[None], Sa)
+    tab = np.concatenate([stage_a.ravel(), stage_b.ravel()])
+    ek = np.concatenate(e_parts) if e_parts else np.zeros(0, np.float32)
+    return (tab, ek, np.asarray(desc, np.int32).reshape(-1, FDESC_LEN),
+            -(-Sa // 16), -(-Sa // 8), NR, SaP)
+
+
+def unpack_factored(tab, ek, desc, Sa):
+    """The inverse of pack_factored: (classes, closure) with each class's
+    (mt, e, r) and C^T as prepare_factored gave them."""
+    n_mt, KT = -(-Sa // 16), -(-Sa // 8)
+    SaP = _round_up(max(Sa, 1), _TD)
+    NR = int(np.asarray(desc)[:, 2].sum()) if len(desc) else 0
+    tab = np.asarray(tab)
+    n_a = NR * n_mt * KT * 128
+    rows = tab[:n_a].reshape(NR, n_mt, KT * 8, 16).transpose(0, 1, 3, 2) \
+        .reshape(NR, n_mt * 16, KT * 8)[:, :Sa, :Sa]
+    closure = _unfrag_tiles(tab[n_a:], 1, Sa)[0]
+    classes, k = [], 0
+    for _, n_tok, r, e_off in desc:
+        mt = rows[k:k + r].reshape(r * Sa, Sa)
+        e4 = np.asarray(ek)[e_off:e_off + n_tok * r * SaP] \
+            .reshape(n_tok, r, SaP)[:, :, :Sa]
+        e = np.transpose(e4, (1, 2, 0)).reshape(r * Sa, n_tok)
+        classes.append((np.ascontiguousarray(mt), np.ascontiguousarray(e),
+                        int(r)))
+        k += r
+    return classes, np.ascontiguousarray(closure)
 
 
 def factored_operands(plan, device):
@@ -584,32 +682,120 @@ def factored_operands(plan, device):
         closure=torch.tensor(plan["closure"], device=device), classes=classes)
     if device.type != "cuda":
         return ops
-    SaP = _round_up(max(Sa, 1), _TD)
-    t_parts, e_parts, desc = [], [], []
-    t_off = e_off = 0
-    for name, mt, e, r in plan["classes"]:
-        n_tok = e.shape[1]
-        tk = np.zeros((SaP, r, SaP), np.float32)
-        tk[:Sa, :, :Sa] = np.transpose(mt.reshape(r, Sa, Sa), (2, 0, 1))
-        ek = np.zeros((n_tok, r, SaP), np.float32)
-        ek[:, :, :Sa] = np.transpose(e.reshape(r, Sa, n_tok), (2, 0, 1))
-        desc.append([_KINDS[name], n_tok, r, t_off, e_off])
-        t_parts.append(tk.ravel())
-        e_parts.append(ek.ravel())
-        t_off += tk.size
-        e_off += ek.size
-    pad = np.zeros((2, SaP), np.float32)
+    tab, ek, desc, ops.n_mt, ops.KT, ops.NR, ops.SaP = pack_factored(plan)
+    ops.nbp = 2 if any(c[0] == "diag" for c in plan["classes"]) else 1
+    ops.e_floats = _round_up(max(ek.size, 1), 4)
+    ek_pad = np.zeros(ops.e_floats, np.float32)
+    ek_pad[:ek.size] = ek
+    pad = np.zeros((2, ops.SaP), np.float32)
     pad[0, :Sa] = plan["c0"]
     pad[1, :Sa] = np.asarray(plan["w"])[:Sa]
-    empty = [np.zeros(4, np.float32)]
-    ops.SaP = SaP
     ops.c0_pad = torch.tensor(pad[0], device=device)
     ops.w_pad = torch.tensor(pad[1], device=device)
-    ops.tk = torch.tensor(np.concatenate(t_parts + empty), device=device)
-    ops.ek = torch.tensor(np.concatenate(e_parts + empty), device=device)
-    ops.ct = torch.tensor(_padded(plan["closure"].T, SaP), device=device)
+    ops.tab = torch.tensor(tab, device=device)
+    ops.ek = torch.tensor(ek_pad, device=device)
     ops.desc = np.ascontiguousarray(desc, np.int32).reshape(-1)
     return ops
+
+
+def _bank_stride(n):
+    s = _round_up(n, 8)
+    while s % 32 not in (8, 24):
+        s += 8
+    return s
+
+
+def factored_smem_bytes(Sa, NR, Li, Lo, ns, nbp, seg, e_floats):
+    """The shared bytes of the factored kernel's block (the layout of
+    csrc/factored_wavefront.cu): the tables (all units, or a ring of two
+    groups of `seg`), E (e_floats, 0 when read from global memory), nbp
+    state operands and pre, and per walker its cells' weights, tokens, log
+    scales and maxima, its pair's tokens and its state."""
+    KT, n_mt = -(-Sa // 8), -(-Sa // 16)
+    U = KT * 128
+    NU = n_mt * (NR + 1)
+    W = Li + 1
+    CQ = _round_up(W, 8)
+    KP = KT * 8
+    PS, QS = _bank_stride(ns * (CQ + 4)), _bank_stride(ns * CQ)
+    n = (NU * U if seg >= NU else 2 * seg * U) + _round_up(e_floats, 4) \
+        + nbp * KP * PS + KP * QS + 2 * _round_up(3 * ns * CQ, 4) \
+        + _round_up(3 * ns * W, 4) + _round_up(ns * W, 4) \
+        + _round_up(ns * Li, 4) + _round_up(ns * Lo, 4) + 16 * ns \
+        + _round_up(ns * CQ // 8, 4)
+    return 4 * n
+
+
+def factored_launch_plan(ops, Li, Lo, walkers=None):
+    """How the factored kernel lays out a block for this plan and padded
+    lengths: a dict with `walkers` (pairs a block walks in lockstep, 1 or
+    2), `seg` (units per streamed group; all units when `resident`),
+    `resident`, `e_floats` (E in shared memory, 0 when read from global
+    memory) and `smem` (bytes).
+
+    The tables stay resident when they fit, else they stream in the
+    largest groups that fit. `walkers` None takes two where the tables are
+    resident or stream in groups of at least 2 units (each streamed byte
+    then serves both walkers' cells), else one. E goes to shared memory
+    unless that costs the tables residency or group size. A plan that fits
+    no way raises ValueError."""
+    if walkers not in (None, 1, 2):
+        raise ValueError("walkers must be 1 or 2")
+    if ops.NR > _FAC_MAX_NR:
+        raise ValueError("factored kernel: %d ranks, at most %d"
+                         % (ops.NR, _FAC_MAX_NR))
+    NU = ops.n_mt * (ops.NR + 1)
+
+    def best(ns):
+        """The largest group of units that fits, E shared if it can be."""
+        out = None
+        for e in (ops.e_floats, 0):
+            def size(seg):
+                return factored_smem_bytes(ops.Sa, ops.NR, Li, Lo, ns,
+                                           ops.nbp, seg, e)
+            seg = next((c for c in range(NU, 0, -1)
+                        if size(c) <= SMEM_MAX), 0)
+            if seg and (out is None or seg > out["seg"]):
+                out = {"walkers": ns, "seg": seg, "resident": seg >= NU,
+                       "e_floats": e, "smem": size(seg)}
+        return out
+
+    for ns in ((walkers,) if walkers else (2, 1)):
+        cfg = best(ns)
+        if cfg is not None and (walkers or ns == 1 or cfg["resident"]
+                                or cfg["seg"] >= _FAC_MIN_SEG_TWO):
+            return cfg
+    raise ValueError(
+        "factored kernel: %d states, %d ranks and %d cells a diagonal do not "
+        "fit a block's %d bytes of shared memory%s"
+        % (ops.Sa, ops.NR, Li + 1, SMEM_MAX,
+           " with two walkers" if walkers == 2 else ""))
+
+
+def factored_launch_config(ops, B, Li, Lo, grid=None, walkers=None):
+    """factored_launch_plan's layout plus the grid a launch takes: `grid`
+    blocks (default one per multiprocessor, no more than the batch
+    needs)."""
+    plan = factored_launch_plan(ops, Li, Lo, walkers)
+    if grid is None:
+        sms = torch.cuda.get_device_properties(
+            ops.c0.device).multi_processor_count
+        grid = max(1, min(sms, -(-B // plan["walkers"])))
+    if int(grid) < 1:
+        raise ValueError("grid must be >= 1")
+    plan["grid"] = int(grid)
+    return plan
+
+
+def factored_smem_bytes_on_card(ops, cfg, Li, Lo):
+    """The shared bytes the kernel's own layout takes for `cfg` (a
+    factored_launch_plan for padded lengths Li, Lo), from the built
+    library: must equal cfg["smem"]."""
+    fn = load("factored_wavefront").factored_wavefront_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_long
+    return fn(ops.Sa, ops.NR, Li, Lo, cfg["walkers"], ops.nbp, cfg["seg"],
+              cfg["e_floats"])
 
 
 def factored_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
@@ -824,28 +1010,37 @@ seqscale_wavefront.launches = 0
 
 
 def factored_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                       rescale_every=4, grid=None):
+                       rescale_every=4, grid=None, walkers=None):
     """Destination-factored wavefront Forward: (B,) float32
     log-likelihoods.
 
     `ops` is a FactoredOperands. A CUDA tensor launches
-    csrc/factored_wavefront.cu (block g walks pairs g, g + grid, ...) and
-    counts one launch in `factored_wavefront.launches`; a CPU tensor takes
-    factored_forward_plain. Other arguments as merged_wavefront."""
+    csrc/factored_wavefront.cu (a persistent grid of `grid` blocks, default
+    one per multiprocessor, each walking `walkers` pairs in lockstep
+    (factored_launch_plan), the pairs taken longest first from an atomic
+    counter) and counts one launch in `factored_wavefront.launches`; a CPU
+    tensor takes factored_forward_plain. Token and length tensors are int32
+    and contiguous, on the device of `ops`. A pair whose length exceeds the
+    padded shape or whose token lies outside its alphabet comes back NaN. A
+    plan that does not fit a block raises ValueError."""
     if in_toks.device.type == "cpu":
         return factored_forward_plain(ops, in_toks, out_toks, in_lens,
                                       out_lens, rescale_every)
     B, Li, Lo = _check_batch("factored_wavefront", ops, in_toks, out_toks,
-                             in_lens, out_lens, rescale_every, ops.tk)
+                             in_lens, out_lens, rescale_every, ops.tab)
     dev = ops.c0.device
-    grid = _grid(dev, B, grid)
+    cfg = factored_launch_config(ops, B, Li, Lo, grid, walkers)
+    order = torch.argsort((in_lens + out_lens).long(), descending=True,
+                          stable=True).to(torch.int32).contiguous()
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    pbuf, mbuf, ubuf = _slots(grid, Li + 1, ops.SaP, dev, extra=True)
     _call("factored_wavefront", "factored_wavefront",
-          [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.w_pad,
-           ops.tk, ops.ek, ops.ct, pbuf, mbuf, ubuf, out],
-          [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
-           len(ops.classes)], ops.desc, [grid], dev)
+          [in_toks, out_toks, in_lens, out_lens, order, counter, ops.c0_pad,
+           ops.w_pad, ops.tab, ops.ek, out],
+          [B, Li, Lo, ops.Sa, ops.To, rescale_every, int(ops.sink),
+           len(ops.classes)], ops.desc,
+          [ops.NR, ops.KT, ops.n_mt, ops.SaP, cfg["walkers"], ops.nbp,
+           cfg["seg"], cfg["e_floats"], cfg["grid"]], dev)
     factored_wavefront.launches += 1
     return out
 

@@ -170,8 +170,8 @@ def test_ragged_lens_equal():
 
 def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     """No nvcc needed: the library's name is a hash of the source and of
-    every csrc/ file it includes, so editing the shared header renames the
-    libraries of both kernels that include it and of no other."""
+    every csrc/ file it includes, so editing a shared header renames the
+    libraries of the kernels that include it and of no other."""
     import shutil
 
     from machineboss_tpu_torch.ops.kernels import _build
@@ -188,7 +188,7 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
                        ("chained_ragged_wavefront", 2),
                        ("chained_wavefront", 3), ("generic_wavefront", 2),
                        ("seqscale_wavefront", 2), ("factored_wavefront", 2),
-                       ("lowrank_wavefront", 1), ("scan1d", 1),
+                       ("lowrank_wavefront", 2), ("scan1d", 1),
                        ("viterbi_wavefront", 2),
                        ("viterbi_banded_wavefront", 2), ("lattice_walk", 1),
                        ("fused_plan7", 1)):
@@ -203,7 +203,14 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     changed = {n for n in before if before[n] != after[n]}
     assert changed == {"merged_wavefront", "chained_ragged_wavefront",
                        "chained_wavefront", "generic_wavefront",
-                       "seqscale_wavefront", "factored_wavefront"}
+                       "seqscale_wavefront"}
+    # the tensor-core helpers: the two 3xTF32 kernels and no other
+    after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
+    with open(csrc / "tf32_mma.cuh", "ab") as f:
+        f.write(b"\n// edited\n")
+    changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
+    assert changed == {"lowrank_wavefront", "factored_wavefront"}
+    after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
     # the chained schedule's header: the chained kernel and no other (the
     # lowrank kernel walks its chained mode pair by pair)
     with open(csrc / "strip.cuh", "ab") as f:

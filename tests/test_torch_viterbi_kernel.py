@@ -8,8 +8,10 @@ numpy matrices: max-plus uses only float32 adds and maxes, so 0.0 is
 expected and the bound is 1e-6 nats, with the same finite/NEG_INF pattern;
 and to the host ViterbiMatrix's cells at 1e-4 nats (the JAX tests' TOL:
 the host fills in float64). The host prep is held bit-equal to the JAX
-package's. On a CUDA card the kernels are held to the plain versions at
-0.0.
+package's, and the batched fill's launch plan (cluster size, shared slots
+or read-back) is checked on the CPU. On a CUDA card the kernels are held
+to the plain versions at 0.0, the batched fill with one and two blocks a
+pair, with slots and read back.
 
 The JAX package is imported inside the tests that use it, so that the card
 tests run where only torch is installed:
@@ -264,6 +266,41 @@ def test_cpu_wrappers_take_plain_without_launch():
         ops, geom, t_it[0], t_ot[0]))
 
 
+def _ops_of(name, dev=torch.device("cpu")):
+    return vk.viterbi_operands(vk.maxplus_class_mats(*_case(name)[2]), dev)
+
+
+def test_fill_launch_plan():
+    """Two blocks a pair while the batch has fewer pairs than the card has
+    multiprocessors; two shared slots without a diag class, three with
+    one, read-back when they do not fit."""
+    indel, allclass = _ops_of("indel"), _ops_of("allclass")
+    assert indel.diag is None and allclass.diag is not None
+    cfg = vk.fill_launch_plan(indel, 64, 64, 192, 132)
+    assert (cfg["grid"], cfg["cluster"], cfg["n_slots"]) == (64, 2, 2)
+    assert cfg["piece"] == 8 and cfg["chunks"] == 0
+    assert cfg["smem"] == vk.fill_smem_bytes(64, 192, indel.S, 2,
+                                             vk._n_toks(indel))
+    assert vk.fill_launch_plan(allclass, 64, 128, 128, 132)["n_slots"] == 3
+    assert vk.fill_launch_plan(indel, 132, 8, 8, 132)["cluster"] == 1
+    assert vk.fill_launch_plan(indel, 4, 8, 8, 132, grid=1)["grid"] == 1
+    # three (3401, 6) diagonals exceed 227 KB: read back from the lattice
+    long_ = vk.fill_launch_plan(allclass, 1, 3400, 3, 132)
+    assert long_["n_slots"] == 0 and long_["smem"] <= vk.SMEM_MAX
+    assert vk.fill_smem_bytes(3400, 3, allclass.S, 3,
+                              vk._n_toks(allclass)) > vk.SMEM_MAX
+    with pytest.raises(ValueError, match="do not fit"):
+        vk.fill_launch_plan(allclass, 1, 3400, 3, 132, slots=True)
+    assert vk.fill_launch_plan(allclass, 4, 8, 8, 132,
+                               slots=False)["n_slots"] == 0
+    with pytest.raises(ValueError, match="token buckets"):
+        vk.fill_launch_plan(allclass, 1, 20000, 3, 132)
+    for bad in ({"cluster": 4}, {"piece": 0}, {"piece": 9}, {"chunks": 9},
+                {"grid": 0}):
+        with pytest.raises(ValueError):
+            vk.fill_launch_plan(indel, 4, 8, 8, 132, **bad)
+
+
 # ------------------------------------------------------------ the banded fill
 
 @pytest.mark.parametrize("seed", [1, 7])
@@ -382,8 +419,7 @@ def test_banded_kernel_matches_plain_on_card(seed):
 @pytest.mark.parametrize("banded", [False, True])
 def test_kernel_reads_the_lattice_back_when_shared_memory_is_short(banded):
     """A pair so long that three diagonals exceed a block's shared memory:
-    the banded kernel then reads the previous diagonals from the lattice,
-    as the batched kernel always does."""
+    both kernels then read the previous diagonals from the lattice."""
     dev = _card()
     mats = _case("allclass")[2]
     S = mats[3].shape[0]
@@ -404,8 +440,67 @@ def test_kernel_reads_the_lattice_back_when_shared_memory_is_short(banded):
         kern = vk.viterbi_banded_wavefront(ops, geom, t_it[0], t_ot[0])
         plain = vk.viterbi_banded_forward_plain(ops, geom, t_it[0], t_ot[0])
     else:
+        assert vk.fill_launch_plan(ops, 1, Li, Lo, 132)["n_slots"] == 0
         kern = vk.viterbi_wavefront(ops, t_it, t_ot)
         plain = vk.viterbi_forward_plain(ops, t_it, t_ot)
     torch.cuda.synchronize()
     assert torch.equal(kern, plain)
     assert (kern[Li // 2] > NEG).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [True, False])
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fill_clusters_and_slots_match_plain_on_card(name, cluster, slots):
+    """One and two blocks a pair, the previous diagonals in shared memory
+    or read back from the lattice: the lattice equals the plain version."""
+    dev = _card()
+    _, _, mats, it, ot = _case(name)
+    B = it.shape[0]
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot)]
+    lens = [torch.tensor(([it.shape[1], 2, 4] * B)[:B], dtype=torch.int32,
+                         device=dev),
+            torch.tensor(([ot.shape[1], 3, 1] * B)[:B], dtype=torch.int32,
+                         device=dev)]
+    kern = vk.viterbi_wavefront(ops, *batch, *lens, cluster=cluster,
+                                slots=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, vk.viterbi_forward_plain(ops, *batch, *lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2])
+def test_fill_one_walker_ragged_with_an_empty_side_on_card(cluster):
+    """grid=1: one walker (one cluster) takes every pair in turn, the
+    lengths ragged, one pair with no input and one with no output."""
+    dev = _card()
+    _, _, mats, it, ot = _case("allclass")
+    B, Li = it.shape
+    Lo = ot.shape[1]
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot)]
+    lens = [torch.tensor([Li, 0, 3, 2][:B], dtype=torch.int32, device=dev),
+            torch.tensor([1, Lo, 0, Lo][:B], dtype=torch.int32, device=dev)]
+    kern = vk.viterbi_wavefront(ops, *batch, *lens, grid=1, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, vk.viterbi_forward_plain(ops, *batch, *lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"cluster": 2}, {"cluster": 1, "slots": False},
+                                {"piece": 1}, {"piece": 3, "chunks": 5}])
+def test_fill_token_outside_the_alphabet_on_card(kw):
+    """A token outside its alphabet matches nothing, in every layout; the
+    piece size and the source chunks change nothing."""
+    dev = _card()
+    _, _, mats, it, ot = _case("allclass")
+    bad_it, bad_ot = it.copy(), ot.copy()
+    bad_it[1, 2] = 9
+    bad_ot[2, 0] = -3
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (bad_it, bad_ot)]
+    kern = vk.viterbi_wavefront(ops, *batch, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, vk.viterbi_forward_plain(ops, *batch))
