@@ -44,17 +44,27 @@ Five go through the kernel factory make_wavefront_forward, one call each:
   prot2dna_chained   prot2dna's pairs, variant="lowrank", chain=8
                      (lowrank_chained_wavefront);
   dense_generic      dense_uniform's pairs, merged=False
-                     (generic_wavefront);
+                     (generic_wavefront; its launch plan, and variants:
+                     C^T through L1/L2, a warp a cell, every cell's
+                     products);
   dense_seqscale     dense_uniform's pairs, variant="seqscale"
-                     (seqscale_wavefront; the merged kernel timed on its
-                     plan too);
+                     (seqscale_wavefront, equal to its plain version bit
+                     for bit; the merged kernel timed on its plan too, and
+                     variants: the separate max pass, every cell's
+                     products);
   prot2dna_factored  prot2dna's pairs, variant="factored"
-                     (factored_wavefront).
+                     (factored_wavefront; variant: one walker a block).
 
-Prints one JSON line per phase, the total time, the kernel table, the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}. Any failure
-prints its traceback and exits non-zero. Without CUDA it exits 1 and
-prints no result.
+A variant undoes one design choice of a kernel and gives the same scores
+bit for bit; each is timed in turns with the kernel. A bound counts the
+class products this run's data needs: the merged family, generic and
+seqscale take none for a zero cell, and bench.py's dense machine reaches
+only the cells with i == o (the bound over every cell is printed too).
+
+Prints one JSON line per phase, the total time, the kernel table, the
+card's name and power limit, and as its last line {"ok": true, "device":
+{...}}. Any failure prints its traceback and exits non-zero. Without CUDA
+it exits 1 and prints no result.
 """
 
 import json
@@ -73,6 +83,7 @@ ODD_START_VS_F64_TOL = 5e-3      # nats: the S=64, L=100 deep chain
 SCAN1D_VS_F64_TOL = 1e-4         # nats: f32 products over <= 150 positions
 GATE_TOL = 0.01                  # nats: the f64 accuracy gate of bench.py
 VITERBI_VS_PLAIN_TOL = 0.0       # nats: float32 adds and maxes only
+SEQSCALE_VS_PLAIN_TOL = 0.0      # nats: the plain version's sums and scales
 PLAN7_VS_FLAT_TOL = 2e-3         # nats: scaled probability vs log space, L<=24
 PLAN7_VS_F64_TOL = 5e-3          # nats: the composed-machine oracle's bound
 PLAN7_VITERBI_TOL = 1e-4         # nats: max-plus flat solver vs its f64 oracle
@@ -489,14 +500,14 @@ def dense_path(name, cm, pairs, ragged, dev, card, smi):
           "%s: kernel vs plain %.3g nats" % (name, err))
     kernel_ms = cuda_ms(lambda: wrapper(ops, *batch), 5)
 
-    # least time for this run's work: every cell does Sa*Sa MACs for each
-    # present class whose neighbour lies in the pair's lattice; tokens,
+    # least time for this run's work: a cell does Sa*Sa MACs for each
+    # present class whose neighbour lies in the pair's lattice and can be
+    # reached (the kernel takes no product for a zero neighbour); tokens,
     # lengths, class blocks and scores move once
     il = np.array([len(t[0]) for t in toks], np.float64)
     ol = np.array([len(t[1]) for t in toks], np.float64)
-    nb_cells = {"up": ((il + 1) * ol).sum(), "left": (il * (ol + 1)).sum(),
-                "diag": (il * ol).sum()}
-    flops = 2.0 * ops.Sa * ops.Sa * sum(nb_cells[k] for k in ops.names)
+    flops = variant_flops(kernel, ops, il, ol)
+    flops_all = variant_flops(kernel, ops, il, ol, all_cells=True)
     nbytes = tensor_bytes(batch + list(ops.mats.values())
                           + [ops.c0, ops.w]) + len(pairs) * 4
     bound_ms, bound_by = bound(flops, nbytes)
@@ -512,7 +523,9 @@ def dense_path(name, cm, pairs, ragged, dev, card, smi):
           "state_cells_per_s": state_cells / (call_ms / 1e3),
           "kernel_state_cells_per_s": state_cells / (kernel_ms / 1e3),
           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-          "kernel_share_of_bound": bound_ms / kernel_ms,
+          "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
+          "flops_all_cells": flops_all,
+          "bound_all_cells_ms": bound(flops_all, nbytes)[0],
           "card": card, "nvidia_smi": smi})
     return {"name": kernel, "route": "cuda",
             "source": "machineboss_tpu_torch/csrc/%s.cu" % kernel,
@@ -615,11 +628,15 @@ VARIANTS = {
 CHAINED_KERNELS = ("chained_wavefront", "lowrank_chained_wavefront")
 
 
-def variant_ops(kernel, mats, dev, grid=None, walkers=None):
+def variant_ops(kernel, mats, dev, grid=None, walkers=None, layout=None,
+                rescale_every=None):
     """(operands, kernel call, plain call) of one variant kernel; both
     calls take (in_toks, out_toks, in_lens, out_lens, n_chain). `grid`
     sets the blocks of an unchained kernel (None: its default), `walkers`
-    the factored kernel's pairs a block."""
+    the factored kernel's pairs a block, `layout` more keywords of the
+    kernel's wrapper (the generic kernel's cells_per_warp and
+    ct_resident), `rescale_every` the seqscale kernel's cadence, for both
+    calls."""
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     if kernel == "lowrank_chained_wavefront":
@@ -644,23 +661,28 @@ def variant_ops(kernel, mats, dev, grid=None, walkers=None):
     if kernel in CHAINED_KERNELS:
         return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4]),
                 lambda *b: plain(ops, *b[:4], n_chain=b[4]))
-    kw = {"grid": grid}
+    kw = dict(layout or {}, grid=grid)
     if walkers is not None:
         kw["walkers"] = walkers
+    pkw = {}
+    if rescale_every is not None:
+        kw["rescale_every"] = pkw["rescale_every"] = rescale_every
     return (ops, lambda *b: wrapper(ops, *b[:4], **kw),
-            lambda *b: plain(ops, *b[:4]))
+            lambda *b: plain(ops, *b[:4], **pkw))
 
 
 def variant_case(kernel, name, mats, it, ot, il, ol, dev, chain=None,
                  bad=None, f64_tol=None, grid=None, bad_len=None,
-                 walkers=None):
+                 walkers=None, layout=None, rescale_every=None):
     """One small case of a variant kernel: kernel vs plain vs the f64
     oracle (the chained kernels at the padded lengths, which they read
     out). `bad` = (pair, position) puts a token outside the alphabet into
     the kernel's input, `bad_len` = pair gives that pair an input length
     past the padded shape: such pairs must come back NaN, the others as
-    the plain version gives them without the fault."""
-    _, run, plain = variant_ops(kernel, mats, dev, grid, walkers)
+    the plain version gives them without the fault. The seqscale kernel
+    must equal its plain version bit for bit."""
+    _, run, plain = variant_ops(kernel, mats, dev, grid, walkers, layout,
+                                rescale_every)
     if kernel in CHAINED_KERNELS:
         il = np.full(len(il), it.shape[1])
         ol = np.full(len(ol), ot.shape[1])
@@ -690,12 +712,14 @@ def variant_case(kernel, name, mats, it, ot, il, ol, dev, chain=None,
     err_f64 = score_err(kern[live], ref[live])
     emit({"phase": "kernel_vs_plain", "kernel": kernel, "case": name,
           "B": len(il), "Li": it.shape[1], "Lo": ot.shape[1], "chain": chain,
-          "grid": grid, "walkers": walkers, "bad_token_nan": bad is not None,
+          "grid": grid, "walkers": walkers, "layout": layout,
+          "rescale_every": rescale_every, "bad_token_nan": bad is not None,
           "bad_length_nan": bad_len is not None, "max_abs_vs_plain": err_plain,
           "max_abs_vs_f64": err_f64, "f64_range": [float(ref.min()),
                                                    float(ref.max())],
           "n_impossible": int((ref <= NEG).sum())})
-    check(err_plain <= KERNEL_VS_PLAIN_TOL,
+    check(err_plain <= (SEQSCALE_VS_PLAIN_TOL if kernel == "seqscale_wavefront"
+                        else KERNEL_VS_PLAIN_TOL),
           "%s %s: kernel vs plain %.3g nats" % (kernel, name, err_plain))
     tol = f64_tol or VARIANTS[kernel][1]
     check(err_f64 <= tol, "%s %s: kernel vs f64 %.3g nats"
@@ -834,10 +858,109 @@ def factored_cases(dev):
           "factored: the scores depend on the grid or the walkers")
 
 
-def variant_flops(kernel, ops, il, ol):
+def generic_seqscale_cases(dev):
+    """The seqscale and generic kernels where their rules and layouts
+    differ from the main path. seqscale at rescale_every 1, 2, 3 and 8 on
+    the diag-only dense8 machine, with a pair that cannot be scored (its
+    max is 0 on every diagonal: a factor of 1) and a bad token, equal to
+    the plain version bit for bit; generic in each layout (one or two
+    cells a warp, C^T in shared memory or through L1/L2) on the all-class
+    machine and on the 65-state dense machine (68 padded states: a 4-state
+    tail), each at grid 1 and 2 with a bad token and a bad length; and on
+    all-class machines of 101, 131 and 301 states (more chunks a lane)."""
+    from machineboss_tpu_torch.testmachines import (
+        build_allclass_transducer, build_random_transducer)
+    dense8 = lowered(build_random_transducer(8, list("ACGT"), seed=15))
+    rng = np.random.RandomState(6)
+    it = rng.randint(0, 4, (4, 20)).astype(np.int32)
+    ot = rng.randint(0, 4, (4, 20)).astype(np.int32)
+    il, ol = np.array([20, 17, 20, 20]), np.full(4, 20)
+    for every in (1, 2, 3, 8):
+        ref = variant_case("seqscale_wavefront", "dense8_every%d" % every,
+                           dense8, it, ot, il, ol, dev, bad=(3, 5),
+                           rescale_every=every)
+        check(ref[1] <= NEG, "dense8: pair 1 has a path")
+    for kind, mats, n_sym, B, L in (
+            ("allclass", lowered(build_allclass_transducer(5, list("AC"))),
+             2, 8, 12),
+            ("dense64", lowered(build_random_transducer(64, list("ACGT"))),
+             4, 4, 40)):
+        rng = np.random.RandomState(9)
+        it = rng.randint(0, n_sym, (B, L)).astype(np.int32)
+        ot = rng.randint(0, n_sym, (B, L)).astype(np.int32)
+        il = rng.randint(L // 2, L + 1, B)
+        ol = il.copy() if kind == "dense64" else rng.randint(L // 2, L + 1, B)
+        ol[0] = max(0, il[0] - 1)                 # dense64: cannot be scored
+        for cells in (1, 2):
+            for resident in (True, False):
+                for grid in (1, 2):
+                    variant_case(
+                        "generic_wavefront", "%s_c%d_%s_grid%d" % (
+                            kind, cells, "ct" if resident else "l2", grid),
+                        mats, it, ot, il, ol, dev, bad=(2, 0), bad_len=3,
+                        grid=grid, layout={"cells_per_warp": cells,
+                                           "ct_resident": resident})
+    # wider machines, every class present: 104 padded states (two cells a
+    # warp: 26 chunks over 16 lanes, no tail), 132 (a 4-state tail, C^T
+    # through L1/L2), 304 (4 chunks a lane)
+    rng = np.random.RandomState(4)
+    it = rng.randint(0, 2, (4, 6)).astype(np.int32)
+    ot = rng.randint(0, 2, (4, 6)).astype(np.int32)
+    il, ol = np.array([6, 4, 6, 0]), np.array([6, 6, 3, 5])
+    for S, cells in ((100, 1), (100, 2), (130, 1), (130, 2), (300, 1)):
+        variant_case("generic_wavefront", "allclass%d_c%d" % (S, cells),
+                     lowered(build_allclass_transducer(S, list("AC"))), it,
+                     ot, il, ol, dev, layout={"cells_per_warp": cells})
+
+
+# the kernels that take no product for a zero cell (a neighbour whose log
+# scale is NEG_INF, or a source row tagged all zero)
+SKIPPING = ("merged_wavefront", "chained_ragged_wavefront",
+            "chained_wavefront", "generic_wavefront", "seqscale_wavefront")
+
+
+def live_terms(names, il, ol):
+    """The class terms these pairs' data needs: for each present class, the
+    cells whose neighbour of that class can be reached from (0, 0) through
+    the present classes (the others hold exact zeros), summed over the
+    pairs; and the reachable cells but (0, 0). The 64-state dense machine
+    has the diag class only, so a pair of 200 x 200 reaches 200 of its
+    40,400 cells."""
+    out = dict.fromkeys(names, 0.0)
+    cells = 0.0
+    seen = {}
+    for a, b in zip(np.asarray(il, np.int64), np.asarray(ol, np.int64)):
+        key = (int(a), int(b))
+        if key not in seen:
+            R = np.zeros((a + 1, b + 1), bool)
+            for i in range(a + 1):
+                row = np.zeros(b + 1, bool)
+                if i == 0:
+                    row[0] = True
+                else:
+                    if "left" in names:
+                        row |= R[i - 1]
+                    if "diag" in names:
+                        row[1:] |= R[i - 1, :-1]
+                if "up" in names:
+                    row = np.logical_or.accumulate(row)
+                R[i] = row
+            nb = {"up": R[:, :-1].sum(), "left": R[:-1, :].sum(),
+                  "diag": R[:-1, :-1].sum()}
+            seen[key] = ({k: float(nb[k]) for k in names},
+                         float(R.sum() - 1))
+        terms, n = seen[key]
+        for k in names:
+            out[k] += terms[k]
+        cells += n
+    return out, cells
+
+
+def variant_flops(kernel, ops, il, ol, all_cells=False):
     """2 x the multiply-adds of the variant's own recurrence on this run's
     real cells, at one token block per cell: a class counts at a cell whose
-    neighbour of that class lies in the pair's lattice."""
+    neighbour of that class lies in the pair's lattice and, for the kernels
+    that skip zero cells (unless `all_cells`), can be reached from (0, 0)."""
     il = np.asarray(il, np.float64)
     ol = np.asarray(ol, np.float64)
     nb_cells = {"up": ((il + 1) * ol).sum(), "left": (il * (ol + 1)).sum(),
@@ -849,31 +972,46 @@ def variant_flops(kernel, ops, il, ol):
     if kernel == "factored_wavefront":
         return 2.0 * (sum(r * (Sa * Sa + Sa) * nb_cells[n]
                           for n, _, _, r in ops.classes) + Sa * Sa * cells)
+    if kernel in SKIPPING and not all_cells:
+        nb_cells, cells = live_terms(ops.names, il, ol)
     macs = Sa * Sa * sum(nb_cells[k] for k in ops.names)
     if kernel == "generic_wavefront":
         macs += Sa * Sa * cells                  # the closure product
     return 2.0 * macs
 
 
-def factored_variants(ops, batch, kern):
-    """The factored kernel against a variant that undoes one design
-    choice, timed in turns (default, variant, variant, default), with the
-    same scores bit for bit: one walker a block (no lockstep pair sharing
-    the streamed tables, in larger groups). Returns {variant: {which: [ms,
-    ms]}}."""
-    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+def design_variants(wrapper, ops, batch, kern, variants):
+    """A kernel against variants that each undo one design choice, timed
+    in turns (default, variant, variant, default), every one with the
+    same scores bit for bit. `variants` maps a label to the wrapper's
+    keywords. Returns {variant: {which: [ms, ms]}}."""
     out = {}
-    for label, kw in (("one_walker", {"walkers": 1}),):
+    for label, kw in variants.items():
         times = {"default": [], label: []}
         for which in ("default", label, label, "default"):
             args = kw if which == label else {}
-            other = wk.factored_wavefront(ops, *batch, **args).cpu().numpy()
-            check(np.array_equal(other, kern),
-                  "factored %s scores otherwise" % which)
-            times[which].append(cuda_ms(
-                lambda: wk.factored_wavefront(ops, *batch, **args), 3))
+            other = wrapper(ops, *batch, **args).cpu().numpy()
+            check(np.array_equal(other, kern, equal_nan=True),
+                  "%s %s scores otherwise" % (wrapper.__name__, which))
+            times[which].append(cuda_ms(lambda: wrapper(ops, *batch, **args),
+                                        3))
         out[label] = times
     return out
+
+
+# the variants of each redesigned kernel that undo one design choice
+DESIGN_VARIANTS = {
+    # one walker a block: no lockstep pair sharing the streamed tables
+    "factored_wavefront": {"one_walker": {"walkers": 1}},
+    # the first design's separate max pass and block reduction; the
+    # products of the all-zero sources too
+    "seqscale_wavefront": {"max_pass": {"max_pass": True},
+                           "all_cells": {"skip_dead": False}},
+    # C^T through L1/L2; a warp a cell (16 of its 32 lanes idle at S = 65);
+    # both products of the zero cells too
+    "generic_wavefront": {"ct_through_l2": {"ct_resident": False},
+                          "one_cell_a_warp": {"cells_per_warp": 1},
+                          "all_cells": {"skip_dead": False}}}
 
 
 def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
@@ -887,6 +1025,7 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
     `merged_on_plan`: also time the merged kernel on this kernel's own
     (untrimmed, closure-folded) plan, the same function at the same state
     count. Returns the kernels line's entry."""
+    from machineboss_tpu_torch.ops.kernels import _build
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
@@ -937,7 +1076,8 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
           "%s: kernel alone differs from the path" % name)
     plain_ms, ref_plain = event_ms(lambda: plain(*batch, chain))
     err = score_err(kern, ref_plain.cpu().numpy())
-    check(err <= KERNEL_VS_PLAIN_TOL,
+    check(err <= (SEQSCALE_VS_PLAIN_TOL if kernel == "seqscale_wavefront"
+                  else KERNEL_VS_PLAIN_TOL),
           "%s: kernel vs plain %.3g nats" % (name, err))
     kernel_ms = cuda_ms(lambda: run(*batch, chain), 5)
     by_chain = {}
@@ -997,8 +1137,29 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
             "launch": cfg, "walkers": cfg["walkers"],
             "shared_bytes": cfg["smem"],
             "tables": "resident" if cfg["resident"] else "streamed",
-            "table_bytes": tensor_bytes([ops.tab]),
-            "variants_ms": factored_variants(ops, batch, kern)})
+            "table_bytes": tensor_bytes([ops.tab])})
+    if kernel == "generic_wavefront":
+        cfg = wk.generic_launch_plan(ops)
+        check(wk.generic_smem_bytes_on_card(ops, cfg) == cfg["smem"],
+              "%s: the kernel's shared layout differs from the plan's" % name)
+        on_card = wk.generic_blocks_per_sm_on_card(ops, cfg)
+        check(cfg["blocks_per_sm"] >= 4 and on_card >= 4,
+              "%s: %d blocks a multiprocessor (the card: %d), not 4"
+              % (name, cfg["blocks_per_sm"], on_card))
+        tf32_extra.update({"launch": cfg, "blocks_per_sm_on_card": on_card,
+                           "shared_bytes": cfg["smem"],
+                           "ct_resident": cfg["ct_resident"]})
+    if kernel in DESIGN_VARIANTS:
+        tf32_extra["variants_ms"] = design_variants(
+            counts()[kernel], ops, batch, kern, DESIGN_VARIANTS[kernel])
+    if kernel in SKIPPING:
+        flops_all = variant_flops(kernel, ops, il, ol, all_cells=True)
+        tf32_extra.update({"flops_all_cells": flops_all,
+                           "bound_all_cells_ms": bound(flops_all,
+                                                       nbytes)[0]})
+    ptxas = [ln.strip() for ln in _build.build_logs.get(
+        "lowrank_wavefront" if kernel == "lowrank_chained_wavefront"
+        else kernel, "").splitlines() if "registers" in ln or "spill" in ln]
     merged = wk.merged_operands(wk.prepare_merged(*mats), dev)
     merged_flops = variant_flops("merged_wavefront", merged, il, ol)
     merged_bound_ms, _ = bound(merged_flops, nbytes)
@@ -1017,7 +1178,7 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
           "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
           "merged_flops": merged_flops, "merged_bound_ms": merged_bound_ms,
           "merged_kernel_ms_on_this_plan": merged_on_plan_ms,
-          **tf32_extra, "card": card, "nvidia_smi": smi})
+          **tf32_extra, "ptxas": ptxas, "card": card, "nvidia_smi": smi})
     src = "lowrank_wavefront" if kernel == "lowrank_chained_wavefront" \
         else kernel
     return {"name": kernel, "route": "cuda", "path": name,
@@ -1872,6 +2033,7 @@ def main():
 
     fullrank_cases(dev)
     variant_cases(dev)
+    generic_seqscale_cases(dev)
     factored_cases(dev)
     scan1d_cases(dev)
     viterbi_cases(dev)

@@ -78,7 +78,7 @@ chained_wavefront_kernel(Args a, strip::Strip st, int* bad) {
         v = *reinterpret_cast<const float4*>(a.c0 + dg * TD);
         mu = 0.f;
       } else {
-        v = cell_update<MU_PRESENT>(
+        v = cell_update(
             a, Cell{i, o, a.in_toks + (size_t)n * a.Li,
                     a.out_toks + (size_t)n * a.Lo, bad + n},
             dg, p1, p2, m1, m2, mu);

@@ -1,6 +1,7 @@
 // Shared device code of the full-rank wavefront kernels (merged_wavefront.cu,
-// chained_ragged_wavefront.cu, chained_wavefront.cu, generic_wavefront.cu and
-// seqscale_wavefront.cu), for Hopper (sm_90a).
+// chained_ragged_wavefront.cu and chained_wavefront.cu; generic_wavefront.cu
+// and seqscale_wavefront.cu take Args, make_args, block_dot, warp_max and
+// readout_warp), for Hopper (sm_90a).
 //
 // cell_update() is the per-cell step that every one of them takes: the
 // class products of one cell for 4 destination states. walk_pair() walks ONE
@@ -26,9 +27,6 @@
 //     zeroed;
 //   * the readout at (il, ol) is m + log(p[Sa-1]), or m + log(w . p) when the
 //     sink states were trimmed.
-// The other kernels change one of those rules, by cell_update's MODE: the
-// generic kernel takes mu over all three neighbours (MU_ALL), the seqscale
-// kernel has no per-cell scale at all (NO_SCALE).
 //
 // What the TPU kernels did that this code does not: the transposed
 // (S, cells) slabs and their lane rolls, the 128-lane windows, two diagonals
@@ -50,11 +48,15 @@
 // addresses).
 //
 // What bounds it on this card: the work is f32 FMAs, Sa*Sa per class per
-// cell; the bytes that must move are tokens, lengths and the class blocks.
-// No tensor cores are used, so the bound is the f32 non-tensor rate. The
-// class blocks of a 64-state ACGT machine (16 x 16 KB) do not fit shared
-// memory and are read through L1/L2, one float4 per 4 FMAs: that traffic,
-// not the FMA pipes, is what limits this simple version.
+// cell whose neighbour of that class is not zero (cell_update skips a
+// neighbour with m = NEG_INF); the bytes that must move are tokens,
+// lengths and the class blocks. No tensor cores are used, so the bound is
+// the f32 non-tensor rate. The class blocks of a 64-state ACGT machine
+// (16 x 16 KB) do not fit shared memory and are read through L1/L2, one
+// float4 per 4 FMAs. bench.py's dense machine has the diag class only, so
+// a pair of 200 x 200 reaches 200 of its 40,400 cells: there the walk over
+// the zero cells (an item per cell and 4 states, a barrier, the rescale
+// pass) is the cost, not the products.
 
 #pragma once
 
@@ -69,10 +71,6 @@ constexpr int TD = 4;        // destination states per thread
 constexpr int MAX_CLS = 3;
 
 enum { KIND_UP = 0, KIND_LEFT = 1, KIND_DIAG = 2 };
-// how cell_update weighs the class terms: by exp(m_c - mu) with mu the max
-// over the present classes' neighbours (merged), or over all three
-// neighbours in the lattice (generic); or not at all (one scale per pair)
-enum { MU_PRESENT = 0, MU_ALL = 1, NO_SCALE = 2 };
 
 // Per-class descriptor, laid out as the host passes it (DESC_LEN ints).
 struct ClassDesc {
@@ -157,10 +155,11 @@ __device__ __forceinline__ float4 block_dot(const float* sp, const float* mp,
 }
 
 // The class terms of cell c for destination states dg*TD .. dg*TD+3: p1/m1
-// hold diagonal d-1 and p2/m2 diagonal d-2 as (W, SaP) / (W,) slots (m1, m2
-// unused with NO_SCALE). Sets mu to the cell's new log scale before any
-// rescale (NEG_INF without a weighted neighbour; unset with NO_SCALE).
-template <int MODE>
+// hold diagonal d-1 and p2/m2 diagonal d-2 as (W, SaP) / (W,) slots. Each
+// term is weighed by exp(m_c - mu), mu the max over the present classes'
+// neighbours; a class whose neighbour has m = NEG_INF (a zero cell) adds
+// nothing and is skipped. Sets mu to the cell's new log scale before any
+// rescale (NEG_INF without a weighted neighbour).
 __device__ __forceinline__ float4 cell_update(const Args& a, const Cell& c,
                                               int dg, const float* p1,
                                               const float* p2,
@@ -171,11 +170,6 @@ __device__ __forceinline__ float4 cell_update(const Args& a, const Cell& c,
   const float* src[MAX_CLS];
   const float* blk[MAX_CLS];
   mu = NEG_INF;
-  if (MODE == MU_ALL) {
-    if (o >= 1) mu = fmaxf(mu, m1[i]);
-    if (i >= 1) mu = fmaxf(mu, m1[i - 1]);
-    if (i >= 1 && o >= 1) mu = fmaxf(mu, m2[i - 1]);
-  }
   for (int q = 0; q < a.plan.n_cls; ++q) {
     const ClassDesc& k = a.plan.cls[q];
     float mv = NEG_INF;
@@ -185,21 +179,21 @@ __device__ __forceinline__ float4 cell_update(const Args& a, const Cell& c,
     if (k.kind == KIND_UP) {
       if (o >= 1) {
         in_lattice = true;
-        mv = MODE == NO_SCALE ? 0.f : m1[i];
+        mv = m1[i];
         tok = __ldg(c.yt + o - 1);
         sp = p1 + (size_t)i * SaP;
       }
     } else if (k.kind == KIND_LEFT) {
       if (i >= 1) {
         in_lattice = true;
-        mv = MODE == NO_SCALE ? 0.f : m1[i - 1];
+        mv = m1[i - 1];
         tok = __ldg(c.xt + i - 1);
         sp = p1 + (size_t)(i - 1) * SaP;
       }
     } else {
       if (i >= 1 && o >= 1) {
         in_lattice = true;
-        mv = MODE == NO_SCALE ? 0.f : m2[i - 1];
+        mv = m2[i - 1];
         tok = __ldg(c.xt + i - 1) * a.To + __ldg(c.yt + o - 1);
         sp = p2 + (size_t)(i - 1) * SaP;
       }
@@ -212,13 +206,13 @@ __device__ __forceinline__ float4 cell_update(const Args& a, const Cell& c,
     mc[q] = mv;
     src[q] = sp;
     blk[q] = a.mt + k.mt_off + (size_t)tok * SaP * SaP + dg * TD;
-    if (MODE == MU_PRESENT) mu = fmaxf(mu, mv);
+    mu = fmaxf(mu, mv);
   }
   const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int q = 0; q < a.plan.n_cls; ++q) {
     if (!(mc[q] > NEG_INF / 2)) continue;
-    const float w = MODE == NO_SCALE ? 1.f : expf(mc[q] - mu_safe);
+    const float w = expf(mc[q] - mu_safe);
     const float4 t = block_dot(src[q], blk[q], SaP);
     acc.x = fmaf(w, t.x, acc.x); acc.y = fmaf(w, t.y, acc.y);
     acc.z = fmaf(w, t.z, acc.z); acc.w = fmaf(w, t.w, acc.w);
@@ -297,7 +291,7 @@ __device__ float walk_pair(const Args& a, int b, int* s_bad) {
       const int c = item / n_dg, dg = item - c * n_dg;
       const int i = lo + c;
       float mu;
-      const float4 acc = cell_update<MU_PRESENT>(
+      const float4 acc = cell_update(
           a, Cell{i, d - i, xt, yt, s_bad}, dg, p1, p2, m1, m2, mu);
       *reinterpret_cast<float4*>(p0 + (size_t)i * SaP + dg * TD) = acc;
       if (dg == 0) m0[i] = mu;

@@ -819,6 +819,104 @@ def factored_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
                       closure_t=ops.closure)
 
 
+# csrc/generic_wavefront.cu: warps a block, the cells a warp takes by
+# default, the float4 destination chunks a lane may hold; and what one
+# sm_90 multiprocessor holds (shared bytes, threads, shared bytes the
+# runtime keeps per block)
+_GENERIC_NWARP = 8
+_GENERIC_CELLS_PER_WARP = 2
+_GENERIC_CHUNKS = (1, 2, 4)
+_SM_SMEM = 233472
+_SM_THREADS = 2048
+_BLOCK_RESERVED = 1024
+
+
+def generic_smem_bytes(SaP, cells_per_warp, ct_resident):
+    """The dynamic shared bytes of a generic kernel block: C^T (SaP x SaP)
+    when resident, and SaP floats for each cell a block's warps hold."""
+    return 4 * (SaP * SaP * int(bool(ct_resident))
+                + _GENERIC_NWARP * cells_per_warp * SaP)
+
+
+def _generic_chunks(SaP, cells_per_warp):
+    """The float4 chunks a lane of the generic kernel holds when a warp
+    takes `cells_per_warp` cells (csrc/generic_wavefront.cu, owned()):
+    the lanes of a cell's group own its chunks round-robin; with two cells
+    a warp a tail of at most 16 states is split one state a lane. None if
+    more than the kernel's most."""
+    gl = 32 // cells_per_warp
+    n_dg = SaP // _TD
+    lim = n_dg
+    if gl < 32 and (n_dg - n_dg // gl * gl) * _TD <= gl:
+        lim = n_dg // gl * gl
+    return next((c for c in _GENERIC_CHUNKS if c * gl >= lim), None)
+
+
+def generic_launch_plan(ops, cells_per_warp=None, ct_resident=None):
+    """How the generic kernel lays out a block for this plan (the layout
+    does not depend on the lengths): a dict with `cells_per_warp` (1 or 2:
+    a group of 32 or 16 lanes takes a cell), `chunks` (float4 destination
+    chunks a lane holds at most), `ct_resident` (C^T in shared memory, else
+    read through L1/L2), `smem` (bytes) and `blocks_per_sm` (the blocks a
+    multiprocessor holds by its shared memory, threads and registers: the
+    kernel's launch bounds give a thread the registers of 4 blocks).
+
+    `cells_per_warp` None takes two, or one where two a warp cannot hold
+    the states; `ct_resident` None keeps C^T resident where that still
+    leaves room for 4 blocks a multiprocessor, the default grid's one wave.
+    A layout that cannot hold the states, or does not fit a block's shared
+    memory, raises ValueError."""
+    SaP = _round_up(max(ops.Sa, 1), _TD)
+    if cells_per_warp is None:
+        cells_per_warp = _GENERIC_CELLS_PER_WARP
+        if _generic_chunks(SaP, cells_per_warp) is None:
+            cells_per_warp = 1
+    if cells_per_warp not in (1, 2):
+        raise ValueError("cells_per_warp must be 1 or 2")
+    chunks = _generic_chunks(SaP, cells_per_warp)
+    if chunks is None:
+        raise ValueError(
+            "generic kernel: %d states need more than %d float4 chunks a "
+            "lane at %d cells a warp" % (ops.Sa, _GENERIC_CHUNKS[-1],
+                                         cells_per_warp))
+    if ct_resident is None:
+        ct_resident = generic_smem_bytes(SaP, cells_per_warp, True) <= \
+            _SM_SMEM // _BLOCKS_PER_SM - _BLOCK_RESERVED
+    smem = generic_smem_bytes(SaP, cells_per_warp, ct_resident)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            "generic kernel: %d states%s need %d shared bytes, a block has "
+            "%d" % (ops.Sa, " with C^T resident" if ct_resident else "",
+                    smem, SMEM_MAX))
+    return {"cells_per_warp": cells_per_warp, "chunks": chunks,
+            "ct_resident": bool(ct_resident), "smem": smem,
+            "blocks_per_sm": min(_SM_THREADS // 256, _BLOCKS_PER_SM,
+                                 _SM_SMEM // (smem + _BLOCK_RESERVED))}
+
+
+def generic_smem_bytes_on_card(ops, cfg):
+    """The shared bytes the kernel's own layout takes for `cfg` (a
+    generic_launch_plan), from the built library: must equal cfg["smem"]."""
+    fn = load("generic_wavefront").generic_wavefront_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_long
+    return fn(ops.SaP, cfg["cells_per_warp"], int(cfg["ct_resident"]))
+
+
+def generic_blocks_per_sm_on_card(ops, cfg):
+    """The blocks of `cfg`'s layout one multiprocessor of the current card
+    holds at once, by its registers, threads and shared memory (the CUDA
+    occupancy calculator on the built kernel)."""
+    fn = load("generic_wavefront").generic_wavefront_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    n = fn(ops.SaP, cfg["cells_per_warp"], cfg["chunks"],
+           int(cfg["ct_resident"]))
+    if n < 0:
+        raise RuntimeError("generic_wavefront refused the layout %r" % cfg)
+    return n
+
+
 # ------------------------------------------------------------ the wrappers
 
 def _default_grid(dev, B):
@@ -833,17 +931,13 @@ def _grid(dev, B, grid):
     return grid
 
 
-def _slots(n_blocks, W, SaP, dev, extra=False):
+def _slots(n_blocks, W, SaP, dev):
     """The diagonal state of the pairs `n_blocks` blocks are walking: three
-    rotating (W, SaP) slots and their log scales per block (and a fourth
-    slot for the unclosed terms when `extra`)."""
+    rotating (W, SaP) slots and their log scales per block."""
     f32 = torch.float32
-    out = [torch.empty(max(n_blocks * 3 * W * SaP, 1), dtype=f32, device=dev),
-           torch.empty(max(n_blocks * 3 * W, 1), dtype=f32, device=dev)]
-    if extra:
-        out.append(torch.empty(max(n_blocks * W * SaP, 1), dtype=f32,
-                               device=dev))
-    return out
+    return [torch.empty(max(n_blocks * 3 * W * SaP, 1), dtype=f32,
+                        device=dev),
+            torch.empty(max(n_blocks * 3 * W, 1), dtype=f32, device=dev)]
 
 
 def _launch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
@@ -949,29 +1043,36 @@ def chained_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
 chained_wavefront.launches = 0
 
 
-def generic_wavefront(ops, in_toks, out_toks, in_lens, out_lens, grid=None):
+def generic_wavefront(ops, in_toks, out_toks, in_lens, out_lens, grid=None,
+                      cells_per_warp=None, ct_resident=None, skip_dead=True):
     """Generic (unmerged) wavefront Forward: (B,) float32 log-likelihoods.
 
     `ops` is a prepare_generic plan (merged_operands). A CUDA tensor
     launches csrc/generic_wavefront.cu (block g walks pairs g, g + grid,
-    ...; default grid as merged_wavefront) and counts one launch in
-    `generic_wavefront.launches`; a CPU tensor takes
-    generic_forward_plain. The rescale runs on every diagonal, as in the
-    JAX kernel. Other arguments as merged_wavefront."""
+    ...; default grid as merged_wavefront) in the layout of
+    generic_launch_plan (`cells_per_warp` and `ct_resident` None: the
+    plan's choice) and counts one launch in `generic_wavefront.launches`;
+    a CPU tensor takes generic_forward_plain. The rescale runs on every
+    diagonal, as in the JAX kernel. A cell none of whose classes reaches a
+    live neighbour is zero and takes no product; `skip_dead=False` takes
+    them anyway (the same scores, for timing). Other arguments as
+    merged_wavefront."""
     if in_toks.device.type == "cpu":
         return generic_forward_plain(ops, in_toks, out_toks, in_lens,
                                      out_lens)
     B, Li, Lo = _check_batch("generic_wavefront", ops, in_toks, out_toks,
                              in_lens, out_lens, 1, ops.ct)
     dev = ops.c0.device
+    cfg = generic_launch_plan(ops, cells_per_warp, ct_resident)
     grid = _grid(dev, B, grid)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    pbuf, mbuf, ubuf = _slots(grid, Li + 1, ops.SaP, dev, extra=True)
+    pbuf, mbuf = _slots(grid, Li + 1, ops.SaP, dev)
     _call("generic_wavefront", "generic_wavefront",
           [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.mt, ops.ct,
-           pbuf, mbuf, ubuf, out],
+           pbuf, mbuf, out],
           [B, Li, Lo, ops.Sa, ops.SaP, ops.To, len(ops.names)], ops.desc,
-          [grid], dev)
+          [grid, cfg["cells_per_warp"], cfg["chunks"],
+           int(cfg["ct_resident"]), int(bool(skip_dead))], dev)
     generic_wavefront.launches += 1
     return out
 
@@ -980,14 +1081,18 @@ generic_wavefront.launches = 0
 
 
 def seqscale_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                       rescale_every=4, grid=None):
+                       rescale_every=4, grid=None, max_pass=False,
+                       skip_dead=True):
     """Per-pair-scale wavefront Forward: (B,) float32 log-likelihoods.
 
     `ops` is a prepare_seqscale plan (merged_operands). A CUDA tensor
     launches csrc/seqscale_wavefront.cu (block g walks pairs g, g + grid,
     ...) and counts one launch in `seqscale_wavefront.launches`; a CPU
-    tensor takes seqscale_forward_plain. Other arguments as
-    merged_wavefront."""
+    tensor takes seqscale_forward_plain. A cell whose class sources are
+    all zero takes no product. For timing, with the same scores:
+    `max_pass` finds the pair's max by a separate pass over the live cells
+    (the first design), `skip_dead=False` takes the products of the zero
+    sources too. Other arguments as merged_wavefront."""
     if in_toks.device.type == "cpu":
         return seqscale_forward_plain(ops, in_toks, out_toks, in_lens,
                                       out_lens, rescale_every)
@@ -996,12 +1101,13 @@ def seqscale_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     dev = ops.c0.device
     grid = _grid(dev, B, grid)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    pbuf = _slots(grid, Li + 1, ops.SaP, dev)[0]
+    pbuf, tags = _slots(grid, Li + 1, ops.SaP, dev)
     _call("seqscale_wavefront", "seqscale_wavefront",
           [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.mt, pbuf,
-           out],
+           tags, out],
           [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every,
-           len(ops.names)], ops.desc, [grid], dev)
+           len(ops.names)], ops.desc,
+          [grid, int(bool(max_pass)), int(bool(skip_dead))], dev)
     seqscale_wavefront.launches += 1
     return out
 

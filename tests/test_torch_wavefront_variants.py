@@ -12,12 +12,16 @@ factored (signed SVD factors, as the lowrank kernel) and on the deep chain
 with an odd stagger (the odd-start bound). The host prep is held bit-equal
 to the tensors the JAX factory hands its kernel. On a CUDA card each kernel
 is held to its plain version at 1e-3 nats (the same f32 recurrence, summed
-in another order).
+in another order); seqscale bit for bit. On the CPU, the generic kernel's
+launch plan is checked, and the seqscale kernel's max bookkeeping is
+emulated in torch and held bit-equal to the plain version.
 
 The JAX package is imported inside the tests that use it, so that the card
 tests run where only torch is installed:
     python -m pytest --noconftest tests/test_torch_wavefront_variants.py -m cuda
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -450,6 +454,141 @@ def test_generic_gates_readout_on_a_live_cell():
     assert res[0] == np.float32(-1e30) and (res[1:] > -1e29).all()
 
 
+def test_generic_launch_plan_at_dense64():
+    """bench.py's dense machine (S = 65, padded to 68): C^T resident, two
+    cells a warp in groups of 16 lanes (16 float4 chunks and a 4-state
+    tail), room for 4 blocks a multiprocessor; the layout does not depend
+    on the lengths (Li = Lo = 200 on the path)."""
+    mats = _lowered("dense64")[1]
+    ops = wk.merged_operands(wk.prepare_generic(*mats), torch.device("cpu"))
+    assert ops.Sa == 65
+    cfg = wk.generic_launch_plan(ops)
+    assert cfg["cells_per_warp"] == 2 and cfg["chunks"] == 1
+    assert cfg["ct_resident"] and cfg["blocks_per_sm"] >= 4
+    assert cfg["smem"] == 4 * (68 * 68 + 8 * 2 * 68)
+    one = wk.generic_launch_plan(ops, cells_per_warp=1)
+    assert one["ct_resident"] and one["blocks_per_sm"] >= 4
+    assert one["smem"] == 4 * (68 * 68 + 8 * 68) and one["chunks"] == 1
+    l2 = wk.generic_launch_plan(ops, ct_resident=False)
+    assert not l2["ct_resident"] and l2["smem"] == 4 * 8 * 2 * 68
+
+
+@pytest.mark.parametrize("S,cells,chunks,resident", [
+    (8, 2, 1, True), (110, 2, 2, True), (120, 2, 2, False),
+    (200, 2, 4, False), (300, 1, 4, False), (512, 1, 4, False)])
+def test_generic_launch_plan_by_width(S, cells, chunks, resident):
+    """C^T stays resident while a block of it still fits 4 a
+    multiprocessor (S = 110: exactly), else it is read through L1/L2; two
+    cells a warp until a lane would hold more than 4 chunks."""
+    cfg = wk.generic_launch_plan(types.SimpleNamespace(Sa=S))
+    SaP = -(-S // 4) * 4
+    assert (cfg["cells_per_warp"], cfg["chunks"], cfg["ct_resident"]) == \
+        (cells, chunks, resident)
+    assert cfg["smem"] == 4 * (SaP * SaP * resident + 8 * cells * SaP)
+    assert cfg["blocks_per_sm"] >= 4
+
+
+def test_generic_launch_plan_raises_where_nothing_fits():
+    with pytest.raises(ValueError, match="chunks"):
+        wk.generic_launch_plan(types.SimpleNamespace(Sa=600))
+    with pytest.raises(ValueError, match="chunks"):
+        wk.generic_launch_plan(types.SimpleNamespace(Sa=300),
+                               cells_per_warp=2)
+    with pytest.raises(ValueError, match="shared bytes"):
+        wk.generic_launch_plan(types.SimpleNamespace(Sa=300),
+                               ct_resident=True)
+    with pytest.raises(ValueError, match="cells_per_warp"):
+        wk.generic_launch_plan(types.SimpleNamespace(Sa=65),
+                               cells_per_warp=4)
+
+
+def _seqscale_carried(ops, in_toks, out_toks, in_lens, out_lens,
+                      rescale_every):
+    """seqscale_forward_plain's walk with the kernel's bookkeeping
+    (csrc/seqscale_wavefront.cu): the max of diagonal d is the max of the
+    values its products write, the max of d-1 is carried from the
+    diagonal before (round(max * inv) after a rescale by inv, else its raw
+    max), and a class whose source row is all zero is left out."""
+    B, Li = in_toks.shape
+    Lo = out_toks.shape[1]
+    Sa, To = ops.Sa, ops.To
+    W = Li + 1
+    f32 = torch.float32
+    neg = torch.tensor(-1e30, dtype=f32)
+    i_idx = torch.arange(W)
+    b_idx = torch.arange(B)
+    il, ol = in_lens.long(), out_lens.long()
+    dfin = il + ol
+    x_tok = in_toks.long()[:, torch.clamp(i_idx - 1, 0, max(Li - 1, 0))]
+    term = wk._merged_term(ops)
+    p1 = torch.zeros((B, W, Sa), dtype=f32)
+    p1[:, 0] = ops.c0
+    p2 = torch.zeros_like(p1)
+    M = torch.zeros(B, dtype=f32)
+    carried = torch.full((B,), float(ops.c0.max().clamp(min=0)), dtype=f32)
+
+    def readout(p):
+        end = p[b_idx, il, Sa - 1]
+        return torch.where(end > 0, M + torch.log(torch.clamp(end, min=1e-37)),
+                           neg)
+
+    res = torch.where(dfin == 0, readout(p1), neg)
+    zp = torch.zeros((B, 1, Sa), dtype=f32)
+    for d in range(1, int(dfin.max()) + 1):
+        o_idx = d - i_idx
+        in_pair = ((o_idx >= 0)[None, :] & (i_idx[None, :] <= il[:, None])
+                   & (o_idx[None, :] <= ol[:, None]))
+        y_tok = out_toks.long()[:, torch.clamp(o_idx - 1, 0, max(Lo - 1, 0))]
+        has_y = (o_idx >= 1)[None, :, None]
+        has_x = (i_idx >= 1)[None, :, None]
+        nb = {"up": (p1 * has_y, y_tok),
+              "left": (torch.cat([zp, p1[:, :-1]], 1) * has_x, x_tok),
+              "diag": (torch.cat([zp, p2[:, :-1]], 1) * (has_x & has_y),
+                       x_tok * To + y_tok)}
+        cur = torch.zeros((B, W, Sa), dtype=f32)
+        for name in ops.names:
+            src, tok = nb[name]
+            live = (src.amax(dim=2) > 0)[:, :, None]
+            cur = cur + torch.where(live, term(name, src, tok),
+                                    torch.zeros_like(cur))
+        cur = torch.where(in_pair[:, :, None], cur, torch.zeros_like(cur))
+        raw = cur.amax(dim=(1, 2))
+        if d % rescale_every <= 1:
+            mx = torch.maximum(raw, carried)
+            f = torch.where(mx > 0, mx, torch.ones_like(mx))
+            inv = 1.0 / f
+            cur = cur * inv[:, None, None]
+            p1 = p1 * inv[:, None, None]
+            M = M + torch.log(f)
+            carried = raw * inv
+        else:
+            carried = raw
+        res = torch.where(dfin == d, readout(cur), res)
+        p2, p1 = p1, cur
+    return res
+
+
+@pytest.mark.parametrize("rescale_every", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("name", ["allclass", "dense8", "edges"])
+def test_seqscale_carried_max_is_bit_equal(name, rescale_every):
+    """The kernel's max bookkeeping is exact: a positive factor's
+    round-to-nearest product is monotone, so the carried max equals the
+    max of the scaled values, and all-zero sources add exact zeros. On
+    ragged pairs (allclass), pairs with an empty side (edges) and deep
+    diag-only pairs with impossible ones (dense8, lengths cut below)."""
+    mats, it, ot, il, ol = _case(name)
+    il, ol = il.copy(), ol.copy()
+    if name == "dense8":
+        il[1] -= 3
+    ops = wk.merged_operands(wk.prepare_seqscale(*mats), torch.device("cpu"))
+    batch = [torch.from_numpy(x) for x in (it, ot, il, ol)]
+    ref = wk.seqscale_forward_plain(ops, *batch, rescale_every=rescale_every)
+    got = _seqscale_carried(ops, *batch, rescale_every)
+    assert torch.equal(got, ref)
+    if name == "dense8":
+        assert ref[1] == np.float32(-1e30) and ref[0] > -1e29
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,name", VARIANT_CASES)
 def test_variant_kernel_matches_plain_on_card(variant, name):
@@ -541,3 +680,95 @@ def test_kernels_flag_a_bad_token_as_nan_on_card():
                    wk.prepare_factored(*mats), dev), *batch)):
         res = fn().cpu().numpy()
         assert np.isnan(res[4]) and np.isfinite(res[np.arange(12) != 4]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rescale_every", [1, 2, 3, 8])
+def test_seqscale_kernel_is_bit_equal_to_plain_on_card(rescale_every):
+    """The diag-only dense8 machine: pair 1 cannot be scored (il != ol: its
+    max is 0 on every diagonal, a factor of 1), pair 3 has a token outside
+    the alphabet (NaN). The others equal the plain version bit for bit, and
+    so do the variants that find the max by a separate pass and that take
+    the products of all-zero sources."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mats, it, ot, il, ol = _case("dense8")
+    it, il = np.tile(it, (2, 1)), np.tile(il, 2)
+    ot, ol = np.tile(ot, (2, 1)), np.tile(ol, 2)
+    il[1] -= 3
+    dev = torch.device("cuda")
+    ops = wk.merged_operands(wk.prepare_seqscale(*mats), dev)
+    clean = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (it, ot, il, ol)]
+    plain = wk.seqscale_forward_plain(ops, *clean,
+                                      rescale_every=rescale_every)
+    plain = plain.cpu().numpy()
+    assert plain[1] == np.float32(-1e30) and (plain[[0, 2, 3]] > -1e29).all()
+    it = it.copy()
+    it[3, 5] = 7
+    bad = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+           for x in (it, ot, il, ol)]
+    runs = [wk.seqscale_wavefront(ops, *bad, rescale_every=rescale_every,
+                                  **kw).cpu().numpy()
+            for kw in ({}, {"max_pass": True}, {"skip_dead": False})]
+    live = np.arange(4) != 3
+    for kern in runs:
+        assert np.isnan(kern[3])
+        assert np.array_equal(kern[live], plain[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ct_resident", [True, False])
+@pytest.mark.parametrize("cells_per_warp", [1, 2])
+@pytest.mark.parametrize("name", ["allclass", "dense8", "odd_start"])
+def test_generic_kernel_layouts_on_card(name, cells_per_warp, ct_resident):
+    """Every layout of the generic kernel (one or two cells a warp, C^T in
+    shared memory or through L1/L2) within 1e-3 nats of the plain version,
+    and equal bit for bit to the same layout taking the products of the
+    zero cells too; odd_start is the 65-state dense machine, whose 68
+    padded states leave a 4-state tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mats, it, ot, il, ol = _case(name)
+    dev = torch.device("cuda")
+    ops = wk.merged_operands(wk.prepare_generic(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    kw = {"cells_per_warp": cells_per_warp, "ct_resident": ct_resident}
+    kern = wk.generic_wavefront(ops, *batch, **kw).cpu().numpy()
+    _assert_close(kern, _port("generic", name), CARD_BOUND)
+    full = wk.generic_wavefront(ops, *batch, skip_dead=False, **kw)
+    assert np.array_equal(full.cpu().numpy(), kern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,cells,resident", [
+    (100, 1, None), (100, 2, None), (100, 2, False), (130, 1, None),
+    (130, 2, None), (300, 1, None)])
+def test_generic_kernel_wide_layouts_on_card(S, cells, resident):
+    """Machines wider than the dense one, every class present: 104 padded
+    states (two cells a warp: 26 chunks over 16 lanes, no tail), 132 (32
+    chunks and a 4-state tail; C^T through L1/L2) and 304 (4 chunks a
+    lane), against the plain version, with an impossible pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m = testmachines.build_allclass_transducer(S, list("AC"))
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    mats = tuple(np.asarray(x) for x in
+                 LoweredMachine(ev, dtype=np.float32).matrices_2d())
+    rng = np.random.RandomState(4)
+    it = rng.randint(0, 2, (4, 6)).astype(np.int32)
+    ot = rng.randint(0, 2, (4, 6)).astype(np.int32)
+    il, ol = np.array([6, 4, 6, 0], np.int32), np.array([6, 6, 3, 5], np.int32)
+    plain = wk.generic_forward_plain(
+        wk.merged_operands(wk.prepare_generic(*mats), torch.device("cpu")),
+        *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    assert (plain[:2] > -1e29).all() and plain[2] <= -1e29
+    dev = torch.device("cuda")
+    ops = wk.merged_operands(wk.prepare_generic(*mats), dev)
+    cfg = wk.generic_launch_plan(ops, cells, resident)
+    assert cfg["chunks"] == {100: {1: 1, 2: 2}, 130: {1: 2, 2: 2},
+                             300: {1: 4}}[S][cells]
+    kern = wk.generic_wavefront(
+        ops, *[torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)],
+        cells_per_warp=cells, ct_resident=resident).cpu().numpy()
+    _assert_close(kern, plain, CARD_BOUND)
