@@ -26,7 +26,9 @@ host engine's alignments:
                   (viterbi_wavefront and lattice_walk kernels);
   align_banded    the same kind of machine, ONE pair of L=1500 with 10%
                   mutations inside an envelope of width 16
-                  (viterbi_banded_wavefront and lattice_walk kernels);
+                  (viterbi_banded_wavefront and lattice_walk kernels; the
+                  fill's launch plan, and variants: one block, streamed
+                  class columns, one lane an item, the other split);
   align_prot2dna  the prot2dna preset, B=64 proteins of 64 against their
                   192-base codon DNA (viterbi_wavefront and lattice_walk).
 
@@ -40,7 +42,8 @@ forward_stream):
 Five go through the kernel factory make_wavefront_forward, one call each:
 
   dense_chained      dense_uniform's pairs, variant="chained", chain=8
-                     (chained_wavefront; chains 2 and 4 timed too);
+                     (chained_wavefront; chains 2 and 4 timed too, and
+                     the strip schedule's B / chain blocks as a variant);
   prot2dna_chained   prot2dna's pairs, variant="lowrank", chain=8
                      (lowrank_chained_wavefront);
   dense_generic      dense_uniform's pairs, merged=False
@@ -632,7 +635,8 @@ def variant_ops(kernel, mats, dev, grid=None, walkers=None, layout=None,
                 rescale_every=None):
     """(operands, kernel call, plain call) of one variant kernel; both
     calls take (in_toks, out_toks, in_lens, out_lens, n_chain). `grid`
-    sets the blocks of an unchained kernel (None: its default), `walkers`
+    sets the blocks of an unchained kernel or of chained_wavefront (None:
+    its default), `walkers`
     the factored kernel's pairs a block, `layout` more keywords of the
     kernel's wrapper (the generic kernel's cells_per_warp and
     ct_resident), `rescale_every` the seqscale kernel's cadence, for both
@@ -658,6 +662,9 @@ def variant_ops(kernel, mats, dev, grid=None, walkers=None, layout=None,
                                wk.seqscale_forward_plain),
         "factored_wavefront": (wk.factored_wavefront,
                                wk.factored_forward_plain)}[kernel]
+    if kernel == "chained_wavefront":
+        return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4], grid=grid),
+                lambda *b: plain(ops, *b[:4], n_chain=b[4]))
     if kernel in CHAINED_KERNELS:
         return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4]),
                 lambda *b: plain(ops, *b[:4], n_chain=b[4]))
@@ -768,6 +775,12 @@ def variant_cases(dev):
                 variant_case(kernel, "%s_c%d" % (kind, chain), mats, it, ot,
                              *full, dev, chain=chain,
                              bad=(4, 2) if chain == 3 else None)
+        # chained: one block walks all 15 pairs, then two blocks, each pair
+        # on its chain's offset, a bad token among them
+        for grid in (1, 2):
+            variant_case("chained_wavefront", "%s_c3_grid%d" % (kind, grid),
+                         mats, it, ot, *full, dev, chain=3, bad=(4, 2),
+                         grid=grid)
         # ragged batches for the unchained kernels, with a bad token
         it, ot = toks(kind, mats, 8, Li, Lo, 8)
         rng = np.random.RandomState(3)
@@ -809,10 +822,11 @@ def variant_cases(dev):
             ("chained_wavefront", "dense64", dense64, 115, 115),
             ("lowrank_chained_wavefront", "prot2dna", lowered(p2d), 57, 171)):
         it, ot = toks(kind, mats, 3, Li, Lo, 1)
-        ref = variant_case(kernel, "odd_stagger", mats, it, ot,
-                           np.full(3, Li), np.full(3, Lo), dev, chain=3,
-                           f64_tol=ODD_START_VS_F64_TOL)
-        check((ref < -88).all(), "odd_stagger: the scores are not deep")
+        for grid in ((None, 1) if kernel == "chained_wavefront" else (None,)):
+            ref = variant_case(kernel, "odd_stagger", mats, it, ot,
+                               np.full(3, Li), np.full(3, Lo), dev, chain=3,
+                               f64_tol=ODD_START_VS_F64_TOL, grid=grid)
+            check((ref < -88).all(), "odd_stagger: the scores are not deep")
 
 
 def factored_cases(dev):
@@ -980,16 +994,17 @@ def variant_flops(kernel, ops, il, ol, all_cells=False):
     return 2.0 * macs
 
 
-def design_variants(wrapper, ops, batch, kern, variants):
+def design_variants(wrapper, ops, batch, kern, variants, fixed=None):
     """A kernel against variants that each undo one design choice, timed
     in turns (default, variant, variant, default), every one with the
     same scores bit for bit. `variants` maps a label to the wrapper's
-    keywords. Returns {variant: {which: [ms, ms]}}."""
+    keywords, `fixed` holds keywords of every call. Returns {variant:
+    {which: [ms, ms]}}."""
     out = {}
     for label, kw in variants.items():
         times = {"default": [], label: []}
         for which in ("default", label, label, "default"):
-            args = kw if which == label else {}
+            args = dict(fixed or {}, **(kw if which == label else {}))
             other = wrapper(ops, *batch, **args).cpu().numpy()
             check(np.array_equal(other, kern, equal_nan=True),
                   "%s %s scores otherwise" % (wrapper.__name__, which))
@@ -1152,6 +1167,12 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
     if kernel in DESIGN_VARIANTS:
         tf32_extra["variants_ms"] = design_variants(
             counts()[kernel], ops, batch, kern, DESIGN_VARIANTS[kernel])
+    if kernel == "chained_wavefront":
+        # the strip schedule's block count: B / chain blocks walk the pairs
+        tf32_extra["variants_ms"] = design_variants(
+            wk.chained_wavefront, ops, batch, kern,
+            {"strip_block_count": {"grid": B // chain}}, {"n_chain": chain})
+        tf32_extra["grid"] = wk._default_grid(dev, B)
     if kernel in SKIPPING:
         flops_all = variant_flops(kernel, ops, il, ol, all_cells=True)
         tf32_extra.update({"flops_all_cells": flops_all,
@@ -1367,6 +1388,28 @@ def viterbi_cases(dev):
         check(err <= VITERBI_VS_PLAIN_TOL,
               "%s: banded kernel vs plain %.3g nats" % (name, err))
 
+    # every layout the plan allows (clusters of 1 to 16, the class columns
+    # resident or streamed, 1, 4 or 8 lanes an item), bit for bit: the
+    # 64-state ACGT machine (diag only) on a pair of 120 in an envelope of
+    # 8, prot2dna (up and left, S = 132) on a protein of 20 in a band of 6
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    sp = align_pair(120, mutate=0.1, seed=5)
+    dense64 = build_random_transducer(64, list("ACGT"), seed=3)
+    ev = evaluated(dense64)
+    band_layouts("dense64_L120", ev, *tok_arrays(ev, sp),
+                 *vk.envelope_diag_bands(Envelope(sp, width=8)), dev)
+    p2d = make_preset("prot2dna")
+    ev = evaluated(p2d)
+    (p, dna), = prot2dna_pairs(1, 20, seed=3)
+    it0 = np.array([ev.input_tokenizer.sym2tok[c] - 1 for c in p], i32)
+    ot0 = np.array([ev.output_tokenizer.sym2tok[c] - 1 for c in dna], i32)
+    d = np.arange(len(it0) + len(ot0) + 1)
+    lo = np.clip(d // 4 - 3, np.maximum(0, d - len(ot0)),
+                 np.minimum(len(it0), d))
+    band_layouts("prot2dna_L20", ev, it0, ot0, lo,
+                 np.minimum(np.minimum(lo + 6, len(it0) + 1), d + 1), dev)
+
     dense6 = build_random_transducer(6, list("ACGT"), seed=2)
     sp = align_pair(24, seed=1)
     band_case("band_L24_w4", dense6, sp,
@@ -1378,6 +1421,50 @@ def viterbi_cases(dev):
     lo = np.clip(2 * (d // 3), np.maximum(0, d - 12), np.minimum(12, d))
     hi = np.minimum(np.minimum(lo + 4, 13), d + 1)
     band_case("band_jumps", dense6, sp, lo, np.maximum(hi, lo + 1))
+
+
+def tok_arrays(ev, sp):
+    """The 0-based int32 token arrays of a SeqPair."""
+    return (np.array(ev.input_tokenizer.tokenize(sp.input.seq), np.int32) - 1,
+            np.array(ev.output_tokenizer.tokenize(sp.output.seq), np.int32)
+            - 1)
+
+
+def band_layouts(name, ev, it0, ot0, lo, hi, dev):
+    """The banded fill in every layout the plan allows on this card, each
+    equal to the plain version bit for bit."""
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*maxplus_mats(ev)), dev)
+    geom = vk.band_geometry(len(it0), len(ot0), lo, hi, dev)
+    t_it = torch.from_numpy(it0).to(dev)
+    t_ot = torch.from_numpy(ot0).to(dev)
+    plain = vk.viterbi_banded_forward_plain(ops, geom, t_it, t_ot)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ran = []
+    for c in (1, 2, 4, 8, 16):
+        for resident in (True, False):
+            for split in (1, 4, 8):
+                try:
+                    vk.banded_launch_plan(
+                        ops, geom, sms, cluster=c, resident=resident,
+                        split=split, max_clusters=lambda cfg:
+                        vk.banded_max_clusters_on_card(ops, geom, cfg))
+                except ValueError:
+                    continue
+                kern = vk.viterbi_banded_wavefront(
+                    ops, geom, t_it, t_ot, cluster=c, resident=resident,
+                    split=split)
+                check(torch.equal(kern, plain), "%s: banded fill at cluster "
+                      "%d, %s, split %d differs from plain" % (
+                          name, c, "resident" if resident else "streamed",
+                          split))
+                ran.append([c, resident, split])
+    check(any(r[1] for r in ran) and any(not r[1] for r in ran),
+          "%s: no resident or no streamed layout ran" % name)
+    emit({"phase": "kernel_vs_plain", "kernel": "viterbi_banded_wavefront",
+          "case": name + "_layouts", "Li": len(it0), "Lo": len(ot0),
+          "Wb": geom.Wb, "S": ops.S, "layouts": ran,
+          "max_abs_vs_plain": 0.0})
 
 
 def viterbi_bound(ops, il, ol, lattice_bytes, other_bytes):
@@ -1449,6 +1536,38 @@ def fill_variants(ops, batch, kern):
             times[which].append(cuda_ms(
                 lambda: vk.viterbi_wavefront(ops, *batch, **args), 3))
         out[label] = times
+    return out
+
+
+def banded_variants(ops, geom, t_it, t_ot, kern, cfg):
+    """The banded fill against variants that undo one design choice each,
+    timed in turns (default, variant, variant, default), each giving the
+    same lattice bit for bit: one block (no cluster; the plan's choice of
+    residency at that size), the class columns streamed through L2 (no
+    resident blocks), one lane an item (no split of the source states).
+    Also the other split of 4 or 8 lanes. Returns
+    {variant: {"layout": keywords, which: [ms, ms]}}."""
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
+    out = {}
+    other = 4 if cfg["split"] == 8 else 8
+    for label, kw in (("one_block", {"cluster": 1}),
+                      ("streamed", {"resident": False}),
+                      ("one_lane", {"split": 1}),
+                      ("%d_lanes" % other, {"split": other})):
+        if "split" in kw:        # the same cluster, residency as planned
+            kw = dict(kw, cluster=cfg["cluster"], resident=cfg["resident"])
+        elif "resident" in kw:
+            kw = dict(kw, cluster=cfg["cluster"])
+        times = {"default": [], label: []}
+        for which in ("default", label, label, "default"):
+            args = kw if which == label else {}
+            check(torch.equal(vk.viterbi_banded_wavefront(
+                ops, geom, t_it, t_ot, **args), kern),
+                "banded fill %s differs" % which)
+            times[which].append(cuda_ms(
+                lambda: vk.viterbi_banded_wavefront(ops, geom, t_it, t_ot,
+                                                    **args), 3))
+        out[label] = {"layout": kw, **times}
     return out
 
 
@@ -1585,7 +1704,19 @@ def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
     del plain
     fill_ms = cuda_ms(fill, 5)
     fill_layout = None
-    if not banded:
+    if banded:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        cfg = vk.banded_launch_plan(
+            ops, geom, sms, max_clusters=lambda c:
+            vk.banded_max_clusters_on_card(ops, geom, c))
+        check(vk.banded_smem_bytes_on_card(ops, geom, cfg) == cfg["smem"],
+              "%s: the banded fill's shared layout differs from the plan's"
+              % name)
+        fill_layout = {
+            **cfg, "max_clusters_on_card":
+                vk.banded_max_clusters_on_card(ops, geom, cfg),
+            "variants_ms": banded_variants(ops, geom, t_it, t_ot, kern, cfg)}
+    else:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         cfg = vk.fill_launch_plan(ops, len(pairs), Li, Lo, sms)
         check(vk.fill_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],

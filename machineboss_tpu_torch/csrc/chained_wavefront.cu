@@ -5,130 +5,70 @@
 // the merged recurrence (closure folded into each class, sink states
 // trimmed; wavefront_common.cuh) over `n_chain` equal-length pairs per lane
 // window, staggered by sigma = Lo + 2 diagonals. The lengths are ignored:
-// every pair is read out at (Li, Lo). The rescale fires on the ABSOLUTE step
-// t, t % rescale_every <= 1, so a chain that starts on an odd step still has
-// both parities renormalised; a chain's start cell takes the rescale of its
-// step too. Pair n = k * (B / n_chain) + w is chain k of strip w.
+// every pair is walked and read out at (Li, Lo). Pair n is chain
+// k = n / (B / n_chain), which starts on the absolute step off = sigma * k;
+// its diagonal d is step d + off, and the rescale fires on the absolute
+// step, (d + off) % rescale_every <= 1, so a chain that starts on an odd
+// step still has both parities renormalised; a chain's start cell takes the
+// rescale of its step too (off > 0 and off % rescale_every <= 1). A token
+// outside its alphabet makes the pair NaN.
 //
-// Design: one block per strip (strip.cuh), 512 threads. Each step is the
-// merged kernel's diagonal step over the strip's live columns, one thread per
-// (column, 4 destination states) through cell_update(), with each column's
-// tokens taken from the pair its chain holds at that step; chain k's start
-// cell (0, 0) is reseeded with the closure row c0 and m = 0. Where the TPU
-// kernel gained lane occupancy (a square lattice's diagonals ramp up and
-// down, so a rectangular slab is half idle), the CUDA kernels already compute
-// only live cells; what chaining changes here is the schedule: one barrier
-// per absolute step and sigma steps per pair instead of Li + Lo + 1, wider
-// steps, and B / n_chain blocks instead of one per pair. A token outside its
-// alphabet sets the pair's flag in `bad` (zeroed by the caller) and the pair
-// comes back NaN.
+// Design: the merged kernel's per-pair walk. Block g walks pairs g,
+// g + gridDim.x, ... through walk_pair<true>() with the pair's offset, so
+// the chain changes only which diagonals rescale and the start cell's
+// rescale; the cells, their order of operations and the steps are those of
+// the strip schedule this kernel had first, and the scores are bit-equal to
+// it. That schedule (one block of 512 threads per strip of n_chain pairs,
+// sigma (n_chain - 1) + Li + Lo + 1 dependent steps with one or two block
+// barriers each) bought lane occupancy on the TPU; here it left B / n_chain
+// blocks for 132 multiprocessors (64 at B = 512, chain 8) and a time that
+// grew with the chain. A block per pair, up to four a multiprocessor, runs
+// as merged does whatever the chain.
 //
 // What bounds it on this card: as the merged kernel, f32 FMAs (Sa*Sa per
-// present class per cell) against the f32 non-tensor rate; with few strips
-// (B / n_chain blocks on 132 multiprocessors) it is also short of blocks.
-// TPU tricks dropped: the per-lane (f, k) scratch and the streamed token rows
-// (a thread computes its column's chain and token from t), the in-kernel
+// present class per reachable cell) against the f32 non-tensor rate; on a
+// diag-only machine the walk over the zero cells. TPU tricks dropped: the
+// per-lane (f, k) scratch and the streamed token rows, the in-kernel
 // one-hot masks, the unified left block, the bf16 hi/lo passes.
 
-#include "strip.cuh"
 #include "wavefront_common.cuh"
 
 namespace {
 
 using namespace wavefront;
 
-constexpr int CT = 512;      // threads per block
-
-__global__ void __launch_bounds__(CT)
-chained_wavefront_kernel(Args a, strip::Strip st, int* bad) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int w = blockIdx.x;
-  const int W = a.Li + 1;
-  const int Sa = a.Sa, SaP = a.SaP;
-  const int n_dg = SaP / TD;
-  float* pb = a.pbuf + (size_t)w * 3 * W * SaP;
-  float* mb = a.mbuf + (size_t)w * 3 * W;
-
-  // t = 0: chain 0's cell (0, 0), p = c0, m = 0
-  for (int s = tid; s < SaP; s += CT) pb[s] = a.c0[s];
-  if (tid == 0) mb[0] = 0.f;
-  __syncthreads();
-
-  const int n_steps = strip::steps(st);
-  for (int t = 1; t < n_steps; ++t) {
-    const int slot0 = t % 3, slot1 = (t + 2) % 3, slot2 = (t + 1) % 3;
-    float* p0 = pb + (size_t)slot0 * W * SaP;
-    const float* p1 = pb + (size_t)slot1 * W * SaP;
-    const float* p2 = pb + (size_t)slot2 * W * SaP;
-    float* m0 = mb + slot0 * W;
-    const float* m1 = mb + slot1 * W;
-    const float* m2 = mb + slot2 * W;
-    const int lo = strip::col_lo(st, t), hi = strip::col_hi(st, t);
-
-    const int n_items = (hi - lo + 1) * n_dg;
-    for (int item = tid; item < n_items; item += CT) {
-      const int c = item / n_dg, dg = item - c * n_dg;
-      const int i = lo + c;
-      int k, o;
-      if (!strip::cell(st, t, i, k, o)) continue;      // never read
-      const int n = strip::pair(st, k, w);
-      float4 v;
-      float mu;
-      if (i == 0 && o == 0) {                          // chain k starts
-        v = *reinterpret_cast<const float4*>(a.c0 + dg * TD);
-        mu = 0.f;
-      } else {
-        v = cell_update(
-            a, Cell{i, o, a.in_toks + (size_t)n * a.Li,
-                    a.out_toks + (size_t)n * a.Lo, bad + n},
-            dg, p1, p2, m1, m2, mu);
-      }
-      *reinterpret_cast<float4*>(p0 + (size_t)i * SaP + dg * TD) = v;
-      if (dg == 0) m0[i] = mu;
-    }
-    __syncthreads();
-
-    if (t % a.rescale_every <= 1) {
-      for (int i = lo + warp; i <= hi; i += CT / 32) {
-        int k, o;
-        if (strip::cell(st, t, i, k, o))
-          rescale_cell(p0 + (size_t)i * SaP, m0 + i, Sa, lane);
-      }
-      __syncthreads();
-    }
-
-    // chain k's readout cell (Li, Lo) is on this step; its slot is next
-    // written three steps on, after two more barriers
-    const int k = strip::readout_chain(st, t);
-    if (k >= 0 && warp == 0) {
-      const int n = strip::pair(st, k, w);
-      float v = readout_warp(p0 + (size_t)a.Li * SaP, m0[a.Li], a.wvec, Sa,
-                             a.sink, lane);
-      if (lane == 0) a.out[n] = bad[n] ? quiet_nan() : v;
-    }
+// four blocks a multiprocessor (at most 64 registers a thread): a batch of
+// up to 4 x 132 pairs runs in one wave
+__global__ void __launch_bounds__(THREADS, 4)
+chained_wavefront_kernel(Args a, int n_chain) {
+  __shared__ int s_bad;
+  const int per_chain = a.B / n_chain;
+  const int sigma = a.Lo + 2;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const float v = walk_pair<true>(a, b, &s_bad, sigma * (b / per_chain));
+    if (threadIdx.x == 0) a.out[b] = v;
   }
 }
 
 }  // namespace
 
-// Launches the kernel on `stream`, one block per strip of n_chain pairs, and
-// returns cudaGetLastError(): nonzero means the launch was refused. `bad`
-// holds B ints that the caller has set to 0.
+// Launches the kernel on `stream` with `grid` blocks and returns
+// cudaGetLastError(): nonzero means the launch was refused. B must be a
+// multiple of n_chain, Li and Lo at least 1.
 extern "C" int chained_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* c0,
     const void* wvec, const void* mt, void* pbuf, void* mbuf, void* out,
-    void* bad, int B, int Li, int Lo, int Sa, int SaP, int To,
-    int rescale_every, int sink, int n_cls, const int* desc, int n_chain,
+    int B, int Li, int Lo, int Sa, int SaP, int To, int rescale_every,
+    int sink, int n_cls, const int* desc, int n_chain, int grid,
     void* stream) {
   Args args;
-  strip::Strip st;
-  if (!strip::make_strip(st, B, Li, Lo, n_chain) ||
+  if (grid < 1 || n_chain < 1 || B % n_chain != 0 || Li < 1 || Lo < 1 ||
       !make_args(args, in_toks, out_toks, nullptr, nullptr, c0, wvec, mt,
                  pbuf, mbuf, out, B, Li, Lo, Sa, SaP, To, rescale_every, sink,
                  n_cls, desc))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  chained_wavefront_kernel<<<st.n_strips, CT, 0, (cudaStream_t)stream>>>(
-      args, st, (int*)bad);
+  chained_wavefront_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      args, n_chain);
   return (int)cudaGetLastError();
 }

@@ -28,13 +28,10 @@
 //   own notes).
 // - The banded fill (viterbi_banded_wavefront.cu) walks ONE pair's band, a
 //   few dozen cells a diagonal: bound by the latency of its Li + Lo + 1
-//   dependent steps. A thread computes 4 neighbouring destination states of
-//   one cell with class_max below: per source state one float of the
-//   neighbour cell (the same address across the threads of a cell, one
-//   broadcast) and one float4 of the cell's own token block, stored
-//   source-major and padded to SP = 4 * ceil(S/4) columns, through the
-//   read-only cache. It keeps the previous diagonals in three shared slots
-//   when its window fits, else reads them back from the lattice.
+//   dependent steps. A cluster of blocks splits the destination states;
+//   each block keeps its columns of the class blocks and the previous
+//   diagonals in shared memory, stages the band's bounds and tokens ahead
+//   of use, and splits an item's source states over lanes (its own notes).
 //
 // What the TPU kernels did that neither does: lane-rotated matrix copies and
 // their K rolls, one-hot token rows, all-token accumulators with a select
@@ -52,22 +49,32 @@ namespace viterbi {
 constexpr float NEG_INF = -1e30f;
 constexpr int TD = 4;  // destination states per thread
 
-// acc[k] = max(acc[k], max_s blk[s * SP + k] + nbr[s]) for k = 0..3.
-// `blk` points at the token block's column group; `nbr` at the neighbour
-// cell's S values, in shared memory or in the lattice (written by this block:
-// a plain load).
-__device__ __forceinline__ void class_max(float4& acc, const float* blk,
-                                          const float* nbr, int S, int SP) {
-#pragma unroll 8
-  for (int s = 0; s < S; ++s) {
-    const float v = nbr[s];
-    const float4 m =
-        __ldg(reinterpret_cast<const float4*>(blk + (size_t)s * SP));
-    acc.x = fmaxf(acc.x, m.x + v);
-    acc.y = fmaxf(acc.y, m.y + v);
-    acc.z = fmaxf(acc.z, m.z + v);
-    acc.w = fmaxf(acc.w, m.w + v);
-  }
+// The cluster's rank of this block, the cluster barrier (release and
+// acquire: the blocks' shared and global writes before it are seen after
+// it), the shared::cluster address of the same shared offset in block
+// `rank` of the cluster, and a store there (distributed shared memory).
+// Both fills walk a pair with a cluster of blocks that split the
+// destination states.
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned peer_addr(const float* p, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void peer_store(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
 }
 
 __device__ __forceinline__ float4 neg4() {

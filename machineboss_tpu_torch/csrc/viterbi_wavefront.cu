@@ -54,32 +54,6 @@ constexpr int AUTO_SC = 3;        // most chunks the kernel picks itself
 constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
 enum { CLS_UP = 0, CLS_LEFT = 1, CLS_DIAG = 2 };
 
-// The cluster's rank of this block, the cluster barrier (release and
-// acquire: the blocks' shared and global writes before it are seen after
-// it), and a store to the same shared offset in block `rank` of the
-// cluster (distributed shared memory).
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ unsigned peer_addr(const float* p, int rank) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void peer_store(unsigned addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
-               : "memory");
-}
-
 // An int whose order is the float's (for non-NaN floats).
 __device__ __forceinline__ int fkey(float f) {
   const int b = __float_as_int(f);

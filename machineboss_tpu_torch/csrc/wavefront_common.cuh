@@ -8,8 +8,9 @@
 // pair's lattice with the whole thread block and returns its Forward
 // log-likelihood: it is what machineboss_tpu/ops/pallas/wavefront_kernel.py::
 // _merged_kernel computes for one lane window, and what
-// ::_chained_ragged_kernel computes for one chain element; those two CUDA
-// kernels differ only in how they hand pairs to blocks. The host prep is
+// ::_chained_ragged_kernel and ::_chained_kernel compute for one chain
+// element; those three CUDA kernels differ only in how they hand pairs to
+// blocks (and chained in the pair's absolute-diagonal offset). The host prep is
 // prepare_merged (ops/kernels/wavefront_kernel.py): the silent closure is
 // folded into each present class, F[tok] = C^T A[tok]^T, trailing sink
 // states are trimmed (Sa states remain).
@@ -253,12 +254,22 @@ __device__ __forceinline__ float readout_warp(const float* pc, float m,
 // Walks pair b with the whole block. Thread 0 returns the score; every
 // thread must call it (it synchronises the block). s_bad is one int of
 // shared memory.
-__device__ float walk_pair(const Args& a, int b, int* s_bad) {
+//
+// CHAINED (chained_wavefront.cu): the pair's lengths are ignored (it is
+// walked and read out at the padded (Li, Lo); in_lens may be null) and
+// its diagonal d is the absolute step d + off of the chained schedule:
+// the rescale fires on (d + off) % rescale_every <= 1, and the start cell
+// (0, 0) takes the rescale of its step when off > 0. Unchained (merged,
+// chained_ragged) the walk is the same code with off = 0, fixed when it
+// is compiled.
+template <bool CHAINED = false>
+__device__ float walk_pair(const Args& a, int b, int* s_bad, int off = 0) {
+  if (!CHAINED) off = 0;
   const int tid = threadIdx.x;
   const int W = a.Li + 1;
   const int Sa = a.Sa, SaP = a.SaP;
-  const int il = a.in_lens[b];
-  const int ol = a.out_lens[b];
+  const int il = CHAINED ? a.Li : a.in_lens[b];
+  const int ol = CHAINED ? a.Lo : a.out_lens[b];
   // the previous pair's readout must be done before its slots are reused
   __syncthreads();
   if (il < 0 || il > a.Li || ol < 0 || ol > a.Lo) return quiet_nan();
@@ -272,6 +283,10 @@ __device__ float walk_pair(const Args& a, int b, int* s_bad) {
   for (int s = tid; s < SaP; s += THREADS) pb[s] = a.c0[s];
   if (tid == 0) mb[0] = 0.f;
   __syncthreads();
+  if (CHAINED && off > 0 && off % a.rescale_every <= 1) {
+    if (tid < 32) rescale_cell(pb, mb, Sa, tid);
+    __syncthreads();
+  }
 
   const int dfin = il + ol;
   const int n_dg = SaP / TD;
@@ -299,7 +314,7 @@ __device__ float walk_pair(const Args& a, int b, int* s_bad) {
     __syncthreads();
 
     // rescale on two consecutive diagonals of every rescale_every
-    if (d % a.rescale_every <= 1) {
+    if ((d + off) % a.rescale_every <= 1) {
       const int warp = tid >> 5, lane = tid & 31;
       for (int i = lo + warp; i <= hi; i += THREADS / 32)
         rescale_cell(p0 + (size_t)i * SaP, m0 + i, Sa, lane);

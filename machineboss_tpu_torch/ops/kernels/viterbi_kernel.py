@@ -34,7 +34,12 @@ Each kernel has two versions with that one recurrence:
   the hand-written CUDA kernels (csrc/viterbi_wavefront.cu,
   csrc/viterbi_banded_wavefront.cu, both on csrc/viterbi_common.cuh). A CUDA
   tensor launches the kernel or raises; only a CPU tensor takes the plain
-  version.
+  version. Their layouts come from `fill_launch_plan` (a cluster of one or
+  two blocks a pair, shared slots or read-back) and `banded_launch_plan`
+  (a cluster of up to 16 blocks for the one pair, the class columns of
+  each block resident in shared memory as `pack_banded` lays them out or
+  streamed, lanes an item), each checked against the built library's own
+  shared-memory count on the card.
 
 Slab layout: the full fill returns (n_diags, B, W, S) with W = Li + 1, slab
 d holding cell (i, o = d - i) at index i; the banded fill returns
@@ -43,7 +48,7 @@ are what algo/traceback_device's walker reads, without a transpose.
 """
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -57,6 +62,13 @@ SMEM_MAX = 232448   # a block's shared memory on sm_90
 _PIECE = 8          # the most cells a piece (csrc/viterbi_wavefront.cu CB)
 _TD = 4          # destination states per thread (csrc/viterbi_common.cuh)
 _BAND_PAD = 8    # the band window's width is rounded up to this many cells
+# csrc/viterbi_banded_wavefront.cu: threads a block, diagonals a staged
+# chunk, the cluster sizes it takes (16 is not portable, so the plan takes
+# it only when asked) and the lanes an item may take
+_BAND_THREADS = 512
+_BAND_CH = 32
+_CLUSTERS = (1, 2, 4, 8, 16)
+_SPLITS = (1, 2, 4, 8)
 
 
 def _mp_mat(a, b):
@@ -175,6 +187,8 @@ class ViterbiOperands:
     up: torch.Tensor = None
     left: torch.Tensor = None
     diag: torch.Tensor = None
+    # pack_banded's tensors by cluster size, made at first use
+    packs: dict = field(default_factory=dict, repr=False)
 
     @property
     def classes(self):
@@ -518,15 +532,188 @@ def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
 viterbi_wavefront.launches = 0
 
 
-def viterbi_banded_wavefront(ops, geom, in_toks, out_toks):
+def _groups_per_rank(SP, csize):
+    """Column groups of 4 destination states a rank of the banded fill's
+    cluster owns (the last ranks may own fewer, or none)."""
+    return -(-(SP // _TD) // csize)
+
+
+def _row_groups(SP, csize):
+    """The groups of a rank's packed row: _groups_per_rank made odd, so
+    that 8 lanes reading 8 consecutive rows hit distinct shared banks."""
+    return _groups_per_rank(SP, csize) | 1
+
+
+def pack_banded(ops, csize):
+    """The present class blocks split by destination columns for a cluster
+    of `csize` blocks: one float32 tensor on the device of `ops`, per
+    present class (up, left, diag) in turn a (csize, n_tok, S, Wr) array.
+    Rank h owns the 4 g columns from 4 g h of every token's (S, SP) block,
+    g = ceil(SP / 4 / csize); its row holds them and NEG_INF up to Wr =
+    4 * (g made odd), a stride at which 8 lanes reading 8 consecutive rows
+    hit distinct shared banks, and NEG_INF past SP. Each rank's slice of a
+    class is contiguous, so the kernel copies it to shared memory as it
+    is. Cached on `ops`."""
+    if csize not in ops.packs:
+        own = _TD * _groups_per_rank(ops.SP, csize)
+        Wr = _TD * _row_groups(ops.SP, csize)
+        parts = []
+        for t in (ops.up, ops.left, ops.diag):
+            if t is None:
+                continue
+            n_tok, S, SP = t.shape
+            out = torch.full((csize, n_tok, S, Wr), NEG_INF,
+                             dtype=torch.float32, device=t.device)
+            for h in range(csize):
+                cols = t[:, :, h * own:min(SP, (h + 1) * own)]
+                out[h, :, :, :cols.shape[2]] = cols
+            parts.append(out.reshape(-1))
+        ops.packs[csize] = torch.cat(parts).contiguous()
+    return ops.packs[csize]
+
+
+def unpack_banded(packed, ops, csize):
+    """pack_banded's inverse: the (up, left, diag) blocks, each (n_tok, S,
+    SP) or None, from the packed tensor (the shapes are read off `ops`)."""
+    own = _TD * _groups_per_rank(ops.SP, csize)
+    Wr = _TD * _row_groups(ops.SP, csize)
+    out, at = [], 0
+    for t in (ops.up, ops.left, ops.diag):
+        if t is None:
+            out.append(None)
+            continue
+        n_tok, S, SP = t.shape
+        n = csize * n_tok * S * Wr
+        part = packed[at:at + n].reshape(csize, n_tok, S, Wr)[..., :own]
+        out.append(part.permute(1, 2, 0, 3).reshape(n_tok, S, csize * own)
+                   [:, :, :SP].contiguous())
+        at += n
+    return tuple(out)
+
+
+def banded_smem_bytes(ops, Wb, csize, resident, slots):
+    """Shared bytes of a block of the banded fill (the layout of
+    csrc/viterbi_banded_wavefront.cu): the rank's resident columns of
+    every class block, five (Wb, SP) diagonal slots and their mbarriers,
+    two staged chunks of CH diagonals (bounds and the tokens they reach)
+    and their bases."""
+    n = 12                             # the slots' five mbarriers
+    if resident:
+        n += sum(_n_toks(ops)) * ops.S * _TD * _row_groups(ops.SP, csize)
+    if slots:
+        n += 5 * Wb * ops.SP
+    stage = _round_up(3 * _BAND_CH + (2 * _BAND_CH + Wb + 1)
+                      + (3 * _BAND_CH + Wb), 4)
+    return 4 * (n + 2 * stage + 4)
+
+
+def banded_launch_plan(ops, geom, sms, cluster=None, resident=None,
+                       split=None, max_clusters=None):
+    """How the banded fill walks its pair: a dict with `cluster` (the
+    cluster's blocks, which split the destination states), `resident`
+    (each block's columns of the class blocks in its shared memory, or
+    read through L2), `slots` (the previous diagonals in shared memory, or
+    read back from the lattice when five windows do not fit), `split`
+    (the lanes an item takes over the source states), `smem` (bytes) and
+    `groups_per_rank`.
+
+    Defaults: split 8 from 32 states (4 from 8, else 1); the previous
+    diagonals in slots where they fit; the smallest portable cluster (1,
+    2, 4 or 8, at most one a column group of 4 states) whose band items
+    (the widest diagonal's band cells x the rank's column groups x split)
+    fit one pass of the block's 512 threads and whose columns fit beside
+    the slots, resident; if none fits resident, the smallest whose items
+    fit, streamed. `cluster` (1 to 16,
+    at most SP / 4), `resident` and `split` (1, 2, 4, 8) force a choice;
+    a forced choice that does not fit raises ValueError.
+    `max_clusters(cfg)`, if given, is the card's occupancy calculator
+    (banded_max_clusters_on_card): a layout it gives no cluster is passed
+    over, or raises when forced. `sms` bounds the cluster size."""
+    n_dg = ops.SP // _TD
+    if split is None:
+        split = 8 if ops.S >= 32 else 4 if ops.S >= 8 else 1
+    if split not in _SPLITS:
+        raise ValueError("split must be one of %s" % (_SPLITS,))
+    if cluster is not None and (cluster not in _CLUSTERS or cluster > n_dg
+                                or cluster > sms):
+        raise ValueError("cluster must be one of %s, at most SP / 4 = %d "
+                         "and at most %d" % (_CLUSTERS, n_dg, sms))
+    Wb = geom.Wb
+    slots = banded_smem_bytes(ops, Wb, 1, False, True) <= SMEM_MAX
+
+    def layout(c, res):
+        cfg = {"cluster": c, "resident": res, "slots": slots,
+               "split": split, "groups_per_rank": _groups_per_rank(ops.SP, c),
+               "smem": banded_smem_bytes(ops, Wb, c, res, slots)}
+        ok = cfg["smem"] <= SMEM_MAX and (max_clusters is None
+                                          or max_clusters(cfg) >= 1)
+        return cfg, ok
+
+    cells = max(1, min(Wb, int((geom.hi - geom.lo).max())))
+
+    def one_pass(c):
+        return cells * _groups_per_rank(ops.SP, c) * split <= _BAND_THREADS
+
+    if cluster is not None:
+        if resident is None:
+            cfg, ok = layout(cluster, True)
+            if not ok:
+                cfg, ok = layout(cluster, False)
+        else:
+            cfg, ok = layout(cluster, bool(resident))
+        if not ok:
+            raise ValueError("banded fill: cluster %d, %s, does not fit (%d "
+                             "shared bytes a block)" % (
+                                 cluster, "resident" if cfg["resident"]
+                                 else "streamed", cfg["smem"]))
+        return cfg
+    sizes = [c for c in _CLUSTERS[:4] if c <= n_dg and c <= sms]
+    for want in ((True, False) if resident is None else (bool(resident),)):
+        fits = [c for c in sizes if layout(c, want)[1]]
+        if fits:
+            return layout(next((c for c in fits if one_pass(c)), fits[-1]),
+                          want)[0]
+    raise ValueError("banded fill: no cluster of %s fits a block's %d "
+                     "bytes of shared memory" % (sizes, SMEM_MAX))
+
+
+def banded_smem_bytes_on_card(ops, geom, cfg):
+    """The shared bytes the kernel's own layout takes for `cfg` (a
+    banded_launch_plan), from the built library: must equal cfg["smem"]."""
+    fn = load("viterbi_banded_wavefront").viterbi_banded_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_long
+    return fn(ops.S, ops.SP, geom.Wb, *_n_toks(ops), cfg["cluster"],
+              int(cfg["resident"]), int(cfg["slots"]))
+
+
+def banded_max_clusters_on_card(ops, geom, cfg):
+    """The card's occupancy calculator (cudaOccupancyMaxActiveClusters) for
+    the banded fill in layout `cfg`: how many such clusters fit the card at
+    once; 0 means the layout cannot launch. Raises on a CUDA error."""
+    fn = load("viterbi_banded_wavefront").viterbi_banded_max_clusters
+    fn.argtypes = [ctypes.c_int] * 10
+    fn.restype = ctypes.c_int
+    n = fn(ops.S, ops.SP, geom.Wb, *_n_toks(ops), cfg["cluster"],
+           int(cfg["resident"]), int(cfg["slots"]), cfg["split"])
+    if n < 0:
+        raise RuntimeError("viterbi_banded_max_clusters failed for %r" % cfg)
+    return n
+
+
+def viterbi_banded_wavefront(ops, geom, in_toks, out_toks, cluster=None,
+                             resident=None, split=None):
     """Banded max-plus fill of ONE pair: (Li + Lo + 1, Wb, S) float32
     windows, left on the device for the lattice walk.
 
-    A CUDA tensor launches csrc/viterbi_banded_wavefront.cu (one block
-    walks every diagonal) and counts one launch in
-    `viterbi_banded_wavefront.launches`; a CPU tensor takes
-    viterbi_banded_forward_plain. in_toks (Li,) and out_toks (Lo,) are
-    int32 and contiguous on the device of `ops`, as is geom.meta."""
+    A CUDA tensor launches csrc/viterbi_banded_wavefront.cu (one cluster of
+    blocks walks every diagonal, in the layout of banded_launch_plan, which
+    `cluster`, `resident` and `split` force; the card's occupancy
+    calculator vets the layout before the launch) and counts one launch in
+    `viterbi_banded_wavefront.launches`; a refused launch raises
+    RuntimeError. A CPU tensor takes viterbi_banded_forward_plain (the
+    layout keywords change nothing there). in_toks (Li,) and out_toks (Lo,)
+    are int32 and contiguous on the device of `ops`, as is geom.meta."""
     if in_toks.device.type == "cpu":
         return viterbi_banded_forward_plain(ops, geom, in_toks, out_toks)
     if in_toks.device.type != "cuda":
@@ -538,15 +725,22 @@ def viterbi_banded_wavefront(ops, geom, in_toks, out_toks):
     _check(in_toks, "in_toks", torch.int32, (Li,), dev)
     _check(out_toks, "out_toks", torch.int32, (Lo,), dev)
     _check(geom.meta, "geom.meta", torch.int32, (n_diags, 3), dev)
+    cfg = banded_launch_plan(
+        ops, geom, torch.cuda.get_device_properties(dev).multi_processor_count,
+        cluster, resident, split,
+        max_clusters=lambda c: banded_max_clusters_on_card(ops, geom, c))
+    packed = pack_banded(ops, cfg["cluster"]) if cfg["resident"] else None
     out = torch.empty((n_diags, Wb, ops.S), dtype=torch.float32, device=dev)
     fn = load("viterbi_banded_wavefront").viterbi_banded_wavefront_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 8 + [I] * 7 + [P]
+    fn.argtypes = [P] * 9 + [I] * 14 + [P]
     fn.restype = I
     rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), geom.meta.data_ptr(),
-            ops.c0.data_ptr(), *_class_ptrs(ops), out.data_ptr(), Li, Lo, Wb,
-            ops.S, ops.SP, ops.Ti, ops.To,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ops.c0.data_ptr(), *_class_ptrs(ops),
+            0 if packed is None else packed.data_ptr(), out.data_ptr(), Li,
+            Lo, Wb, ops.S, ops.SP, ops.Ti, ops.To, *_n_toks(ops),
+            cfg["cluster"], int(cfg["resident"]), int(cfg["slots"]),
+            cfg["split"], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("viterbi_banded_wavefront launch failed: CUDA "
                            "error %d" % rc)

@@ -1010,17 +1010,22 @@ chained_ragged_wavefront.launches = 0
 
 
 def chained_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
-                      n_chain=4, rescale_every=4):
+                      n_chain=4, rescale_every=4, grid=None):
     """Chained wavefront Forward over a uniform-length batch: (B,) float32
     log-likelihoods, every pair read out at (Li, Lo) (the lengths are
     ignored; B must be a multiple of n_chain, Li and Lo at least 1).
 
-    A CUDA tensor launches csrc/chained_wavefront.cu (one block per strip
-    of n_chain pairs n = k * (B / n_chain) + w) and counts one launch in
-    `chained_wavefront.launches`; a CPU tensor takes
-    chained_forward_plain. Token tensors are int32 and contiguous, on the
-    device of `ops` (a prepare_merged plan). A pair with a token outside
-    its alphabet comes back NaN."""
+    A CUDA tensor launches csrc/chained_wavefront.cu and counts one launch
+    in `chained_wavefront.launches`; a CPU tensor takes
+    chained_forward_plain. On the card the kernel is merged's per-pair walk:
+    block g walks pairs g, g + grid, ... (`grid` as merged_wavefront's,
+    default one per pair, at most 4 per multiprocessor), each on its
+    chain's absolute-diagonal offset (Lo + 2) * (n // (B / n_chain)), which
+    is all the chain changes (the rescale steps); the strip schedule of the
+    TPU kernel (a block per n_chain pairs) is gone, because on this card it
+    left multiprocessors idle. Token tensors are int32 and contiguous, on
+    the device of `ops` (a prepare_merged plan). A pair with a token
+    outside its alphabet comes back NaN."""
     if in_toks.device.type == "cpu":
         return chained_forward_plain(ops, in_toks, out_toks, n_chain=n_chain,
                                      rescale_every=rescale_every)
@@ -1028,14 +1033,13 @@ def chained_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
                              None, None, rescale_every, ops.mt)
     check_chain(B, Li, Lo, n_chain)
     dev = ops.c0.device
+    grid = _grid(dev, B, grid)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    bad = torch.zeros(B, dtype=torch.int32, device=dev)
-    pbuf, mbuf = _slots(B // n_chain, Li + 1, ops.SaP, dev)
+    pbuf, mbuf = _slots(grid, Li + 1, ops.SaP, dev)
     _call("chained_wavefront", "chained_wavefront",
-          [in_toks, out_toks, ops.c0_pad, ops.w_pad, ops.mt, pbuf, mbuf, out,
-           bad],
+          [in_toks, out_toks, ops.c0_pad, ops.w_pad, ops.mt, pbuf, mbuf, out],
           [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
-           len(ops.names)], ops.desc, [n_chain], dev)
+           len(ops.names)], ops.desc, [n_chain, grid], dev)
     chained_wavefront.launches += 1
     return out
 

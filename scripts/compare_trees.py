@@ -4,8 +4,8 @@
     git archive <commit> machineboss_tpu_torch | tar -x -C <dir>
     python3 scripts/compare_trees.py <dir>
 
-Runs the merged, chained_ragged, chained (chain 8), generic and seqscale
-kernels of the tree at <dir> ("parent") and of this checkout ("change") in
+Runs the merged, chained_ragged, chained (chains 2, 4 and 8), generic and
+seqscale kernels of the tree at <dir> ("parent") and of this checkout ("change") in
 turns, parent, change, change, parent, each turn a process of its own that
 builds its tree's kernels: bench.py's dense machine (the random 64-state
 ACGT transducer), B=512 pairs of 200x200 (seed 0), and for chained_ragged
@@ -23,7 +23,8 @@ import sys
 import tempfile
 
 KERNELS = ("merged_wavefront", "chained_ragged_wavefront",
-           "chained_wavefront", "generic_wavefront", "seqscale_wavefront")
+           "chained_wavefront", "chained_wavefront_c2",
+           "chained_wavefront_c4", "generic_wavefront", "seqscale_wavefront")
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 
@@ -65,6 +66,10 @@ def side(root, out):
             lambda: wk.chained_ragged_wavefront(merged, *ragged),
         "chained_wavefront":
             lambda: wk.chained_wavefront(merged, *uniform, n_chain=8),
+        "chained_wavefront_c2":
+            lambda: wk.chained_wavefront(merged, *uniform, n_chain=2),
+        "chained_wavefront_c4":
+            lambda: wk.chained_wavefront(merged, *uniform, n_chain=4),
         "generic_wavefront": lambda: wk.generic_wavefront(generic, *uniform),
         "seqscale_wavefront":
             lambda: wk.seqscale_wavefront(seqscale, *uniform)}

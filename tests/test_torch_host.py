@@ -14,6 +14,7 @@ by the bytes of its source and of the headers it includes.
 
 import dataclasses
 import json
+import re
 
 import numpy as np
 import pytest
@@ -186,7 +187,7 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         "viterbi_banded_wavefront", "lattice_walk", "fused_plan7"}
     for name, deps in (("merged_wavefront", 2),
                        ("chained_ragged_wavefront", 2),
-                       ("chained_wavefront", 3), ("generic_wavefront", 2),
+                       ("chained_wavefront", 2), ("generic_wavefront", 2),
                        ("seqscale_wavefront", 2), ("factored_wavefront", 2),
                        ("lowrank_wavefront", 2), ("scan1d", 1),
                        ("viterbi_wavefront", 2),
@@ -211,13 +212,21 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
     assert changed == {"lowrank_wavefront", "factored_wavefront"}
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
-    # the chained schedule's header: the chained kernel and no other (the
-    # lowrank kernel walks its chained mode pair by pair)
-    with open(csrc / "strip.cuh", "ab") as f:
-        f.write(b"\n// edited\n")
-    changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
-    assert changed == {"chained_wavefront"}
-    after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
+    # the chained schedule walks pair by pair on walk_pair (its strip
+    # header is gone), and the cluster helpers both Viterbi fills use live
+    # once, in viterbi_common.cuh
+    assert not (csrc / "strip.cuh").exists()
+    common = (csrc / "viterbi_common.cuh").read_text()
+    sources = [(csrc / f).read_text() for f in _build.SOURCES.values()]
+    for helper in ("cluster_rank", "cluster_sync", "peer_addr",
+                   "peer_store"):
+        define = re.compile(r"__forceinline__ \w+ %s\(" % helper)
+        assert len(define.findall(common)) == 1
+        assert not any(define.search(src) for src in sources)
+    for name in ("viterbi_wavefront", "viterbi_banded_wavefront"):
+        src = (csrc / _build.SOURCES[name]).read_text()
+        assert "cluster_rank()" in src and "cluster_sync()" in src \
+            and "peer_addr(" in src
     with open(csrc / "scan1d.cu", "ab") as f:
         f.write(b"\n// edited\n")
     assert _build._lib_path("scan1d")[1] != after["scan1d"]

@@ -363,6 +363,240 @@ def test_banded_zero_length_sides(li, lo):
                           lattice_from_diagonals(diags, li, lo)[0])
 
 
+# ------------------------------------------- the banded fill's card layout
+
+def _big_ops(kind, dev=torch.device("cpu")):
+    """(ev, ops) of the 64-state ACGT machine of align_banded (diag class
+    only, S = 65) or of the prot2dna preset (up and left, S = 132)."""
+    key = ("big", kind, str(dev))
+    if key not in _cache:
+        from machineboss_tpu_torch.core.presets import make_preset
+        m = testmachines.build_random_transducer(64, list("ACGT"), seed=3) \
+            if kind == "dense64" else make_preset("prot2dna")
+        ev = EvaluatedMachine(m, m.get_param_defs(True))
+        mats = tuple(np.asarray(x) for x in LoweredMachine(
+            ev, dtype=np.float32).matrices_2d("maxplus"))
+        _cache[key] = (ev, vk.viterbi_operands(vk.maxplus_class_mats(*mats),
+                                               dev))
+    return _cache[key]
+
+
+def _band_of(Li, Lo, width, seed, dev=torch.device("cpu")):
+    """A band of `width` cells about a wandering path, its base moving
+    unevenly: the BandGeometry of Li x Lo."""
+    rng = np.random.RandomState(seed)
+    n = Li + Lo + 1
+    d = np.arange(n)
+    mid = np.round(d * Li / max(Li + Lo, 1) + rng.randint(-1, 2, n))
+    lo = np.clip(mid - width // 2, np.maximum(0, d - Lo), np.minimum(Li, d))
+    hi = np.minimum(np.minimum(lo + width, Li + 1), d + 1)
+    return vk.band_geometry(Li, Lo, lo.astype(int), np.maximum(hi, lo + 1),
+                            dev)
+
+
+def test_banded_launch_plan():
+    """align_banded's machine (16 diag blocks of 65 x 68, 283 KB): eight
+    lanes an item, so eight blocks a cluster (the smallest whose 18 band
+    cells x 3 column groups x 8 lanes fit 512 threads), the columns
+    resident beside the slots. prot2dna (up and left, 1.67 MB of blocks):
+    no portable cluster holds them, so streamed, at the smallest cluster
+    whose band items fit one pass of the block. Forced layouts that do not
+    fit raise."""
+    _, d64 = _big_ops("dense64")
+    geom = _band_of(1500, 1500, 18, 3)
+    assert geom.Wb == 24
+    cfg = vk.banded_launch_plan(d64, geom, 132)
+    assert (cfg["cluster"], cfg["resident"], cfg["slots"], cfg["split"],
+            cfg["groups_per_rank"]) == (8, True, True, 8, 3)
+    assert cfg["smem"] == vk.banded_smem_bytes(d64, 24, 8, True, True)
+    # the rank's columns: 16 tokens x 65 sources x 12 floats
+    assert cfg["smem"] - vk.banded_smem_bytes(d64, 24, 8, False, True) \
+        == 16 * 65 * 12 * 4
+    # at four blocks the 5 groups of a rank are a row of 20 floats; at
+    # sixteen, 2 groups padded to 3 (an odd count of 16-byte groups)
+    assert vk.banded_smem_bytes(d64, 24, 4, True, True) \
+        - vk.banded_smem_bytes(d64, 24, 4, False, True) == 16 * 65 * 20 * 4
+    assert vk.banded_smem_bytes(d64, 24, 16, True, True) \
+        - vk.banded_smem_bytes(d64, 24, 16, False, True) == 16 * 65 * 12 * 4
+    # one lane an item: the smallest cluster that holds the columns
+    one_lane = vk.banded_launch_plan(d64, geom, 132, split=1)
+    assert (one_lane["cluster"], one_lane["resident"]) == (2, True)
+    one = vk.banded_launch_plan(d64, geom, 132, cluster=1)
+    assert not one["resident"]                 # 283 KB do not fit a block
+    with pytest.raises(ValueError, match="does not fit"):
+        vk.banded_launch_plan(d64, geom, 132, cluster=1, resident=True)
+    assert vk.banded_launch_plan(d64, geom, 132, cluster=16)["resident"]
+    _, p2d = _big_ops("prot2dna")
+    assert p2d.classes == (True, True, False) and p2d.S == 132
+    pgeom = _band_of(64, 192, 12, 4)
+    cfg = vk.banded_launch_plan(p2d, pgeom, 132)
+    assert not cfg["resident"] and cfg["slots"] and cfg["split"] == 8
+    cells = int((pgeom.hi - pgeom.lo).max())
+    assert cfg["cluster"] == min(c for c in (1, 2, 4, 8)
+                                 if cells * -(-33 // c) * 8 <= 512)
+    assert cfg["smem"] == vk.banded_smem_bytes(p2d, pgeom.Wb,
+                                               cfg["cluster"], False, True)
+    # an occupancy calculator that refuses a layout: passed over, or raised
+    cfg = vk.banded_launch_plan(d64, geom, 132,
+                                max_clusters=lambda c: int(c["cluster"] != 8))
+    assert cfg["cluster"] == 4 and cfg["resident"]
+    with pytest.raises(ValueError):
+        vk.banded_launch_plan(d64, geom, 132, cluster=4,
+                              max_clusters=lambda c: 0)
+    for bad in ({"cluster": 3}, {"cluster": 32}, {"split": 3},
+                {"split": 16}):
+        with pytest.raises(ValueError):
+            vk.banded_launch_plan(d64, geom, 132, **bad)
+    # S = 5 pads to 2 column groups: at most 2 blocks a cluster, split 1
+    small = _ops_of("allclass")
+    sgeom = _band_of(6, 5, 3, 1)
+    assert vk.banded_launch_plan(small, sgeom, 132)["split"] == 1
+    with pytest.raises(ValueError):
+        vk.banded_launch_plan(small, sgeom, 132, cluster=4)
+    # a window too wide for three slots: read back from the lattice
+    wide = vk.band_geometry(3400, 3, np.zeros(3404, int),
+                            np.minimum(3400, np.arange(3404)) + 1,
+                            torch.device("cpu"))
+    assert not vk.banded_launch_plan(small, wide, 132)["slots"]
+
+
+@pytest.mark.parametrize("csize", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("kind", ["dense64", "prot2dna", "allclass"])
+def test_pack_banded_round_trip(kind, csize):
+    """pack_banded's rank slices hold each rank's columns of every block,
+    NEG_INF past them (an odd count of 4-column groups a row) and past SP,
+    and unpack_banded gives the blocks back bit for bit."""
+    ops = _ops_of("allclass") if kind == "allclass" else _big_ops(kind)[1]
+    ops.packs.clear()
+    packed = vk.pack_banded(ops, csize)
+    own = 4 * -(-(ops.SP // 4) // csize)
+    Wr = 4 * (-(-(ops.SP // 4) // csize) | 1)
+    assert Wr // 4 % 2 == 1 and own <= Wr < own + 8
+    n_blk = sum(t.numel() // ops.SP for t in (ops.up, ops.left, ops.diag)
+                if t is not None)
+    assert packed.shape == (n_blk * csize * Wr,) and packed.is_contiguous()
+    back = vk.unpack_banded(packed, ops, csize)
+    for a, b in zip(back, (ops.up, ops.left, ops.diag)):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert torch.equal(a, b)
+    first = next(t for t in (ops.up, ops.left, ops.diag) if t is not None)
+    n_tok = first.shape[0]
+    rank_last = packed[:csize * n_tok * ops.S * Wr].reshape(
+        csize, n_tok, ops.S, Wr)[-1]
+    cols = ops.SP - (csize - 1) * own
+    if cols > 0:
+        assert torch.equal(rank_last[:, :, :cols],
+                           first[:, :, (csize - 1) * own:])
+    assert (rank_last[:, :, max(cols, 0):] == -1e30).all()
+    assert vk.pack_banded(ops, csize) is packed        # cached
+
+
+def _banded_emulated(ops, geom, it, ot, csize, split, seed):
+    """The banded fill as the kernel splits it, in torch: rank h of a
+    cluster of `csize` computes its columns from its slice of pack_banded,
+    each item's `split` lanes take every split-th source state, and the
+    lanes' and the classes' maxima are combined in a shuffled order."""
+    rng = np.random.RandomState(seed)
+    Li, Lo, Wb, S, SP = geom.Li, geom.Lo, geom.Wb, ops.S, ops.SP
+    own = 4 * -(-(SP // 4) // csize)
+    Wr = 4 * (-(-(SP // 4) // csize) | 1)
+    packed, at, cls = vk.pack_banded(ops, csize), 0, []
+    for t in (ops.up, ops.left, ops.diag):
+        if t is None:
+            cls.append(None)
+            continue
+        n = csize * t.shape[0] * S * Wr
+        cls.append(packed[at:at + n].reshape(csize, t.shape[0], S, Wr))
+        at += n
+    neg = torch.tensor(-1e30, dtype=torch.float32)
+    w_idx = torch.arange(Wb)
+    out = torch.full((Li + Lo + 1, Wb, S), -1e30, dtype=torch.float32)
+    if geom.lo[0] <= 0 < geom.hi[0]:
+        out[0, 0] = ops.c0
+
+    def term(q, tok, ok, nbr):
+        """(Wb, S) maxima of class q: per rank, per lane, then combined."""
+        n_tok = cls[q].shape[1]
+        ok = ok & (tok >= 0) & (tok < n_tok)
+        tok = torch.clamp(tok, 0, n_tok - 1)
+        parts = []
+        for h in range(csize):
+            blk = cls[q][h][tok]                             # (Wb, S, Wr)
+            lanes = [(blk[:, j::split] + nbr[:, j::split, None])
+                     .max(dim=1).values for j in range(split) if j < S]
+            order = rng.permutation(len(lanes))
+            acc = lanes[order[0]]
+            for j in order[1:]:
+                acc = torch.maximum(acc, lanes[j])
+            parts.append(acc[:, :own])
+        full = torch.cat(parts, dim=1)[:, :S]
+        return torch.where(ok[:, None], full, neg)
+
+    for d in range(1, Li + Lo + 1):
+        base = int(geom.bases[d])
+        i = base + w_idx
+        o = d - i
+        x = it[torch.clamp(i - 1, 0, max(Li - 1, 0))] if Li \
+            else torch.zeros_like(i)
+        y = ot[torch.clamp(o - 1, 0, max(Lo - 1, 0))] if Lo \
+            else torch.zeros_like(i)
+
+        def nb(slab, shift):
+            src = w_idx + shift
+            ok = (src >= 0) & (src < Wb)
+            return ok, slab[torch.clamp(src, 0, Wb - 1)]
+        s1 = base - int(geom.bases[d - 1])
+        terms = []
+        if ops.up is not None:
+            ok, v = nb(out[d - 1], s1)
+            terms.append(term(0, y, ok & (o >= 1), v))
+        if ops.left is not None:
+            ok, v = nb(out[d - 1], s1 - 1)
+            terms.append(term(1, x, ok & (i >= 1), v))
+        if ops.diag is not None and d >= 2:
+            ok, v = nb(out[d - 2], base - int(geom.bases[d - 2]) - 1)
+            ok = ok & (i >= 1) & (o >= 1) & (x >= 0) & (x < ops.Ti) \
+                & (y >= 0) & (y < ops.To)
+            terms.append(term(2, x * ops.To + y, ok, v))
+        cur = torch.full((Wb, S), -1e30, dtype=torch.float32)
+        for k in rng.permutation(len(terms)):
+            cur = torch.maximum(cur, terms[k])
+        band = (i >= int(geom.lo[d])) & (i < int(geom.hi[d])) & (i <= Li) \
+            & (o >= 0) & (o <= Lo)
+        out[d] = torch.where(band[:, None], cur, neg)
+    return out
+
+
+@pytest.mark.parametrize("csize,split", [(1, 1), (2, 4), (1, 8), (2, 2)])
+@pytest.mark.parametrize("kind", ["allclass", "indel", "prot2dna"])
+def test_banded_rank_and_lane_split_is_bit_equal(kind, csize, split):
+    """The kernel's split of the work (destination columns by rank, source
+    states by lane, maxima met in any order) gives the plain version's
+    windows bit for bit, on every class combination: all three classes,
+    up and left alone, and prot2dna's S = 132 (its column groups split
+    over up to 16 ranks)."""
+    if kind == "prot2dna":
+        ev, ops = _big_ops("prot2dna")
+        csize = {1: 3, 2: 16}[csize]
+        Li, Lo = 5, 15
+        rng = np.random.RandomState(2)
+        it = rng.randint(0, ops.Ti, Li).astype(np.int32)
+        ot = rng.randint(0, ops.To, Lo).astype(np.int32)
+        geom = _band_of(Li, Lo, 5, 2)
+    else:
+        _, _, mats, its, ots = _case(kind)
+        ops = _ops_of(kind)
+        it, ot = its[0], ots[0]
+        Li, Lo = len(it), len(ot)
+        geom = _band_of(Li, Lo, 3, 5)
+    t_it, t_ot = torch.from_numpy(it), torch.from_numpy(ot)
+    ref = vk.viterbi_banded_forward_plain(ops, geom, t_it, t_ot)
+    assert (ref > NEG).sum() > Li
+    got = _banded_emulated(ops, geom, t_it, t_ot, csize, split, seed=csize)
+    assert torch.equal(got, ref)
+
+
 # ------------------------------------------------------------------- the card
 
 def _card():
@@ -416,10 +650,14 @@ def test_banded_kernel_matches_plain_on_card(seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("banded", [False, True])
-def test_kernel_reads_the_lattice_back_when_shared_memory_is_short(banded):
+@pytest.mark.parametrize("banded,cluster", [(False, None), (True, None),
+                                            (True, 2)])
+def test_kernel_reads_the_lattice_back_when_shared_memory_is_short(banded,
+                                                                   cluster):
     """A pair so long that three diagonals exceed a block's shared memory:
-    both kernels then read the previous diagonals from the lattice."""
+    both kernels then read the previous diagonals from the lattice (the
+    banded fill with one block and with a cluster of two, whose blocks
+    read each other's columns back)."""
     dev = _card()
     mats = _case("allclass")[2]
     S = mats[3].shape[0]
@@ -437,7 +675,10 @@ def test_kernel_reads_the_lattice_back_when_shared_memory_is_short(banded):
         geom = vk.band_geometry(Li, Lo, np.zeros_like(d),
                                 np.minimum(Li, d) + 1, dev)
         assert geom.Wb >= Li + 1
-        kern = vk.viterbi_banded_wavefront(ops, geom, t_it[0], t_ot[0])
+        cfg = vk.banded_launch_plan(ops, geom, 132, cluster=cluster)
+        assert not cfg["slots"]
+        kern = vk.viterbi_banded_wavefront(ops, geom, t_it[0], t_ot[0],
+                                           cluster=cluster)
         plain = vk.viterbi_banded_forward_plain(ops, geom, t_it[0], t_ot[0])
     else:
         assert vk.fill_launch_plan(ops, 1, Li, Lo, 132)["n_slots"] == 0
@@ -504,3 +745,113 @@ def test_fill_token_outside_the_alphabet_on_card(kw):
     kern = vk.viterbi_wavefront(ops, *batch, **kw)
     torch.cuda.synchronize()
     assert torch.equal(kern, vk.viterbi_forward_plain(ops, *batch))
+
+
+def _band_pair(kind, dev):
+    """(ops, geom, in_toks, out_toks) of a banded pair on `dev`: dense64, a
+    pair of 120 with 10% redrawn in an envelope of width 8; prot2dna, a
+    protein of 20 against its 60 bases in a band of 6; allclass, pair 0 of
+    its case in a band of 3."""
+    if kind == "dense64":
+        ev, _ = _big_ops("dense64")
+        ops = _big_ops("dense64", dev)[1]
+        sp = testmachines.align_pair(120, mutate=0.1, seed=5)
+        it = np.array(ev.input_tokenizer.tokenize(sp.input.seq),
+                      np.int32) - 1
+        ot = np.array(ev.output_tokenizer.tokenize(sp.output.seq),
+                      np.int32) - 1
+        geom = vk.band_geometry(len(it), len(ot),
+                                *vk.envelope_diag_bands(Envelope(sp, width=8)),
+                                dev)
+    elif kind == "prot2dna":
+        ev, _ = _big_ops("prot2dna")
+        ops = _big_ops("prot2dna", dev)[1]
+        (p, dna), = testmachines.prot2dna_pairs(1, 20, seed=3)
+        it = np.array([ev.input_tokenizer.sym2tok[c] - 1 for c in p], np.int32)
+        ot = np.array([ev.output_tokenizer.sym2tok[c] - 1 for c in dna],
+                      np.int32)
+        geom = _band_of(len(it), len(ot), 6, 3, dev)
+    else:
+        _, _, _, its, ots = _case("allclass")
+        ops = _ops_of("allclass", dev)
+        it, ot = its[0], ots[0]
+        geom = _band_of(len(it), len(ot), 3, 5, dev)
+    return (ops, geom, torch.from_numpy(it).to(dev),
+            torch.from_numpy(ot).to(dev))
+
+
+def _layouts(ops, geom, resident, split):
+    """Every cluster size up to 16 that the plan allows for this residency
+    and split, the card's occupancy calculator deciding."""
+    out = []
+    for c in (1, 2, 4, 8, 16):
+        try:
+            out.append(vk.banded_launch_plan(
+                ops, geom, 132, cluster=c, resident=resident, split=split,
+                max_clusters=lambda cfg: vk.banded_max_clusters_on_card(
+                    ops, geom, cfg)))
+        except ValueError:
+            pass
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense64", "prot2dna"])
+def test_banded_smem_bytes_on_card(kind):
+    """The plan's shared bytes are the kernel's own, in the plan's layout
+    and in every layout the card allows."""
+    dev = _card()
+    ops, geom, _, _ = _band_pair(kind, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = vk.banded_launch_plan(ops, geom, sms)
+    assert cfg["resident"] == (kind == "dense64")
+    for c in [cfg] + _layouts(ops, geom, None, None):
+        assert vk.banded_smem_bytes_on_card(ops, geom, c) == c["smem"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 4, 8])
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("kind", ["dense64", "prot2dna", "allclass"])
+def test_banded_layouts_match_plain_on_card(kind, resident, split):
+    """The banded fill equals its plain version bit for bit at every
+    cluster size the plan allows up to 16, the class columns resident or
+    streamed, one, four or eight lanes an item; one launch each."""
+    dev = _card()
+    ops, geom, t_it, t_ot = _band_pair(kind, dev)
+    plain = vk.viterbi_banded_forward_plain(ops, geom, t_it, t_ot)
+    layouts = _layouts(ops, geom, resident, split)
+    assert layouts
+    for cfg in layouts:
+        before = vk.viterbi_banded_wavefront.launches
+        kern = vk.viterbi_banded_wavefront(
+            ops, geom, t_it, t_ot, cluster=cfg["cluster"], resident=resident,
+            split=split)
+        torch.cuda.synchronize()
+        assert vk.viterbi_banded_wavefront.launches == before + 1
+        assert torch.equal(kern, plain), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"cluster": 1}, {"cluster": 2},
+                                {"resident": False, "split": 2}])
+def test_banded_bad_tokens_and_empty_sides_on_card(kw):
+    """Tokens outside the alphabet match nothing, and a pair with an empty
+    side fills its one row or column, in each layout."""
+    dev = _card()
+    ops, geom, t_it, t_ot = _band_pair("allclass", dev)
+    bad_it, bad_ot = t_it.clone(), t_ot.clone()
+    bad_it[2] = 9
+    bad_ot[0] = -3
+    kern = vk.viterbi_banded_wavefront(ops, geom, bad_it, bad_ot, **kw)
+    assert torch.equal(kern, vk.viterbi_banded_forward_plain(
+        ops, geom, bad_it, bad_ot))
+    for li, lo in ((0, 4), (4, 0), (0, 0)):
+        d = np.arange(li + lo + 1)
+        g = vk.band_geometry(li, lo, np.maximum(0, d - lo),
+                             np.minimum(li, d) + 1, dev)
+        kern = vk.viterbi_banded_wavefront(ops, g, t_it[:li].contiguous(),
+                                           t_ot[:lo].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, vk.viterbi_banded_forward_plain(
+            ops, g, t_it[:li], t_ot[:lo]))

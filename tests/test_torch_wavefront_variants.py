@@ -662,6 +662,49 @@ def test_chained_kernel_matches_plain_on_card(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chain", [1, 3, 5, 8, "odd_deep"])
+def test_chained_kernel_per_pair_walk_on_card(chain):
+    """The chained kernel walks each pair on its chain's absolute-diagonal
+    offset: chains 1, 3, 5 and 8 over 120 uniform pairs, and the odd
+    stagger's deep chain (three pairs below -88 nats, chain 3), with one
+    block walking every pair, two blocks, and the default grid. Every grid
+    gives the same scores bit for bit, within the card bound of the plain
+    version and within BOUND (ODD_BOUND) of the f64 oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    if chain == "odd_deep":
+        mats, it, ot, il, ol = _case("odd_deep")
+        n_chain, bound = 3, ODD_BOUND
+    else:
+        _, mats = _lowered("dense6_7")
+        rng = np.random.RandomState(chain)
+        it = rng.randint(0, 4, (120, 6)).astype(np.int32)
+        ot = rng.randint(0, 4, (120, 6)).astype(np.int32)
+        il, ol = np.full(120, 6, np.int32), np.full(120, 6, np.int32)
+        n_chain, bound = chain, BOUND
+    ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    plain = wk.chained_forward_plain(ops, *batch, n_chain=n_chain)
+    plain = plain.cpu().numpy()
+    runs = []
+    for grid in (1, 2, None):
+        before = wk.chained_wavefront.launches
+        runs.append(wk.chained_wavefront(ops, *batch, n_chain=n_chain,
+                                         grid=grid).cpu().numpy())
+        assert wk.chained_wavefront.launches == before + 1
+    for kern in runs:
+        assert np.array_equal(kern, runs[0])
+    _assert_close(runs[0], plain, CARD_BOUND)
+    m64 = [x.astype(np.float64) for x in mats]
+    ref = _f64(chain) if chain == "odd_deep" else np.array(
+        [forward_2d_f64(*m64, it[b], ot[b]) for b in range(len(it))])
+    _assert_close(runs[0], ref, bound)
+    if chain == "odd_deep":
+        assert (ref < -88).all()
+
+
+@pytest.mark.cuda
 def test_kernels_flag_a_bad_token_as_nan_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
