@@ -16,7 +16,19 @@ CompiledMachine.log_forward_batch:
   dense_ragged   the same machine, lengths uniform in [100, 200]
                  (chained_ragged kernel);
   dense1d        random 64-state ACGT generator, B=256 sequences of
-                 10,000 (scan1d kernel).
+                 10,000 (scan1d kernel; its launch plan, and variants:
+                 dense columns, a block barrier a step, tokens read from
+                 global memory, the renormalisation behind its own
+                 barrier).
+
+The merged and chained_ragged paths (and dense_chained below) also time
+the walk's variants: every lattice cell's lanes, the separate rescale
+pass, the diagonal slots in the other memory. Two kernel-alone cases, held
+to their plain versions and timed, measure what the dense machines do not
+exercise: scan1d_every_entry (a seeded (4, 64, 64) transfer tensor with
+every entry finite, B=256 sequences of 10,000) and merged_every_cell (the
+all-class 64-state ACGT machine, whose every cell is live, through merged
+on dense_uniform's pairs and chained_ragged on dense_ragged's lengths).
 
 Three go through algo.viterbi_device.device_viterbi_matrices (the max-plus
 fill, the lattice walk on the card, the host re-trace), and must give the
@@ -59,10 +71,13 @@ Five go through the kernel factory make_wavefront_forward, one call each:
                      (factored_wavefront; variant: one walker a block).
 
 A variant undoes one design choice of a kernel and gives the same scores
-bit for bit; each is timed in turns with the kernel. A bound counts the
-class products this run's data needs: the merged family, generic and
-seqscale take none for a zero cell, and bench.py's dense machine reaches
-only the cells with i == o (the bound over every cell is printed too).
+bit for bit (scan1d's: held to the plain version as the kernel is); each
+is timed in turns with the kernel. A bound counts the work this run's data
+needs: the merged family, generic and seqscale take no class product for
+a zero cell, and bench.py's dense machine reaches only the cells with
+i == o (the bound over every cell is printed too); scan1d multiplies only
+the nonzero entries of a position's token matrix (the S * S bound beside
+it).
 
 Prints one JSON line per phase, the total time, the kernel table, the
 card's name and power limit, and as its last line {"ok": true, "device":
@@ -282,21 +297,42 @@ def lowered(machine):
                  LoweredMachine(ev, dtype=np.float32).matrices_2d())
 
 
+# walk_pair's layouts besides the plan's (wavefront_kernel.walk_launch_plan):
+# every lattice cell, the separate rescale pass, each place of the slots
+WALK_LAYOUTS = ({"live_range": False}, {"rescale_pass": True},
+                {"slots": "shared"}, {"slots": "global"},
+                {"live_range": False, "rescale_pass": True,
+                 "slots": "global"})
+
+
+def walk_variants(cfg):
+    """The walk's variants that undo one choice of the plan `cfg`: every
+    lattice cell's lanes, the separate rescale pass, the slots in the
+    other memory."""
+    out = {"no_live_range": {"live_range": False}}
+    if not cfg["rescale_pass"]:
+        out["rescale_pass"] = {"rescale_pass": True}
+    other = "global" if cfg["slots"] == "shared" else "shared"
+    out["slots_" + other] = {"slots": other}
+    return out
+
+
 def fullrank_case(name, mats, it, ot, il, ol, dev, ragged=False, grid=None,
                   f64_tol=MERGED_VS_F64_TOL):
-    """merged (or, ragged=True, chained_ragged) kernel vs plain vs f64."""
+    """merged (or, ragged=True, chained_ragged) kernel vs plain vs f64; the
+    kernel in every walk layout bit-equal to its default."""
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
     batch = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
              for x in (it, ot, il, ol)]
-    if ragged:
-        kern = wk.chained_ragged_wavefront(ops, *batch, grid=grid)
-        plain = wk.chained_ragged_forward_plain(ops, *batch)
-    else:
-        kern = wk.merged_wavefront(ops, *batch, grid=grid)
-        plain = wk.merged_forward_plain(ops, *batch)
-    torch.cuda.synchronize()
-    kern, plain = kern.cpu().numpy(), plain.cpu().numpy()
+    wrapper = wk.chained_ragged_wavefront if ragged else wk.merged_wavefront
+    kern = wrapper(ops, *batch, grid=grid).cpu().numpy()
+    plain = (wk.chained_ragged_forward_plain if ragged
+             else wk.merged_forward_plain)(ops, *batch).cpu().numpy()
+    for layout in WALK_LAYOUTS:
+        other = wrapper(ops, *batch, grid=grid, **layout).cpu().numpy()
+        check(np.array_equal(other, kern, equal_nan=True),
+              "%s: walk layout %s scores otherwise" % (name, layout))
     ref = f64_scores(mats, [(it[b][:il[b]], ot[b][:ol[b]])
                             for b in range(len(il))])
     err_plain = score_err(kern, plain)
@@ -502,6 +538,9 @@ def dense_path(name, cm, pairs, ragged, dev, card, smi):
     check(err <= KERNEL_VS_PLAIN_TOL,
           "%s: kernel vs plain %.3g nats" % (name, err))
     kernel_ms = cuda_ms(lambda: wrapper(ops, *batch), 5)
+    layout = wk.walk_launch_config(ops, len(pairs), Li)
+    variants = design_variants(wrapper, ops, batch, kern,
+                               walk_variants(layout))
 
     # least time for this run's work: a cell does Sa*Sa MACs for each
     # present class whose neighbour lies in the pair's lattice and can be
@@ -529,6 +568,7 @@ def dense_path(name, cm, pairs, ragged, dev, card, smi):
           "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
           "flops_all_cells": flops_all,
           "bound_all_cells_ms": bound(flops_all, nbytes)[0],
+          "launch": layout, "variants_ms": variants,
           "card": card, "nvidia_smi": smi})
     return {"name": kernel, "route": "cuda",
             "source": "machineboss_tpu_torch/csrc/%s.cu" % kernel,
@@ -538,6 +578,175 @@ def dense_path(name, cm, pairs, ragged, dev, card, smi):
             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def merged_every_cell(x, y, lens, dev, card, smi):
+    """The merged and chained_ragged kernels alone where every cell is
+    live: the all-class 64-state ACGT machine (its class blocks take 384
+    KB) on dense_uniform's pairs (B=512, 200x200) and dense_ragged's
+    lengths, each held to its plain version and to the f64 oracle on 4
+    pairs, timed, with the walk's variants. Measurement, not a path."""
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    from machineboss_tpu_torch.testmachines import build_allclass_transducer
+    mats = lowered(build_allclass_transducer(64, list("ACGT")))
+    ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    tok = {c: k for k, c in enumerate("ACGT")}
+    it = np.vectorize(tok.get)(x).astype(np.int32)
+    ot = np.vectorize(tok.get)(y).astype(np.int32)
+    B, L = it.shape
+    out = {}
+    for kernel, wrapper, plain_fn, il in (
+            ("merged_wavefront", wk.merged_wavefront,
+             wk.merged_forward_plain, np.full(B, L, np.int32)),
+            ("chained_ragged_wavefront", wk.chained_ragged_wavefront,
+             wk.chained_ragged_forward_plain, np.asarray(lens, np.int32))):
+        batch = [torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for v in (it, ot, il, il)]
+        kern = wrapper(ops, *batch).cpu().numpy()
+        plain_ms, plain = event_ms(lambda: plain_fn(ops, *batch))
+        err = score_err(kern, plain.cpu().numpy())
+        check(err <= KERNEL_VS_PLAIN_TOL, "merged_every_cell %s: kernel vs "
+              "plain %.3g nats" % (kernel, err))
+        n_gate = 4
+        gate = score_err(kern[:n_gate], f64_scores(
+            mats, [(it[b, :il[b]], ot[b, :il[b]]) for b in range(n_gate)]))
+        check(gate <= GATE_TOL, "merged_every_cell %s: f64 gate %.3g nats"
+              % (kernel, gate))
+        kernel_ms = cuda_ms(lambda: wrapper(ops, *batch), 5)
+        layout = wk.walk_launch_config(ops, B, L)
+        variants = design_variants(wrapper, ops, batch, kern,
+                                   walk_variants(layout))
+        flops = variant_flops(kernel, ops, il, il)
+        nbytes = tensor_bytes(batch + list(ops.mats.values())
+                              + [ops.c0, ops.w]) + B * 4
+        bound_ms, bound_by = bound(flops, nbytes)
+        emit({"phase": "merged_every_cell", "kernel": kernel, "B": B,
+              "Sa": ops.Sa, "classes": ops.names,
+              "class_block_bytes": tensor_bytes(list(ops.mats.values())),
+              "lens": [int(il.min()), int(il.max())], "kernel_ms": kernel_ms,
+              "plain_ms": plain_ms, "max_abs_vs_plain": err,
+              "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
+              "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+              "bound_by": bound_by,
+              "kernel_share_of_bound": bound_ms / kernel_ms,
+              "flops_all_cells": variant_flops(kernel, ops, il, il, True),
+              "launch": layout, "variants_ms": variants, "card": card,
+              "nvidia_smi": smi})
+        out[kernel] = kernel_ms
+    return out
+
+
+def scan1d_layout(name, ops, B):
+    """The scan kernel's launch plan for B sequences, its shared bytes
+    checked against the kernel's own count."""
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    cfg = sk.scan1d_launch_config(ops, B)
+    check(sk.scan1d_smem_bytes_on_card(ops, cfg) == cfg["smem"],
+          "%s: the scan's shared layout differs from the plan's" % name)
+    return cfg
+
+
+def scan1d_vs_plain(name, kern, plain, lens, g):
+    """Hold a scan result to the plain version's: exponents and dead flags
+    equal, log-likelihoods within KERNEL_VS_PLAIN_TOL. Returns the error."""
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    check(torch.equal(kern[1:], plain[1:]),
+          "%s: exponents or dead flags differ from the plain version" % name)
+    err = score_err(sk.scan1d_loglike(kern.cpu().numpy(), lens, g),
+                    sk.scan1d_loglike(plain.cpu().numpy(), lens, g))
+    check(err <= KERNEL_VS_PLAIN_TOL,
+          "%s: kernel vs plain %.3g nats" % (name, err))
+    return err
+
+
+# the scan's variants that undo one design choice: dense columns (every
+# entry's multiply-add), a block barrier a step, the tokens read from
+# global memory, the renormalisation behind a barrier of its own
+SCAN1D_VARIANTS = {"dense_columns": {"mode": "dense"},
+                   "sparse_lists": {"mode": "csr"},
+                   "block_barrier": {"variant": "block_barrier"},
+                   "tokens_global": {"variant": "tokens_global"},
+                   "renorm_barrier": {"variant": "renorm_barrier"}}
+
+
+def scan1d_variants(ops, t, n, lens, plain, layout):
+    """The scan kernel against its variants in turns (default, variant,
+    variant, default), each held to the plain version as the kernel is;
+    the variant the plan already is is skipped. Returns {variant: {which:
+    [ms, ms]}}."""
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    out = {}
+    for label, kw in SCAN1D_VARIANTS.items():
+        if kw.get("mode") == layout["mode"].split("_")[0]:
+            continue
+        times = {"default": [], label: []}
+        for which in ("default", label, label, "default"):
+            args = kw if which == label else {}
+            scan1d_vs_plain("scan1d " + which, sk.scan1d_forward(
+                ops, t, n, **args), plain, lens, ops.g)
+            times[which].append(cuda_ms(
+                lambda: sk.scan1d_forward(ops, t, n, **args), 3))
+        out[label] = times
+    return out
+
+
+def scan1d_bounds(ops, toks, lens, t, n, kernel_ms):
+    """The scan's least time on this run's data: 2 x the multiply-adds of
+    the nonzero entries of each real position's token matrix (a token
+    outside the alphabet or a skipped position takes none), the tokens,
+    lengths, matrices and the (3, B) result moved once; beside it the
+    dense count, S * S a position."""
+    nnz = np.append((ops.em_host != 0).sum(axis=(1, 2)), 0)
+    pos = np.arange(toks.shape[1])[None, :] < lens[:, None]
+    tk = np.where(pos & (toks >= 0), toks, -1)
+    tk = np.where(tk >= ops.n_tok, -1, tk)
+    flops = 2.0 * float(nnz[tk].sum())
+    flops_dense = 2.0 * ops.S * ops.S * float(lens.sum())
+    nbytes = tensor_bytes([t, n, ops.em, ops.c0]) + 3 * len(lens) * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    return {"flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": bound_by, "kernel_share_of_bound": bound_ms / kernel_ms,
+            "flops_dense": flops_dense,
+            "bound_dense_ms": bound(flops_dense, nbytes)[0]}
+
+
+def scan1d_every_entry(dev, card, smi):
+    """The scan kernel alone where every entry of the transfer tensor is
+    finite: a seeded (4, 64, 64) tensor, B=256 sequences of 10,000, held
+    to the plain version and to the float64 loop on 8 sequences, timed,
+    with its variants. Measurement, not a path."""
+    from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    from machineboss_tpu_torch.testmachines import forward_1d_f64
+    S, B, L = 64, 256, 10000
+    rng = np.random.RandomState(7)
+    trans = rng.uniform(-6.0, -2.0, (4, S, S)).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        closure = np.log(np.eye(S, dtype=np.float32))
+    toks = rng.randint(0, 4, (B, L)).astype(np.int32)
+    lens = np.full(B, L, np.int32)
+    ops = sk.scan1d_operands(*sk.prepare_scan1d(trans, closure), dev)
+    check(int((ops.em_host != 0).sum()) == 4 * S * S,
+          "scan1d_every_entry: an entry is zero")
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    layout = scan1d_layout("scan1d_every_entry", ops, B)
+    kern = sk.scan1d_forward(ops, t, n)
+    plain_ms, plain = event_ms(lambda: sk.scan1d_forward_plain(ops, t, n))
+    err = scan1d_vs_plain("scan1d_every_entry", kern, plain, lens, ops.g)
+    kll = sk.scan1d_loglike(kern.cpu().numpy(), lens, ops.g)
+    n_gate = 8
+    gate = score_err(kll[:n_gate], forward_1d_f64(
+        trans, closure, toks[:n_gate], lens[:n_gate]))
+    check(gate <= GATE_TOL, "scan1d_every_entry: f64 gate %.3g nats" % gate)
+    kernel_ms = cuda_ms(lambda: sk.scan1d_forward(ops, t, n), 5)
+    variants = scan1d_variants(ops, t, n, lens, plain, layout)
+    emit({"phase": "scan1d_every_entry", "B": B, "L": L, "S": ops.S,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "ns_per_step": kernel_ms * 1e6 / L, "max_abs_vs_plain": err,
+          "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
+          **scan1d_bounds(ops, toks, lens, t, n, kernel_ms),
+          "launch": layout, "variants_ms": variants, "card": card,
+          "nvidia_smi": smi})
 
 
 def dense1d_path(dev, card, smi):
@@ -580,30 +789,25 @@ def dense1d_path(dev, card, smi):
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
-    check(torch.equal(kern[1:], plain[1:]),
-          "dense1d: exponents or dead flags differ from the plain version")
-    err = score_err(kll, sk.scan1d_loglike(plain.cpu().numpy(), lens, ops.g))
-    check(err <= KERNEL_VS_PLAIN_TOL,
-          "dense1d: kernel vs plain %.3g nats" % err)
+    err = scan1d_vs_plain("dense1d", kern, plain, lens, ops.g)
     kernel_ms = cuda_ms(lambda: sk.scan1d_forward(ops, t, n), 5)
+    layout = scan1d_layout("dense1d", ops, B)
+    variants = scan1d_variants(ops, t, n, lens, plain, layout)
 
-    # least time: S*S MACs per real position; tokens, lengths, the
-    # transfer matrices and the (3, B) result move once
-    flops = 2.0 * ops.S * ops.S * float(lens.sum())
-    nbytes = tensor_bytes([t, n, ops.em, ops.c0]) + 3 * B * 4
-    bound_ms, bound_by = bound(flops, nbytes)
+    bounds = scan1d_bounds(ops, toks, lens, t, n, kernel_ms)
     cells = float(lens.sum()) * ops.S
     emit({"phase": "dense1d", "B": B, "L": L, "S": ops.S, "padded": Lp,
           "route": cm.last_route, "launches": launches,
           "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
           "first_call_s": first_s, "call_ms_median5": call_ms,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "ns_per_step": kernel_ms * 1e6 / L,
           "kernel_share_of_call": kernel_ms / call_ms,
           "state_cells_per_s": cells / (call_ms / 1e3),
           "kernel_state_cells_per_s": cells / (kernel_ms / 1e3),
-          "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-          "kernel_share_of_bound": bound_ms / kernel_ms,
+          **bounds, "launch": layout, "variants_ms": variants,
           "card": card, "nvidia_smi": smi})
+    bound_ms, bound_by = bounds["bound_ms"], bounds["bound_by"]
     return {"name": "scan1d", "route": "cuda",
             "source": "machineboss_tpu_torch/csrc/scan1d.cu",
             "replaces": "machineboss_tpu/ops/pallas/scan1d_kernel.py:46 "
@@ -663,7 +867,8 @@ def variant_ops(kernel, mats, dev, grid=None, walkers=None, layout=None,
         "factored_wavefront": (wk.factored_wavefront,
                                wk.factored_forward_plain)}[kernel]
     if kernel == "chained_wavefront":
-        return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4], grid=grid),
+        return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4], grid=grid,
+                                        **(layout or {})),
                 lambda *b: plain(ops, *b[:4], n_chain=b[4]))
     if kernel in CHAINED_KERNELS:
         return (ops, lambda *b: wrapper(ops, *b[:4], n_chain=b[4]),
@@ -781,6 +986,10 @@ def variant_cases(dev):
             variant_case("chained_wavefront", "%s_c3_grid%d" % (kind, grid),
                          mats, it, ot, *full, dev, chain=3, bad=(4, 2),
                          grid=grid)
+        # chained in every walk layout
+        for layout in WALK_LAYOUTS:
+            variant_case("chained_wavefront", "%s_c5_walk" % kind, mats, it,
+                         ot, *full, dev, chain=5, bad=(4, 2), layout=layout)
         # ragged batches for the unchained kernels, with a bad token
         it, ot = toks(kind, mats, 8, Li, Lo, 8)
         rng = np.random.RandomState(3)
@@ -933,43 +1142,6 @@ SKIPPING = ("merged_wavefront", "chained_ragged_wavefront",
             "chained_wavefront", "generic_wavefront", "seqscale_wavefront")
 
 
-def live_terms(names, il, ol):
-    """The class terms these pairs' data needs: for each present class, the
-    cells whose neighbour of that class can be reached from (0, 0) through
-    the present classes (the others hold exact zeros), summed over the
-    pairs; and the reachable cells but (0, 0). The 64-state dense machine
-    has the diag class only, so a pair of 200 x 200 reaches 200 of its
-    40,400 cells."""
-    out = dict.fromkeys(names, 0.0)
-    cells = 0.0
-    seen = {}
-    for a, b in zip(np.asarray(il, np.int64), np.asarray(ol, np.int64)):
-        key = (int(a), int(b))
-        if key not in seen:
-            R = np.zeros((a + 1, b + 1), bool)
-            for i in range(a + 1):
-                row = np.zeros(b + 1, bool)
-                if i == 0:
-                    row[0] = True
-                else:
-                    if "left" in names:
-                        row |= R[i - 1]
-                    if "diag" in names:
-                        row[1:] |= R[i - 1, :-1]
-                if "up" in names:
-                    row = np.logical_or.accumulate(row)
-                R[i] = row
-            nb = {"up": R[:, :-1].sum(), "left": R[:-1, :].sum(),
-                  "diag": R[:-1, :-1].sum()}
-            seen[key] = ({k: float(nb[k]) for k in names},
-                         float(R.sum() - 1))
-        terms, n = seen[key]
-        for k in names:
-            out[k] += terms[k]
-        cells += n
-    return out, cells
-
-
 def variant_flops(kernel, ops, il, ol, all_cells=False):
     """2 x the multiply-adds of the variant's own recurrence on this run's
     real cells, at one token block per cell: a class counts at a cell whose
@@ -987,6 +1159,8 @@ def variant_flops(kernel, ops, il, ol, all_cells=False):
         return 2.0 * (sum(r * (Sa * Sa + Sa) * nb_cells[n]
                           for n, _, _, r in ops.classes) + Sa * Sa * cells)
     if kernel in SKIPPING and not all_cells:
+        from machineboss_tpu_torch.ops.kernels.wavefront_kernel import \
+            live_terms
         nb_cells, cells = live_terms(ops.names, il, ol)
     macs = Sa * Sa * sum(nb_cells[k] for k in ops.names)
     if kernel == "generic_wavefront":
@@ -1169,10 +1343,12 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
             counts()[kernel], ops, batch, kern, DESIGN_VARIANTS[kernel])
     if kernel == "chained_wavefront":
         # the strip schedule's block count: B / chain blocks walk the pairs
+        cfg = wk.walk_launch_config(ops, B, Li)
         tf32_extra["variants_ms"] = design_variants(
             wk.chained_wavefront, ops, batch, kern,
-            {"strip_block_count": {"grid": B // chain}}, {"n_chain": chain})
-        tf32_extra["grid"] = wk._default_grid(dev, B)
+            dict(walk_variants(cfg),
+                 strip_block_count={"grid": B // chain}), {"n_chain": chain})
+        tf32_extra.update({"grid": cfg["grid"], "launch": cfg})
     if kernel in SKIPPING:
         flops_all = variant_flops(kernel, ops, il, ol, all_cells=True)
         tf32_extra.update({"flops_all_cells": flops_all,
@@ -2267,6 +2443,10 @@ def main():
         [("".join(x[n, :lens[n]]), "".join(y[n, :lens[n]]))
          for n in range(B)], True, dev, card, smi))
     kernels.append(dense1d_path(dev, card, smi))
+
+    # -- the every-entry and every-cell cases: the kernels alone ----------
+    scan1d_every_entry(dev, card, smi)
+    merged_every_cell(x, y, lens, dev, card, smi)
 
     # -- the other 2D Forward variants, at full width ----------------------
     dense_key, p2d_key = ("dense_uniform", 8), ("prot2dna", 8)

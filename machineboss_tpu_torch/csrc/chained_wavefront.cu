@@ -39,36 +39,51 @@ using namespace wavefront;
 
 // four blocks a multiprocessor (at most 64 registers a thread): a batch of
 // up to 4 x 132 pairs runs in one wave
+template <int OPTS>
 __global__ void __launch_bounds__(THREADS, 4)
 chained_wavefront_kernel(Args a, int n_chain) {
-  __shared__ int s_bad;
+  __shared__ WalkShared s_walk;
   const int per_chain = a.B / n_chain;
   const int sigma = a.Lo + 2;
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    const float v = walk_pair<true>(a, b, &s_bad, sigma * (b / per_chain));
+    const float v = walk_pair<true, OPTS>(a, b, &s_walk,
+                                          sigma * (b / per_chain));
     if (threadIdx.x == 0) a.out[b] = v;
   }
+}
+
+template <int OPTS>
+int launch(const Args& a, int grid, int n_chain, cudaStream_t stream) {
+  const size_t smem = (OPTS & WALK_SMEM_SLOTS)
+                          ? walk_slot_bytes(a.Li + 1, a.SaP) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      chained_wavefront_kernel<OPTS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  chained_wavefront_kernel<OPTS><<<grid, THREADS, smem, stream>>>(a,
+                                                                  n_chain);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` with `grid` blocks and returns
 // cudaGetLastError(): nonzero means the launch was refused. B must be a
-// multiple of n_chain, Li and Lo at least 1.
+// multiple of n_chain, Li and Lo at least 1; `opts` is walk_pair's layout
+// (WALK_* bits, wavefront_common.cuh).
 extern "C" int chained_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* c0,
     const void* wvec, const void* mt, void* pbuf, void* mbuf, void* out,
     int B, int Li, int Lo, int Sa, int SaP, int To, int rescale_every,
-    int sink, int n_cls, const int* desc, int n_chain, int grid,
+    int sink, int n_cls, const int* desc, int n_chain, int grid, int opts,
     void* stream) {
   Args args;
   if (grid < 1 || n_chain < 1 || B % n_chain != 0 || Li < 1 || Lo < 1 ||
+      !walk_opts_ok(opts, SaP) ||
       !make_args(args, in_toks, out_toks, nullptr, nullptr, c0, wvec, mt,
                  pbuf, mbuf, out, B, Li, Lo, Sa, SaP, To, rescale_every, sink,
                  n_cls, desc))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  chained_wavefront_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      args, n_chain);
-  return (int)cudaGetLastError();
+  WALK_DISPATCH(opts, launch, args, grid, n_chain, (cudaStream_t)stream);
 }

@@ -940,40 +940,150 @@ def _slots(n_blocks, W, SaP, dev):
             torch.empty(max(n_blocks * 3 * W, 1), dtype=f32, device=dev)]
 
 
+# walk_pair's layout bits (csrc/wavefront_common.cuh)
+_WALK_NO_RANGE, _WALK_RESCALE_PASS, _WALK_SMEM_SLOTS = 1, 2, 4
+_WALK_STATIC_SMEM = 1024   # the walk's own shared state, with room to spare
+
+
+def walk_slot_bytes(W, SaP):
+    """Shared bytes of walk_pair's three diagonal slots of W cells."""
+    return 3 * W * (SaP + 1) * 4
+
+
+def walk_launch_plan(SaP, Li, B, sms=132, live_range=True,
+                     rescale_pass=None, slots=None):
+    """The merged family's walk (walk_pair) for states padded to SaP,
+    pairs padded to Li inputs and a batch of B, on `sms`
+    multiprocessors. A pure function of the shape:
+
+    - live_range: only the cells a live neighbour reaches get lanes (the
+      design; False walks every lattice cell, a variant for timing);
+    - rescale_pass: False keeps the rescale inside the product phase,
+      which needs a cell's SaP / 4 lanes in one warp; wider state vectors
+      take the separate pass;
+    - slots: "global" (a scratch in L2, four blocks a multiprocessor;
+      the default) or "shared" (the block's shared memory, as many
+      blocks as fit: a variant, slower per pair on the card because the
+      class blocks then lose L1);
+    - blocks_per_sm and grid: one block a pair up to the blocks that fit.
+
+    `opts` is the layout as the kernels take it. Raises ValueError for a
+    layout the kernels cannot take."""
+    wide = SaP // _TD > 32
+    if rescale_pass is None:
+        rescale_pass = wide
+    if wide and not rescale_pass:
+        raise ValueError("the rescale inside the product phase needs "
+                         "SaP / 4 <= 32 (SaP %d)" % SaP)
+    smem = walk_slot_bytes(Li + 1, SaP)
+    per_sm = min(_BLOCKS_PER_SM, _SM_SMEM // (smem + _WALK_STATIC_SMEM))
+    slots = slots or "global"
+    if slots not in ("shared", "global"):
+        raise ValueError("slots must be 'shared' or 'global'")
+    if slots == "shared" and (per_sm < 1 or smem > SMEM_MAX):
+        raise ValueError("%d bytes of slots do not fit a block" % smem)
+    blocks = _BLOCKS_PER_SM if slots == "global" else per_sm
+    opts = ((0 if live_range else _WALK_NO_RANGE)
+            | (_WALK_RESCALE_PASS if rescale_pass else 0)
+            | (_WALK_SMEM_SLOTS if slots == "shared" else 0))
+    return {"live_range": bool(live_range), "rescale_pass": bool(rescale_pass),
+            "slots": slots, "slot_bytes": smem, "blocks_per_sm": blocks,
+            "grid": max(1, min(B, blocks * sms)), "opts": opts}
+
+
+def walk_launch_config(ops, B, Li, grid=None, **layout):
+    """walk_launch_plan for these operands on their card; `grid` (if
+    given) overrides the plan's."""
+    sms = torch.cuda.get_device_properties(ops.c0.device) \
+        .multi_processor_count
+    cfg = walk_launch_plan(ops.SaP, Li, B, sms=sms, **layout)
+    if grid is not None:
+        if int(grid) < 1:
+            raise ValueError("grid must be >= 1")
+        cfg["grid"] = int(grid)
+    return cfg
+
+
+def live_terms(names, il, ol):
+    """The class terms these pairs' data needs: for each present class, the
+    cells whose neighbour of that class can be reached from (0, 0) through
+    the present classes (the others hold exact zeros), summed over the
+    pairs; and the reachable cells but (0, 0). The 64-state dense machine
+    has the diag class only, so a pair of 200 x 200 reaches 200 of its
+    40,400 cells."""
+    out = dict.fromkeys(names, 0.0)
+    cells = 0.0
+    seen = {}
+    for a, b in zip(np.asarray(il, np.int64), np.asarray(ol, np.int64)):
+        key = (int(a), int(b))
+        if key not in seen:
+            R = np.zeros((a + 1, b + 1), bool)
+            for i in range(a + 1):
+                row = np.zeros(b + 1, bool)
+                if i == 0:
+                    row[0] = True
+                else:
+                    if "left" in names:
+                        row |= R[i - 1]
+                    if "diag" in names:
+                        row[1:] |= R[i - 1, :-1]
+                if "up" in names:
+                    row = np.logical_or.accumulate(row)
+                R[i] = row
+            nb = {"up": R[:, :-1].sum(), "left": R[:-1, :].sum(),
+                  "diag": R[:-1, :-1].sum()}
+            seen[key] = ({k: float(nb[k]) for k in names},
+                         float(R.sum() - 1))
+        terms, n = seen[key]
+        for k in names:
+            out[k] += terms[k]
+        cells += n
+    return out, cells
+
+
+def _walk_slots(cfg, W, SaP, dev):
+    """The global slots of a walk (one float each for shared slots)."""
+    return _slots(cfg["grid"] if cfg["slots"] == "global" else 0, W, SaP,
+                  dev)
+
+
 def _launch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
-            rescale_every, grid, queue):
+            rescale_every, grid, queue, layout):
     """The merged and chained_ragged launch. `queue` is None (merged) or
-    (order, counter) device tensors."""
+    (order, counter) device tensors; `layout` walk_launch_plan's
+    keywords."""
     B, Li, Lo = _check_batch(kernel, ops, in_toks, out_toks, in_lens,
                              out_lens, rescale_every, ops.mt)
     dev = ops.c0.device
-    grid = _grid(dev, B, grid)
+    cfg = walk_launch_config(ops, B, Li, grid, **layout)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    pbuf, mbuf = _slots(grid, Li + 1, ops.SaP, dev)
+    pbuf, mbuf = _walk_slots(cfg, Li + 1, ops.SaP, dev)
     _call(kernel, kernel,
           [in_toks, out_toks, in_lens, out_lens, ops.c0_pad, ops.w_pad,
            ops.mt, pbuf, mbuf, out] + list(queue or ()),
           [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
-           len(ops.names)], ops.desc, [grid], dev)
+           len(ops.names)], ops.desc, [cfg["grid"], cfg["opts"]], dev)
     return out
 
 
 def merged_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                     rescale_every=4, grid=None):
+                     rescale_every=4, grid=None, **layout):
     """Merged wavefront Forward: (B,) float32 log-likelihoods.
 
     A CUDA tensor launches csrc/merged_wavefront.cu and counts one launch
     in `merged_wavefront.launches`; a CPU tensor takes
     merged_forward_plain. Token and length tensors are int32 and
     contiguous, on the device of `ops`. `grid` is the number of blocks
-    (default: one per pair, at most 4 per multiprocessor); block g walks
-    pairs g, g + grid, ... A pair whose length exceeds the padded shape or
-    whose token lies outside its alphabet comes back NaN."""
+    (default: one per pair, up to the blocks that fit, walk_launch_plan);
+    block g walks pairs g, g + grid, ... `layout` (live_range,
+    rescale_pass, slots) overrides walk_launch_plan's choice, for timing.
+    A pair whose length exceeds the padded shape or whose token lies
+    outside its alphabet comes back NaN."""
     if in_toks.device.type == "cpu":
         return merged_forward_plain(ops, in_toks, out_toks, in_lens,
                                     out_lens, rescale_every)
     out = _launch("merged_wavefront", ops, in_toks, out_toks, in_lens,
-                  out_lens, rescale_every, grid, None)
+                  out_lens, rescale_every, grid, None, layout)
     merged_wavefront.launches += 1
     return out
 
@@ -982,7 +1092,7 @@ merged_wavefront.launches = 0
 
 
 def chained_ragged_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                             rescale_every=4, grid=None):
+                             rescale_every=4, grid=None, **layout):
     """Ragged-schedule wavefront Forward: (B,) float32 log-likelihoods in
     the batch's own order.
 
@@ -991,7 +1101,8 @@ def chained_ragged_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     counter which this wrapper allocates and zeroes) and counts one launch
     in `chained_ragged_wavefront.launches`; a CPU tensor takes
     chained_ragged_forward_plain. grid=1 sends every pair through one
-    block, one after the other. Other arguments as merged_wavefront."""
+    block, one after the other. Other arguments (and `layout`) as
+    merged_wavefront."""
     if in_toks.device.type == "cpu":
         return chained_ragged_forward_plain(ops, in_toks, out_toks, in_lens,
                                             out_lens, rescale_every)
@@ -1001,7 +1112,8 @@ def chained_ragged_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     order = sorted_order(out_lens).contiguous()
     counter = torch.zeros(1, dtype=torch.int32, device=out_lens.device)
     out = _launch("chained_ragged_wavefront", ops, in_toks, out_toks,
-                  in_lens, out_lens, rescale_every, grid, (order, counter))
+                  in_lens, out_lens, rescale_every, grid, (order, counter),
+                  layout)
     chained_ragged_wavefront.launches += 1
     return out
 
@@ -1010,7 +1122,7 @@ chained_ragged_wavefront.launches = 0
 
 
 def chained_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
-                      n_chain=4, rescale_every=4, grid=None):
+                      n_chain=4, rescale_every=4, grid=None, **layout):
     """Chained wavefront Forward over a uniform-length batch: (B,) float32
     log-likelihoods, every pair read out at (Li, Lo) (the lengths are
     ignored; B must be a multiple of n_chain, Li and Lo at least 1).
@@ -1033,13 +1145,14 @@ def chained_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
                              None, None, rescale_every, ops.mt)
     check_chain(B, Li, Lo, n_chain)
     dev = ops.c0.device
-    grid = _grid(dev, B, grid)
+    cfg = walk_launch_config(ops, B, Li, grid, **layout)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    pbuf, mbuf = _slots(grid, Li + 1, ops.SaP, dev)
+    pbuf, mbuf = _walk_slots(cfg, Li + 1, ops.SaP, dev)
     _call("chained_wavefront", "chained_wavefront",
           [in_toks, out_toks, ops.c0_pad, ops.w_pad, ops.mt, pbuf, mbuf, out],
           [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every, int(ops.sink),
-           len(ops.names)], ops.desc, [n_chain, grid], dev)
+           len(ops.names)], ops.desc, [n_chain, cfg["grid"], cfg["opts"]],
+          dev)
     chained_wavefront.launches += 1
     return out
 

@@ -350,3 +350,153 @@ def test_chained_ragged_kernel_matches_plain_on_card(name, grid):
     assert wk.chained_ragged_wavefront.launches == before + 1
     _assert_close(kern, _port(name, "chained_ragged"), CARD_BOUND)
     _assert_close(kern, _f64(name), _bound(name))
+
+
+# ------------------------------------------------ walk_pair's live cells
+
+# walk_pair's layouts besides the plan's (every lattice cell, the separate
+# rescale pass, each place of the diagonal slots)
+WALK_LAYOUTS = [{"live_range": False}, {"rescale_pass": True},
+                {"slots": "shared"}, {"slots": "global"},
+                {"live_range": False, "rescale_pass": True,
+                 "slots": "global"}]
+LIVE_LENGTHS = [(7, 7), (7, 4), (4, 7), (0, 5), (5, 0), (1, 1), (0, 0),
+                (20, 20), (13, 9)]
+
+
+def walk_live_ranges(names, il, ol):
+    """Host mirror of walk_pair's live-range rule for one pair of lengths
+    (il, ol) on a machine with the classes `names`. Per diagonal d = 0 ..
+    il + ol: the candidate cells [lo, hi] (the union of what the present
+    classes reach from the live ranges of d-1 and d-2, inside the lattice;
+    lo > hi when none), the live cells among them (a present class reads a
+    live neighbour; (0, 0) is live), and the class terms they take (a
+    class counted where its neighbour is live). Returns a list of (lo, hi,
+    live cells as a sorted list of i, {class: terms})."""
+    none = (1 << 29, -(1 << 29))
+    ranges, live = [(0, 0)], [{0}]
+    out = [(0, 0, [0], dict.fromkeys(names, 0))]
+    for d in range(1, il + ol + 1):
+        r1 = ranges[d - 1]
+        r2 = ranges[d - 2] if d >= 2 else none
+        lo, hi = none
+        if "up" in names:
+            lo, hi = min(lo, r1[0]), max(hi, r1[1])
+        if "left" in names:
+            lo, hi = min(lo, r1[0] + 1), max(hi, r1[1] + 1)
+        if "diag" in names:
+            lo, hi = min(lo, r2[0] + 1), max(hi, r2[1] + 1)
+        lo, hi = max(lo, d - ol, 0), min(hi, d, il)
+        l1 = live[d - 1]
+        l2 = live[d - 2] if d >= 2 else set()
+        cells, terms = [], dict.fromkeys(names, 0)
+        for i in range(lo, hi + 1):
+            o = d - i
+            nb = {"up": o >= 1 and i in l1, "left": i >= 1 and i - 1 in l1,
+                  "diag": i >= 1 and o >= 1 and i - 1 in l2}
+            hit = [k for k in names if nb[k]]
+            for k in hit:
+                terms[k] += 1
+            if hit:
+                cells.append(i)
+        live.append(set(cells))
+        ranges.append((min(cells), max(cells)) if cells else none)
+        out.append((lo, hi, cells, terms))
+    return out
+
+
+@pytest.mark.parametrize("name", ["indel", "allclass", "dense8"])
+def test_walk_live_ranges_match_live_terms(name):
+    """The host mirror of walk_pair's rule (candidates from the live
+    ranges of the last two diagonals) takes exactly the class terms that
+    live_terms counts by reachability, and every reachable cell lies among
+    its diagonal's candidates: the indel machine (up and left), the
+    all-class one, and the diag-only dense one, whose diagonals hold one
+    candidate at most."""
+    mats = _case(name)[0]
+    names = wk.merged_operands(wk.prepare_merged(*mats),
+                               torch.device("cpu")).names
+    for il, ol in LIVE_LENGTHS:
+        walk = walk_live_ranges(names, il, ol)
+        terms, cells = wk.live_terms(names, [il], [ol])
+        assert {k: sum(t[k] for *_, t in walk) for k in names} == terms
+        assert sum(len(c) for _, _, c, _ in walk) - 1 == cells
+        for d, (lo, hi, live, _) in enumerate(walk):
+            assert all(lo <= i <= hi for i in live)
+            assert all(0 <= d - i <= ol and i <= il for i in live)
+        if names == ["diag"]:
+            assert all(hi - lo <= 0 for lo, hi, _, _ in walk)
+            assert sum(max(0, hi - lo + 1) for lo, hi, _, _ in walk) == \
+                (min(il, ol) + 1 if il == ol else
+                 sum(1 for lo, hi, _, _ in walk if lo <= hi))
+
+
+def test_walk_launch_plan_by_shape():
+    # the dense 64-state machine at 200 x 200: the rescale inside the
+    # products, four blocks a multiprocessor, slots in L2; in shared memory
+    # only when asked
+    cfg = wk.walk_launch_plan(64, 200, 512, sms=132)
+    assert (cfg["rescale_pass"], cfg["slots"], cfg["blocks_per_sm"],
+            cfg["grid"]) == (False, "global", 4, 512)
+    assert cfg["opts"] == 0 and cfg["live_range"]
+    cfg = wk.walk_launch_plan(64, 200, 100, sms=132)
+    assert (cfg["slots"], cfg["grid"]) == ("global", 100)
+    cfg = wk.walk_launch_plan(64, 200, 100, sms=132, slots="shared")
+    assert (cfg["slots"], cfg["blocks_per_sm"], cfg["grid"]) == \
+        ("shared", 1, 100)
+    assert cfg["opts"] == 4
+    assert cfg["slot_bytes"] == 3 * 201 * 65 * 4
+    # a state vector wider than a warp's 32 float4s takes the pass
+    cfg = wk.walk_launch_plan(132, 64, 512, sms=132)
+    assert cfg["rescale_pass"] and cfg["opts"] & 2
+    with pytest.raises(ValueError):
+        wk.walk_launch_plan(132, 64, 512, rescale_pass=False)
+    # slots too large for a block stay in L2
+    cfg = wk.walk_launch_plan(64, 2000, 16, sms=132)
+    assert cfg["slots"] == "global"
+    with pytest.raises(ValueError):
+        wk.walk_launch_plan(64, 2000, 16, slots="shared")
+    assert wk.walk_launch_plan(64, 200, 512, live_range=False)["opts"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", WALK_LAYOUTS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_walk_layouts_on_card(name, layout):
+    """merged and chained_ragged in every walk layout: bit-equal to the
+    plan's layout, within the card bound of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mats, it, ot, il, ol = _case(name)
+    dev = torch.device("cuda")
+    ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    for fn, plain in ((wk.merged_wavefront, wk.merged_forward_plain),
+                      (wk.chained_ragged_wavefront,
+                       wk.chained_ragged_forward_plain)):
+        ref = fn(ops, *batch).cpu().numpy()
+        for grid in (None, 1):
+            got = fn(ops, *batch, grid=grid, **layout).cpu().numpy()
+            assert np.array_equal(got, ref)
+        _assert_close(ref, plain(ops, *batch).cpu().numpy(), CARD_BOUND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [{}] + WALK_LAYOUTS)
+def test_walk_flags_a_bad_token_as_nan_on_card(layout):
+    """A token outside its alphabet, on either side, makes its pair NaN and
+    no other; a pair whose bad token only a dead cell would read is NaN
+    too, as every cell of the lattice reads its tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mats, it, ot, il, ol = _case("allclass")
+    dev = torch.device("cuda")
+    ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+    it, ot = it.copy(), ot.copy()
+    it[1, 2] = 2                   # outside the 2-letter alphabet
+    ot[3, il[3] - 1] = -1
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    for fn in (wk.merged_wavefront, wk.chained_ragged_wavefront):
+        res = fn(ops, *batch, **layout).cpu().numpy()
+        assert np.isnan(res[[1, 3]]).all()
+        assert not np.isnan(res[[0, 2, 4, 5]]).any()

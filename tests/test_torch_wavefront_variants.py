@@ -705,6 +705,34 @@ def test_chained_kernel_per_pair_walk_on_card(chain):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", [
+    {"live_range": False}, {"rescale_pass": True}, {"slots": "shared"},
+    {"slots": "global"}])
+@pytest.mark.parametrize("chain", [1, 3, 5])
+def test_chained_kernel_walk_layouts_on_card(chain, layout):
+    """The chained kernel in every walk layout (all cells, the separate
+    rescale pass, shared or global slots) on chains 1, 3 and 5 of the
+    dense and all-class machines: bit-equal to the plan's layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    for which in ("dense6_7", "allclass"):
+        mats = _lowered(which)[1]
+        n_sym = mats[1].shape[0]
+        rng = np.random.RandomState(chain)
+        it = rng.randint(0, n_sym, (15, 6)).astype(np.int32)
+        ot = rng.randint(0, mats[2].shape[0], (15, 7)).astype(np.int32)
+        ops = wk.merged_operands(wk.prepare_merged(*mats), dev)
+        batch = [torch.from_numpy(x).to(dev) for x in (it, ot)]
+        ref = wk.chained_wavefront(ops, *batch, n_chain=chain).cpu().numpy()
+        got = wk.chained_wavefront(ops, *batch, n_chain=chain,
+                                   **layout).cpu().numpy()
+        assert np.array_equal(got, ref)
+        _assert_close(ref, wk.chained_forward_plain(
+            ops, *batch, n_chain=chain).cpu().numpy(), CARD_BOUND)
+
+
+@pytest.mark.cuda
 def test_kernels_flag_a_bad_token_as_nan_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
