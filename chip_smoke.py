@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from csrc/ (one nvcc process each, all
-at once), holds each against its plain PyTorch version and the float64
-oracles at small sizes, then drives thirteen paths at full width, each
-gated against a float64 oracle on 8 pairs or reads. Four go through
+Builds every CUDA kernel of the port from csrc/ and the two phase-profile
+libraries (one nvcc process each, all at once), holds each against its
+plain PyTorch version and the float64 oracles at small sizes, then drives
+thirteen paths at full width, each gated against a float64 oracle on 8
+pairs or reads. Four go through
 CompiledMachine.log_forward_batch:
 
   prot2dna       B=512, protein 64 against its 192-base codon DNA
@@ -32,7 +33,12 @@ on dense_uniform's pairs and chained_ragged on dense_ragged's lengths).
 
 Three go through algo.viterbi_device.device_viterbi_matrices (the max-plus
 fill, the lattice walk on the card, the host re-trace), and must give the
-host engine's alignments:
+host engine's alignments; each also prints a *_walk phase: the walk's
+launch plan, its variants timed in turns (a block barrier a step, tokens
+read from global memory, the cells prefetched into a shared ring, the
+left, up and silent edge rows in shared memory), each with the same
+records bit for bit, and the SM cycles a step in each phase from the
+walk's phase-profile library:
 
   viterbi_dense   random 64-state ACGT transducer, B=64 pairs of 128x128
                   (viterbi_wavefront and lattice_walk kernels);
@@ -49,7 +55,13 @@ forward_stream):
 
   plan7           a seeded 86-node amino-acid profile of fn3's shape fused
                   with the 2-state noise transducer, multihit, B=1024 reads
-                  of 90, eight batches streamed (fused_plan7 kernel).
+                  of 90, eight batches streamed (fused_plan7 kernel; its
+                  plan7_profile phase: the node-doubling layout and 1, 2,
+                  4 and 8 reads a block timed, and the SM cycles a row in
+                  each phase of both layouts from the phase-profile
+                  library; its plan7_layouts phase: both layouts timed on
+                  the same batch through profiles of 128 and 300 nodes,
+                  either side of launch_plan's default crossover).
 
 Five go through the kernel factory make_wavefront_forward, one call each:
 
@@ -1468,6 +1480,14 @@ def viterbi_cases(dev):
             wp = tb.lattice_walk_plain(walker, kern, *wargs)
             torch.cuda.synchronize()
             walk_equal(name, wk_, wp)
+            # the other layouts, and blocks of 1, 4 and 8 pairs (the last
+            # block part full)
+            for v in WALK_VARIANTS:
+                walk_equal("%s walk %s" % (name, v), tb.lattice_walk(
+                    walker, kern, *wargs, variant=v), wp)
+            for P in (1, 4, 8):
+                walk_equal("%s walk, %d pairs a block" % (name, P),
+                           tb.lattice_walk(walker, kern, *wargs, pairs=P), wp)
         emit({"phase": "kernel_vs_plain",
               "kernel": "viterbi_wavefront+lattice_walk" if walk
               else "viterbi_wavefront", "case": name,
@@ -1911,6 +1931,7 @@ def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
         lambda: tb.lattice_walk_plain(walker, lat, *wargs))
     walk_err = walk_equal(name, walked, walked_plain)
     walk_ms = cuda_ms(lambda: tb.lattice_walk(walker, lat, *wargs), 5)
+    walk_profile_phase(name, walker, lat, wargs, walked, walk_ms, card, smi)
 
     lattice_bytes = tensor_bytes([kern])
     op_bytes = tensor_bytes([t for t in (ops.up, ops.left, ops.diag, ops.c0)
@@ -1971,6 +1992,51 @@ def align_path(name, machine, pairs, envelopes, dev, card, smi, n_host=2,
          "ms": walk_ms,
          "plain_ms": walk_plain_ms, "bound_ms": walk_bound,
          "bound_by": walk_by, "library_ms": None}]
+
+
+# the walk's variants, each undoing one choice of the warp layout
+WALK_VARIANTS = ("block_barrier", "tokens_global", "prefetch",
+                 "edges_shared")
+
+
+def walk_profile_phase(name, walker, lat, wargs, walked, walk_ms, card, smi):
+    """The walk at a path's shapes: its launch plan, the variants timed in
+    turns (default, variant, variant, default), each giving the same
+    records bit for bit, and the clock64 phase profile (SM cycles a step)
+    of the warp layout and of each variant."""
+    from machineboss_tpu_torch.algo import traceback_device as tb
+    B = lat.shape[1]
+    plan = tb.walk_launch_plan(
+        walker.S, walker.Ti, walker.To, lat.shape[0], max(walker.Li_max, 1),
+        max(walker.Lo_max, 1), B,
+        torch.cuda.get_device_properties(lat.device).multi_processor_count)
+    variants = {}
+    for v in WALK_VARIANTS:
+        try:
+            got = tb.lattice_walk(walker, lat, *wargs, variant=v)
+        except ValueError as err:          # edges_shared: does not fit
+            variants[v] = str(err)
+            continue
+        walk_equal("%s walk %s" % (name, v), got, walked)
+        runs = {"default": [], v: []}
+        for which in ("default", v, v, "default"):
+            kw = {} if which == "default" else {"variant": which}
+            runs[which].append(cuda_ms(
+                lambda: tb.lattice_walk(walker, lat, *wargs, **kw), 5))
+        variants[v] = runs
+    profile = {}
+    for v in ("warp",) + WALK_VARIANTS:
+        if isinstance(variants.get(v), str):
+            continue
+        got, prof = tb.lattice_walk_profile(walker, lat, *wargs, variant=v)
+        walk_equal("%s walk profile %s" % (name, v), got, walked)
+        profile[v] = prof
+    steps = profile["warp"]["max_steps"]
+    emit({"phase": name + "_walk", "B": B, "S": walker.S, "plan": plan,
+          "kernel_ms": walk_ms, "max_steps_a_pair": steps,
+          "ns_a_step": walk_ms * 1e6 / max(steps, 1),
+          "variants_ms": variants, "profile_cycles_a_step": profile,
+          "card": card, "nvidia_smi": smi})
 
 
 def alignment_paths(dev, card, smi):
@@ -2068,8 +2134,9 @@ def plan7_cases(dev):
         toks[2, 0], lens[2] = 0, max(lens[2], 2)   # token 0: no mass left
         t = torch.from_numpy(toks).to(dev)
         n = torch.from_numpy(lens).to(dev)
-        kern = fk.fused_plan7_forward_kernel(
-            ops, t, n, reads_per_block=B if one_block else None)
+        plan = fk.launch_plan(f.K, f.St, f.n_out - 1, B, n_sm)
+        rpb = min(B, 8) if one_block else None
+        kern = fk.fused_plan7_forward_kernel(ops, t, n, reads_per_block=rpb)
         plain = fk.fused_plan7_forward_plain(ops, t, n)
         torch.cuda.synchronize()
         check(torch.equal(kern[2], plain[2]) and float(kern[2, 2]) == 1.0,
@@ -2079,6 +2146,19 @@ def plan7_cases(dev):
         check(kll[2] == fk.NEG_INF, "%s: the dead read scores %r"
               % (name, kll[2]))
         err_plain = score_err(kll, pll)
+        # every reads a block the warp layout allows gives the same result;
+        # the node-doubling layout holds to the plain version too
+        for r in range(1, 9):
+            check(torch.equal(fk.fused_plan7_forward_kernel(
+                ops, t, n, reads_per_block=r, layout="warp"), kern),
+                "%s: %d reads a block score otherwise" % (name, r))
+        nodes = fk.fused_plan7_forward_kernel(ops, t, n,
+                                              layout="node_doubling")
+        check(torch.equal(nodes[2], plain[2]), "%s: node doubling's dead "
+              "flags differ" % name)
+        err_nodes = score_err(fk.decode(nodes.cpu().numpy()), pll)
+        check(err_nodes <= KERNEL_VS_PLAIN_TOL,
+              "%s: node doubling vs plain %.3g nats" % (name, err_nodes))
         # the flat solver reads token 0 as the empty output: leave it out
         live = np.arange(B) != 2
         flat = f.forward_batch_tokens(toks[live], lens[live], impl="flat")
@@ -2097,10 +2177,9 @@ def plan7_cases(dev):
         emit({"phase": "kernel_vs_plain", "kernel": "fused_plan7",
               "case": name, "multihit": multihit, "B": B, "L": L, "K": f.K,
               "St": f.St, "n_sym": f.n_out - 1, "one_block": one_block,
-              "tables_in_smem": fk.launch_plan(
-                  f.K, f.St, f.n_out - 1, B, n_sm,
-                  B if one_block else None)[2],
-              "max_abs_vs_plain": err_plain, "max_abs_vs_flat": err_flat,
+              "plan": plan, "max_abs_vs_plain": err_plain,
+              "node_doubling_vs_plain": err_nodes,
+              "max_abs_vs_flat": err_flat,
               "max_abs_vs_f64": err_f64, "n_dead": int((kll <= NEG).sum())})
         check(err_plain <= KERNEL_VS_PLAIN_TOL,
               "%s: kernel vs plain %.3g nats" % (name, err_plain))
@@ -2137,7 +2216,8 @@ def plan7_path(dev, card, smi):
     from machineboss_tpu_torch.ops.fwdback import pad_bucket
     from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
     from machineboss_tpu_torch.testmachines import (
-        AMINO, fn3_shaped_hmm_text, noise_transducer_json, plan7_reads)
+        AMINO, fn3_shaped_hmm_text, noise_transducer_json, plan7_reads,
+        random_plan7_hmm_text)
     B, Lr, n_stream = 1024, 90, 8
     text, noise = fn3_shaped_hmm_text(seed=0), noise_transducer_json(AMINO)
     f, _, _ = plan7_model(text, noise, dev, multihit=True, solver="prefix")
@@ -2222,9 +2302,68 @@ def plan7_path(dev, card, smi):
           "plan7: kernel vs plain %.3g nats" % err)
     kernel_ms = cuda_ms(lambda: fk.fused_plan7_forward_kernel(ops, t, n), 10)
     # the same batch with fewer reads a block (more, smaller blocks): says
-    # whether a row's time is latency between barriers or instruction slots
-    by_reads = {str(r): cuda_ms(lambda: fk.fused_plan7_forward_kernel(
-        ops, t, n, reads_per_block=r), 5) for r in (1, 2, 4, 8)}
+    # whether a row's time is latency or instruction slots; and the
+    # node-doubling layout (a thread a node, named barriers) in turns
+    # (warp, node_doubling, node_doubling, warp), each within the plain
+    # version's bound with its dead flags
+    by_reads = {}
+    for r in (1, 2, 4, 8):
+        other = fk.fused_plan7_forward_kernel(ops, t, n, reads_per_block=r)
+        check(torch.equal(other, kern), "plan7: %d reads a block score "
+              "otherwise" % r)
+        by_reads[str(r)] = cuda_ms(lambda: fk.fused_plan7_forward_kernel(
+            ops, t, n, reads_per_block=r), 5)
+    nodes = fk.fused_plan7_forward_kernel(ops, t, n, layout="node_doubling")
+    check(torch.equal(nodes[2], plain[2]), "plan7: node doubling's dead "
+          "flags differ")
+    err_nodes = score_err(fk.decode(nodes.cpu().numpy()),
+                          fk.decode(plain.cpu().numpy()))
+    check(err_nodes <= KERNEL_VS_PLAIN_TOL,
+          "plan7: node doubling vs plain %.3g nats" % err_nodes)
+    layouts = {"warp": [], "node_doubling": []}
+    for lay in ("warp", "node_doubling", "node_doubling", "warp"):
+        layouts[lay].append(cuda_ms(lambda: fk.fused_plan7_forward_kernel(
+            ops, t, n, layout=lay), 5))
+    nodes_by_reads = {str(r): cuda_ms(lambda: fk.fused_plan7_forward_kernel(
+        ops, t, n, reads_per_block=r, layout="node_doubling"), 5)
+        for r in (1, 2, 4, 8)}
+    profile = {}
+    for lay in ("warp", "node_doubling"):
+        got_p, profile[lay] = fk.fused_plan7_profile(ops, t, n, layout=lay)
+        check(torch.equal(got_p, kern if lay == "warp" else nodes),
+              "plan7: the %s profile build scores otherwise" % lay)
+    emit({"phase": "plan7_profile", "B": B, "K": f.K, "St": f.St,
+          "profile_cycles_a_row": profile, "layout_ms": layouts,
+          "node_doubling_by_reads_ms": nodes_by_reads,
+          "node_doubling_vs_plain_max_abs": err_nodes,
+          "card": card, "nvidia_smi": smi})
+
+    # both layouts on the same batch through profiles either side of
+    # launch_plan's default crossover (fused_plan7_kernel.WARP_DEFAULT_MAX_K,
+    # which scripts/plan7_layouts.py measures over K), in turns, each held
+    # to the plain version
+    crossover = {}
+    for K2 in (128, 300):
+        f2, _, _ = plan7_model(random_plan7_hmm_text(K2, AMINO, seed=3),
+                               noise, dev, multihit=True, solver="scan")
+        ops2 = fk.plan7_operands(fk.prepare_fused_plan7(f2), dev)
+        pll2 = fk.decode(fk.fused_plan7_forward_plain(ops2, t, n).cpu()
+                         .numpy())
+        ms2, err2 = {"warp": [], "node_doubling": []}, {}
+        for lay in ms2:
+            k2 = fk.decode(fk.fused_plan7_forward_kernel(
+                ops2, t, n, layout=lay).cpu().numpy())
+            err2[lay] = score_err(k2, pll2)
+            check(err2[lay] <= KERNEL_VS_PLAIN_TOL, "plan7 K=%d: %s vs "
+                  "plain %.3g nats" % (K2, lay, err2[lay]))
+        for lay in ("warp", "node_doubling", "node_doubling", "warp"):
+            ms2[lay].append(cuda_ms(lambda: fk.fused_plan7_forward_kernel(
+                ops2, t, n, layout=lay), 5))
+        crossover[str(K2)] = {"default": fk.default_layout(K2), "ms": ms2,
+                              "max_abs_vs_plain": err2}
+    emit({"phase": "plan7_layouts", "B": B, "St": f.St,
+          "warp_default_max_k": fk.WARP_DEFAULT_MAX_K, "by_K": crossover,
+          "card": card, "nvidia_smi": smi})
 
     # least time for this run's work. Multiply-adds per read and row (the
     # start row included): per node 12 St^2 (five cold blocks, two paired
@@ -2249,17 +2388,24 @@ def plan7_path(dev, card, smi):
     nbytes = tensor_bytes([t, n, ops.consts, ops.ksc, ops.kco, ops.alev,
                            ops.emm, ops.emi]) + 3 * B * 4
     bound_ms, bound_by = bound(flops, nbytes)
-    R, TPR, tables, smem = fk.launch_plan(
+    plan = fk.launch_plan(
         K, St, ops.n_sym, B,
         torch.cuda.get_device_properties(dev).multi_processor_count)
+    # table bytes a read loads a row in the warp layout, per lane node:
+    # pass A the scalars, em0, ei0, ci and A_k, pass B the scalars, A_k and
+    # ci, pass C (multihit) the five basis maps, and the token's panels;
+    # per lane one span product a scan level
+    N2 = St * St
+    per_node = 16 + 24 * N2 + 5 * N2 * int(f.multihit)
+    moved = 4 * fk.LANES * (fk.warp_chunk(K) * per_node
+                            + fk.lane_levels(K) * 9 * N2)
     emit({"phase": "plan7", "B": B, "Lr": Lr, "padded": Lo, "K": K, "St": St,
           "n_sym": ops.n_sym, "multihit": True, "solver": f._solver,
           "launches": got["fused_plan7"],
           "stream_batches": n_stream,
           "stream_launches": got_stream["fused_plan7"],
-          "reads_per_block": R, "threads_per_read": TPR,
-          "tables_in_smem": tables,
-          "smem_bytes": smem,
+          "launch_plan": plan,
+          "table_bytes_a_read_a_row": moved,
           "kernel_vs_plain_max_abs": err, "kernel_vs_flat_max_abs": err_flat,
           "prefix_vs_scan_max_abs": err_scan, "f64_gate_max_abs": gate,
           "f64_gate_reads": n_gate, "score_range": [float(lls.min()),
@@ -2314,7 +2460,8 @@ def main():
           "count": torch.cuda.device_count(),
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
-    build_s = _build.build_all()
+    # every path's library and the phase profiles', one nvcc each, at once
+    build_s = _build.build_all(list(_build.SOURCES) + list(_build.PROFILES))
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in _build.build_logs.items()}

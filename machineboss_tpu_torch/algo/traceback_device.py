@@ -22,15 +22,18 @@ Two versions of the walk, with one contract:
 - `lattice_walk_plain`: a torch loop over steps, all pairs of a batch at
   once, used on the CPU and as the card's comparison;
 - `lattice_walk`: the counted wrapper of the hand-written CUDA kernel
-  csrc/lattice_walk.cu (one block per pair, all pairs in one launch). A
-  CUDA tensor launches the kernel or raises; only a CPU tensor takes the
-  plain version. The JAX package has no Pallas kernel here: its walk is a
+  csrc/lattice_walk.cu (a warp a pair, several pairs a block, all pairs in
+  one launch; `walk_launch_plan` lays it out once per walker and batch
+  shape). A CUDA tensor launches the kernel or raises; only a CPU tensor
+  takes the plain version. `lattice_walk_profile` runs the same source
+  built with its clock64 phase profile (a separate library) and returns
+  the cycles each phase of a step took. The JAX package has no Pallas kernel here: its walk is a
   jitted `lax.while_loop`, one device invocation; the same loop in eager
   PyTorch is dozens of tiny launches per step.
 """
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -40,6 +43,22 @@ from ..ops.kernels.lowrank_kernel import _check
 from ..utils.device import resolve_device
 
 NEG_INF = -1e30
+
+# the kernel's layouts (csrc/lattice_walk.cu's Variant): "warp" is the
+# design; each other one undoes one of its choices
+WALK_VARIANTS = {"warp": 0, "block_barrier": 1, "tokens_global": 2,
+                 "prefetch": 3, "edges_shared": 4}
+# the profile library's cycle counters a pair, after the step count: in
+# the warp layout, "edge" issues the loads that wait on the last move (the
+# edge rows and the record's cells), "candidates" writes the record, forms
+# the candidates and takes the warp's max (waiting for those loads),
+# "argmax" the lowest index holding it, "barrier" the block barrier of that
+# variant, "move" the step's state; the prefetch variant's "wait" stores the
+# cells loaded a step ahead into the ring and "issue" loads the next ones
+PROFILE_PHASES = ("wait", "issue", "edge", "candidates", "argmax",
+                  "barrier", "move")
+_MAX_PAIRS = 8               # the kernel's warps (pairs) a block
+_SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may take
 
 
 def maxplus_edge_matrices(ev):
@@ -105,6 +124,8 @@ class LatticeWalker:
     al: torch.Tensor     # (Ti, S, S)
     au: torch.Tensor     # (To, S, S)
     sil: torch.Tensor    # (S, S)
+    rows: torch.Tensor   # (n_rows + 1, round4(S)): see edge_rows
+    plans: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self):
@@ -138,7 +159,22 @@ def make_lattice_walker(ev, Li_max, Lo_max, device=None):
         Lo_max=Lo_max, Ncap=Ncap,
         max_steps=Ncap * (1 + silent_chain_depth(ev)),
         ad=dst_major(ad), al=dst_major(al), au=dst_major(au),
-        sil=dst_major(sil))
+        sil=dst_major(sil),
+        rows=torch.from_numpy(edge_rows(ad, al, au, sil)).to(dev))
+
+
+def edge_rows(ad, al, au, sil):
+    """The kernel's edge table: every destination state's row of incoming
+    weights, in the order ad's rows (tx, ty, dst), al's (tx, dst), au's
+    (ty, dst), sil's dst, as (n_rows + 1, round4(S)) float32 padded with
+    NEG_INF (a row is 16-byte aligned; the last row, all NEG_INF, is what
+    the kernel reads for a cell outside the lattice)."""
+    S = sil.shape[0]
+    rows = np.concatenate([np.swapaxes(m, -1, -2).reshape(-1, S)
+                           for m in (ad, al, au, sil)])
+    padded = np.full((len(rows) + 1, _round4(S)), NEG_INF, np.float32)
+    padded[:-1, :S] = rows
+    return padded
 
 
 def lattice_walk_plain(walker, lat, bases, in_toks, out_toks, in_lens,
@@ -213,24 +249,71 @@ def lattice_walk_plain(walker, lat, bases, in_toks, out_toks, in_lens,
     return n.to(torch.int32), ij, vals, ok
 
 
-def lattice_walk(walker, lat, bases, in_toks, out_toks, in_lens, out_lens):
-    """Walk B pairs' lattices on their device.
+def _round4(x):
+    return (x + 3) & ~3
 
-    lat (n_diags, B, W, S) float32; bases (n_diags,) int32, shared by the
-    pairs; in_toks (B, max(Li_max, 1)), out_toks (B, max(Lo_max, 1)) int32,
-    0-based and padded; in_lens, out_lens (B,) int32. All contiguous on the
-    walker's device. Returns tensors (n (B,) i32, ij (B, Ncap, 2) i32, vals
-    (B, Ncap, 4, S) f32, ok (B,) bool).
 
-    A CUDA tensor launches csrc/lattice_walk.cu, one block per pair in ONE
-    launch, and counts it in `lattice_walk.launches`; a CPU tensor takes
-    lattice_walk_plain."""
-    if lat.device.type == "cpu":
-        return lattice_walk_plain(walker, lat, bases, in_toks, out_toks,
-                                  in_lens, out_lens)
-    if lat.device.type != "cuda":
-        raise ValueError("lattice_walk runs on cuda or cpu tensors, not %s"
-                         % lat.device)
+def walk_smem_bytes(S, Ti, To, nd, Lip, Lop, pairs, staged, variant="warp"):
+    """Shared bytes of one block of the walk kernel, as
+    csrc/lattice_walk.cu lays them out: when `staged`, the nd bases once a
+    block and per pair the pair's tokens (not the "tokens_global"
+    variant's); per pair a ring of 9 lattice cells for the "prefetch"
+    variant; the left, up and silent edge rows once a block for the
+    "edges_shared" variant."""
+    Sp = _round4(S)
+    edges = (Ti + To + 1) * S * Sp if variant == "edges_shared" else 0
+    block = _round4(nd) if staged else 0
+    tok = staged and variant != "tokens_global"
+    per_pair = ((9 * Sp if variant == "prefetch" else 0)
+                + (_round4(Lip) + _round4(Lop) if tok else 0))
+    return 4 * (edges + block + pairs * per_pair)
+
+
+def walk_launch_plan(S, Ti, To, nd, Lip, Lop, B, n_sm, variant="warp",
+                     pairs=None):
+    """The walk kernel's layout for B pairs on a card of n_sm
+    multiprocessors: {"variant", "pairs" (a block), "blocks", "staged",
+    "smem" (bytes)}. A warp walks a pair; a block takes enough pairs that
+    the batch is one wave of blocks (at most 8). The diagonal bases and
+    the pairs' tokens are staged in shared memory, with fewer pairs a
+    block if that is what fits; where not even one pair's fit (a banded
+    pair of two 30 kb sequences has 60,001 diagonals), the default layout
+    reads them from global memory, so that every length has a layout, and
+    a variant raises ValueError."""
+    if variant not in WALK_VARIANTS:
+        raise ValueError("walk variant must be one of %s, not %r"
+                         % (sorted(WALK_VARIANTS), variant))
+    if pairs is not None and not 1 <= pairs <= _MAX_PAIRS:
+        raise ValueError("pairs a block must lie in [1, %d]" % _MAX_PAIRS)
+    want = pairs or min(_MAX_PAIRS, max(-(-B // max(n_sm, 1)), 1))
+    for P in range(want, 0 if pairs is None else want - 1, -1):
+        nbytes = walk_smem_bytes(S, Ti, To, nd, Lip, Lop, P, True, variant)
+        if nbytes <= _SMEM_LIMIT:
+            return {"variant": variant, "pairs": P, "blocks": -(-B // P),
+                    "staged": True, "smem": nbytes}
+    if variant == "warp":
+        return {"variant": variant, "pairs": want, "blocks": -(-B // want),
+                "staged": False, "smem": 0}
+    raise ValueError("lattice walk: S=%d, variant %s needs %d bytes of "
+                     "shared memory a block, over the %d a block may take"
+                     % (S, variant, nbytes, _SMEM_LIMIT))
+
+
+_launchers = {}     # library name -> its lattice_walk_launch, argtypes set
+
+
+def _launcher(lib):
+    if lib not in _launchers:
+        fn = load(lib).lattice_walk_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 12 + [I] * 14 + [P]
+        fn.restype = I
+        _launchers[lib] = fn
+    return _launchers[lib]
+
+
+def _walk_on_card(walker, lat, bases, in_toks, out_toks, in_lens, out_lens,
+                  variant, pairs, profile):
     dev = walker.device
     nd, B, W, S = lat.shape
     if S != walker.S:
@@ -243,28 +326,78 @@ def lattice_walk(walker, lat, bases, in_toks, out_toks, in_lens, out_lens):
     _check(out_toks, "out_toks", torch.int32, (B, Lop), dev)
     _check(in_lens, "in_lens", torch.int32, (B,), dev)
     _check(out_lens, "out_lens", torch.int32, (B,), dev)
+    key = (B, nd, variant, pairs)
+    plan = walker.plans.get(key)
+    if plan is None:
+        if "n_sm" not in walker.plans:
+            walker.plans["n_sm"] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        plan = walker.plans[key] = walk_launch_plan(
+            S, walker.Ti, walker.To, nd, Lip, Lop, B, walker.plans["n_sm"],
+            variant, pairs)
     Ncap = walker.Ncap
     n = torch.zeros(B, dtype=torch.int32, device=dev)
     ij = torch.full((B, Ncap, 2), -1, dtype=torch.int32, device=dev)
     vals = torch.full((B, Ncap, 4, S), NEG_INF, dtype=torch.float32,
                       device=dev)
     ok = torch.zeros(B, dtype=torch.int32, device=dev)
-    fn = load("lattice_walk").lattice_walk_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 14 + [I] * 10 + [P]
-    fn.restype = I
-    ptrs = [lat, bases, in_toks, out_toks, in_lens, out_lens, walker.ad,
-            walker.al, walker.au, walker.sil, n, ij, vals, ok]
-    rc = fn(*[t.data_ptr() for t in ptrs], B, W, nd, S, walker.Ti, walker.To,
-            Lip, Lop, Ncap, walker.max_steps,
+    prof = torch.zeros((B, 1 + len(PROFILE_PHASES)), dtype=torch.int64,
+                       device=dev) if profile else None
+    fn = _launcher("lattice_walk_profile" if profile else "lattice_walk")
+    ptrs = [lat, bases, in_toks, out_toks, in_lens, out_lens, walker.rows,
+            n, ij, vals, ok]
+    rc = fn(*[t.data_ptr() for t in ptrs],
+            prof.data_ptr() if profile else None, B, W, nd, S, walker.Ti,
+            walker.To, Lip, Lop, Ncap, walker.max_steps, plan["pairs"],
+            int(plan["staged"]), WALK_VARIANTS[variant], plan["smem"],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("lattice_walk launch failed: CUDA error %d" % rc)
+    return (n, ij, vals, ok.bool()), prof
+
+
+def lattice_walk(walker, lat, bases, in_toks, out_toks, in_lens, out_lens,
+                 variant="warp", pairs=None):
+    """Walk B pairs' lattices on their device.
+
+    lat (n_diags, B, W, S) float32; bases (n_diags,) int32, shared by the
+    pairs; in_toks (B, max(Li_max, 1)), out_toks (B, max(Lo_max, 1)) int32,
+    0-based and padded; in_lens, out_lens (B,) int32. All contiguous on the
+    walker's device. Returns tensors (n (B,) i32, ij (B, Ncap, 2) i32, vals
+    (B, Ncap, 4, S) f32, ok (B,) bool).
+
+    A CUDA tensor launches csrc/lattice_walk.cu once for all B pairs, laid
+    out by walk_launch_plan (`variant`, `pairs` a block: see there), and
+    counts it in `lattice_walk.launches`; a CPU tensor takes
+    lattice_walk_plain."""
+    if lat.device.type == "cpu":
+        return lattice_walk_plain(walker, lat, bases, in_toks, out_toks,
+                                  in_lens, out_lens)
+    if lat.device.type != "cuda":
+        raise ValueError("lattice_walk runs on cuda or cpu tensors, not %s"
+                         % lat.device)
+    out, _ = _walk_on_card(walker, lat, bases, in_toks, out_toks, in_lens,
+                           out_lens, variant, pairs, False)
     lattice_walk.launches += 1
-    return n, ij, vals, ok.bool()
+    return out
 
 
 lattice_walk.launches = 0
+
+
+def lattice_walk_profile(walker, lat, bases, in_toks, out_toks, in_lens,
+                         out_lens, variant="warp", pairs=None):
+    """lattice_walk on the card through the profile library (the same
+    source built with its clock64 counters; not counted as a launch).
+    Returns (the records, {"steps" over the pairs, "max_steps" of one
+    pair, phase: SM cycles a step})."""
+    out, prof = _walk_on_card(walker, lat, bases, in_toks, out_toks,
+                              in_lens, out_lens, variant, pairs, True)
+    tot = prof.sum(dim=0).cpu().tolist()
+    steps = max(tot[0], 1)
+    return out, dict({"steps": tot[0], "max_steps": int(prof[:, 0].max())},
+                     **{p: tot[1 + k] / steps
+                        for k, p in enumerate(PROFILE_PHASES)})
 
 
 def walk_tensors(walker, bases, in_toks, out_toks):

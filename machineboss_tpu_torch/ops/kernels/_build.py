@@ -2,11 +2,12 @@
 
 Each source in `csrc/` is compiled with nvcc for sm_90a into a shared
 library with a plain C interface, at first use, under the package's
-`build/` directory (listed in .gitignore), and loaded with ctypes. The
-library name carries a hash of its source and of every file under `csrc/`
-that the source includes, so an edited source or header is rebuilt and a
-stale library is never loaded. `build_all` starts one nvcc process
-per source, all at once, and waits for them together.
+`build/` directory (listed in .gitignore), and loaded with ctypes. A
+phase-profile library (PROFILES) is the same source built with
+PROFILE_FLAG. The library name carries a hash of its source and of every
+file under `csrc/` that the source includes, so an edited source or header
+is rebuilt and a stale library is never loaded. `build_all` starts one
+nvcc process per source, all at once, and waits for them together.
 """
 
 import ctypes
@@ -36,6 +37,12 @@ SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
            "lattice_walk": "lattice_walk.cu",
            "fused_plan7": "fused_plan7.cu"}
 
+# phase-profile library -> the kernel whose source it builds, with
+# PROFILE_FLAG: the kernel's clock64 counters, never in a path's library
+PROFILES = {"lattice_walk_profile": "lattice_walk",
+            "fused_plan7_profile": "fused_plan7"}
+PROFILE_FLAG = "-DPHASE_PROFILE"
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-I", CSRC]
@@ -60,7 +67,7 @@ def source_files(name):
     """The source of kernel `name` and every file under csrc/ that it
     includes with quotes, directly or through another header, in the order
     found."""
-    files = [os.path.join(CSRC, SOURCES[name])]
+    files = [os.path.join(CSRC, SOURCES[PROFILES.get(name, name)])]
     for path in files:
         with open(path, "rb") as f:
             text = f.read()
@@ -82,7 +89,8 @@ def _lib_path(name):
 
 
 def build_all(names=None):
-    """Compile every named kernel (default: all) that has no current
+    """Compile every named kernel (default: every path's; a name of
+    PROFILES builds that kernel's phase profile) that has no current
     library, one nvcc process per source, concurrently. Returns the wall
     seconds spent; raises RuntimeError with nvcc's output on failure."""
     names = list(SOURCES) if names is None else list(names)
@@ -94,7 +102,8 @@ def build_all(names=None):
         if os.path.exists(lib):
             continue
         tmp = "%s.%d.tmp" % (lib, os.getpid())
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src]
+        flags = NVCC_FLAGS + ([PROFILE_FLAG] if name in PROFILES else [])
+        cmd = [_nvcc()] + flags + ["-o", tmp, src]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -11,15 +11,18 @@ the multiprocessor for the read's whole walk:
     two of its maximum's binary exponent, and the exponents are summed in
     an integer: no log, exp or division anywhere in the loop;
   - the within-row affine solve carry_k = b_k + carry_{k-1} A_k, A_k =
-    exp(a_mat)_k, runs by log-depth doubling: at level l every node
-    k >= 2^l absorbs the node 2^l to its left, b_k += b_{k-2^l} P_l[k], with
-    the row-independent products P_l[k] = A_{k-2^l+1} ... A_k prepared on
-    the host (ceil(log2 K) levels, the scan solver's form in probability
-    space). The JAX kernel takes the closed form instead, one product with
+    exp(a_mat)_k, is log-depth. The plain version doubles over nodes: at
+    level l every node k >= 2^l absorbs the node 2^l to its left, b_k +=
+    b_{k-2^l} P_l[k], with the row-independent products P_l[k] =
+    A_{k-2^l+1} ... A_k prepared on the host (ceil(log2 K) levels, the
+    scan solver's form in probability space). The kernel's warp layout
+    gives each of a warp's 32 lanes a chunk of ceil(K/32) nodes, solves
+    each chunk serially and scans the chunk ends across the lanes with the
+    host's float64 span products (`prepare_fused_plan7`'s ntab, span,
+    pan). The JAX kernel takes the closed form instead, one product with
     the (3St K)^2 lower-block-triangular prefix matrix, which suits a
-    matrix unit and is K / (2 log2 K) times the arithmetic; the doubling
-    also serves profiles built with solver="scan", which carry no prefix
-    matrix;
+    matrix unit; both log-depth forms also serve profiles built with
+    solver="scan", which carry no prefix matrix;
   - a read's own token selects its coefficients directly (the JAX kernel
     accumulates one-hot masks over all output tokens);
   - multihit runs the row core once without B mass and adds the B
@@ -31,9 +34,11 @@ Two versions with one arithmetic:
     over rows and over the doubling's levels; used on the CPU and as the
     card's comparison;
   - `fused_plan7_forward_kernel`: the wrapper of the hand-written CUDA
-    kernel (csrc/fused_plan7.cu), ONE launch per batch, each read walking
-    to its own length. A CUDA tensor launches the kernel or raises; only a
-    CPU tensor takes the plain version.
+    kernel (csrc/fused_plan7.cu), ONE launch per batch, a warp a read, each
+    read walking to its own length, laid out by `launch_plan` once per
+    operands and batch shape. A CUDA tensor launches the kernel or raises;
+    only a CPU tensor takes the plain version. `fused_plan7_profile` runs
+    the same source built with its clock64 phase profile.
 
 Both return (3, B) float32: the mantissa X[St-1][T], the sum of binary
 exponents, and a dead flag (1.0 for a read that lost all its mass).
@@ -45,7 +50,7 @@ solvers of ops/fused_plan7.py.
 """
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -63,9 +68,27 @@ KCO_NAMES = ("em0", "ei0", "ci", "mb_M", "mb_Mx", "mb_I", "mb_Ix", "mb_D")
 N_FLANK = 11
 F_N, F_NX, F_B, F_E, F_C, F_CX, F_J, F_JX, F_T = range(9)
 
-_MAX_THREADS = 768           # the kernel's __launch_bounds__
-_MAX_READS = 15              # a block's reads: one named barrier each
+_MAX_THREADS = 768           # node-doubling layout: __launch_bounds__
+_MAX_READS = 15              # node-doubling layout: one named barrier a read
+_MAX_WARP_READS = 8          # warp layout: reads (warps) a block
+_MAX_CHUNK = 16              # warp layout: nodes a lane
 _SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may take
+LANES = 32
+# the most profile nodes for which launch_plan takes the warp layout by
+# default: all it takes. scripts/plan7_layouts.py times both layouts on the
+# plan7 batch (B=1024 reads of 90, St=2, multihit) from K=86 to 512, and
+# the warp layout is the faster at every K, also where a lane's state
+# leaves its registers (PERF.md §6)
+WARP_DEFAULT_MAX_K = LANES * _MAX_CHUNK
+LAYOUTS = ("warp", "node_doubling")
+# the profile library's cycle counters a read, after the row count, by
+# layout (node_doubling: then one counter per doubling level)
+PROFILE_PHASES = {
+    "warp": ("flank1", "pass_a", "scan", "pass_b", "reduce_e", "flank3",
+             "max_scale"),
+    "node_doubling": ("phase1", "barriers", "phase3a", "reductions",
+                      "phase3b", "phase4")}
+_N_PROF = 20
 
 
 def _p(x):
@@ -156,18 +179,112 @@ def prepare_fused_plan7(fused):
         off *= 2
     alev = np.stack(levels) if levels else np.zeros((0, K, 3 * St, 3 * St))
 
+    ntab, span, pan = warp_tables(ksc, kco, _p(j["a_mat"]), emm, emi)
     return {"K": K, "St": St, "n_sym": n_sym, "multihit": multihit,
             "consts": f32(consts), "ksc": f32(ksc), "kco": f32(kco),
-            "alev": f32(alev), "emm": f32(emm), "emi": f32(emi)}
+            "alev": f32(alev), "emm": f32(emm), "emi": f32(emi),
+            "ntab": f32(ntab), "span": f32(span), "pan": f32(pan)}
+
+
+def warp_chunk(K):
+    """Nodes a lane in the warp layout: ceil(K / 32)."""
+    return -(-K // LANES)
+
+
+def lane_levels(K):
+    """Levels of the warp layout's scan across the lanes that hold nodes:
+    ceil(log2(ceil(K / chunk)))."""
+    C = warp_chunk(K)
+    return n_levels(-(-K // C))
+
+
+def _rec_floats(St):
+    return _round_up(8 + 17 * St * St, 4)
+
+
+def _pan_floats(St):
+    return _round_up(2 * St * St, 4)
+
+
+def _span_floats(St):
+    return _round_up(9 * St * St, 4)
+
+
+def chunk_products(a, K):
+    """(32, 3St, 3St) float64: lane c's chunk product A_{cC} ... A_{cC+C-1}
+    of a (K, 3St, 3St), with A_k = 0 for the padding nodes k >= K."""
+    C, D3 = warp_chunk(K), a.shape[-1]
+    pad = np.zeros((LANES * C, D3, D3))
+    pad[:K] = a
+    t = np.zeros((LANES, D3, D3))
+    for c in range(LANES):
+        m = np.eye(D3)
+        for k in range(c * C, (c + 1) * C):
+            m = m @ pad[k]
+        t[c] = m
+    return t
+
+
+def span_products(a, K):
+    """(lane_levels(K), 32, 3St, 3St) float64: at level l, lane c's product
+    of the chunk products of chunks c-2^l+1 .. c (zero for c < 2^l)."""
+    cur = chunk_products(a, K)
+    out = []
+    for lev in range(lane_levels(K)):
+        off = 1 << lev
+        s = cur.copy()
+        s[:off] = 0.0
+        out.append(s)
+        cur = np.concatenate([cur[:off], cur[:-off] @ cur[off:]])
+    D3 = a.shape[-1]
+    return np.stack(out) if out else np.zeros((0, LANES, D3, D3))
+
+
+def _interleave(recs, F):
+    """(..., 32 lanes, C, F0) records, zero-padded to F floats, as the
+    kernel reads them: (..., C, F/4, 32, 4), float4 q of lane c's j-th
+    record at [..., j, q, c]."""
+    pad = np.zeros(recs.shape[:-1] + (F,))
+    pad[..., :recs.shape[-1]] = recs
+    pad = pad.reshape(recs.shape[:-1] + (F // 4, 4))
+    n = pad.ndim
+    return np.moveaxis(pad, n - 4, n - 2)
+
+
+def warp_tables(ksc, kco, a, emm, emi):
+    """The warp layout's tables from the float64 operands: ksc (7, K), kco
+    (8, K, St, St), a = exp(a_mat) (K, 3St, 3St), emm and emi (n_sym, K,
+    St, St). Lane c owns nodes k = c C + j, j < C = warp_chunk(K); a node
+    past K is all zeros.
+
+      ntab  (C, rec/4, 32, 4): node records, the 7 scalars of ksc and a 0,
+            the 8 matrices of kco, A_k ([src][dst])
+      span  (lane_levels(K), span/4, 32, 4): span_products
+      pan   (n_sym, C, pan/4, 32, 4): panel records, emm then emi"""
+    K, St = ksc.shape[1], kco.shape[-1]
+    C, n_sym = warp_chunk(K), emm.shape[0]
+    n = LANES * C
+    rec = np.zeros((n, 8 + 17 * St * St))
+    rec[:K, :7] = ksc.T
+    rec[:K, 8:8 + 8 * St * St] = kco.transpose(1, 0, 2, 3).reshape(K, -1)
+    rec[:K, 8 + 8 * St * St:] = a.reshape(K, -1)
+    ntab = _interleave(rec.reshape(LANES, C, -1), _rec_floats(St))
+    sp = span_products(a, K)
+    span = _interleave(sp.reshape(len(sp), LANES, 1, 9 * St * St),
+                       _span_floats(St))[:, 0]
+    prec = np.zeros((n_sym, n, 2 * St * St))
+    prec[:, :K, :St * St] = emm.reshape(n_sym, K, -1)
+    prec[:, :K, St * St:] = emi.reshape(n_sym, K, -1)
+    pan = _interleave(prec.reshape(n_sym, LANES, C, -1), _pan_floats(St))
+    return ntab, span, pan
 
 
 @dataclass
 class Plan7Operands:
-    """One prepare_fused_plan7 result as tensors on one device. On a CUDA
-    device the kernel's layout of the doubling's matrices is added:
-    `alev_k` holds level l's float4 q of node k at [l, q, k] when (3St)^2
-    is a multiple of 4, else its element e at [l, e, k], so that
-    neighbouring nodes read neighbouring addresses."""
+    """One prepare_fused_plan7 result as tensors on one device. `host`
+    keeps the warp layout's host tables; `tables` holds each layout's
+    device tables once a launch has asked for them (`layout_tables`), and
+    `plans` the launch plans by batch shape."""
     K: int
     St: int
     n_sym: int
@@ -178,7 +295,9 @@ class Plan7Operands:
     alev: torch.Tensor
     emm: torch.Tensor
     emi: torch.Tensor
-    alev_k: torch.Tensor = None
+    host: dict = field(default=None, repr=False, compare=False)
+    tables: dict = field(default_factory=dict, repr=False, compare=False)
+    plans: dict = field(default_factory=dict, repr=False, compare=False)
 
     def const_mats(self):
         """The consts vector cut up: (cloop, enull0, mloop_star, mb_E,
@@ -196,19 +315,38 @@ class Plan7Operands:
 
 
 def plan7_operands(host, device):
-    """Move a prepare_fused_plan7 result to `device` (a torch.device)."""
+    """Move a prepare_fused_plan7 result to `device` (a torch.device); on a
+    CUDA device with the tables of the layout launch_plan picks for its K
+    (the other layout's follow if a launch asks for it)."""
     ops = Plan7Operands(
         K=host["K"], St=host["St"], n_sym=host["n_sym"],
         multihit=host["multihit"],
         **{n: torch.tensor(host[n], device=device)
-           for n in ("consts", "ksc", "kco", "alev", "emm", "emi")})
+           for n in ("consts", "ksc", "kco", "alev", "emm", "emi")},
+        host={n: host[n] for n in ("ntab", "span", "pan")})
     if device.type == "cuda":
-        n_lev, K, na = len(host["alev"]), host["K"], 9 * host["St"] ** 2
-        w = 4 if na % 4 == 0 else 1
-        ops.alev_k = torch.tensor(np.ascontiguousarray(
-            host["alev"].reshape(n_lev, K, na // w, w).transpose(0, 2, 1, 3)),
-            device=device)
+        layout_tables(ops, default_layout(ops.K))
     return ops
+
+
+def layout_tables(ops, layout):
+    """The device tables a layout's kernel reads, made at the first ask:
+    "warp" (ntab, span, pan) from the host tables; "node_doubling" (alev_k,)
+    the doubling's matrices with level l's float4 q of node k at [l, q, k]
+    when (3St)^2 is a multiple of 4, else its element e at [l, e, k], so
+    that neighbouring nodes read neighbouring addresses."""
+    if layout not in ops.tables:
+        dev = ops.consts.device
+        if layout == "warp":
+            ops.tables[layout] = tuple(
+                torch.tensor(np.ascontiguousarray(ops.host[n]), device=dev)
+                for n in ("ntab", "span", "pan"))
+        else:
+            n_lev, na = ops.alev.shape[0], 9 * ops.St ** 2
+            w = 4 if na % 4 == 0 else 1
+            ops.tables[layout] = (ops.alev.reshape(
+                n_lev, ops.K, na // w, w).permute(0, 2, 1, 3).contiguous(),)
+    return ops.tables[layout]
 
 
 def _vm(v, m):
@@ -344,9 +482,10 @@ def n_levels(K):
 
 
 def _smem_floats(K, St, n_sym, R, TPR, tables):
-    """Shared-memory floats of one block, as csrc/fused_plan7.cu lays them
-    out (every region rounded up to 4 floats); `tables`: the doubling's
-    matrices and the paired-emission panels too."""
+    """Shared-memory floats of one block of the node-doubling layout, as
+    csrc/fused_plan7.cu lays them out (every region rounded up to 4
+    floats); `tables`: the doubling's matrices and the paired-emission
+    panels too."""
     n = St * St
     total = _round_up(4 * n + St + 3 + 2 * n_sym * n, 4)     # consts
     total += _round_up(len(KSC_NAMES) * K, 4)
@@ -360,15 +499,22 @@ def _smem_floats(K, St, n_sym, R, TPR, tables):
     return total + R * per_read
 
 
-def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None):
-    """(R reads a block, TPR threads a read, large tables in shared
-    memory?, shared bytes) for a batch of B reads on a card of n_sm
-    multiprocessors: one thread per profile node up to 256 a read, enough
-    reads a block that the batch is one wave of blocks, within the
-    kernel's thread, barrier (15 reads a block) and shared-memory limits.
-    The doubling's matrices and the paired-emission panels go to shared
-    memory when both fit beside the state, else both are read through the
-    read-only cache."""
+def warp_smem_floats(K, St, n_sym, in_smem):
+    """Shared-memory floats of one block of the warp layout: the constants,
+    then each table that `in_smem` ({"nodes", "span", "panels"}: bool)
+    puts there; none depends on the reads a block."""
+    C = warp_chunk(K)
+    total = _round_up(4 * St * St + St + 3 + 2 * n_sym * St * St, 4)
+    if in_smem["nodes"]:
+        total += C * _rec_floats(St) * LANES
+    if in_smem["span"]:
+        total += lane_levels(K) * _span_floats(St) * LANES
+    if in_smem["panels"]:
+        total += n_sym * C * _pan_floats(St) * LANES
+    return total
+
+
+def _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block):
     TPR = min(_round_up(K, 32), 256)
     r_max = min(max(_MAX_THREADS // TPR, 1), _MAX_READS)
     want = reads_per_block if reads_per_block is not None \
@@ -381,7 +527,9 @@ def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None):
         for tables in (True, False):
             nbytes = 4 * _smem_floats(K, St, n_sym, R, TPR, tables)
             if nbytes <= _SMEM_LIMIT:
-                return R, TPR, tables, nbytes
+                return {"layout": "node_doubling", "reads": R,
+                        "threads_per_read": TPR, "tables": tables,
+                        "smem": nbytes}
         if R == 1 or reads_per_block is not None:
             raise ValueError(
                 "fused plan7 kernel: K=%d, St=%d needs %d bytes of shared "
@@ -390,12 +538,130 @@ def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None):
         R -= 1
 
 
-def fused_plan7_forward_kernel(ops, toks, lens, reads_per_block=None):
+def default_layout(K):
+    """The layout launch_plan takes for K profile nodes when none is asked
+    for: "warp" up to WARP_DEFAULT_MAX_K nodes, else "node_doubling"."""
+    return "warp" if K <= WARP_DEFAULT_MAX_K else "node_doubling"
+
+
+def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None, layout=None):
+    """The kernel's layout for a batch of B reads on a card of n_sm
+    multiprocessors, a dict with "layout", "reads" (a block) and "smem"
+    (bytes); `layout` None takes default_layout(K).
+
+    "warp" (up to 512 profile nodes): a warp a read, enough reads a block
+    (at most 8) that the batch is one wave of blocks; "chunk" nodes a
+    lane, "lane_levels" scan levels; the node records, the span products
+    and the panels go to shared memory in that order while they fit
+    ("in_smem"), else they are read from global memory.
+    "node_doubling": "threads_per_read" (one a node up to 256), reads a
+    block within the thread, barrier (15) and shared-memory limits, the
+    doubling's matrices and the panels in shared memory when both fit
+    beside the state ("tables")."""
+    if layout is None:
+        layout = default_layout(K)
+    if layout == "node_doubling":
+        return _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block)
+    if layout != "warp":
+        raise ValueError("layout must be one of %s, not %r"
+                         % (LAYOUTS, layout))
+    if warp_chunk(K) > _MAX_CHUNK:
+        raise ValueError("the warp layout takes at most %d profile nodes, "
+                         "not %d" % (LANES * _MAX_CHUNK, K))
+    if reads_per_block is not None and \
+            not 1 <= reads_per_block <= _MAX_WARP_READS:
+        raise ValueError("reads_per_block must lie in [1, %d] for K=%d"
+                         % (_MAX_WARP_READS, K))
+    R = reads_per_block or min(_MAX_WARP_READS,
+                               max(-(-B // max(n_sm, 1)), 1))
+    in_smem = {"nodes": False, "span": False, "panels": False}
+    for name in in_smem:
+        in_smem[name] = True
+        if 4 * warp_smem_floats(K, St, n_sym, in_smem) > _SMEM_LIMIT:
+            in_smem[name] = False
+    return {"layout": "warp", "reads": R, "chunk": warp_chunk(K),
+            "lane_levels": lane_levels(K), "in_smem": in_smem,
+            "smem": 4 * warp_smem_floats(K, St, n_sym, in_smem)}
+
+
+_launchers = {}     # (library, layout) -> its launch function, argtypes set
+
+
+def _launcher(lib, layout):
+    if (lib, layout) not in _launchers:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        if layout == "warp":
+            fn = load(lib).fused_plan7_warp_launch
+            fn.argtypes = [P] * 8 + [I] * 12 + [P]
+        else:
+            fn = load(lib).fused_plan7_nodes_launch
+            fn.argtypes = [P] * 10 + [I] * 12 + [P]
+        fn.restype = I
+        _launchers[(lib, layout)] = fn
+    return _launchers[(lib, layout)]
+
+
+def _plan(ops, B, reads_per_block, layout):
+    """launch_plan for these operands and B reads, made once per key."""
+    key = (B, reads_per_block, layout)
+    if key not in ops.plans:
+        dev = ops.consts.device
+        if "n_sm" not in ops.plans:
+            ops.plans["n_sm"] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        ops.plans[key] = launch_plan(ops.K, ops.St, ops.n_sym, B,
+                                     ops.plans["n_sm"], reads_per_block,
+                                     layout)
+    return ops.plans[key]
+
+
+def _run_on_card(ops, toks, lens, reads_per_block, layout, profile):
+    dev = ops.consts.device
+    B, L = toks.shape
+    _check(toks, "toks", torch.int32, (B, L), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    out = torch.empty((3, B), dtype=torch.float32, device=dev)
+    prof = torch.zeros((B, _N_PROF), dtype=torch.int64, device=dev) \
+        if profile else None
+    if B == 0:
+        return out, prof
+    plan = _plan(ops, B, reads_per_block, layout)
+    tables = layout_tables(ops, plan["layout"])
+    fn = _launcher("fused_plan7_profile" if profile else "fused_plan7",
+                   plan["layout"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pp = prof.data_ptr() if profile else None
+    if plan["layout"] == "warp":
+        ntab, span, pan = tables
+        bits = sum(v << k for k, v in enumerate(plan["in_smem"].values()))
+        rc = fn(ops.consts.data_ptr(), ntab.data_ptr(),
+                span.data_ptr(), pan.data_ptr(), toks.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), pp, B, L, ops.K, ops.St,
+                ops.n_sym, plan["chunk"], plan["lane_levels"],
+                int(ops.multihit), plan["reads"], bits, plan["smem"],
+                ops.consts.numel(), stream)
+    else:
+        rc = fn(ops.consts.data_ptr(), ops.ksc.data_ptr(),
+                ops.kco.data_ptr(), tables[0].data_ptr(),
+                ops.emm.data_ptr(), ops.emi.data_ptr(), toks.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), pp, B, L, ops.K, ops.St,
+                ops.n_sym, n_levels(ops.K), int(ops.multihit),
+                plan["reads"], plan["threads_per_read"],
+                int(plan["tables"]), plan["smem"], ops.consts.numel(),
+                stream)
+    if rc != 0:
+        raise RuntimeError("fused_plan7 launch failed: CUDA error %d" % rc)
+    return out, prof
+
+
+def fused_plan7_forward_kernel(ops, toks, lens, reads_per_block=None,
+                               layout=None):
     """The row solve over a read batch: (3, B) float32 (mantissa, exponent
     sum, dead flag).
 
-    A CUDA tensor launches csrc/fused_plan7.cu once for the whole batch
-    (`reads_per_block` reads share a block; default: as launch_plan picks)
+    A CUDA tensor launches csrc/fused_plan7.cu once for the whole batch,
+    laid out by launch_plan (`reads_per_block` reads share a block,
+    `layout` "warp" or "node_doubling"; default: as launch_plan picks),
     and counts one launch in `fused_plan7_forward_kernel.launches`; a CPU
     tensor takes fused_plan7_forward_plain. toks (B, L) 1-based int32 and
     lens (B,) int32, contiguous, on the device of `ops`."""
@@ -404,37 +670,30 @@ def fused_plan7_forward_kernel(ops, toks, lens, reads_per_block=None):
     if toks.device.type != "cuda":
         raise ValueError("fused_plan7_forward_kernel runs on cuda or cpu "
                          "tensors, not %s" % toks.device)
-    dev = ops.consts.device
-    B, L = toks.shape
-    _check(toks, "toks", torch.int32, (B, L), dev)
-    _check(lens, "lens", torch.int32, (B,), dev)
-    out = torch.empty((3, B), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if ops.alev_k is None:
-        raise ValueError("operands were prepared for %s, not the card"
-                         % ops.consts.device)
-    R, TPR, tables, nbytes = launch_plan(ops.K, ops.St, ops.n_sym, B, n_sm,
-                                         reads_per_block)
-    lib = load("fused_plan7")
-    fn = lib.fused_plan7_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 9 + [I] * 12 + [P]
-    fn.restype = I
-    rc = fn(ops.consts.data_ptr(), ops.ksc.data_ptr(), ops.kco.data_ptr(),
-            ops.alev_k.data_ptr(), ops.emm.data_ptr(), ops.emi.data_ptr(),
-            toks.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, L, ops.K, ops.St, ops.n_sym, n_levels(ops.K),
-            int(ops.multihit), R, TPR, int(tables), nbytes, ops.consts.numel(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("fused_plan7 launch failed: CUDA error %d" % rc)
-    fused_plan7_forward_kernel.launches += 1
+    out, _ = _run_on_card(ops, toks, lens, reads_per_block, layout, False)
+    if toks.shape[0]:
+        fused_plan7_forward_kernel.launches += 1
     return out
 
 
 fused_plan7_forward_kernel.launches = 0
+
+
+def fused_plan7_profile(ops, toks, lens, reads_per_block=None, layout=None):
+    """fused_plan7_forward_kernel on the card through the profile library
+    (the same source built with its clock64 counters; not counted as a
+    launch). Returns (the (3, B) result, {"rows", phase: SM cycles a row}
+    over the batch's reads; node_doubling adds "level_l" for each doubling
+    level)."""
+    out, prof = _run_on_card(ops, toks, lens, reads_per_block, layout, True)
+    layout = _plan(ops, toks.shape[0], reads_per_block, layout)["layout"]
+    tot = prof.sum(dim=0).cpu().tolist()
+    rows = max(tot[0], 1)
+    names = list(PROFILE_PHASES[layout])
+    if layout == "node_doubling":
+        names += ["level_%d" % lev for lev in range(n_levels(ops.K))]
+    return out, dict({"rows": tot[0]}, **{
+        p: tot[1 + k] / rows for k, p in enumerate(names)})
 
 
 def decode(out, B_=None):

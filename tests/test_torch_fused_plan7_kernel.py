@@ -12,9 +12,13 @@ the port solves the along-k recurrence by log-depth doubling where the
 Pallas kernel multiplies by its closed form, so the sums associate
 differently) and 2e-3
 against the flat solver (log space; the reference test's bound). On a CUDA
-card the kernel is held to the plain version within 1e-3 nats, at every
-transducer size it is built for, with the large tables in shared memory
-and read from global memory, and with more profile nodes than threads.
+card the kernel is held to the plain version within 1e-3 nats, in both
+layouts and every reads-a-block the plan allows, at every transducer size
+it is built for, with the tables in shared memory and read from global
+memory, and with ten profile nodes a lane. On the CPU the warp layout's
+tables (the lanes' node records, the span products) are held to their
+float64 definitions, and a host model of the warp layout's arithmetic,
+reading them as the kernel does, to the plain version.
 
 The JAX package is imported inside the tests that use it, so that the card
 tests run where only torch is installed:
@@ -164,12 +168,21 @@ def test_prepared_operands_match_the_pallas_factory(case):
             "ks,ksd->kd", carry[:-off], host["alev"][lev, off:], dtype=np.float64)
     np.testing.assert_allclose(carry.reshape(-1), b.reshape(-1) @ t_tri,
                                rtol=1e-5)
-    # the kernel's layout of the same matrices, as a card would get it
+    # the kernel's layout of the same matrices, as a card would get it:
+    # made at the first ask, beside the warp layout's host tables
+    ops = fk.plan7_operands(host, torch.device("cpu"))
+    assert ops.tables == {}
     na = 9 * St * St
     w = 4 if na % 4 == 0 else 1
-    alev_k = host["alev"].reshape(n_lev, K, na // w, w).transpose(0, 2, 1, 3)
-    assert alev_k[n_lev - 1, 1, K - 1, w - 1] == \
-        host["alev"][n_lev - 1, K - 1].reshape(-1)[w + w - 1]
+    (alev_k,) = fk.layout_tables(ops, "node_doubling")
+    assert alev_k.shape == (n_lev, na // w, K, w)
+    for lev in range(n_lev):
+        for k in (0, K - 1):
+            assert np.array_equal(alev_k[lev, :, k].numpy().reshape(-1),
+                                  host["alev"][lev, k].reshape(-1))
+    for got, n in zip(fk.layout_tables(ops, "warp"), ("ntab", "span", "pan")):
+        assert np.array_equal(got.numpy(), host[n])
+    assert set(ops.tables) == {"warp", "node_doubling"}
 
 
 def test_scan_solver_models_take_the_kernel_route():
@@ -264,28 +277,270 @@ def test_plain_matches_the_composed_oracle_for_wider_transducers(St, multihit):
     assert np.abs(got - np.array(ref)).max() <= VS_F64
 
 
-@pytest.mark.parametrize("K,St,n_sym,B,n_sm,expect", [
-    (86, 2, 20, 1024, 132, (8, 96, True)),      # the fn3-shaped batch
-    (3, 2, 4, 8, 132, (1, 32, True)),           # a block a read
-    (19, 2, 20, 4000, 132, (15, 32, True)),     # the barrier limit binds
-    (19, 4, 20, 16, 132, (1, 32, True)),
-    (86, 4, 20, 1024, 132, (8, 96, False)),     # tables too big for smem
-    (300, 2, 20, 1024, 132, (3, 256, False)),   # more nodes than threads
+# (reads a block, nodes a lane, scan levels, (node records, span products,
+# panels) in shared memory) of the warp layout, the default up to
+# WARP_DEFAULT_MAX_K = 512 nodes; past that, or when asked for, the
+# node-doubling layout's (reads a block, threads a read, tables in smem)
+@pytest.mark.parametrize("K,St,n_sym,B,n_sm,layout,expect", [
+    (86, 2, 20, 1024, 132, None, (8, 3, 5, (True, True, True))),  # fn3's
+    (3, 2, 4, 8, 132, None, (1, 1, 2, (True, True, True))),  # a block a read
+    (19, 2, 20, 4000, 132, None, (8, 1, 5, (True, True, True))),  # 8 warps
+    (19, 4, 20, 16, 132, None, (1, 1, 5, (True, True, True))),
+    (86, 4, 20, 1024, 132, None, (8, 3, 5, (True, True, False))),  # panels
+    (128, 2, 20, 1024, 132, None, (8, 4, 5, (True, True, True))),
+    (129, 2, 20, 1024, 132, None, (8, 5, 5, (True, True, True))),
+    (300, 2, 20, 1024, 132, None, (8, 10, 5, (True, True, False))),
+    (300, 3, 20, 1024, 132, None, (8, 10, 5, (True, False, False))),
+    (512, 2, 20, 1024, 132, None, (8, 16, 5, (True, True, False))),
+    (513, 2, 20, 1024, 132, None, (3, 256, False)),  # past the warp's 512
+    (600, 2, 20, 1024, 132, None, (2, 256, False)),
+    (300, 2, 20, 1024, 132, "node_doubling", (3, 256, False)),
 ])
-def test_launch_plan(K, St, n_sym, B, n_sm, expect):
-    R, TPR, tables, nbytes = fk.launch_plan(K, St, n_sym, B, n_sm)
-    assert (R, TPR, tables) == expect
-    assert nbytes <= fk._SMEM_LIMIT and R * TPR <= fk._MAX_THREADS
-    assert R <= fk._MAX_READS
-    assert nbytes == 4 * fk._smem_floats(K, St, n_sym, R, TPR, tables)
+def test_launch_plan(K, St, n_sym, B, n_sm, layout, expect):
+    plan = fk.launch_plan(K, St, n_sym, B, n_sm, layout=layout)
+    assert plan["layout"] == (layout or fk.default_layout(K))
+    assert plan["smem"] <= fk._SMEM_LIMIT
+    if plan["layout"] == "node_doubling":
+        R, TPR, tables = plan["reads"], plan["threads_per_read"], \
+            plan["tables"]
+        assert (R, TPR, tables) == expect
+        assert R * TPR <= fk._MAX_THREADS and R <= fk._MAX_READS
+        assert plan["smem"] == 4 * fk._smem_floats(K, St, n_sym, R, TPR,
+                                                   tables)
+        return
+    assert plan["layout"] == "warp"
+    assert (plan["reads"], plan["chunk"], plan["lane_levels"],
+            tuple(plan["in_smem"].values())) == expect
+    assert plan["chunk"] == -(-K // 32) and plan["reads"] <= 8
+    assert (1 << plan["lane_levels"]) >= -(-K // plan["chunk"])
+    assert plan["smem"] == 4 * fk.warp_smem_floats(K, St, n_sym,
+                                                   plan["in_smem"])
 
 
 def test_launch_plan_forced_reads_per_block():
-    assert fk.launch_plan(3, 2, 4, 8, 132, reads_per_block=8)[0] == 8
+    assert fk.launch_plan(3, 2, 4, 8, 132, reads_per_block=8)["reads"] == 8
     with pytest.raises(ValueError, match="reads_per_block"):
         fk.launch_plan(86, 2, 20, 64, 132, reads_per_block=9)
     with pytest.raises(ValueError, match="shared"):
         fk.launch_plan(3000, 4, 20, 8, 132)
+    # the node-doubling layout keeps its own limits when asked for
+    nodes = fk.launch_plan(86, 2, 20, 1024, 132, layout="node_doubling")
+    assert (nodes["reads"], nodes["threads_per_read"], nodes["tables"]) == \
+        (8, 96, True)
+    assert fk.launch_plan(19, 2, 20, 4000, 132,
+                          layout="node_doubling")["reads"] == 15
+    with pytest.raises(ValueError, match="512"):
+        fk.launch_plan(600, 2, 20, 8, 132, layout="warp")
+    with pytest.raises(ValueError, match="layout"):
+        fk.launch_plan(86, 2, 20, 8, 132, layout="lanes")
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 86, 300])
+def test_span_products_are_the_float64_products_of_a(K):
+    """Level l of lane c holds A_k over the 2^l chunks ending at chunk c,
+    multiplied in float64 (A_k = 0 past K); zero below lane 2^l."""
+    St = 2
+    rng = np.random.RandomState(K)
+    a = rng.uniform(0.0, 1.0, (K, 3 * St, 3 * St))
+    a *= 0.9 / a.sum(axis=-1, keepdims=True)   # substochastic, as exp(a_mat)
+    C = fk.warp_chunk(K)
+    n_chunks = -(-K // C)
+    span = fk.span_products(a, K)
+    assert span.shape == (fk.lane_levels(K), 32, 3 * St, 3 * St)
+    assert (1 << len(span)) >= n_chunks and \
+        (len(span) == 0 or (1 << (len(span) - 1)) < n_chunks)
+    pad = np.concatenate([a, np.zeros((32 * C - K, 3 * St, 3 * St))])
+    for lev in range(len(span)):
+        for c in range(32):
+            if c < (1 << lev):          # no lane c - 2^l to add from
+                assert not span[lev, c].any()
+                continue
+            first = (c - (1 << lev) + 1) * C
+            want = np.eye(3 * St)
+            for k in range(first, (c + 1) * C):
+                want = want @ pad[k]
+            np.testing.assert_allclose(span[lev, c], want, rtol=1e-12,
+                                       atol=1e-300)
+    # laid out as the kernel reads them: (levels, span/4, 32, 4)
+    host_span = fk.warp_tables(np.zeros((7, K)), np.zeros((8, K, St, St)), a,
+                               np.zeros((1, K, St, St)),
+                               np.zeros((1, K, St, St)))[1]
+    f = host_span.shape[1] * 4
+    got = host_span.transpose(0, 2, 1, 3).reshape(len(span), 32, f)
+    np.testing.assert_array_equal(got[..., :9 * St * St],
+                                  span.reshape(len(span), 32, 9 * St * St))
+    assert not got[..., 9 * St * St:].any()
+
+
+@pytest.mark.parametrize("case", CASES[:4] + [("amino33", True)],
+                         ids=IDS[:4] + ["amino33_multihit"])
+def test_warp_tables_hold_each_lanes_nodes(case):
+    """ntab and pan, read as the kernel reads them (lane c's j-th node is
+    node cC + j, float4 q at [j, q, c]), give back prepare_fused_plan7's
+    scalars, matrices, A_k and panels; nodes past K are zero."""
+    profile, multihit = case
+    f = port_model(profile, multihit=multihit, solver="prefix")
+    host = fk.prepare_fused_plan7(f)
+    K, St, n_sym = host["K"], host["St"], host["n_sym"]
+    C, N = fk.warp_chunk(K), St * St
+    ntab, pan = host["ntab"], host["pan"]
+    assert ntab.shape == (C, fk._rec_floats(St) // 4, 32, 4)
+    assert pan.shape == (n_sym, C, fk._pan_floats(St) // 4, 32, 4)
+    a32 = np.exp(f._j["a_mat"].double().numpy())
+    a32[f._j["a_mat"].numpy() < -1e29] = 0.0
+    for k in range(32 * C):
+        c, j = divmod(k, C)
+        rec = ntab[j, :, c, :].reshape(-1)
+        prec = pan[:, j, :, c, :].reshape(n_sym, -1)
+        if k >= K:
+            assert not rec.any() and not prec.any()
+            continue
+        np.testing.assert_array_equal(rec[:7], host["ksc"][:, k])
+        np.testing.assert_array_equal(rec[8:8 + 8 * N],
+                                      host["kco"][:, k].reshape(-1))
+        np.testing.assert_allclose(rec[8 + 8 * N:8 + 17 * N],
+                                   a32[k].reshape(-1), rtol=1e-6)
+        np.testing.assert_array_equal(prec[:, :N],
+                                      host["emm"][:, k].reshape(n_sym, -1))
+        np.testing.assert_array_equal(prec[:, N:2 * N],
+                                      host["emi"][:, k].reshape(n_sym, -1))
+
+
+def warp_layout_model(host, toks, lens):
+    """The warp layout's row solve in float64 on the host, reading ntab,
+    span and pan as csrc/fused_plan7.cu does: a lane-serial pass over each
+    lane's chunk, the scan of the chunk ends across the 32 lanes with the
+    span products, and a second lane-serial pass from the carry into the
+    chunk. Returns (3, B) as the kernel does."""
+    K, St, n_sym = host["K"], host["St"], host["n_sym"]
+    mh = host["multihit"]
+    N, D3 = St * St, 3 * St
+    C, n_lev = fk.warp_chunk(K), fk.lane_levels(K)
+    ntab, span, pan, c = (host[n].astype(np.float64)
+                          for n in ("ntab", "span", "pan", "consts"))
+
+    def rec(tab, lane, j):
+        return tab[j, :, lane, :].reshape(-1)
+
+    cloop, enull0, mstar, mbe = (c[i * N:(i + 1) * N].reshape(St, St)
+                                 for i in range(4))
+    first = c[4 * N:4 * N + St]
+    loop_s, exit_s, e_to_c = c[4 * N + St:4 * N + St + 3]
+    at = 4 * N + St + 3
+    ty0 = c[at:at + n_sym * N].reshape(n_sym, St, St)
+    eny0 = c[at + n_sym * N:].reshape(n_sym, St, St)
+    out = np.zeros((3, toks.shape[0]))
+    for b in range(toks.shape[0]):
+        X = np.zeros((32, C, 5, St))
+        fl = np.zeros((9, St))
+        expo, dead, inv_x = 0, False, 1.0
+        for row in range(-1, int(lens[b])):
+            y = int(toks[b, row]) - 1 if row >= 0 else -1
+            y = y if 0 <= y < n_sym else -1
+            ty = ty0[y] if y >= 0 else np.zeros((St, St))
+            eny = eny0[y] if y >= 0 else np.zeros((St, St))
+            cold_f = fl @ ty
+            nx_in = cold_f[0] @ enull0 + fl[0] @ eny + (first if row < 0
+                                                         else 0.0)
+            nx_hot = nx_in @ cloop
+            b0 = exit_s * nx_hot
+            bm, bi, ia = (np.zeros((32, C, St)) for _ in range(3))
+            loc = np.zeros((32, D3))
+            for lane in range(32):
+                for j in range(C):
+                    r = rec(ntab, lane, j)
+                    ks, mats = r[:8], r[8:8 + 8 * N].reshape(8, St, St)
+                    A = r[8 + 8 * N:8 + 17 * N].reshape(D3, D3)
+                    x = X[lane, j] * inv_x
+                    cold = x @ ty
+                    p = rec(pan[max(y, 0)], lane, j)
+                    hot_m = x[0] @ p[:N].reshape(St, St) if y >= 0 else 0.0
+                    hot_i = x[2] @ p[N:2 * N].reshape(St, St) if y >= 0 \
+                        else 0.0
+                    entry = 0.0 if mh else ks[0]
+                    bmx = (entry * b0 + cold[0]) @ mats[0] + hot_m
+                    ixa = cold[2] @ mats[1] + hot_i
+                    bix = ((ks[1] * bmx + ks[2] * ixa) @ mats[2]) @ mats[1] \
+                        + ixa
+                    bm[lane, j], bi[lane, j], ia[lane, j] = bmx, bix, ixa
+                    X[lane, j] = cold
+                    loc[lane] = np.concatenate([bmx, bix, np.zeros(St)]) \
+                        + loc[lane] @ A
+            for lev in range(n_lev):
+                off, prev = 1 << lev, loc.copy()
+                for lane in range(off, 32):
+                    sp = rec(span[lev][None], lane, 0)[:D3 * D3]
+                    loc[lane] = prev[lane] + prev[lane - off] @ \
+                        sp.reshape(D3, D3)
+            ep = np.zeros(St)
+            for lane in range(32):
+                p = loc[lane - 1] if lane else np.zeros(D3)
+                for j in range(C):
+                    r = rec(ntab, lane, j)
+                    ks, mats = r[:8], r[8:8 + 8 * N].reshape(8, St, St)
+                    A = r[8 + 8 * N:8 + 17 * N].reshape(D3, D3)
+                    entry = 0.0 if mh else ks[0]
+                    cc = np.concatenate([bm[lane, j], bi[lane, j],
+                                         np.zeros(St)]) + p @ A
+                    m_h = ks[3] * p[:St] + ks[4] * p[St:2 * St] \
+                        + ks[5] * p[2 * St:] + entry * b0
+                    i_h = (ks[1] * cc[:St] + ks[2] * ia[lane, j]) @ mats[2]
+                    ep += m_h + cc[2 * St:] + ks[6] * cc[St:2 * St]
+                    X[lane, j] += np.stack([m_h, cc[:St], i_h,
+                                            cc[St:2 * St], cc[2 * St:]])
+                    p = cc
+            if mh:
+                jxb = cold_f[6] @ enull0 + fl[6] @ eny + 0.5 * ep
+                b_hot = (b0 + exit_s * (jxb @ cloop)) @ mstar
+                be = b_hot @ mbe
+                e_hot, jx_hot = ep + be, (jxb + 0.5 * be) @ cloop
+                j_hot = loop_s * jx_hot
+                for lane in range(32):
+                    for j in range(C):
+                        mats = rec(ntab, lane, j)[8:8 + 8 * N] \
+                            .reshape(8, St, St)
+                        for blk in range(5):
+                            X[lane, j, blk] += b_hot @ mats[3 + blk]
+            else:
+                b_hot, e_hot = b0, ep
+                jx_hot = j_hot = np.zeros(St)
+            cx_hot = (cold_f[4] @ enull0 + fl[4] @ eny + e_to_c * e_hot) \
+                @ cloop
+            fl = cold_f + np.stack([loop_s * nx_hot, nx_hot, b_hot, e_hot,
+                                    loop_s * cx_hot, cx_hot, j_hot, jx_hot,
+                                    exit_s * cx_hot])
+            if row >= 0:
+                m = max(X.max(), fl.max(), 0.0)
+                kexp = int(np.frexp(np.float32(m if m > 0 else 1.0))[1]) \
+                    + 126
+                inv_x = 2.0 ** (127 - kexp)
+                fl *= inv_x
+                expo += kexp - 127
+                dead = dead or not m > 0
+        out[:, b] = fl[8, St - 1], expo, float(dead)
+    return out
+
+
+@pytest.mark.parametrize("case", CASES + [("amino33", True),
+                                          ("amino40/4", False)],
+                         ids=IDS + ["amino33_multihit", "amino40_St4_single"])
+def test_warp_layout_host_model_matches_plain(case):
+    """The warp layout's arithmetic (chunks of nodes a lane, the span
+    scan across lanes) on the host in float64 from its float32 tables,
+    against the plain version: the tables' layout and the scan's algebra,
+    which only the card runs in CUDA. K=33 and 40 give two nodes a lane,
+    K=33 a lane with a padding node."""
+    profile, multihit = case
+    f = port_model(profile, multihit=multihit, solver="prefix")
+    host = fk.prepare_fused_plan7(f)
+    toks, lens = batch(f, 4, 6, seed=3)
+    toks[2, 0] = 0                                    # a dead read
+    ops = fk.plan7_operands(host, torch.device("cpu"))
+    plain = fk.fused_plan7_forward_plain(ops, torch.from_numpy(toks),
+                                         torch.from_numpy(lens)).numpy()
+    model = warp_layout_model(host, toks, lens)
+    assert np.array_equal(model[2], plain[2]) and model[2, 2] == 1.0
+    assert np.abs(fk.decode(model) - fk.decode(plain)).max() <= 1e-5
 
 
 def test_unsupported_configurations_raise():
@@ -316,10 +571,12 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reads_per_block", [None, 8])
+@pytest.mark.parametrize("layout,reads_per_block",
+                         [("warp", r) for r in (None, 1, 2, 3, 4, 5, 6, 7, 8)]
+                         + [("node_doubling", None), ("node_doubling", 8)])
 @pytest.mark.parametrize("case", CASES[:4] + [("amino86", True)],
                          ids=IDS[:4] + ["amino86_multihit"])
-def test_cuda_kernel_matches_plain(case, reads_per_block):
+def test_cuda_kernel_matches_plain(case, layout, reads_per_block):
     dev = _card()
     profile, multihit = case
     f = port_model(profile, device=dev, multihit=multihit)
@@ -330,7 +587,7 @@ def test_cuda_kernel_matches_plain(case, reads_per_block):
     t = torch.from_numpy(toks).to(dev)
     n = torch.from_numpy(lens).to(dev)
     before = fk.fused_plan7_forward_kernel.launches
-    kern = fk.fused_plan7_forward_kernel(ops, t, n,
+    kern = fk.fused_plan7_forward_kernel(ops, t, n, layout=layout,
                                          reads_per_block=reads_per_block)
     torch.cuda.synchronize()
     assert fk.fused_plan7_forward_kernel.launches == before + 1
@@ -344,11 +601,13 @@ def test_cuda_kernel_matches_plain(case, reads_per_block):
     assert np.abs(kll[live] - flat[live]).max() <= VS_FLAT
 
 
-# what only these reach in csrc/fused_plan7.cu: the instantiations for 1, 3
-# and 4 states (scalar loads of the doubling's matrices at 1 and 3), the
-# large tables read from global memory (they do not fit beside the state at
-# K=86 with 4 states, nor at K=300 with 2 or 3), a thread owning two profile
-# nodes (K=300 over 256 threads a read)
+# what only these reach in csrc/fused_plan7.cu's warp layout: the
+# instantiations for 1, 3 and 4 states (records whose matrices straddle
+# float4s at 1 and 3), the panels read from global memory (they do not fit
+# beside the node records and span products at K=86 with 4 states, nor at
+# K=300 with 2 or 3; at K=300 with 3 the span products neither), ten nodes
+# a lane (K=300: the local-memory instantiation); each also in the
+# node-doubling layout
 WIDE = [("amino19/1", True, 16, True), ("amino19/3", True, 16, True),
         ("amino19/3", False, 16, True), ("amino19/4", True, 16, True),
         ("amino86/4", True, 16, False), ("amino300", True, 8, False),
@@ -365,22 +624,25 @@ def test_cuda_kernel_other_state_counts_and_table_placements(case):
     f = port_model(profile, device=dev, multihit=multihit)
     ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = fk.launch_plan(f.K, f.St, ops.n_sym, B, n_sm)
-    assert plan[2] == tables and (plan[1] < f.K) == (f.K == 300)
+    plan = fk.launch_plan(f.K, f.St, ops.n_sym, B, n_sm, layout="warp")
+    assert plan["in_smem"]["panels"] == tables
+    assert (plan["chunk"] > 4) == (f.K == 300)
     toks, lens = batch(f, B, 24, seed=7)
     toks[3, 0] = 0                                    # a dead read
     t = torch.from_numpy(toks).to(dev)
     n = torch.from_numpy(lens).to(dev)
-    kern = fk.fused_plan7_forward_kernel(ops, t, n)
     plain = fk.fused_plan7_forward_plain(ops, t, n)
-    assert torch.equal(kern[2], plain[2]) and kern[2, 3] == 1.0
-    kll, pll = fk.decode(kern.cpu().numpy()), fk.decode(plain.cpu().numpy())
+    pll = fk.decode(plain.cpu().numpy())
     live = pll > -1e29
     assert live.sum() == B - 1
-    assert np.abs(kll[live] - pll[live]).max() <= CARD_BOUND
-    assert np.array_equal(kll[~live], pll[~live])
     flat = f.forward_batch_tokens(toks, lens, impl="flat")
-    assert np.abs(kll[live] - flat[live]).max() <= VS_FLAT
+    for layout in ("warp", "node_doubling"):
+        kern = fk.fused_plan7_forward_kernel(ops, t, n, layout=layout)
+        assert torch.equal(kern[2], plain[2]) and kern[2, 3] == 1.0
+        kll = fk.decode(kern.cpu().numpy())
+        assert np.abs(kll[live] - pll[live]).max() <= CARD_BOUND
+        assert np.array_equal(kll[~live], pll[~live])
+        assert np.abs(kll[live] - flat[live]).max() <= VS_FLAT
 
 
 @pytest.mark.cuda

@@ -220,6 +220,104 @@ def test_walk_matches_jax_walker_on_banded_lattice(seed):
     assert ours[3] and ours[0] == 24     # (0, 0) ships as a neighbour
 
 
+# ------------------------------------------------- the kernel's host tables
+
+@pytest.mark.parametrize("name", list(MACHINES))
+def test_edge_rows_hold_every_destination_row(name):
+    """The kernel's one edge table: ad's rows (tx, ty, dst), al's (tx, dst),
+    au's (ty, dst), sil's dst, each the incoming weights of dst from every
+    source, padded with NEG_INF to a multiple of 4 floats, then a row of
+    NEG_INF for the cells outside a lattice."""
+    ev = _machine(name)[1]
+    ad, al, au, sil = tb.maxplus_edge_matrices(ev)
+    rows = tb.edge_rows(ad, al, au, sil)
+    Ti, To, S = ad.shape[0], ad.shape[1], sil.shape[0]
+    n = (Ti * To + Ti + To + 1) * S
+    assert rows.shape == (n + 1, (S + 3) // 4 * 4) and \
+        rows.dtype == np.float32
+    assert (rows[:, S:] == tb.NEG_INF).all() and \
+        (rows[n] == tb.NEG_INF).all()
+    at = 0
+    for m in (ad, al, au, sil):
+        dst_major = np.swapaxes(m, -1, -2).reshape(-1, S)
+        assert np.array_equal(rows[at:at + len(dst_major), :S], dst_major)
+        at += len(dst_major)
+    assert at == n
+    walker = tb.make_lattice_walker(ev, 3, 4, device="cpu")
+    assert np.array_equal(walker.rows.numpy(), rows)
+
+
+# (S, Ti, To, n_diags, Lip, Lop, B, SMs) -> (pairs a block, blocks, the
+# bases and tokens in shared memory, shared bytes)
+# (shared floats: the bases rounded to 4, per pair the tokens rounded to 4)
+@pytest.mark.parametrize("shape,expect", [
+    ((65, 4, 4, 257, 128, 128, 64, 132), (1, 64, True, 2064)),
+    ((65, 4, 4, 3001, 1500, 1500, 1, 132), (1, 1, True, 24016)),  # banded
+    ((132, 20, 4, 257, 64, 192, 64, 132), (1, 64, True, 2064)),
+    ((65, 4, 4, 257, 128, 128, 1000, 132), (8, 125, True, 9232)),
+    # six pairs of 4,000 x 4,000 stage, not eight
+    ((65, 4, 4, 8001, 4000, 4000, 1000, 132), (6, 167, True, 224016)),
+    # long banded pairs: nothing staged
+    ((65, 4, 4, 40001, 20000, 20000, 1, 132), (1, 1, False, 0)),
+    ((65, 4, 4, 60001, 30000, 30000, 1, 132), (1, 1, False, 0)),
+    ((6, 4, 4, 200001, 100000, 100000, 2, 132), (1, 2, False, 0)),
+])
+def test_walk_launch_plan(shape, expect):
+    S, Ti, To, nd, Lip, Lop, B, n_sm = shape
+    plan = tb.walk_launch_plan(S, Ti, To, nd, Lip, Lop, B, n_sm)
+    assert (plan["pairs"], plan["blocks"], plan["staged"],
+            plan["smem"]) == expect
+    assert plan["smem"] == tb.walk_smem_bytes(
+        S, Ti, To, nd, Lip, Lop, plan["pairs"], plan["staged"])
+    assert plan["blocks"] * plan["pairs"] >= B > \
+        (plan["blocks"] - 1) * plan["pairs"]
+
+
+@pytest.mark.parametrize("L", [1500, 20000, 30000, 100000])
+def test_walk_launch_plan_takes_every_length(L):
+    """The default walk has a layout for a banded pair of any length (two
+    30 kb sequences have 60,001 diagonals): nothing a pair's length sets
+    has to fit in shared memory. The variants stage the bases (and all
+    but tokens_global the tokens) and raise where those do not fit."""
+    plan = tb.walk_launch_plan(65, 4, 4, 2 * L + 1, L, L, 1, 132)
+    assert plan["smem"] <= 227 * 1024
+    assert plan["staged"] == (L == 1500)
+    for variant in ("block_barrier", "tokens_global", "prefetch"):
+        # the bases alone of 40,001 diagonals fit
+        if L == 1500 or (L == 20000 and variant == "tokens_global"):
+            assert tb.walk_launch_plan(65, 4, 4, 2 * L + 1, L, L, 1, 132,
+                                       variant=variant)["staged"]
+            continue
+        with pytest.raises(ValueError, match="shared memory"):
+            tb.walk_launch_plan(65, 4, 4, 2 * L + 1, L, L, 1, 132,
+                                variant=variant)
+
+
+def test_walk_launch_plan_variants_and_limits():
+    # 3 pairs a block over 4 pairs: a last block holding one
+    plan = tb.walk_launch_plan(6, 2, 2, 12, 6, 5, 4, 132, pairs=3)
+    assert (plan["pairs"], plan["blocks"]) == (3, 2)
+    # tokens from global memory: the bases alone are staged
+    assert tb.walk_launch_plan(65, 4, 4, 257, 128, 128, 64, 132,
+                               variant="tokens_global")["smem"] == 4 * 260
+    # the left, up and silent rows in shared memory: 9 * 65 * 68 floats
+    edges = tb.walk_launch_plan(65, 4, 4, 257, 128, 128, 64, 132,
+                                variant="edges_shared")
+    assert edges["smem"] == 4 * (9 * 65 * 68) + 2064
+    # only the prefetch variant keeps its ring of 9 cells a pair
+    ring = tb.walk_launch_plan(65, 4, 4, 257, 128, 128, 64, 132,
+                               variant="prefetch")
+    assert ring["smem"] == 4 * 9 * 68 + 2064
+    with pytest.raises(ValueError, match="shared memory"):
+        tb.walk_launch_plan(132, 20, 4, 257, 64, 192, 64, 132,
+                            variant="edges_shared")
+    with pytest.raises(ValueError, match="pairs a block"):
+        tb.walk_launch_plan(65, 4, 4, 257, 128, 128, 64, 132, pairs=9)
+    with pytest.raises(ValueError, match="variant"):
+        tb.walk_launch_plan(65, 4, 4, 257, 128, 128, 64, 132,
+                            variant="block")
+
+
 def test_cpu_wrapper_takes_plain_without_launch():
     ev = _machine("allclass")[1]
     tok_in, tok_out = _batch("allclass")
@@ -232,6 +330,63 @@ def test_cpu_wrapper_takes_plain_without_launch():
 
 
 # ------------------------------------------------------------------- the card
+
+def _card_records_equal(walker, lat, wargs, plain, **kw):
+    """The kernel's records at layout `kw` equal the plain walk's, bit for
+    bit, n, ij, vals and ok, unwritten slots included."""
+    got = tb.lattice_walk(walker, lat, *wargs, **kw)
+    for a, b in zip(got, plain):
+        assert torch.equal(a.cpu(), b.cpu()), kw
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MACHINES) + ["dense64", "prot2dna"])
+def test_walk_kernel_every_layout_matches_plain_on_card(name):
+    """Every variant and blocks of 1, 3 and 8 pairs (4 and 5 pairs: a last
+    block part full), on the small machines, the 64-state ACGT machine (S
+    = 65, three values a lane) and the prot2dna preset (S = 132, float4
+    rows), and with the walk cut at Ncap and at max_steps."""
+    import dataclasses
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if name == "dense64":
+        m = testmachines.build_random_transducer(64, list("ACGT"), seed=3)
+    elif name == "prot2dna":
+        from machineboss_tpu_torch.core.presets import make_preset
+        m = make_preset("prot2dna")
+    if name in ("dense64", "prot2dna"):
+        ev = EvaluatedMachine(m, m.get_param_defs(True))
+        mats = tuple(np.asarray(x) for x in LoweredMachine(
+            ev, dtype=np.float32).matrices_2d("maxplus"))
+        _cache[name] = (m, ev, mats)
+        rng = np.random.RandomState(3)
+        n_in, n_out = mats[1].shape[0], mats[2].shape[0]
+        lens = [(7, 21), (5, 15), (0, 6), (6, 0), (3, 9)]
+        tok_in = [rng.randint(0, n_in, a).astype(np.int32) for a, _ in lens]
+        tok_out = [rng.randint(0, n_out, b).astype(np.int32)
+                   for _, b in lens]
+    else:
+        ev = _machine(name)[1]
+        tok_in, tok_out = _batch(name)
+    diags, Li, Lo = _full_lattice(name, tok_in, tok_out, device="cuda")
+    walker = tb.make_lattice_walker(ev, Li, Lo)
+    wargs = tb.walk_tensors(walker, np.zeros(Li + Lo + 1, np.int32), tok_in,
+                            tok_out)
+    plain = tb.lattice_walk_plain(walker, diags, *wargs)
+    for variant in tb.WALK_VARIANTS:
+        try:
+            _card_records_equal(walker, diags, wargs, plain, variant=variant)
+        except ValueError as err:            # edges_shared at S = 132
+            assert variant == "edges_shared" and "shared memory" in str(err)
+    for pairs in (1, 3, 8):
+        _card_records_equal(walker, diags, wargs, plain, pairs=pairs)
+    for cut in (dict(Ncap=3), dict(max_steps=2)):
+        short = dataclasses.replace(walker, plans={}, **cut)
+        want = tb.lattice_walk_plain(short, diags, *wargs)
+        assert not want[3].all()              # the cut stops some pair
+        _card_records_equal(short, diags, wargs, want)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(MACHINES))
@@ -274,3 +429,37 @@ def test_banded_walk_kernel_matches_plain_on_card(seed):
                           raw.cpu(), fill.bases, it0, ot0, 24, 24)
     _same_records(kern, plain)
     assert kern[3]
+
+
+@pytest.mark.cuda
+def test_long_banded_walk_kernel_matches_plain_on_card():
+    """The banded alignment of two 30,000-token sequences (60,001
+    diagonals): the default walk takes it, with the bases and tokens read
+    from global memory, walks it to (0, 0), and its records equal the plain
+    walk's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, ev, mats = _machine("dense6")
+    L = 30000
+    sp = testmachines.align_pair(L, seed=7)
+    env = Envelope(sp, width=8)
+    it0 = np.array(ev.input_tokenizer.tokenize(sp.input.seq), np.int32) - 1
+    ot0 = np.array(ev.output_tokenizer.tokenize(sp.output.seq), np.int32) - 1
+    lo, hi = vk.envelope_diag_bands(env)
+    fill = vk.make_wavefront_viterbi_banded(*mats, L, L, lo, hi)
+    raw = fill.fill_raw(it0, ot0)
+    walker = tb.make_lattice_walker(ev, L, L)
+    nd = raw.shape[0]
+    assert nd == 2 * L + 1
+    plan = tb.walk_launch_plan(walker.S, walker.Ti, walker.To, nd, L, L, 1,
+                               132)
+    assert not plan["staged"]
+    before = tb.lattice_walk.launches
+    kern = tb.run_walker(walker, raw, fill.bases, it0, ot0, L, L)
+    assert tb.lattice_walk.launches == before + 1
+    plain = tb.run_walker(tb.make_lattice_walker(ev, L, L, device="cpu"),
+                          raw.cpu(), fill.bases, it0, ot0, L, L)
+    _same_records(kern, plain)
+    assert np.array_equal(kern[1], plain[1]) and \
+        np.array_equal(kern[2], plain[2])
+    assert kern[3] and kern[0] == L      # the diagonal, cell by cell
