@@ -91,6 +91,34 @@ i == o (the bound over every cell is printed too); scan1d multiplies only
 the nonzero entries of a position's token matrix (the S * S bound beside
 it).
 
+Then four phases drive the eager torch engines of single-pair scoring and
+the sparse engine (no kernel of the kernels line runs in them), each call
+gated against a float64 oracle, timed with torch.cuda.synchronize() around
+it (the median of 5 where a call takes under 1 s, else over its pairs) and
+its device launches counted once under torch.profiler:
+
+  single_pair_2d  prot2dna, 8 pairs of 64 aa x 192 nt: log_forward and
+                  log_viterbi (the row engine), dp2d.forward_2d with the
+                  associative rows, dp_aligned.forward_aligned along each
+                  pair's Viterbi path and api.device_forward_batch on the
+                  8 pairs; forward_2d_banded in an Envelope of width 16
+                  around the first pair's path; log_backward_lattice and
+                  fwdback.posterior_lattice on the first pair cut to 32 aa
+                  x 96 nt (those three walk every cell, a log_forward's
+                  launches or twice them);
+  single_pair_1d  the dense1d generator at L=10,000: log_forward with
+                  "auto" (the default rule: "scan" at its 65 states) and
+                  "assoc", forward_1d_all / backward_1d_all, the blocked
+                  fold on the dense1d batch (256 x 10,000; also against
+                  the scan1d kernel's scores) and the probability-space
+                  scan at 256 x 3,000;
+  sparse          a seeded 128-node Plan7 generator (644 states, not
+                  dense), 4 reads of 128 (log_forward, the 1D forms in
+                  both semirings), and prot2dna forced sparse, 4 pairs of
+                  64 x 192 (log_forward_batch, backward and Viterbi);
+  pswm            the dense and sparse PSWM forms, 1D and 2D (the 2D
+                  profiles at 16 aa x 48 nt).
+
 Prints one JSON line per phase, the total time, the kernel table, the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failure prints its traceback and exits non-zero. Without CUDA
@@ -2433,6 +2461,572 @@ def plan7_path(dev, card, smi):
             "bound_by": bound_by, "library_ms": None}
 
 
+# ------------------------------- single-pair scoring and the sparse engine
+
+SINGLE_FB_TOL = 1e-3             # nats: Backward total against Forward
+ONE_HOT_TOL = 1e-4               # nats: a one-hot profile against tokens
+SPARSE_VS_DENSE_TOL = 1e-3       # nats: sparse forms against the dense ones
+BLOCKED_VS_SCAN1D_TOL = 5e-3     # nats: blocked fold against the scan kernel
+
+
+def launches_per_call(fn):
+    """(fn(), kernels, copies) of one call under torch.profiler's CUDA
+    activity: the device's kernel launches, and its memcpy and memset
+    operations (None, None where the profiler saw no device activity).
+    The tracing costs some 40 us a launch on the card's host, so the
+    call's time is taken apart."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kineto = getattr(prof.profiler, "kineto_results", None)
+    if kineto is not None:
+        # the raw activity records: prof.events() would build the event
+        # tree, tens of seconds for a call of 500k launches
+        names = [e.name() for e in kineto.events()
+                 if e.device_type() == cuda]
+    else:
+        names = [e.name for e in prof.events() if e.device_type == cuda]
+    kernels = copies = 0
+    for name in names:
+        if "memcpy" in name.lower() or "memset" in name.lower():
+            copies += 1
+        else:
+            kernels += 1
+    if kernels + copies == 0:
+        return out, None, None
+    return out, kernels, copies
+
+
+def synced_ms(fn):
+    """(fn(), ms): one call between two torch.cuda.synchronize()."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def call_record(fns, count=True):
+    """One call form over one or more inputs (a zero-argument function
+    each): launches per call from one profiled call of the first (unless
+    `count` is false), whose result stands for the first input's, then
+    the others' calls timed, synchronised around each. ms is the median
+    over those calls; with one input, over 5 calls where a call takes
+    under 1 s, else of one. Returns (record, the inputs' results)."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    if count:
+        out, kernels, copies = launches_per_call(fns[0])
+        outs, timed = [out], fns[1:] or fns
+    else:
+        outs, timed, kernels, copies = [], fns, None, None
+    times = []
+    for fn in timed:
+        out, ms = synced_ms(fn)
+        times.append(ms)
+        if len(outs) < len(fns):
+            outs.append(out)
+    if len(fns) == 1 and times[0] < 1000.0:
+        times += [synced_ms(fns[0])[1] for _ in range(4)]
+    return {"ms": float(np.median(times)), "ms_all": times,
+            "launches_per_call": kernels, "copies_per_call": copies}, outs
+
+
+def gated(rec, err, bound, gate, what, **extra):
+    """The record with its gate; fails the run past `bound` nats."""
+    check(err <= bound, "%s: %s %.3g nats" % (what, gate, err))
+    rec.update(gate_max_abs=err, gate=gate, **extra)
+    return rec
+
+
+def lattice_err(lat, ref):
+    """max |lat - ref| over the cells live in `ref`; the impossible cells
+    (<= NEG) must be the same."""
+    lat = lat.cpu().numpy().astype(np.float64)
+    check(lat.shape == ref.shape and np.array_equal(lat <= NEG, ref <= NEG),
+          "lattice shape or impossible cells differ")
+    live = ref > NEG
+    return float(np.abs(lat[live] - ref[live]).max())
+
+
+def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_band=1, Lc=32):
+    """prot2dna's single-pair calls on B pairs of Lp aa x 3Lp nt: the row
+    engine (log_forward, log_viterbi), the associative rows, the Backward
+    lattice and posteriors of the first pair cut to Lc aa x 3Lc nt, the
+    banded fill (n_band pairs), the aligned scan and the batched row
+    engine, each held to its float64 host oracle. The lattice calls and
+    the banded fill walk every cell, each a log_forward's launches or
+    twice them; they are cut so that the phase keeps to its time."""
+    from machineboss_tpu_torch import api
+    from machineboss_tpu_torch.algo.dp_host import (
+        BackwardMatrix, ForwardMatrix, ViterbiMatrix)
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.core.seqpair import Envelope, NamedSeq, SeqPair
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import dp2d, dp_aligned, fwdback
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    t_phase = time.perf_counter()
+    Lo = 3 * Lp
+    cm = CompiledMachine(make_preset("prot2dna"), device=dev)
+    pairs = prot2dna_pairs(B, Lp, seed=0)
+    toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
+    f64 = f64_scores(cm._host_mats(), toks, key=("prot2dna", B, Lp))
+    plain = [SeqPair(NamedSeq("i", list(p)), NamedSeq("o", list(d)))
+             for p, d in pairs]
+    oracle = "host_oracle.forward_2d_f64, %d pairs" % B
+    calls = {}
+
+    check(cm._strategy(Lp, Lo, "auto") == "rows", "prot2dna: not rows")
+    rec, got = call_record([lambda p=p: cm.log_forward(*p) for p in pairs])
+    check(cm.last_route == "rows", "log_forward took %s" % cm.last_route)
+    calls["log_forward"] = gated(rec, score_err(got, f64), GATE_TOL, oracle,
+                                 "log_forward")
+    host_vit = [ViterbiMatrix(cm.ev, sp) for sp in plain]
+    vit = [max(v.log_like(), -1e30) for v in host_vit]
+    # each pair with its Viterbi path's alignment: the banded fill's
+    # envelope and the aligned scan's columns
+    sps = [SeqPair(sp.input, sp.output,
+                   SeqPair.alignment_from_path(v.path(cm.machine)))
+           for sp, v in zip(plain, host_vit)]
+    rec, got = call_record([lambda p=p: cm.log_viterbi(*p) for p in pairs])
+    check(all(v <= f + 1e-4 for v, f in zip(got, f64)), "Viterbi > Forward")
+    calls["log_viterbi"] = gated(rec, score_err(got, vit), GATE_TOL,
+                                 "dp_host.ViterbiMatrix, %d pairs" % B,
+                                 "log_viterbi")
+
+    mats = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in cm._host_mats()]
+    dt = [(torch.tensor(i, device=dev), torch.tensor(o, device=dev))
+          for i, o in toks]
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+    rec, got = call_record([lambda x=x: float(dp2d.forward_2d(
+        *mats, *x, Lp, Lo, assoc=True)) for x in dt])
+    calls["forward_2d_assoc"] = gated(rec, score_err(got, f64), GATE_TOL,
+                                      oracle, "assoc rows")
+
+    # the Backward lattice and the posteriors of one pair, every cell
+    cut = (pairs[0][0][:Lc], pairs[0][1][:3 * Lc])
+    cut_sp = SeqPair(NamedSeq("i", list(cut[0])), NamedSeq("o", list(cut[1])))
+    cut_toks = (cm.in_toks(cut[0]), cm.out_toks(cut[1]))
+    host_b = BackwardMatrix(cm.ev, cut_sp).cell           # (Li+1, Lo+1, S)
+    host_f = ForwardMatrix(cm.ev, cut_sp).cell
+    rec, (lat,) = call_record(lambda: cm.log_backward_lattice(*cut))
+    ref = np.maximum(np.transpose(host_b, (1, 0, 2)), -1e30)
+    fb = abs(float(lat[0, 0, 0])
+             - f64_scores(cm._host_mats(), [cut_toks])[0])
+    check(fb <= SINGLE_FB_TOL, "backward total vs forward %.3g" % fb)
+    calls["log_backward_lattice"] = gated(
+        rec, lattice_err(lat, ref), GATE_TOL,
+        "dp_host.BackwardMatrix, every cell of the cut pair",
+        "backward lattice",
+        backward_total_vs_forward=fb)
+    live = (host_f > -1e29) & (host_b > -1e29)
+    ref = np.transpose(np.where(live, host_f + host_b - host_f[-1, -1, -1],
+                                -1e30), (1, 0, 2))
+    cut_dt = [torch.tensor(x, device=dev) for x in cut_toks]
+    rec, (post,) = call_record(lambda: fwdback.posterior_lattice(
+        *mats, *cut_dt))
+    calls["posterior_lattice"] = gated(
+        rec, lattice_err(torch.clamp(post, min=-1e30), ref), GATE_TOL,
+        "dp_host ForwardMatrix + BackwardMatrix - ll, every cell of the "
+        "cut pair",
+        "posteriors")
+
+    # the banded fill and the aligned scan along each pair's path
+    # the banded fill, as the JAX package's, masks the band inside a walk
+    # of every cell (a log_forward's time a pair): n_band of the pairs
+    envs = [Envelope(sp, width=16) for sp in sps[:n_band]]
+    band = [(torch.tensor(e.in_start, device=dev),
+             torch.tensor(e.in_end, device=dev)) for e in envs]
+    rec, got = call_record([lambda x=x, b=b: float(dp2d.forward_2d_banded(
+        *mats, *x, *b, Lp, Lo)) for x, b in zip(dt, band)])
+    check(all(g <= f + 1e-4 for g, f in zip(got, f64)), "banded > full")
+    ref = [max(ForwardMatrix(cm.ev, sp, e).log_like(), -1e30)
+           for sp, e in zip(sps, envs)]
+    calls["forward_2d_banded"] = gated(
+        rec, score_err(got, ref), GATE_TOL,
+        "dp_host.ForwardMatrix(ev, sp, Envelope(sp, 16)), %d pairs"
+        % n_band, "banded", band_cells=[e.n_cells() for e in envs])
+    lt = torch.from_numpy(np.ascontiguousarray(cm.lowered.log_trans,
+                                               np.float32)).to(dev)
+    lt64 = torch.from_numpy(np.asarray(cm.lowered.log_trans, np.float64))
+    cl64 = torch.from_numpy(np.asarray(cm._host_mats()[3], np.float64))
+    cols = [dp_aligned.alignment_tokens(cm.ev, sp.alignment) for sp in sps]
+    rec, got = call_record([lambda c=c: float(dp_aligned.forward_aligned(
+        lt, mats[3], *c, len(c[0]))) for c in cols])
+    check(all(a <= f + 1e-4 for a, f in zip(got, f64)), "aligned > forward")
+    ref = [float(dp_aligned.forward_aligned(lt64, cl64, *c, len(c[0])))
+           for c in cols]
+    calls["forward_aligned"] = gated(
+        rec, score_err(got, ref), GATE_TOL, "the same scan on the CPU in "
+        "float64, %d paths; aligned <= forward" % B, "aligned")
+
+    rec, (got,) = call_record(lambda: api.device_forward_batch(
+        make_preset("prot2dna"), pairs, device=dev))
+    calls["device_forward_batch"] = gated(rec, score_err(got, f64),
+                                          GATE_TOL, oracle,
+                                          "device_forward_batch")
+    emit({"phase": "single_pair_2d", "machine": "prot2dna",
+          "S": cm.ev.n_states(), "pairs": B, "Li": Lp, "Lo": Lo,
+          "reduced": ["log_backward_lattice and posterior_lattice on the "
+                      "first pair cut to %d aa x %d nt" % (Lc, 3 * Lc),
+                      "forward_2d_banded on %d of the %d pairs"
+                      % (n_band, B)],
+          "calls": calls, "seconds": time.perf_counter() - t_phase,
+          "card": card, "nvidia_smi": smi})
+
+
+def dense1d_batch(B=256, L=10000, S=64):
+    """dense1d_path's generator and batch, drawn again from its seed."""
+    from machineboss_tpu_torch.testmachines import build_generator_1d
+    rng = np.random.RandomState(42)
+    m = build_generator_1d(S, rng=rng)
+    sym = np.array(list("ACGT"))
+    return m, [("", "".join(sym[rng.randint(0, 4, L)])) for _ in range(B)]
+
+
+def single_pair_1d_phase(dev, card, smi, B=256, L=10000, Lq=3000):
+    """The dense1d generator's single-pair calls at L ("auto", which the
+    default rule sends to the scan at 65 states, and "assoc"; the
+    lattices) and the batch engines on the dense1d
+    batch: the blocked fold at B x L, the probability-space scan at
+    B x Lq. Returns the machine and the batch's tokens."""
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import dp1d
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
+    from machineboss_tpu_torch.testmachines import forward_1d_f64
+    t_phase = time.perf_counter()
+    m, pairs = dense1d_batch(B, L)
+    cm = CompiledMachine(m, device=dev)
+    trans, closure = (np.asarray(x) for x in
+                      cm.lowered.emit_matrices_1d(output_side=True))
+    S = trans.shape[-1]
+    toks = np.array([cm.out_toks(o) for _, o in pairs], np.int64)
+    n_gate = min(8, B)
+    ref = forward_1d_f64(trans, closure, toks[:n_gate], np.full(n_gate, L))
+    one = "forward_1d_f64, 1 sequence"
+    calls = {}
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+    # the default rule (no `cuda` row): assoc for L >= 256 at S <= 64,
+    # where S counts End: the 64-state generator has 65 states
+    auto = "assoc" if (L >= 256 and S <= 64) else "scan"
+    check(cm._strategy(0, L, "auto") == auto,
+          "the default rule on cuda at S=%d, L=%d" % (S, L))
+    for strategy in ("auto", "scan" if auto == "assoc" else "assoc"):
+        rec, got = call_record(lambda: cm.log_forward(
+            "", pairs[0][1], strategy=strategy))
+        calls["log_forward_" + cm.last_route] = gated(
+            rec, score_err(got, ref[:1]), GATE_TOL, one, "log_forward",
+            strategy=strategy, route=cm.last_route)
+    t, c = (torch.from_numpy(x).to(dev) for x in (trans, closure))
+    tk = torch.from_numpy(toks).to(dev)
+    # the lattices carry absolute log values (as the JAX package's do): in
+    # float32 their totals drift with L, so the gate takes them in float64
+    # and the float32 call's error is reported beside it
+    for name, fn in (("forward_1d_all", dp1d.forward_1d_all),
+                     ("backward_1d_all", dp1d.backward_1d_all)):
+        err = {}
+        for dt in (torch.float32, torch.float64):
+            tt, cc = t.to(dt), c.to(dt)
+            f0 = dp1d._start_vector(S, cc, LOGSUMEXP, dt)
+            rec, (lat,) = call_record(lambda: fn(tt, cc, tk[0], L),
+                                      count=dt == torch.float32)
+            total = float(lat[L, S - 1]) if name == "forward_1d_all" \
+                else float(LOGSUMEXP.reduce(f0 + lat[0]))
+            err[dt] = score_err([total], ref[:1])
+            if dt == torch.float32:
+                rec32 = rec
+        calls[name] = gated(rec32, err[torch.float64], GATE_TOL, one +
+                            ", the lattice's total, the same call in "
+                            "float64 on the card", name,
+                            float32_total_err=err[torch.float32],
+                            float64_ms=rec["ms"])
+
+    # the blocked fold on the whole batch, also against scan1d's scores
+    fn, build_ms = synced_ms(lambda: dp1d.make_forward_1d_blocked(
+        trans, closure, device=dev))
+    lk = torch.full((B,), L, device=dev)
+    rec, (got,) = call_record(lambda: fn(tk, lk))
+    got = got.cpu().numpy()
+    scan1d = cm.log_forward_batch(pairs)
+    check(cm.last_route == ("scan1d" if dev.type == "cuda" else "scan"),
+          "the batch took %s" % cm.last_route)
+    err = score_err(got, scan1d)
+    check(err <= BLOCKED_VS_SCAN1D_TOL, "blocked vs scan1d %.3g" % err)
+    calls["make_forward_1d_blocked"] = gated(
+        rec, score_err(got[:n_gate], ref), GATE_TOL, "forward_1d_f64, %d of "
+        "%d sequences; the scan1d kernel's scores, all" % (n_gate, B),
+        "blocked", vs_scan1d_max_abs=err, host_table_ms=build_ms)
+
+    # the probability-space batch scan at its documented limit
+    tq = tk[:, :Lq].contiguous()
+    lq = torch.full((B,), Lq, device=dev)
+    rec, (got,) = call_record(lambda: dp1d.forward_1d_scan_probs_batch(
+        t, c, tq, lq))
+    refq = forward_1d_f64(trans, closure, toks[:n_gate, :Lq],
+                          np.full(n_gate, Lq))
+    calls["forward_1d_scan_probs_batch"] = gated(
+        rec, score_err(got.cpu().numpy()[:n_gate], refq), GATE_TOL,
+        "forward_1d_f64, %d of %d sequences of %d" % (n_gate, B, Lq),
+        "probs batch")
+    emit({"phase": "single_pair_1d", "machine": "dense1d generator",
+          "S": S, "B": B, "L": L, "Lq": Lq, "calls": calls,
+          "seconds": time.perf_counter() - t_phase, "card": card,
+          "nvidia_smi": smi})
+    return cm, toks
+
+
+def plan7_generator(K, seed=0):
+    """A seeded K-node amino-acid Plan7 profile viewed as a generator."""
+    from machineboss_tpu_torch.core.hmmer import HmmerModel
+    from machineboss_tpu_torch.testmachines import AMINO, \
+        random_plan7_hmm_text
+    hmm = HmmerModel()
+    hmm.read(random_plan7_hmm_text(K, AMINO, seed))
+    return hmm.machine(False)
+
+
+def sparse_phase(dev, card, smi, K=128, n_reads=4, Lr=128, n_pairs=4,
+                 Lp=64):
+    """The sparse engine: the K-node Plan7 generator (not dense at K=128,
+    S=644: "auto" takes "sparse"), n_reads reads of Lr; prot2dna forced
+    sparse (dense_max_states=16), n_pairs pairs of Lp x 3Lp."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import sparse
+    from machineboss_tpu_torch.ops.host_oracle import viterbi_2d_f64
+    from machineboss_tpu_torch.testmachines import (AMINO, plan7_reads,
+                                                    prot2dna_pairs)
+    t_phase = time.perf_counter()
+    gen = plan7_generator(K)
+    cm = CompiledMachine(gen, device=dev)
+    reads = plan7_reads(AMINO, n_reads, Lr, seed=0)
+    dense = CompiledMachine(gen, device="cpu", dense_max_states=1024)
+    otoks = [dense.out_toks(r) for r in reads]
+    ref_f = f64_scores(dense._host_mats(), [([], o) for o in otoks])
+    vmats = dense.lowered.matrices_2d("maxplus")
+    ref_v = [viterbi_2d_f64(*vmats, [], o) for o in otoks]
+    of_dense = " of the dense lowering, %d reads" % n_reads
+    calls = {}
+    check(cm._strategy(0, Lr, "auto") == "sparse", "plan7: not sparse")
+    rec, got = call_record([lambda r=r: cm.log_forward("", r)
+                            for r in reads])
+    check(cm.last_route == "sparse", "log_forward took %s" % cm.last_route)
+    calls["plan7_log_forward"] = gated(
+        rec, score_err(got, ref_f), GATE_TOL,
+        "host_oracle.forward_2d_f64" + of_dense, "plan7 log_forward")
+    sm = cm._cache["sparse"]
+    ones = [[t + 1 for t in o] for o in otoks]
+    for name in ("forward_1d_sparse", "backward_1d_sparse"):
+        fn = getattr(sparse, name)
+        for viterbi, ref, oracle in ((False, ref_f, "forward_2d_f64"),
+                                     (True, ref_v, "viterbi_2d_f64")):
+            rec, got = call_record([lambda o=o: fn(sm, o, viterbi=viterbi)
+                                    for o in ones])
+            calls["plan7_%s%s" % (name, "_viterbi" if viterbi else "")] = \
+                gated(rec, score_err(got, ref), GATE_TOL,
+                      "host_oracle." + oracle + of_dense, name)
+
+    p2d = CompiledMachine(make_preset("prot2dna"), device=dev,
+                          dense_max_states=16)
+    pd = CompiledMachine(make_preset("prot2dna"), device=dev)
+    pairs = prot2dna_pairs(n_pairs, Lp, seed=0)
+    toks = [(pd.in_toks(i), pd.out_toks(o)) for i, o in pairs]
+    ref = f64_scores(pd._host_mats(), toks)
+    rec, (got,) = call_record(lambda: p2d.log_forward_batch(pairs))
+    check(p2d.last_route == "sparse", "the batch took %s" % p2d.last_route)
+    err = score_err(got, pd.log_forward_batch(pairs))
+    check(err <= SPARSE_VS_DENSE_TOL, "sparse vs dense route %.3g" % err)
+    calls["prot2dna_log_forward_batch"] = gated(
+        rec, score_err(got, ref), GATE_TOL, "host_oracle.forward_2d_f64, "
+        "%d pairs; the dense route's (lowrank) scores" % n_pairs,
+        "prot2dna sparse batch", vs_dense_route_max_abs=err)
+    psm = p2d._cache["sparse"]
+    it, ot = [t + 1 for t in toks[0][0]], [t + 1 for t in toks[0][1]]
+    rec, (got,) = call_record(lambda: sparse.backward_2d_sparse(psm, it, ot))
+    calls["prot2dna_backward_2d_sparse"] = gated(
+        rec, abs(got - ref[0]), SINGLE_FB_TOL,
+        "backward = the Forward f64 score, 1 pair", "prot2dna backward")
+    vref = viterbi_2d_f64(*pd.lowered.matrices_2d("maxplus"), *toks[0])
+    rec, got = call_record(lambda: sparse.viterbi_2d_sparse(psm, it, ot))
+    calls["prot2dna_viterbi_2d_sparse"] = gated(
+        rec, score_err(got, [vref]), GATE_TOL,
+        "host_oracle.viterbi_2d_f64, 1 pair", "prot2dna viterbi")
+    emit({"phase": "sparse",
+          "plan7": {"K": K, "S": cm.ev.n_states(), "reads": n_reads,
+                    "L": Lr, "closure_edges": int(sm.closure()[0].numel())},
+          "prot2dna": {"S": p2d.ev.n_states(), "dense_max_states": 16,
+                       "pairs": n_pairs, "Li": Lp, "Lo": 3 * Lp,
+                       "closure_edges": int(psm.closure()[0].numel())},
+          "calls": calls, "seconds": time.perf_counter() - t_phase,
+          "card": card, "nvidia_smi": smi})
+
+
+def dirichlet_profile(L, T, seed):
+    """(L, T+1) log weights: Dirichlet rows, column 0 the epsilon skip."""
+    w = np.random.RandomState(seed).dirichlet(np.ones(T + 1), size=L)
+    return np.log(w).astype(np.float32)
+
+
+def pswm_phase(dev, card, smi, cm1d, toks1d, L1=1000, K=128, Lp=16):
+    """The PSWM engines: dense 1D on the dense1d generator at L1 and dense
+    2D on one prot2dna pair of Lp x 3Lp; sparse 1D on the K-node generator
+    (K positions) and sparse 2D on prot2dna forced sparse, the same pair.
+    Times and launches are the float32 calls'; the gates (one-hot =
+    tokens, backward = forward, sparse = dense) take the same calls in
+    float64 on the card, as these engines carry absolute log values, and
+    the float32 errors are printed beside them."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import dp1d, dp2d, pswm, sparse
+    from machineboss_tpu_torch.testmachines import (AMINO, plan7_reads,
+                                                    prot2dna_pairs)
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    calls = {}
+
+    def on(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x, np.float64), device=dev).to(dt)
+
+    def record(names, fns, errs, gate, bound, **extra):
+        """Two call forms (Forward, Backward) gated by errs = {float64:
+        err, float32: err}."""
+        for name, fn in zip(names, fns):
+            rec, _ = call_record(fn)
+            calls[name] = gated(rec, errs[f64], bound, gate, name,
+                                float32_err=errs[torch.float32], **extra)
+
+    def one_hot_check(what, err):
+        check(err <= ONE_HOT_TOL, "%s: one-hot vs tokens %.3g" % (what, err))
+        return err
+
+    dts = (torch.float32, f64)
+    # dense 1D
+    lt, clo = cm1d.lowered.log_trans[0, 1:], cm1d.lowered.closure_for()
+    trans = cm1d.lowered.emit_matrices_1d(True)[0]
+    prof = dirichlet_profile(L1, lt.shape[0], 1)
+    tk = torch.from_numpy(toks1d[0, :L1]).to(dev)
+    fb = {dt: abs(float(pswm.backward_1d_pswm(on(lt, dt), on(clo, dt),
+                                              on(prof, dt), L1))
+                  - float(pswm.forward_1d_pswm(on(lt, dt), on(clo, dt),
+                                               on(prof, dt), L1)))
+          for dt in dts}
+    oh = one_hot_check("dense 1D", abs(float(pswm.forward_1d_pswm(
+        on(lt, f64), on(clo, f64), pswm.pswm_from_tokens(
+            tk, lt.shape[0], dtype=f64), L1)) - float(dp1d.forward_1d_scan(
+                on(trans, f64), on(clo, f64), tk, L1))))
+    e, c, p = on(lt), on(clo), on(prof)
+    record(("forward_1d_pswm", "backward_1d_pswm"),
+           (lambda: pswm.forward_1d_pswm(e, c, p, L1),
+            lambda: pswm.backward_1d_pswm(e, c, p, L1)), fb,
+           "backward = forward", SINGLE_FB_TOL, one_hot_vs_tokens=oh)
+
+    # dense and sparse 2D on one prot2dna pair
+    pd = CompiledMachine(make_preset("prot2dna"), device=dev)
+    pr, dn = prot2dna_pairs(1, Lp, seed=5)[0]
+    it, ot = pd.in_toks(pr), pd.out_toks(dn)
+    Li, Lo = len(it), len(ot)
+    Ti = pd.ev.input_tokenizer.n_tokens() - 1
+    To = pd.ev.output_tokenizer.n_tokens() - 1
+    mats = pd._host_mats()
+    ip, op = dirichlet_profile(Li, Ti, 2), dirichlet_profile(Lo, To, 3)
+    ti, to = torch.tensor(it, device=dev), torch.tensor(ot, device=dev)
+
+    def dense2d(fn, dt, a=ip, b=op):
+        return float(fn(*[on(x, dt) for x in mats], on(a, dt), on(b, dt),
+                        Li, Lo))
+
+    f2 = {dt: dense2d(pswm.forward_2d_pswm, dt) for dt in dts}
+    fb = {dt: abs(dense2d(pswm.backward_2d_pswm, dt) - f2[dt]) for dt in dts}
+    ih = pswm.pswm_from_tokens(ti, Ti, dtype=f64).cpu().numpy()
+    oh2 = pswm.pswm_from_tokens(to, To, dtype=f64).cpu().numpy()
+    oh = one_hot_check("dense 2D", abs(
+        dense2d(pswm.forward_2d_pswm, f64, ih, oh2)
+        - float(dp2d.forward_2d(*[on(x, f64) for x in mats], ti, to, Li,
+                                Lo))))
+    m32, p32 = [on(x) for x in mats], (on(ip), on(op))
+    record(("forward_2d_pswm", "backward_2d_pswm"),
+           (lambda: pswm.forward_2d_pswm(*m32, *p32, Li, Lo),
+            lambda: pswm.backward_2d_pswm(*m32, *p32, Li, Lo)), fb,
+           "backward = forward", SINGLE_FB_TOL, one_hot_vs_tokens=oh)
+    sms = {dt: sparse.SparseMachine(pd.ev, dtype=np.float64 if dt == f64
+                                    else np.float32, device=dev)
+           for dt in dts}
+    fs = {dt: sparse.forward_2d_sparse_pswm(sms[dt], ip, op) for dt in dts}
+    bs = {dt: sparse.backward_2d_sparse_pswm(sms[dt], ip, op) for dt in dts}
+    oh = one_hot_check("sparse 2D", abs(
+        sparse.forward_2d_sparse_pswm(sms[f64], ih, oh2)
+        - sparse.forward_2d_sparse(sms[f64], [t + 1 for t in it],
+                                   [t + 1 for t in ot])))
+    check(abs(bs[f64] - fs[f64]) <= SINGLE_FB_TOL
+          and sparse.forward_2d_sparse_pswm(sms[torch.float32], ip, op,
+                                            viterbi=True)
+          <= fs[torch.float32] + 1e-5,
+          "sparse 2D PSWM: backward %.3g, or Viterbi above Forward"
+          % abs(bs[f64] - fs[f64]))
+    sm = sms[torch.float32]
+    record(("forward_2d_sparse_pswm", "backward_2d_sparse_pswm"),
+           (lambda: sparse.forward_2d_sparse_pswm(sm, ip, op),
+            lambda: sparse.backward_2d_sparse_pswm(sm, ip, op)),
+           {dt: max(abs(fs[dt] - f2[dt]), abs(bs[dt] - f2[dt]))
+            for dt in dts}, "sparse = dense", SPARSE_VS_DENSE_TOL,
+           one_hot_vs_tokens=oh)
+
+    # sparse 1D on the K-node generator, against its dense lowering
+    gen = plan7_generator(K)
+    gev = CompiledMachine(gen, device=dev).ev
+    gsms = {dt: sparse.SparseMachine(gev, dtype=np.float64 if dt == f64
+                                     else np.float32, device=dev)
+            for dt in dts}
+    T = gev.output_tokenizer.n_tokens() - 1
+    gp = dirichlet_profile(K, T, 4)
+    gd = CompiledMachine(gen, device="cpu", dense_max_states=1024)
+    fd = {dt: float(pswm.forward_1d_pswm(
+        on(gd.lowered.log_trans[0, 1:], dt), on(gd.lowered.closure_for(), dt),
+        on(gp, dt), K)) for dt in dts}
+    f1 = {dt: sparse.forward_1d_sparse_pswm(gsms[dt], gp) for dt in dts}
+    b1 = {dt: sparse.backward_1d_sparse_pswm(gsms[dt], gp) for dt in dts}
+    rt = [gev.output_tokenizer.sym2tok[ch]
+          for ch in plan7_reads(AMINO, 1, K, seed=1)[0]]
+    oh1 = pswm.pswm_from_tokens(torch.tensor(rt) - 1, T, dtype=f64).numpy()
+    oh = one_hot_check("sparse 1D", abs(
+        sparse.forward_1d_sparse_pswm(gsms[f64], oh1)
+        - sparse.forward_1d_sparse(gsms[f64], rt)))
+    check(abs(b1[f64] - f1[f64]) <= SINGLE_FB_TOL
+          and sparse.forward_1d_sparse_pswm(gsms[torch.float32], gp,
+                                            viterbi=True)
+          <= f1[torch.float32] + 1e-5,
+          "sparse 1D PSWM: backward %.3g, or Viterbi above Forward"
+          % abs(b1[f64] - f1[f64]))
+    gsm = gsms[torch.float32]
+    record(("forward_1d_sparse_pswm", "backward_1d_sparse_pswm"),
+           (lambda: sparse.forward_1d_sparse_pswm(gsm, gp),
+            lambda: sparse.backward_1d_sparse_pswm(gsm, gp)),
+           {dt: max(abs(f1[dt] - fd[dt]), abs(b1[dt] - fd[dt]))
+            for dt in dts}, "sparse = dense (forward_1d_pswm of the dense "
+           "lowering)", SPARSE_VS_DENSE_TOL, one_hot_vs_tokens=oh)
+    emit({"phase": "pswm", "dense_1d": {"S": int(clo.shape[0]), "L": L1},
+          "dense_2d": {"S": int(mats[3].shape[0]), "Li": Li, "Lo": Lo},
+          "sparse_1d": {"S": gsm.n_states, "L": K},
+          "sparse_2d": {"S": sm.n_states, "Li": Li, "Lo": Lo},
+          "reduced": ["the 2D profiles, dense and sparse, at %d aa x %d nt: "
+                      "a diagonal cell mixes Ti x To = %d classes"
+                      % (Li, Lo, Ti * To)],
+          "calls": calls, "seconds": time.perf_counter() - t_phase,
+          "card": card, "nvidia_smi": smi})
+
+
+def single_pair_paths(dev, card, smi):
+    """The four phases of the single-pair and sparse engines: eager torch
+    engines, no kernel of the kernels line."""
+    single_pair_2d_phase(dev, card, smi)
+    cm1d, toks1d = single_pair_1d_phase(dev, card, smi)
+    sparse_phase(dev, card, smi)
+    pswm_phase(dev, card, smi, cm1d, toks1d)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2620,6 +3214,9 @@ def main():
 
     # -- fused Plan7 read scoring, at full width --------------------------
     kernels.append(plan7_path(dev, card, smi))
+
+    # -- single-pair scoring and the sparse engine ------------------------
+    single_pair_paths(dev, card, smi)
 
     # no single PyTorch call computes a wavefront, this scan, this walk or
     # this row solve: library_ms is null for every kernel

@@ -1,12 +1,16 @@
 """High-level convenience API of the port (counterpart of machineboss_tpu's
-api.py). Only the fused Plan7 entry point is ported so far; the other device
-entry points are still to come."""
+api.py): the batched device entry points `device_forward_batch` and
+`fused_plan7_forward`. The host entry points and `device_counts_batch` are
+not ported yet (ROADMAP.md queue A, items 5 and 9)."""
 
 import json
+
+import torch
 
 from .core.eval import EvaluatedMachine
 from .core.machine import Machine
 from .core.params import Params, param_assign_from_json
+from .core.seqpair import NamedSeq, SeqPair
 
 
 def _machine(m):
@@ -31,6 +35,40 @@ def _params(p, machine=None, use_defaults=True):
         # user params win
         p = machine.get_param_defs(use_defaults).combine(p, True)
     return p
+
+
+def _seq(s):
+    if isinstance(s, NamedSeq):
+        return s
+    if isinstance(s, str):
+        return NamedSeq(s, list(s))
+    return NamedSeq("seq", list(s))
+
+
+def device_forward_batch(machine, seq_pairs, params=None, dtype=None,
+                         device=None):
+    """Batched Forward log-likelihoods on `device` (None: the CUDA card,
+    raising when CUDA is absent; "cpu" for the CPU).
+
+    seq_pairs: list of (input_seq, output_seq). The batch goes through one
+    call of the row engine (ops/dp2d.forward_2d) with the batch dimension
+    written out. Returns a numpy array (B,)."""
+    import numpy as np
+    from .ops import dp2d
+    from .ops.fwdback import tokenize_batch
+    from .ops.lowering import LoweredMachine
+    from .ops.semiring import LOGSUMEXP
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    m = _machine(machine)
+    ev = EvaluatedMachine(m, _params(params, m))
+    lm = LoweredMachine(ev, dtype=np.float32)
+    mats = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in lm.matrices_2d()]
+    pairs = [SeqPair(_seq(i), _seq(o)) for i, o in seq_pairs]
+    it, ot, il, ol = tokenize_batch(ev, pairs, device=dev)
+    return dp2d.forward_2d(*mats, it, ot, il, ol, sr=LOGSUMEXP).cpu().numpy()
 
 
 def fused_plan7_forward(hmm_path_or_model, transducer, out_seqs,

@@ -1,8 +1,19 @@
-"""Batched Forward front end: the port's `CompiledMachine`.
+"""Auto-dispatching DP front end: the port's `CompiledMachine`.
 
-Counterpart of machineboss_tpu's dispatch.py, with its padding and its
-router. Ported so far is `log_forward_batch` for dense machines:
+Counterpart of machineboss_tpu's dispatch.py: the single-pair
+log_forward/log_viterbi/log_backward_lattice with strategy='auto', and the
+batched log_forward_batch with its padding and its router.
 
+Single-pair strategy ('auto'):
+  - machine too large to densify        -> sparse COO engine (ops/sparse)
+  - 1D (one side empty), long sequence  -> associative scan (log depth)
+  - 1D short / large S                  -> sequential scan
+  - 2D                                  -> row scan (ops/dp2d)
+The 1D rule reads the measured thresholds of dispatch_table.json for the
+machine's device type (`cpu`: never assoc); a device type without a row
+(`cuda`) takes the default rule, assoc when L >= 256 and S <= 64.
+
+log_forward_batch, dense machines:
   - structured 2D machines (lowrank_cost_ratio < 0.6, e.g. GeneWise
     prot2dna) -> the lowrank wavefront;
   - full-rank 2D machines -> the merged wavefront, or the ragged schedule
@@ -10,6 +21,8 @@ router. Ported so far is `log_forward_batch` for dense machines:
     is empty;
   - 1D machines (exactly one empty side) -> the 1D scan;
   - engine="wavefront" -> the torch wavefront engine (ops/wavefront_fast).
+Non-dense machines score pair by pair through log_forward (the sparse
+engine), as in the JAX package.
 
 Each kernel route launches its CUDA kernel on the card and runs the
 kernel's plain PyTorch version on the CPU. With engine="auto" the CPU
@@ -17,11 +30,10 @@ takes, as the JAX package does off its accelerator, the wavefront engine
 for every dense 2D machine, structured or full-rank, and the sequential
 scan (ops/dp1d) for 1D ones; engine="kernel" forces the kernel routes on
 any device.
-
-Non-dense machines (the sparse engine) are a later slice and raise
-NotImplementedError; the single-pair log_forward/log_viterbi are not
-ported yet.
 """
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -29,18 +41,39 @@ import torch
 from .core.eval import EvaluatedMachine
 from .core.machine import Machine
 from .core.params import Params
-from .ops import dp1d
+from .ops import dp1d, dp2d
+from .ops import sparse as sparse_mod
 from .ops.fwdback import pad_bucket
 from .ops.kernels.lowrank_kernel import lowrank_cost_ratio
 from .ops.kernels.scan1d_kernel import make_forward_1d_kernel
 from .ops.kernels.wavefront_kernel import make_wavefront_forward, ragged_span
 from .ops.lowering import LoweredMachine
+from .ops.semiring import LOGSUMEXP, MAXPLUS
 from .ops.wavefront_fast import forward_2d_wavefront_fast
 from .utils.debug import check_finite
 from .utils.device import resolve_device
 
 DENSE_MAX_STATES = 512
 LOWRANK_MAX_RATIO = 0.6
+
+
+def _load_dispatch_table(device_type):
+    """Measured engine thresholds (the JAX package's
+    scripts/autotune_dispatch.py), keyed by backend. Returns the row for
+    `device_type` ("cpu" or "cuda") when one was recorded, else None (the
+    default rule applies)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "dispatch_table.json")
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if "backends" in doc:
+        return doc["backends"].get(device_type)
+    return doc if doc.get("backend") == device_type else None
 
 
 def _check_engine(engine):
@@ -50,9 +83,13 @@ def _check_engine(engine):
 
 
 class CompiledMachine:
-    """A machine prepared for repeated batched Forward calls on `device`
-    (None: the CUDA card, raising when CUDA is absent; "cpu" runs the
-    plain PyTorch versions)."""
+    """A machine prepared for repeated device DP calls on `device` (None:
+    the CUDA card, raising when CUDA is absent; "cpu" runs the plain
+    PyTorch versions)."""
+
+    # dispatch_table.json's rows, read once per device type: a process may
+    # hold CPU and CUDA machines at once
+    _dispatch_tables = {}
 
     def __init__(self, machine, params=None, dtype=np.float32,
                  dense_max_states=DENSE_MAX_STATES, device=None):
@@ -80,6 +117,106 @@ class CompiledMachine:
 
     def out_toks(self, seq):
         return [self.ev.output_tokenizer.sym2tok[c] - 1 for c in seq]
+
+    # -- single pairs ------------------------------------------------------
+
+    def _strategy(self, n_in, n_out, strategy, device_type=None):
+        """The engine of a single-pair call: the sparse engine for a
+        non-dense machine; for a 1D machine "assoc" or "scan" by the
+        measured table of `device_type` (default: this machine's), else
+        the default rule; "rows" for a 2D machine."""
+        if strategy != "auto":
+            return strategy
+        if not self.is_dense:
+            return "sparse"
+        kind = self.device.type if device_type is None else device_type
+        tables = CompiledMachine._dispatch_tables
+        if kind not in tables:
+            tables[kind] = _load_dispatch_table(kind)
+        table = tables[kind]
+        one_d = self.machine.input_empty() or self.machine.output_empty()
+        if one_d:
+            S = self.ev.n_states()
+            L = max(n_in, n_out)
+            if table:
+                # measured: smallest L where the log-depth assoc scan beat
+                # the sequential scan for the nearest measured S
+                by_s = table["derived"]["assoc_min_L_by_S"]
+                if by_s:
+                    keys = sorted(int(k) for k in by_s)
+                    nearest = min(keys, key=lambda k: abs(k - S))
+                    return "assoc" if L >= by_s[str(nearest)] else "scan"
+                return "scan"          # assoc never won on this backend
+            # unmeasured device type: the JAX package's conservative guess,
+            # with an S cap for the assoc scan's cost at large S
+            return "assoc" if (L >= 256 and S <= 64) else "scan"
+        return "rows"
+
+    def _device_mats(self, key, make):
+        """make()'s host matrices as float32 tensors on the device, cached
+        under `key` (float32 whatever the lowering's dtype, as the JAX
+        package's arrays are)."""
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                .to(self.device) for x in make())
+        return self._cache[key]
+
+    def log_forward(self, input_seq, output_seq, strategy="auto",
+                    viterbi=False):
+        """Forward (or Viterbi) log-likelihood of one sequence pair, a
+        float. As in the JAX package, the sparse engine scores Forward
+        whatever `viterbi` is. `last_route` names the strategy taken."""
+        sr = MAXPLUS if viterbi else LOGSUMEXP
+        sr_name = sr.name
+        it = self.in_toks(input_seq)
+        ot = self.out_toks(output_seq)
+        strat = self._strategy(len(it), len(ot), strategy)
+        self.last_route = strat
+
+        if strat == "sparse":
+            if "sparse" not in self._cache:
+                self._cache["sparse"] = sparse_mod.SparseMachine(
+                    self.ev, device=self.device)
+            return check_finite("forward_2d_sparse",
+                                sparse_mod.forward_2d_sparse(
+                                    self._cache["sparse"],
+                                    [t + 1 for t in it],
+                                    [t + 1 for t in ot]))
+
+        if strat in ("scan", "assoc"):
+            out_side = self.machine.input_empty()
+            trans, closure = self._device_mats(
+                ("1d", out_side, sr_name),
+                lambda: self.lowered.emit_matrices_1d(output_side=out_side,
+                                                      semiring=sr_name))
+            toks = torch.tensor(ot if out_side else it, dtype=torch.long,
+                                device=self.device)
+            fn = dp1d.forward_1d_assoc if strat == "assoc" \
+                else dp1d.forward_1d_scan
+            return check_finite("forward_1d", float(
+                fn(trans, closure, toks, len(toks), sr=sr)))
+
+        mats = self._device_mats(("2d_dev", sr_name),
+                                 lambda: self.lowered.matrices_2d(sr_name))
+        return check_finite("forward_2d", float(dp2d.forward_2d(
+            *mats, torch.tensor(it, dtype=torch.long, device=self.device),
+            torch.tensor(ot, dtype=torch.long, device=self.device),
+            len(it), len(ot), sr=sr)))
+
+    def log_viterbi(self, input_seq, output_seq, strategy="auto"):
+        return self.log_forward(input_seq, output_seq, strategy,
+                                viterbi=True)
+
+    def log_backward_lattice(self, input_seq, output_seq):
+        """The Backward lattice of one pair, (Lo+1, Li+1, S) on the
+        machine's device (ops/dp2d.backward_2d_lattice)."""
+        mats = self._device_mats(("2d_dev", "logsumexp"), self._host_mats)
+        return dp2d.backward_2d_lattice(
+            *mats, torch.tensor(self.in_toks(input_seq), dtype=torch.long,
+                                device=self.device),
+            torch.tensor(self.out_toks(output_seq), dtype=torch.long,
+                         device=self.device))
 
     # -- routing -----------------------------------------------------------
 
@@ -126,11 +263,13 @@ class CompiledMachine:
         package does. Machines with exactly one empty side take the 1D
         scan, which pads every sequence to the batch's longest (no
         bucketing); engine='wavefront' keeps them on the 2D wavefront
-        engine. `last_route` names the route the call took."""
+        engine. A non-dense machine scores pair by pair through
+        log_forward (the sparse engine). `last_route` names the route the
+        call took."""
         if not self.is_dense:
-            raise NotImplementedError(
-                "non-dense machines (sparse COO engine) are not ported yet: "
-                "ROADMAP.md queue A, item 7")
+            res = np.array([self.log_forward(i, o) for i, o in pairs])
+            self.last_route = "sparse"
+            return res
         one_d = self.machine.input_empty() != self.machine.output_empty()
         if one_d and engine != "wavefront":
             return self._log_forward_batch_1d(pairs, pad_multiple, engine)
@@ -253,11 +392,9 @@ class CompiledMachine:
         route = self.route(engine)
         if route == "wavefront":
             self.last_route = "wavefront"
-            if "2d_dev" not in self._cache:
-                self._cache["2d_dev"] = tuple(
-                    torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                    .to(dev) for x in self._host_mats())
-            res = forward_2d_wavefront_fast(*self._cache["2d_dev"], *batch)
+            res = forward_2d_wavefront_fast(
+                *self._device_mats(("2d_dev", "logsumexp"), self._host_mats),
+                *batch)
             return check_finite("log_forward_batch", res.cpu().numpy())
         # structured machines take the closure-folded min-rank kernel;
         # full-rank machines the merged kernel family: the ragged schedule
@@ -282,3 +419,15 @@ class CompiledMachine:
                 variant=variant, chain=chain, n_abs_hint=hint)
         res = self._cache[key](*batch)
         return check_finite("log_forward_batch", res.cpu().numpy())
+
+
+def log_forward(machine, input_seq, output_seq, params=None,
+                strategy="auto", device=None):
+    return CompiledMachine(machine, params, device=device).log_forward(
+        input_seq, output_seq, strategy)
+
+
+def log_viterbi(machine, input_seq, output_seq, params=None,
+                strategy="auto", device=None):
+    return CompiledMachine(machine, params, device=device).log_viterbi(
+        input_seq, output_seq, strategy)

@@ -23,11 +23,8 @@ NEG_INF = -1e30  # finite stand-in for log(0); avoids inf-inf NaNs
 
 
 def _safe(mx):
-    return torch.where(mx > NEG_INF / 2, mx, torch.zeros_like(mx))
-
-
-def _neg_like(x):
-    return torch.full_like(x, NEG_INF)
+    # a Python scalar operand launches no fill kernel of its own
+    return torch.where(mx > NEG_INF / 2, mx, 0.0)
 
 
 class LogSemiring:
@@ -42,19 +39,36 @@ class LogSemiring:
         return torch.logsumexp(x, dim=axis)
 
     @staticmethod
-    def matmul(a, b):
-        """(...,m,k) x (...,k,n) -> (...,m,n) via shifted real matmul."""
-        asafe = _safe(a.max(dim=-1, keepdim=True).values)     # (...,m,1)
+    def prepare(b):
+        """b (...,k,n) made ready for repeated products with it: its
+        column-shifted exponentials and the shifts (...,1,n), as matmul
+        computes them."""
         bsafe = _safe(b.max(dim=-2, keepdim=True).values)     # (...,1,n)
-        prod = torch.matmul(torch.exp(a - asafe), torch.exp(b - bsafe))
+        return torch.exp(b - bsafe), bsafe
+
+    @staticmethod
+    def matmul_prepared(a, prep):
+        """matmul(a, b) with prep = prepare(b): the same operations."""
+        eb, bsafe = prep
+        asafe = _safe(a.max(dim=-1, keepdim=True).values)     # (...,m,1)
+        prod = torch.matmul(torch.exp(a - asafe), eb)
         c = torch.log(torch.clamp(prod, min=torch.finfo(a.dtype).tiny)) \
             + asafe + bsafe
-        return torch.where(prod > 0, c, _neg_like(c))
+        return torch.where(prod > 0, c, NEG_INF)
+
+    @staticmethod
+    def matmul(a, b):
+        """(...,m,k) x (...,k,n) -> (...,m,n) via shifted real matmul."""
+        return LogSemiring.matmul_prepared(a, LogSemiring.prepare(b))
 
     @staticmethod
     def vecmat(v, m):
         """(...,k) x (...,k,n) -> (...,n)."""
         return LogSemiring.matmul(v[..., None, :], m)[..., 0, :]
+
+    @staticmethod
+    def vecmat_prepared(v, prep):
+        return LogSemiring.matmul_prepared(v[..., None, :], prep)[..., 0, :]
 
     @staticmethod
     def matvec(m, v):
@@ -69,7 +83,7 @@ class LogSemiring:
         msafe = _safe(m)
         s = torch.exp(z - msafe[..., None, :]).sum(dim=-2)
         return torch.where(m > NEG_INF / 2, torch.log(s) + msafe,
-                           _neg_like(m))
+                           NEG_INF)
 
     @staticmethod
     def vecmat_small(v, m):
@@ -78,7 +92,7 @@ class LogSemiring:
         msafe = _safe(mx)
         s = torch.exp(z - msafe[..., None, :]).sum(dim=-2)
         return torch.where(mx > NEG_INF / 2, torch.log(s) + msafe,
-                           _neg_like(mx))
+                           NEG_INF)
 
     zero = NEG_INF
     one = 0.0
@@ -103,6 +117,12 @@ class MaxSemiring:
     @staticmethod
     def vecmat(v, m):
         return (v[..., :, None] + m).max(dim=-2).values
+
+    @staticmethod
+    def prepare(b):
+        return b
+
+    vecmat_prepared = vecmat
 
     @staticmethod
     def matvec(m, v):
@@ -150,6 +170,14 @@ class ProbSemiring:
         return ProbSemiring.matmul(v[..., None, :], m_log)[..., 0, :]
 
     @staticmethod
+    def prepare(b_log):
+        return torch.exp(b_log)
+
+    @staticmethod
+    def vecmat_prepared(v, eb):
+        return torch.matmul(v[..., None, :], eb)[..., 0, :]
+
+    @staticmethod
     def matvec(m_log, v):
         # note: first arg is the LOG matrix, second the prob vector
         return torch.matmul(torch.exp(m_log), v[..., :, None])[..., 0]
@@ -187,3 +215,32 @@ def get_semiring(name):
     if name in ("maxplus", "max", "viterbi"):
         return MAXPLUS
     raise ValueError("Unknown semiring %r" % name)
+
+
+def associative_scan(op, elems, dim=0):
+    """Inclusive scan of `elems` along `dim` under an associative `op`:
+    out[i] = elems[0] op elems[1] op ... op elems[i], the earlier operand
+    on the left (torch has no lax.associative_scan). Hillis-Steele:
+    ceil(log2 n) levels, each one batched `op` over the shifted operands,
+    O(n log n) work."""
+    x = elems.movedim(dim, 0)
+    n = x.shape[0]
+    step = 1
+    while step < n:
+        x = torch.cat([x[:step], op(x[:-step], x[step:])], dim=0)
+        step *= 2
+    return x.movedim(0, dim)
+
+
+def fold_pairwise(op, elems, dim=0):
+    """elems[0] op elems[1] op ... op elems[n-1] along `dim` by a pairwise
+    tree (n a power of two, the earlier operand on the left): log2 n
+    batched `op` levels. Callers pad with the identity."""
+    x = elems.movedim(dim, 0)
+    n = x.shape[0]
+    if n & (n - 1):
+        raise ValueError("fold_pairwise needs a power-of-two length, not %d"
+                         % n)
+    while x.shape[0] > 1:
+        x = op(x[0::2], x[1::2])
+    return x[0]

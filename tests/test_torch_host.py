@@ -462,3 +462,41 @@ def test_fused_viterbi_aligner_equal(multihit):
         th.plan7_machine(multihit=multihit, length=10.0), ttd)
     for seq in ("A", "ACG", "TTACGACGTT"):
         assert ja.score(seq) == ta.score(seq)
+
+
+# ---- the single-pair slice: dispatch_table.json and the blocked tables
+
+def test_dispatch_table_copy_is_identical():
+    """The port's dispatch_table.json is the JAX package's, byte for byte,
+    and the port reads its rows by device type."""
+    import os
+    from machineboss_tpu_torch.dispatch import _load_dispatch_table
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "machineboss_tpu", "dispatch_table.json"),
+              "rb") as f:
+        original = f.read()
+    with open(os.path.join(root, "machineboss_tpu_torch",
+                           "dispatch_table.json"), "rb") as f:
+        assert f.read() == original
+    rows = json.loads(original)["backends"]
+    assert _load_dispatch_table("cpu") == rows["cpu"]
+    assert _load_dispatch_table("cuda") is None
+
+
+@pytest.mark.parametrize("k", [None, 1, 3])
+def test_block_table_helpers_equal(k):
+    """dp1d's numpy-only helpers: _np_log_matmul_batch and
+    build_token_block_table give the JAX package's arrays bit for bit."""
+    from machineboss_tpu.ops import dp1d as jd
+    from machineboss_tpu_torch.ops import dp1d as td
+    rng = np.random.RandomState(5)
+    S, n_tok = 6, 3
+    trans = np.log(rng.dirichlet(np.ones(S), size=(n_tok, S))
+                   ).transpose(0, 2, 1)
+    trans[0, 1, :] = -1e30                    # a dead row
+    a, b = trans[:, None], trans[None]
+    assert np.array_equal(td._np_log_matmul_batch(a, b),
+                          jd._np_log_matmul_batch(a, b))
+    got, gk = td.build_token_block_table(trans, k=k)
+    ref, rk = jd.build_token_block_table(trans, k=k)
+    assert gk == rk and np.array_equal(got, ref)

@@ -122,3 +122,25 @@ def test_every_kernel_source_is_built_and_calls_no_library():
             assert inc in local | {"cuda_runtime.h", "stdint.h"}, (name, inc)
         assert not re.search(r"\b(cublas|cudnn)\w*\s*\(|"
                              r"\b(cutlass|cute|torch|at|c10)::", text), name
+
+
+def test_single_pair_modules_are_among_the_probed():
+    """The single-pair and sparse slice's modules are in the walked
+    package, the dispatch table ships beside dispatch.py, and importing
+    them alone loads neither jax nor machineboss_tpu."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"ops/sparse.py", "ops/pswm.py", "ops/dp_aligned.py",
+            "ops/dp1d.py", "ops/dp2d.py", "ops/fwdback.py",
+            "dispatch.py"} <= rel
+    assert os.path.exists(os.path.join(PKG, "dispatch_table.json"))
+    probe = ("import machineboss_tpu_torch.ops.sparse, "
+             "machineboss_tpu_torch.ops.pswm, "
+             "machineboss_tpu_torch.ops.dp_aligned, "
+             "machineboss_tpu_torch.dispatch as d, sys; "
+             "assert d._load_dispatch_table('cpu') is not None; "
+             "assert 'jax' not in sys.modules "
+             "and 'machineboss_tpu' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
