@@ -91,13 +91,29 @@ i == o (the bound over every cell is printed too); scan1d multiplies only
 the nonzero entries of a position's token matrix (the S * S bound beside
 it).
 
+Then the em phase drives EM training (no kernel of the kernels line runs
+in its E-step: autograd through the batched wavefront, eager torch):
+prot2dna, B=128 pairs of 64 aa x 192 nt whose codons are drawn from each
+amino acid's synonymous codons, through parallel.em.device_counts (first
+call s, median of 3 ms, pairs/s, state-cells/s, launches and copies a
+call, peak memory, beside the same batch's log_forward_batch ms), gated
+(a) on the first 4 pairs against the host MachineCounts, (b) on every
+pair's ll against log_forward_batch (one lowrank launch), (c) on the
+emitted-token counts against the lengths and (d) on tkf91branch and the
+indel transducer against host counts; then MachineFitter(engine="device")
+for 3 iterations with a checkpoint (each iteration's s and E/M split; the
+loglike may not fall) and a host and a device fit of 8 flanked pairs of
+16 aa: every parameter the data use within 1e-3, and the two fits'
+likelihoods within 0.01 nats (a parameter whose transitions the data use
+less than 0.01 times, such as the intron extension, is printed).
+
 Then four phases drive the eager torch engines of single-pair scoring and
 the sparse engine (no kernel of the kernels line runs in them), each call
 gated against a float64 oracle, timed with torch.cuda.synchronize() around
 it (the median of 5 where a call takes under 1 s, else over its pairs) and
 its device launches counted once under torch.profiler:
 
-  single_pair_2d  prot2dna, 8 pairs of 64 aa x 192 nt: log_forward and
+  single_pair_2d  prot2dna, 4 pairs of 64 aa x 192 nt: log_forward and
                   log_viterbi (the row engine), dp2d.forward_2d with the
                   associative rows, dp_aligned.forward_aligned along each
                   pair's Viterbi path and api.device_forward_batch on the
@@ -2551,7 +2567,7 @@ def lattice_err(lat, ref):
     return float(np.abs(lat[live] - ref[live]).max())
 
 
-def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_band=1, Lc=32):
+def single_pair_2d_phase(dev, card, smi, B=4, Lp=64, n_band=1, Lc=32):
     """prot2dna's single-pair calls on B pairs of Lp aa x 3Lp nt: the row
     engine (log_forward, log_viterbi), the associative rows, the Backward
     lattice and posteriors of the first pair cut to Lc aa x 3Lc nt, the
@@ -2670,7 +2686,9 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_band=1, Lc=32):
                                           "device_forward_batch")
     emit({"phase": "single_pair_2d", "machine": "prot2dna",
           "S": cm.ev.n_states(), "pairs": B, "Li": Lp, "Lo": Lo,
-          "reduced": ["log_backward_lattice and posterior_lattice on the "
+          "reduced": ["%d pairs, not 8: the row engine takes some 7 s a "
+                      "pair, and the script keeps to its time" % B,
+                      "log_backward_lattice and posterior_lattice on the "
                       "first pair cut to %d aa x %d nt" % (Lc, 3 * Lc),
                       "forward_2d_banded on %d of the %d pairs"
                       % (n_band, B)],
@@ -3018,6 +3036,284 @@ def pswm_phase(dev, card, smi, cm1d, toks1d, L1=1000, K=128, Lp=16):
           "card": card, "nvidia_smi": smi})
 
 
+# ------------------------------------------------------------ EM training
+
+COUNT_RTOL, COUNT_ATOL = 1e-3, 1e-4   # the JAX tests' count tolerance
+EM_LL_TOL = 0.01                 # nats a pair: E-step lls vs host and kernel
+EMISSION_TOL = 1e-4              # relative: emitted-token counts vs lengths
+FIT_TOL = 1e-3                   # per parameter: device fit vs host fit
+FIT_MIN_USES = 0.01              # expected uses below which data fit nothing
+EM_RISE_TOL = 1e-6               # of |ll|: EM's loglike may not fall
+
+
+def count_err(got, host):
+    """The largest excess of |got - host| over the count tolerance
+    (<= 0 passes), and the largest |got - host|, over two MachineCounts."""
+    g = np.concatenate(got.count)
+    h = np.concatenate(host.count)
+    diff = np.abs(g - h)
+    return (float((diff - COUNT_ATOL - COUNT_RTOL * np.abs(h)).max()),
+            float(diff.max()))
+
+
+def small_count_cases():
+    """gate (d)'s machines and pairs: the silent tkf91branch (insRate
+    0.1, delRate 0.2, time 0.5), with a pair empty on each side, and the
+    6-state indel transducer."""
+    from machineboss_tpu_torch.core.params import param_assign_from_json
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.testmachines import build_indel_transducer
+    tkf = make_preset("tkf91branch")
+    indel = build_indel_transducer(6, list("ACGT"))
+    return {"tkf91branch": (tkf, tkf.get_param_defs(True).combine(
+        param_assign_from_json({"insRate": 0.1, "delRate": 0.2,
+                                "time": 0.5}), True),
+        [("ACGT", "ACGGT"), ("", "AC"), ("GA", ""), ("AACG", "ACCG"),
+         ("T", "T")]),
+        "indel": (indel, indel.get_param_defs(True),
+                  [("ACGTA", "ACTA"), ("GGC", "GAGC"), ("T", "TT"),
+                   ("CATG", "CAG")])}
+
+
+def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
+             fit_B=8, fit_Lp=16):
+    """EM training at full width: prot2dna (S=132, 249 transitions, its 68
+    default parameters in 21 norm groups and 3 probabilities), B pairs of
+    Lp aa x 3Lp nt whose codons are drawn from each amino acid's
+    synonymous codons. The E-step (parallel.em.device_counts, autograd
+    through the batched wavefront, eager torch) is timed and its launches
+    counted; gates: (a) the first n_host pairs' counts and lls against the
+    host MachineCounts, (b) every pair's ll against log_forward_batch (one
+    lowrank_wavefront launch), (c) the emitted-token counts against the
+    lengths, (d) tkf91branch and the indel transducer against host counts.
+    Then MachineFitter(engine="device") for fit_iters iterations with a
+    checkpoint (each iteration's s and its E/M split; the loglike may not
+    fall), and a host and a device fit of fit_B flanked pairs of fit_Lp
+    aa: every parameter the data use within FIT_TOL, the fits'
+    likelihoods within EM_LL_TOL. The sizes are arguments, so the phase
+    rehearses on the CPU at small sizes."""
+    import os
+    import tempfile
+    from machineboss_tpu_torch.algo.counts import MachineCounts
+    from machineboss_tpu_torch.algo.fitter import MachineFitter
+    from machineboss_tpu_torch.core import weight as W
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.core.seqpair import (
+        NamedSeq, SeqPair, SeqPairList)
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.fwdback import CountModel, tokenize_batch
+    from machineboss_tpu_torch.parallel.em import device_counts
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    t_phase = time.perf_counter()
+
+    def seq_pairs(pairs):
+        return SeqPairList([SeqPair(NamedSeq("i", list(a)),
+                                    NamedSeq("o", list(b)))
+                            for a, b in pairs])
+
+    m = make_preset("prot2dna")
+    params = m.get_param_defs(True)
+    ev = EvaluatedMachine(m, params)
+    S = ev.n_states()
+    n_trans = sum(len(st.trans) for st in m.states)
+    pairs = prot2dna_pairs(B, Lp, seed=13, synonymous=True)
+    spl = seq_pairs(pairs)
+
+    # the E-step: no kernel of the kernels line runs in it
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    dc, first_ms = synced_ms(lambda: device_counts(m, params, spl,
+                                                   device=dev))
+    peak = torch.cuda.max_memory_allocated() - mem0
+    times = [synced_ms(lambda: device_counts(m, params, spl,
+                                             device=dev))[1]
+             for _ in range(3)]
+    check(all(w.launches == 0 for w in wrappers.values()),
+          "the E-step launched a kernel of the kernels line")
+    _, launches, copies = launches_per_call(
+        lambda: device_counts(m, params, spl, device=dev))
+    estep_ms = float(np.median(times))
+    flat = np.concatenate(dc.count)
+    check(flat.shape == (n_trans,) and np.isfinite(flat).all()
+          and np.isfinite(dc.loglike), "E-step counts not finite")
+
+    # (b) every pair's ll against the lowrank kernel's
+    model = CountModel(ev, device=dev)
+    toks = tokenize_batch(ev, spl.seq_pairs, device=dev)
+    grads, total, lls = model.counts_and_loglike(*toks)
+    lls = lls.cpu().numpy()
+    check(abs(float(total) - dc.loglike) <= EM_RISE_TOL * abs(dc.loglike),
+          "CountModel total %r vs device_counts %r" % (float(total),
+                                                       dc.loglike))
+    cm = CompiledMachine(m, params, device=dev)
+    fwd, fwd_launches, _, fwd_ms = drive("em_forward", cm, pairs,
+                                         "lowrank_wavefront", "lowrank")
+    err_b = score_err(lls, fwd)
+    check(err_b <= EM_LL_TOL, "(b) E-step lls vs log_forward_batch %.3g"
+          % err_b)
+
+    # (c) each input (output) token is emitted by one edge with an input
+    # (output) token: their counts sum to the summed lengths
+    il = float(sum(len(a) for a, _ in pairs))
+    ol = float(sum(len(b) for _, b in pairs))
+    itok, otok = model.itok.cpu().numpy(), model.otok.cpu().numpy()
+    err_in = abs(flat[itok > 0].sum() - il) / il
+    err_out = abs(flat[otok > 0].sum() - ol) / ol
+    check(max(err_in, err_out) <= EMISSION_TOL,
+          "(c) emission counts off by %.3g, %.3g" % (err_in, err_out))
+
+    # (a) the first n_host pairs in their own call against the host
+    t0 = time.perf_counter()
+    host = MachineCounts()
+    host.init(ev)
+    host_lls = [host.add(ev, sp) for sp in spl.seq_pairs[:n_host]]
+    host_s = time.perf_counter() - t0
+    head = device_counts(m, params, SeqPairList(spl.seq_pairs[:n_host]),
+                         device=dev)
+    excess_a, diff_a = count_err(head, host)
+    err_a = score_err(lls[:n_host], host_lls)
+    check(excess_a <= 0.0, "(a) counts vs host past tolerance by %.3g"
+          % excess_a)
+    check(err_a <= EM_LL_TOL, "(a) lls vs host %.3g" % err_a)
+    check(abs(head.loglike - host.loglike) <= EM_LL_TOL * n_host,
+          "(a) total vs host")
+
+    # (d) the small machines on the card
+    small = {}
+    for name, (sm, sp_params, sm_pairs) in small_count_cases().items():
+        sm_spl = seq_pairs(sm_pairs)
+        got = device_counts(sm, sp_params, sm_spl, device=dev)
+        ref = MachineCounts(EvaluatedMachine(sm, sp_params), sm_spl)
+        excess, diff = count_err(got, ref)
+        check(excess <= 0.0 and abs(got.loglike - ref.loglike) <= 1e-3,
+              "(d) %s counts vs host: %.3g over tolerance" % (name, excess))
+        small[name] = {"max_abs": diff, "loglike_err":
+                       abs(got.loglike - ref.loglike)}
+
+    # the fit: each E-step timed from the fitter's own calls
+    class TimedFitter(MachineFitter):
+        marks = []
+
+        def _estep(self, all_params, training_set, envelopes):
+            t0 = time.perf_counter()
+            got = super()._estep(all_params, training_set, envelopes)
+            torch.cuda.synchronize()
+            self.marks.append((t0, time.perf_counter(), got.loglike))
+            return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "em.ckpt.json")
+        fitter = TimedFitter(machine=m, seed=params, engine="device",
+                             device=dev, checkpoint_path=ck)
+        t0 = time.perf_counter()
+        fitted = fitter.fit(spl, max_iterations=fit_iters)
+        fit_s = time.perf_counter() - t0
+        with open(ck) as f:
+            ck_state = json.load(f)
+    marks = fitter.marks
+    iters = []
+    for k in range(len(marks) - 1):
+        e = marks[k][1] - marks[k][0]
+        mstep = marks[k + 1][0] - marks[k][1]
+        iters.append({"s": e + mstep, "estep_s": e, "mstep_s": mstep,
+                      "estep_share": e / (e + mstep),
+                      "mstep_share": mstep / (e + mstep),
+                      "loglike": marks[k][2]})
+    ll_seq = [mk[2] for mk in marks]
+    for a, b in zip(ll_seq, ll_seq[1:]):
+        check(b >= a - EM_RISE_TOL * abs(a),
+              "EM loglike fell: %r -> %r" % (a, b))
+    check(ck_state["iteration"] == len(marks) - 1
+          and ck_state["loglike"] == ll_seq[-2],
+          "the checkpoint is not the last iteration's")
+    check(all(np.isfinite(float(fitted.defs[k])) for k in fitted.defs),
+          "fitted parameters not finite")
+
+    # a host fit and a device fit of a small set. Every parameter the data
+    # use must agree; a parameter whose transitions the data use less than
+    # FIT_MIN_USES times in all (the intron extension here: no pair has an
+    # intron) has float32 counts at noise level in both of its outcomes,
+    # and is fitted from that noise: printed, not gated. The fitted
+    # likelihoods must agree too. On coding DNA alone (no flanks) the
+    # flank composition pA..pT joins them: printed, not gated
+    def param_uses(fit, spl_f):
+        hc = MachineCounts(EvaluatedMachine(m, m.funcs.combine(fit)), spl_f)
+        uses = dict.fromkeys(params.defs, 0.0)
+        for s_, st in enumerate(m.states):
+            for t_, tr in enumerate(st.trans):
+                for name in W.params_of(tr.weight, m.funcs.defs):
+                    uses[name] = uses.get(name, 0.0) + hc.count[s_][t_]
+        return uses, hc.loglike
+
+    def host_and_device_fit(flank):
+        spl_f = seq_pairs(prot2dna_pairs(fit_B, fit_Lp, seed=14,
+                                         synonymous=True, flank=flank))
+        t0 = time.perf_counter()
+        host_fit = MachineFitter(machine=m, seed=params).fit(
+            spl_f, max_iterations=fit_iters)
+        t1 = time.perf_counter()
+        dev_fit = MachineFitter(machine=m, seed=params, engine="device",
+                                device=dev).fit(spl_f,
+                                                max_iterations=fit_iters)
+        t2 = time.perf_counter()
+        uses, host_ll = param_uses(host_fit, spl_f)
+        _, dev_ll = param_uses(dev_fit, spl_f)
+        diff = {k: abs(float(host_fit.defs[k]) - float(dev_fit.defs[k]))
+                for k in host_fit.defs}
+        used = [k for k in diff if uses[k] >= FIT_MIN_USES]
+        return {"pairs": fit_B, "Li": fit_Lp, "flank": flank,
+                "max_abs_param": max(diff.values()),
+                "max_abs_used_param": max(diff[k] for k in used),
+                "used_params": len(used),
+                "unused_params": len(diff) - len(used),
+                "params_past_tol": {k: {"abs_diff": v, "uses": uses[k]}
+                                    for k, v in diff.items() if v > FIT_TOL},
+                "host_fit_loglike": host_ll, "device_fit_loglike": dev_ll,
+                "largest_move_from_seed": max(
+                    abs(float(host_fit.defs[k]) - float(params.defs[k]))
+                    for k in params.defs),
+                "host_s": t1 - t0, "device_s": t2 - t1}
+
+    fit_check = host_and_device_fit(flank=8)
+    check(fit_check["max_abs_used_param"] <= FIT_TOL,
+          "host vs device fit %.3g" % fit_check["max_abs_used_param"])
+    check(abs(fit_check["host_fit_loglike"] - fit_check["device_fit_loglike"])
+          <= EM_LL_TOL, "host vs device fit's loglike")
+    fit_coding = host_and_device_fit(flank=0)
+
+    state_cells = B * (Lp + 1) * (3 * Lp + 1) * S
+    emit({"phase": "em", "machine": "prot2dna", "S": S, "transitions": n_trans,
+          "pairs": B, "Li": Lp, "Lo": 3 * Lp, "codons": "synonymous",
+          "estep": {"first_call_s": first_ms / 1e3, "ms_median3": estep_ms,
+                    "ms_all": times, "pairs_per_s": B / (estep_ms / 1e3),
+                    "state_cells_per_s": state_cells / (estep_ms / 1e3),
+                    "launches_per_call": launches,
+                    "copies_per_call": copies,
+                    "peak_bytes": peak, "peak_gib": peak / 2 ** 30},
+          "log_forward_batch": {"ms_median5": fwd_ms,
+                                "lowrank_launches": fwd_launches,
+                                "estep_over_forward": estep_ms / fwd_ms},
+          "gate_a": {"pairs": n_host, "count_max_abs": diff_a,
+                     "count_excess_over_tol": excess_a,
+                     "ll_max_abs": err_a, "host_s": host_s},
+          "gate_b_ll_max_abs_vs_lowrank": err_b,
+          "gate_c_rel": {"input": err_in, "output": err_out},
+          "gate_d": small,
+          "fit": {"max_iterations": fit_iters, "estep_calls": len(marks),
+                  "seconds": fit_s, "iterations": iters,
+                  "last_estep_s": marks[-1][1] - marks[-1][0],
+                  "loglikes": ll_seq, "checkpoint_iteration":
+                  ck_state["iteration"]},
+          "fit_host_vs_device": fit_check,
+          "fit_host_vs_device_coding_only": fit_coding,
+          "seconds": time.perf_counter() - t_phase,
+          "card": card, "nvidia_smi": smi})
+
+
 def single_pair_paths(dev, card, smi):
     """The four phases of the single-pair and sparse engines: eager torch
     engines, no kernel of the kernels line."""
@@ -3214,6 +3510,9 @@ def main():
 
     # -- fused Plan7 read scoring, at full width --------------------------
     kernels.append(plan7_path(dev, card, smi))
+
+    # -- EM training (the autograd E-step, eager torch), at full width ---
+    em_phase(dev, card, smi)
 
     # -- single-pair scoring and the sparse engine ------------------------
     single_pair_paths(dev, card, smi)

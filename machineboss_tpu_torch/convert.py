@@ -15,6 +15,7 @@ import torch
 
 from .dispatch import CompiledMachine
 from .ops.fused_plan7 import Plan7Fused
+from .ops.fwdback import CountModel
 from .ops.kernels.scan1d_kernel import prepare_scan1d, scan1d_operands
 from .ops.kernels.viterbi_kernel import viterbi_operands
 from .ops.kernels.wavefront_kernel import merged_operands
@@ -26,6 +27,17 @@ def lowered_from_numpy(a_diag, a_left, a_up, closure, device=None):
     dev = resolve_device(device)
     return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
                  for x in (a_diag, a_left, a_up, closure))
+
+
+def count_model_from_numpy(src, dst, itok, otok, logw, n_states, n_in,
+                           n_out, device=None):
+    """A JAX CountModel's arrays (np.asarray of its src, dst, itok, otok
+    and logw) and sizes (n_states, n_in, n_out) -> the port's CountModel
+    on `device`, holding the same edges and the same float32 log-weights,
+    so both E-steps can run on identical inputs."""
+    logw = torch.as_tensor(np.array(logw))
+    return CountModel.from_edges(src, dst, itok, otok, logw, n_states, n_in,
+                                 n_out, dtype=logw.dtype, device=device)
 
 
 def compiled_from_json(machine_json, params_json=None, device=None):

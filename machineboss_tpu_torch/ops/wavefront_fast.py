@@ -38,11 +38,15 @@ def _prep_prob_mats(a_diag, a_left, a_up, closure):
 def _pick(y_all, tok):
     """y_all: (B, W, T, S); tok: (B, W) -> (B, W, S) selecting the token
     block of each cell (zeros for a class without tokens, as a 1D machine's
-    empty side has)."""
+    empty side has). Advanced indexing, not gather: under autograd it
+    keeps only the indices for the backward pass, where gather would keep
+    all T token products of every diagonal alive."""
     if y_all.shape[2] == 0:
         return y_all.new_zeros(y_all.shape[:2] + y_all.shape[3:])
-    idx = tok.long()[:, :, None, None].expand(-1, -1, 1, y_all.shape[-1])
-    return torch.gather(y_all, 2, idx)[:, :, 0, :]
+    B, W = tok.shape
+    b = torch.arange(B, device=tok.device)[:, None]
+    w = torch.arange(W, device=tok.device)[None, :]
+    return y_all[b, w, tok.long()]
 
 
 def forward_2d_wavefront_fast(a_diag, a_left, a_up, closure, in_toks,

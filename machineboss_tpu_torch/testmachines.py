@@ -10,6 +10,7 @@ nothing outside this package.
 """
 
 import json
+import os
 
 import numpy as np
 
@@ -137,16 +138,44 @@ def forward_1d_f64(trans, closure, toks, lens):
                         -1e30)
 
 
-def prot2dna_pairs(B, lengths, seed=0):
+def _synonymous_codons():
+    """{amino acid: its sense codons, sorted}, from the codon-usage table
+    the prot2dna preset is built from."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "codon-usage.txt")
+    table = {}
+    with open(path) as f:
+        for line in f:
+            codon, aa = line.split()[:2]
+            if aa != "*":
+                table.setdefault(aa, []).append(codon)
+    return {aa: sorted(c) for aa, c in table.items()}
+
+
+def prot2dna_pairs(B, lengths, seed=0, synonymous=False, flank=0):
     """B (protein, DNA) string pairs: random proteins of the given
-    lengths (an int or a length-B sequence) and their codon DNA."""
+    lengths (an int or a length-B sequence) and their codon DNA, each
+    amino acid's codon fixed (CODONS) or, with synonymous=True, drawn
+    uniformly from its synonymous codons, so that the pairs carry codon
+    usage for an EM fit to learn. flank > 0 puts 0 to `flank` random
+    bases on each side of the coding DNA, as genomic DNA around a gene
+    has, for the preset's flank states to model."""
     rng = np.random.RandomState(seed)
     aas = sorted(CODONS)
+    syn = _synonymous_codons() if synonymous else None
     lens = np.broadcast_to(np.asarray(lengths), (B,))
     pairs = []
     for n in range(B):
         prot = "".join(aas[i] for i in rng.randint(0, len(aas), int(lens[n])))
-        pairs.append((prot, "".join(CODONS[a] for a in prot)))
+        if syn is None:
+            dna = "".join(CODONS[a] for a in prot)
+        else:
+            dna = "".join(syn[a][rng.randint(0, len(syn[a]))] for a in prot)
+        if flank:
+            left, right = ("".join("ACGT"[c] for c in rng.randint(
+                0, 4, rng.randint(0, flank + 1))) for _ in range(2))
+            dna = left + dna + right
+        pairs.append((prot, dna))
     return pairs
 
 

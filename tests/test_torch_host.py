@@ -242,7 +242,10 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
 # ---- the host side of alignment: utils/logsumexp, core/seqpair, algo/dp_host
 
 VERBATIM = ["utils/logsumexp.py", "core/seqpair.py", "algo/dp_host.py",
-            "core/hmmer.py", "algo/fused_align.py"]
+            "core/hmmer.py", "algo/fused_align.py", "algo/beam.py",
+            "algo/ctc.py", "core/csvprof.py",
+            "core/fastseq.py", "core/jphmm.py", "models/__init__.py",
+            "models/tkf91.py", "parallel/__init__.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -500,3 +503,148 @@ def test_block_table_helpers_equal(k):
     got, gk = td.build_token_block_table(trans, k=k)
     ref, rk = jd.build_token_block_table(trans, k=k)
     assert gk == rk and np.array_equal(got, ref)
+
+
+# ---- the EM slice: counts and objective, beam and prefix search, csvprof,
+# fastseq and jphmm
+
+
+def _em_pairs(mod):
+    return mod.SeqPairList([
+        mod.SeqPair(mod.NamedSeq("i", list(a)), mod.NamedSeq("o", list(b)))
+        for a, b in (("ACGTAC", "ACGGTC"), ("GAT", "GT"), ("", "A"))])
+
+
+def test_counts_and_objective_equal():
+    """MachineCounts on the same pairs gives the same arrays bit for bit,
+    and one M-step of MachineObjective the same parameters."""
+    from machineboss_tpu.algo import counts as jc
+    from machineboss_tpu.core import seqpair as j_sp
+    from machineboss_tpu.core.params import param_assign_from_json as jp
+    from machineboss_tpu_torch.algo import counts as tc
+    from machineboss_tpu_torch.core import seqpair as t_sp
+    from machineboss_tpu_torch.core.params import param_assign_from_json as tp
+    seed = {"insRate": 0.1, "delRate": 0.2, "time": 0.5}
+    got = []
+    for make, evaluated, sp, cnt, assign in (
+            (t_make_preset, TEvaluated, t_sp, tc, tp),
+            (j_make_preset, JEvaluated, j_sp, jc, jp)):
+        m = make("tkf91branch")
+        params = m.get_param_defs(True).combine(assign(seed), True)
+        counts = cnt.MachineCounts(evaluated(m, params), _em_pairs(sp))
+        fitted = cnt.MachineObjective(m, counts, m.cons, assign({})) \
+            .optimize(assign(seed))
+        got.append((counts, {k: float(fitted.defs[k]) for k in fitted.defs},
+                    counts.to_json_str()))
+    (tcounts, tfit, tjs), (jcounts, jfit, jjs) = got
+    assert tcounts.loglike == jcounts.loglike
+    assert all(np.array_equal(a, b)
+               for a, b in zip(tcounts.count, jcounts.count))
+    assert tfit == jfit and tjs == jjs
+
+
+def test_beam_and_prefix_trees_equal():
+    """BeamSearchMatrix and PrefixTree on jukescantor: the same best
+    sequences and the same log probabilities."""
+    from machineboss_tpu.algo import beam as jb, ctc as jctc
+    from machineboss_tpu.core.params import param_assign_from_json as jp
+    from machineboss_tpu_torch.algo import beam as tb, ctc as tctc
+    from machineboss_tpu_torch.core.params import param_assign_from_json as tp
+    out = []
+    for make, evaluated, beam, ctc, assign in (
+            (t_make_preset, TEvaluated, tb, tctc, tp),
+            (j_make_preset, JEvaluated, jb, jctc, jp)):
+        m = make("jukescantor")
+        ev = evaluated(m, m.get_param_defs(True).combine(
+            assign({"t": 0.4}), True))
+        seq = list("ACGTTAGC")
+        bs = beam.BeamSearchMatrix(ev, seq, 10)
+        tree = ctc.PrefixTree(ev, seq)
+        out.append((bs.best_seq(), tree.do_prefix_search(),
+                    tree.best_log_seq_prob))
+    assert out[0] == out[1]
+
+
+def test_csvprof_fastseq_jphmm_equal(tmp_path):
+    """The CSV profile machines, a FASTA read and the jpHMM built from it
+    give the same JSON text."""
+    from machineboss_tpu.core import csvprof as jcsv, fastseq as jfs, \
+        jphmm as jjp
+    from machineboss_tpu_torch.core import csvprof as tcsv, fastseq as tfs, \
+        jphmm as tjp
+    csv = "A,C,G\n0.5,0.25,0.25\n0.1,0.8,0.1\n0.3,0.3,0.4\n"
+    fasta = tmp_path / "aln.fa"
+    fasta.write_text(">x desc\nACGT\n>y\nAC-T\n>z\nTCGA\n")
+    out = []
+    for csvprof, fastseq, jphmm in ((tcsv, tfs, tjp), (jcsv, jfs, jjp)):
+        prof = csvprof.CSVProfile()
+        prof.read(csv)
+        seqs = fastseq.read_fast_seqs(str(fasta))
+        flush = [s for s in seqs if "-" not in s.seq]
+        out.append((prof.machine().to_json_str(),
+                    prof.merging_machine().to_json_str(),
+                    [(s.name, s.seq) for s in seqs],
+                    jphmm.jphmm(flush).to_json_str()))
+    assert out[0] == out[1]
+
+
+def _norm_group_machine(mod):
+    """A one-step generator of A, C, G or T with weights in one norm
+    group."""
+    return mod.Machine.from_json({
+        "state": [{"id": "S", "trans": [
+            {"out": c, "to": "E", "weight": "p" + c} for c in "ACGT"]},
+            {"id": "E", "trans": []}],
+        "cons": {"norm": [["pA", "pC", "pG", "pT"]]}})
+
+
+def test_counts_copy_differs_only_by_the_seeding_repair():
+    """algo/counts.py is the original but for one repair: the M-step's
+    seeding of a norm group no longer divides by zero once its leading
+    members hold all the mass."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "machineboss_tpu", "algo", "counts.py")) \
+            as f:
+        original = f.read()
+    with open(os.path.join(root, "machineboss_tpu_torch", "algo",
+                           "counts.py")) as f:
+        copy = f.read()
+    old = "                z = 1 - p / (1 - p_sum)\n"
+    assert original.count(old) == 1 and old not in copy
+    head, tail = original.split(old)
+    assert copy.startswith(head) and copy.endswith(tail)
+    repair = copy[len(head):len(copy) - len(tail)]
+    assert "rest = 1 - p_sum" in repair and \
+        "z = 1 - p / rest if rest > 0 else 1.0" in repair
+
+
+def test_objective_seeding_with_all_mass_in_the_leading_members():
+    """A seed (0.5, 0.5, 1e-17, 1e-17) makes 1 - p_sum exactly 0 before
+    the third member: the JAX package's M-step raises ZeroDivisionError
+    (as a prot2dna fit can, once a codon group's trailing codons fall to
+    ~1e-17); the port's seeds the rest at 0 and optimizes to the counts'
+    proportions."""
+    from machineboss_tpu.algo import counts as jc
+    from machineboss_tpu.core import machine as jm
+    from machineboss_tpu.core.params import param_assign_from_json as jp
+    from machineboss_tpu_torch.algo import counts as tc
+    from machineboss_tpu_torch.core import machine as tm
+    from machineboss_tpu_torch.core.params import param_assign_from_json as tp
+    seed = {"pA": 0.5, "pC": 0.5, "pG": 1e-17, "pT": 1e-17}
+    got = []
+    for cnt, mod, assign in ((jc, jm, jp), (tc, tm, tp)):
+        m = _norm_group_machine(mod)
+        counts = cnt.MachineCounts()
+        counts.count = [np.array([3.0, 1.0, 0.0, 0.0]), np.zeros(0)]
+        objective = cnt.MachineObjective(m, counts, m.cons, assign({}))
+        try:
+            fitted = objective.optimize(assign(seed))
+        except ZeroDivisionError:
+            got.append(None)
+            continue
+        got.append({k: float(fitted.defs[k]) for k in fitted.defs})
+    assert got[0] is None
+    fit = got[1]
+    assert abs(fit["pA"] - 0.75) < 1e-2 and abs(fit["pC"] - 0.25) < 1e-2
+    assert abs(sum(fit.values()) - 1.0) < 1e-9 and fit["pG"] < 1e-6

@@ -144,3 +144,34 @@ def test_single_pair_modules_are_among_the_probed():
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_em_modules_are_among_the_probed():
+    """The EM slice's modules (the E-step, the fitter, the rest of the api
+    and the model families, with their host copies) are in the walked
+    package, and importing them alone loads neither jax nor
+    machineboss_tpu."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"parallel/__init__.py", "parallel/em.py", "algo/fitter.py",
+            "algo/counts.py", "algo/beam.py", "algo/ctc.py",
+            "core/csvprof.py", "core/fastseq.py", "core/jphmm.py",
+            "models/__init__.py", "models/casino.py", "models/ctc.py",
+            "models/pairhmm.py", "models/profile.py",
+            "models/tkf91.py"} <= rel
+    probe = ("import machineboss_tpu_torch.parallel.em, "
+             "machineboss_tpu_torch.algo.fitter, "
+             "machineboss_tpu_torch.api as a, "
+             "machineboss_tpu_torch.models as m, sys; "
+             "[getattr(a, n) for n in ('load_machine', 'save_machine', "
+             "'forward_loglike', 'viterbi_loglike', 'viterbi_align', "
+             "'forward_backward_counts', 'baum_welch_fit', 'beam_decode', "
+             "'beam_encode', 'prefix_decode', 'prefix_encode', "
+             "'device_forward_batch', 'device_counts_batch', "
+             "'fused_plan7_forward')]; "
+             "[getattr(m, n) for n in m.__all__]; "
+             "assert 'jax' not in sys.modules "
+             "and 'machineboss_tpu' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
