@@ -107,17 +107,48 @@ loglike may not fall) and a host and a device fit of 8 flanked pairs of
 likelihoods within 0.01 nats (a parameter whose transitions the data use
 less than 0.01 times, such as the intron extension, is printed).
 
+Then three phases drive what a user reaches without writing Python, and
+the neural and CTC scorers (no kernel of their own; the cli phase reaches
+five kernels of the line through their counted wrappers):
+
+  cli         machineboss_tpu_torch.cli.main in process, stdout captured, on
+              files written to a temporary directory: prot2dna --loglike
+              B=512 of 64 x 192 (lowrank), a 64-state generator with
+              --output-fasta of 256 reads of 10,000 (scan1d), --align
+              --viterbi on align_prot2dna's 64 pairs (the batched fill and
+              the walk), --align --wiggle-room 16 on align_banded's pair
+              (the banded fill and the walk), --counts on 16 of the em
+              batch's pairs (no kernel): each call's launches, its output
+              equal to the text a direct call of the same entry point
+              gives, f64 gates on 8 pairs, the host's alignments with no
+              fallback, the call's ms split into machine build,
+              CompiledMachine set-up, entry point and the rest; the
+              prot2dna call once under profiling.trace_if, whose trace
+              must name lowrank_wavefront_kernel; `python -m
+              machineboss_tpu_torch` once as a subprocess, within 1e-3 of
+              the JAX CLI's -5.54518;
+  neural      ops.dp_neural.neural_log_forward on dnapsw, one 200 x 200
+              pair: constant fields against the host Forward (1e-3),
+              gapOpen and gapExtend fields' summed gradients against the
+              scalar ones, and those against a central difference of the
+              host score; forward and backward ms, launches, peak memory;
+  ctc_device  algo.ctc_device.CTCDeviceModel on prot2dna and a 192-nt
+              read: build s and bytes, the root and up to 16 levels of the
+              read's own protein (fewer, listed in `reduced`, once the host
+              tree passes 30 s), each level's 20 children against the host
+              PrefixTree (1e-3); one fill_all_tokens' ms and launches.
+
 Then four phases drive the eager torch engines of single-pair scoring and
 the sparse engine (no kernel of the kernels line runs in them), each call
 gated against a float64 oracle, timed with torch.cuda.synchronize() around
 it (the median of 5 where a call takes under 1 s, else over its pairs) and
 its device launches counted once under torch.profiler:
 
-  single_pair_2d  prot2dna, 4 pairs of 64 aa x 192 nt: log_forward and
+  single_pair_2d  prot2dna, 2 pairs of 64 aa x 192 nt: log_forward and
                   log_viterbi (the row engine), dp2d.forward_2d with the
                   associative rows, dp_aligned.forward_aligned along each
                   pair's Viterbi path and api.device_forward_batch on the
-                  8 pairs; forward_2d_banded in an Envelope of width 16
+                  pairs; forward_2d_banded in an Envelope of width 16
                   around the first pair's path; log_backward_lattice and
                   fwdback.posterior_lattice on the first pair cut to 32 aa
                   x 96 nt (those three walk every cell, a log_forward's
@@ -2567,7 +2598,7 @@ def lattice_err(lat, ref):
     return float(np.abs(lat[live] - ref[live]).max())
 
 
-def single_pair_2d_phase(dev, card, smi, B=4, Lp=64, n_band=1, Lc=32):
+def single_pair_2d_phase(dev, card, smi, B=2, Lp=64, n_band=1, Lc=32):
     """prot2dna's single-pair calls on B pairs of Lp aa x 3Lp nt: the row
     engine (log_forward, log_viterbi), the associative rows, the Backward
     lattice and posteriors of the first pair cut to Lc aa x 3Lc nt, the
@@ -3314,6 +3345,569 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
           "card": card, "nvidia_smi": smi})
 
 
+# ------------------------------------------------------- the command line
+
+JAX_CLI_MKV_LL = -5.54518        # the JAX CLI's --loglike of MKV / ATGAAAGTT
+CLI_SUBPROCESS_TOL = 1e-3        # nats: the module entry against that score
+CLI_COUNTS_RTOL = 1e-5           # CLI counts vs a direct call: float32 sums
+CLI_COUNTS_ATOL = 1e-6           # in another order (autograd's atomics)
+
+
+class CliSplit:
+    """The CLI call's wall time split by patching its entry points with
+    timers (each synchronised): the stack-language build (cli's
+    _build_machine), the CompiledMachine set-up, the device entry point
+    (log_forward_batch, device_viterbi_matrices or device_counts, whose
+    results are kept) and the rest (reading data, the host re-trace of
+    alignments, output)."""
+
+    def __init__(self):
+        from machineboss_tpu_torch import cli, dispatch
+        from machineboss_tpu_torch.algo import viterbi_device
+        from machineboss_tpu_torch.parallel import em
+        self.ms = {"machine_build": 0.0, "compiled_setup": 0.0,
+                   "entry_point": 0.0}
+        self.results = []
+        self._patches = [
+            (cli, "_build_machine", "machine_build", False),
+            (dispatch.CompiledMachine, "__init__", "compiled_setup", False),
+            (dispatch.CompiledMachine, "log_forward_batch", "entry_point",
+             True),
+            (viterbi_device, "device_viterbi_matrices", "entry_point", True),
+            (em, "device_counts", "entry_point", True)]
+        self._saved = []
+
+    def __enter__(self):
+        for owner, name, key, keep in self._patches:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(fn, key, keep))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def _timed(self, fn, key, keep):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[key] += (time.perf_counter() - t0) * 1e3
+            if keep:
+                self.results.append(out)
+            return out
+        return wrapper
+
+
+def run_cli(argv):
+    """One in-process cli.main call: (status, stdout, stderr, launches of
+    every counted kernel in the call, the call's ms split, the device
+    entry points' results)."""
+    import contextlib
+    import io
+    from machineboss_tpu_torch import cli
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    with CliSplit() as split, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status = cli.main(list(argv))
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ms = dict(split.ms, total=total)
+    ms["rest"] = total - sum(split.ms.values())
+    return status, out.getvalue(), err.getvalue(), launches, ms, \
+        split.results
+
+
+def cli_expect(name, launches, kernels):
+    """The call launched each of `kernels` once and no other kernel."""
+    want = {k: int(k in kernels) for k in launches}
+    check(launches == want, "cli %s: launches %s, expected one of each of %s"
+          % (name, {k: v for k, v in launches.items() if v}, kernels))
+
+
+def score_table(names, values):
+    """The CLI's score table text for (input name, output name) pairs and
+    scores, as cli.py formats it."""
+    from machineboss_tpu_torch.utils.jsonfmt import (infinity_safe_string,
+                                                     write_escaped)
+    rows = ['["%s","%s",%s]' % (write_escaped(a), write_escaped(b),
+                                infinity_safe_string(float(v)))
+            for (a, b), v in zip(names, values)]
+    return "[" + ",\n ".join(rows) + "]\n"
+
+
+def cli_trace(argv, out, trace_dir):
+    """The CLI call once more under profiling.trace_if: it prints the same
+    output, and its Chrome trace names the lowrank kernel's CUDA function
+    once."""
+    import glob
+    import os
+    from machineboss_tpu_torch.utils import profiling
+    with profiling.trace_if(trace_dir):
+        traced = run_cli(argv)
+    check(traced[0] == 0 and traced[1] == out,
+          "cli prot2dna: the traced call printed otherwise")
+    kernel_events = []
+    for path in glob.glob(os.path.join(trace_dir, "*.json")):
+        with open(path) as f:
+            trace = json.load(f)
+        kernel_events += [e["name"] for e in trace.get("traceEvents", [])
+                          if e.get("cat") == "kernel"]
+    lowrank_events = [n for n in kernel_events
+                      if "lowrank_wavefront_kernel" in n]
+    check(len(lowrank_events) == 1,
+          "cli prot2dna: the trace holds %d lowrank_wavefront_kernel events"
+          % len(lowrank_events))
+    return {"kernel_events": len(kernel_events),
+            "lowrank_event": lowrank_events[0],
+            "traced_ms": traced[4]["total"]}
+
+
+def cli_module_entry():
+    """`python -m machineboss_tpu_torch` as a user starts it, on the card
+    by default: exit 0, and the JAX CLI's score within
+    CLI_SUBPROCESS_TOL."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "machineboss_tpu_torch", "--preset",
+         "prot2dna", "-U", "--input-chars", "MKV", "--output-chars",
+         "ATGAAAGTT", "--loglike", "--engine", "device"], cwd=root,
+        capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    check(sub.returncode == 0, "python -m machineboss_tpu_torch: exit %d: %s"
+          % (sub.returncode, sub.stderr[-2000:]))
+    sub_ll = json.loads(sub.stdout)[0][2]
+    check(abs(sub_ll - JAX_CLI_MKV_LL) <= CLI_SUBPROCESS_TOL,
+          "python -m machineboss_tpu_torch scored %r, the JAX CLI %r"
+          % (sub_ll, JAX_CLI_MKV_LL))
+    return {"loglike": sub_ll, "jax_cli": JAX_CLI_MKV_LL, "seconds": sub_s}
+
+
+def cli_phase(dev, card, smi, B=512, Lp=64, B1d=256, L1d=10000, S1d=64,
+              B_align=64, L_band=1500, band=16, B_counts=16, n_host=2):
+    """The port's command line at the main path's full width, in process
+    (cli.main with stdout captured) on files written to a temporary
+    directory: prot2dna --loglike (B pairs of Lp aa x 3Lp nt, the lowrank
+    kernel), a 64-state 1D generator with --output-fasta of B1d reads of
+    L1d (scan1d), --align --viterbi on align_prot2dna's B_align pairs (the
+    batched fill and the walk), --align --wiggle-room on align_banded's
+    pair (the banded fill and the walk) and --counts on B_counts of the em
+    batch's pairs (the E-step, no kernel of the kernels line). Each call's
+    launches are read, its printed scores must be the strings a direct
+    call of the same entry point gives, 8 pairs are held to the float64
+    oracle, alignments to the host ViterbiMatrix's (n_host pairs; every
+    pair's to the direct call's) with no fallback, counts to a direct
+    device_counts call. Then the prot2dna call once under
+    profiling.trace_if (its trace must name the lowrank kernel) and
+    `python -m machineboss_tpu_torch` once as a subprocess."""
+    import os
+    import shutil
+    import tempfile
+    from machineboss_tpu_torch.algo.dp_host import ViterbiMatrix
+    from machineboss_tpu_torch.algo.viterbi_device import \
+        device_viterbi_matrices
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.core.seqpair import (
+        Envelope, NamedSeq, SeqPair, SeqPairList)
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.host_oracle import viterbi_2d_f64
+    from machineboss_tpu_torch.parallel.em import device_counts
+    from machineboss_tpu_torch.core.machine import Machine
+    from machineboss_tpu_torch.testmachines import (
+        align_pair, build_generator_1d, build_random_transducer,
+        forward_1d_f64, prot2dna_pairs)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cli_phase_")
+    record = {"phase": "cli"}
+
+    def write(name, text):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    def spl(pairs):
+        return SeqPairList([SeqPair(NamedSeq("x%d" % n, list(a)),
+                                    NamedSeq("y%d" % n, list(b)))
+                            for n, (a, b) in enumerate(pairs)])
+
+    def names(pairs):
+        return [("x%d" % n, "y%d" % n) for n in range(len(pairs))]
+
+    def ok(name, res):
+        status, out, err = res[:3]
+        check(status == 0, "cli %s: exit %s: %s" % (name, status, err))
+        return out
+
+    # -- prot2dna --loglike: the lowrank kernel
+    p2d = make_preset("prot2dna")
+    params = p2d.get_param_defs(True)
+    pairs = prot2dna_pairs(B, Lp, seed=0)
+    data = write("prot2dna.json", spl(pairs).to_json_str())
+    argv = ["--preset", "prot2dna", "-U", "--data", data, "--loglike",
+            "--engine", "device"]
+    res = run_cli(argv)
+    out = ok("prot2dna", res)
+    cli_expect("prot2dna", res[3], ["lowrank_wavefront"])
+    cm = CompiledMachine(p2d, params, device=dev)
+    lls = cm.log_forward_batch(pairs)
+    check(out == score_table(names(pairs), lls),
+          "cli prot2dna: the printed scores are not the direct call's")
+    toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
+    gate = score_err(lls[:8], f64_scores(cm._host_mats(), toks[:8],
+                                         key=("prot2dna", 8)))
+    check(gate <= GATE_TOL, "cli prot2dna: f64 gate %.3g nats" % gate)
+    record["prot2dna_loglike"] = {
+        "pairs": B, "Li": Lp, "Lo": 3 * Lp, "ms": res[4],
+        "launches": {k: v for k, v in res[3].items() if v},
+        "f64_gate_max_abs": gate, "f64_gate_pairs": 8}
+
+    record["prot2dna_trace"] = cli_trace(argv, out, os.path.join(tmp,
+                                                                 "trace"))
+
+    # -- a 1D generator with --output-fasta: the scan1d kernel
+    rng = np.random.RandomState(42)
+    gen = build_generator_1d(S1d, rng=rng)
+    sym = np.array(list("ACGT"))
+    reads = ["".join(sym[rng.randint(0, 4, L1d)]) for _ in range(B1d)]
+    gen_path = write("gen1d.json", gen.to_json_str())
+    fasta = write("reads.fa", "".join(">r%d\n%s\n" % (n, s)
+                                      for n, s in enumerate(reads)))
+    res = run_cli([gen_path, "--output-fasta", fasta, "--loglike",
+                   "--engine", "device"])
+    out = ok("generator_1d", res)
+    cli_expect("generator_1d", res[3], ["scan1d"])
+    gen = Machine.from_file(gen_path)              # as the CLI loads it
+    cm1 = CompiledMachine(gen, gen.get_param_defs(True), device=dev)
+    pairs1 = [("", r) for r in reads]
+    lls1 = cm1.log_forward_batch(pairs1)
+    check(out == score_table([("", "r%d" % n) for n in range(B1d)], lls1),
+          "cli generator_1d: the printed scores are not the direct call's")
+    trans, closure = cm1._cache[("1d_mats", True)]
+    t1d = np.array([cm1.out_toks(r) for r in reads[:8]], np.int32)
+    gate = score_err(lls1[:8], forward_1d_f64(trans, closure, t1d,
+                                              np.full(len(t1d), L1d,
+                                                      np.int32)))
+    check(gate <= GATE_TOL, "cli generator_1d: f64 gate %.3g nats" % gate)
+    record["generator_1d_loglike"] = {
+        "states": S1d, "reads": B1d, "L": L1d, "ms": res[4],
+        "launches": {k: v for k, v in res[3].items() if v},
+        "f64_gate_max_abs": gate, "f64_gate_pairs": 8}
+
+    # -- alignments: the batched fill and the banded fill, and the walk
+    def trans_of(path):
+        return [(t.in_, t.out, t.dest) for t in path.trans]
+
+    def align_case(name, machine, pairs_sp, wiggle, kernels):
+        m_path = write(name + ".json", machine.to_json_str())
+        d_path = write(name + "-data.json",
+                       SeqPairList(pairs_sp).to_json_str())
+        argv = [m_path, "-U", "--data", d_path, "--align", "--viterbi",
+                "--engine", "device"]
+        if wiggle is not None:
+            argv += ["--wiggle-room", str(wiggle)]
+        res = run_cli(argv)
+        out = ok(name, res)
+        cli_expect(name, res[3], kernels)
+        mats = res[5][0]
+        machine = Machine.from_file(m_path)        # as the CLI loads it
+        fallbacks = sum(m._full is not None for m in mats)
+        check(fallbacks == 0, "cli %s: %d pairs fell back to the full "
+              "readback" % (name, fallbacks))
+        ev = evaluated(machine)
+        envs = [Envelope(sp, wiggle) for sp in pairs_sp] \
+            if wiggle is not None else None
+        direct = device_viterbi_matrices(ev, pairs_sp, envelopes=envs,
+                                         device=dev)
+        vit = [m.log_like() for m in direct]
+        aligned = SeqPairList([SeqPair.from_path(
+            m.path(machine), machine, sp.input.name, sp.output.name)
+            for m, sp in zip(direct, pairs_sp)])
+        check(out == score_table([(sp.input.name, sp.output.name)
+                                  for sp in pairs_sp], vit)
+              + aligned.to_json_str() + "\n",
+              "cli %s: the output is not the direct call's" % name)
+        t0 = time.perf_counter()
+        for b in range(min(n_host, len(pairs_sp))):
+            host = ViterbiMatrix(ev, pairs_sp[b],
+                                 env=envs[b] if envs else None)
+            check(trans_of(host.traceback(machine))
+                  == trans_of(direct[b].path(machine)),
+                  "cli %s: pair %d is not aligned as the host aligns it"
+                  % (name, b))
+        host_s = time.perf_counter() - t0
+        if envs:
+            ref = np.array([ViterbiMatrix(ev, pairs_sp[0], env=envs[0])
+                            .log_like()])
+        else:
+            m64 = maxplus_mats(ev, np.float64)
+            ref = np.array([viterbi_2d_f64(
+                *m64, np.array(ev.input_tokenizer.tokenize(sp.input.seq))
+                - 1, np.array(ev.output_tokenizer.tokenize(sp.output.seq))
+                - 1) for sp in pairs_sp[:8]])
+        gate = score_err(vit[:len(ref)], ref)
+        check(gate <= GATE_TOL, "cli %s: f64 gate %.3g nats" % (name, gate))
+        record[name] = {"pairs": len(pairs_sp), "wiggle_room": wiggle,
+                        "ms": res[4],
+                        "launches": {k: v for k, v in res[3].items() if v},
+                        "fallbacks": fallbacks, "host_pairs": n_host,
+                        "host_s": host_s, "f64_gate_max_abs": gate,
+                        "f64_gate_pairs": len(ref)}
+
+    align_case("align_prot2dna", p2d,
+               [SeqPair(NamedSeq("x%d" % n, list(a)),
+                        NamedSeq("y%d" % n, list(b)))
+                for n, (a, b) in enumerate(prot2dna_pairs(B_align, Lp,
+                                                          seed=0))],
+               None, ["viterbi_wavefront", "lattice_walk"])
+    sp = align_pair(L_band, mutate=0.1, seed=11)
+    align_case("align_banded",
+               build_random_transducer(64, list("ACGT"), seed=3), [sp],
+               band, ["viterbi_banded_wavefront", "lattice_walk"])
+
+    # -- --counts on the em batch's first pairs: no kernel of the line
+    cpairs = prot2dna_pairs(128, Lp, seed=13, synonymous=True)[:B_counts]
+    data = write("counts.json", spl(cpairs).to_json_str())
+    res = run_cli(["--preset", "prot2dna", "-U", "--data", data, "--counts",
+                   "--engine", "device"])
+    out = ok("counts", res)
+    cli_expect("counts", res[3], [])
+    got = json.loads(out)
+    direct = device_counts(p2d, params, spl(cpairs), device=dev)
+    want = json.loads(direct.param_counts_json_str(p2d, params))
+    check(list(got) == list(want), "cli counts: other parameters")
+    g = np.array([got[k] for k in got])
+    w = np.array([want[k] for k in want])
+    excess = float((np.abs(g - w) - CLI_COUNTS_ATOL
+                    - CLI_COUNTS_RTOL * np.abs(w)).max())
+    check(excess <= 0.0, "cli counts vs a direct device_counts call: %.3g "
+          "over tolerance" % excess)
+    record["counts"] = {"pairs": B_counts, "ms": res[4],
+                        "max_abs_vs_direct": float(np.abs(g - w).max()),
+                        "params": len(got)}
+
+    record["module_entry"] = cli_module_entry()
+    shutil.rmtree(tmp, ignore_errors=True)
+    record.update(seconds=time.perf_counter() - t_phase, card=card,
+                  nvidia_smi=smi)
+    emit(record)
+
+
+# ---------------------------------------------------- the neural DP
+
+NEURAL_VS_HOST_TOL = 1e-3        # nats: float32 DP vs the float64 host
+NEURAL_FIELD_RTOL = 1e-3         # field gradients summed vs scalar gradient
+NEURAL_FD_RTOL = 1e-2            # scalar gradient vs host central difference
+NEURAL_GRAD_ATOL = 1e-4          # both: float32's resolution of a gradient
+# that is a difference of near-equal terms. At dnapsw's defaults gapOpen's
+# gradient is N_open / p - N_not / (1 - p), two terms near 400 (the pair's
+# expected counts over 0.5) whose difference is 0.0025: float32 holds such
+# a sum to 2^-15 = 3.1e-5 (the card gave -81 * 2^-15 against the host's
+# -0.0025055, 1.3% off), so a relative gate alone cannot pass it.
+NEURAL_FD_EPS = 1e-4
+
+
+def neural_phase(dev, card, smi, L=200):
+    """ops.dp_neural.neural_log_forward on dnapsw (its defaults: 8 states,
+    22 parameters, 10 silent edges) and one pair of L x L random bases:
+    constant fields against the float64 host ForwardMatrix, gapOpen and
+    gapExtend as (L+1, L+1) fields whose gradients, summed over the cells,
+    equal the scalar parameters' gradients, and those equal a central
+    difference of the host score (each within its rtol plus
+    NEURAL_GRAD_ATOL). The forward and the backward are timed
+    (synchronised) and their launches counted under torch.profiler; the
+    peak memory of the two."""
+    from machineboss_tpu_torch.algo.dp_host import ForwardMatrix
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.core.params import param_assign_from_json
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
+    from machineboss_tpu_torch.ops.dp_neural import neural_log_forward
+    from machineboss_tpu_torch.ops.exprjit import ParameterizedMachine
+    t_phase = time.perf_counter()
+    m = make_preset("dnapsw")
+    params = m.get_param_defs(True)
+    ev = EvaluatedMachine(m, params)
+    rng = np.random.RandomState(200)
+    x = list(rng.choice(list("ACGT"), L))
+    y = list(rng.choice(list("ACGT"), L))
+    sp = SeqPair(NamedSeq("x", x), NamedSeq("y", y))
+    it = [ev.input_tokenizer.sym2tok[c] - 1 for c in x]
+    ot = [ev.output_tokenizer.sym2tok[c] - 1 for c in y]
+    values = {k: float(v) for k, v in params.defs.items()}
+    pm = ParameterizedMachine(m, device=dev)
+
+    def host(p=params):
+        return ForwardMatrix(EvaluatedMachine(m, p), sp).log_like()
+
+    t0 = time.perf_counter()
+    host_ll = host()
+    host_s = time.perf_counter() - t0
+    constant = {k: torch.full((L + 1, L + 1), v, device=dev)
+                for k, v in values.items()}
+    got, first_ms = synced_ms(lambda: neural_log_forward(pm, it, ot,
+                                                         constant))
+    err = abs(float(got) - host_ll)
+    check(err <= NEURAL_VS_HOST_TOL, "neural: constant fields vs host %.3g "
+          "nats" % err)
+
+    names = ("gapOpen", "gapExtend")
+    fields = {k: torch.full((L + 1, L + 1), values[k], device=dev,
+                            requires_grad=True) for k in names}
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    score, fwd_ms = synced_ms(lambda: neural_log_forward(
+        pm, it, ot, {**values, **fields}))
+    _, bwd_ms = synced_ms(score.backward)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    # the timed calls on fields of their own: a backward accumulates
+    timing = {k: torch.full((L + 1, L + 1), values[k], device=dev,
+                            requires_grad=True) for k in names}
+    fwd_rec, _ = call_record(lambda: neural_log_forward(
+        pm, it, ot, {**values, **timing}))
+    bwd_rec, _ = call_record(lambda: neural_log_forward(
+        pm, it, ot, {**values, **timing}).backward())
+    scalars = {k: torch.tensor(values[k], device=dev, requires_grad=True)
+               for k in names}
+    neural_log_forward(pm, it, ot, {**values, **scalars}).backward()
+    grads = {}
+    for k in names:
+        g_scalar = float(scalars[k].grad)
+        g_field = float(fields[k].grad.sum())
+        check(abs(g_field - g_scalar) <= NEURAL_FIELD_RTOL * abs(g_scalar)
+              + NEURAL_GRAD_ATOL, "neural: %s field gradient %r vs scalar %r"
+              % (k, g_field, g_scalar))
+        fd = (host(params.combine(param_assign_from_json(
+            {k: values[k] + NEURAL_FD_EPS}), True))
+              - host(params.combine(param_assign_from_json(
+                  {k: values[k] - NEURAL_FD_EPS}), True))) \
+            / (2 * NEURAL_FD_EPS)
+        check(abs(g_scalar - fd) <= NEURAL_FD_RTOL * abs(fd)
+              + NEURAL_GRAD_ATOL,
+              "neural: %s gradient %r vs host difference %r"
+              % (k, g_scalar, fd))
+        grads[k] = {"scalar": g_scalar, "fields_summed": g_field,
+                    "host_central_difference": fd,
+                    "fields_vs_scalar": abs(g_field - g_scalar),
+                    "scalar_vs_difference": abs(g_scalar - fd),
+                    "scalar_vs_difference_rel": abs(g_scalar - fd) / abs(fd)}
+    emit({"phase": "neural", "machine": "dnapsw", "S": pm.n_states,
+          "edges": len(pm.edges), "L": L, "host_ll": host_ll,
+          "host_s": host_s, "ll": float(got), "vs_host": err,
+          "first_call_ms": first_ms, "forward_ms": fwd_ms,
+          "backward_ms": bwd_ms, "forward": fwd_rec,
+          "forward_and_backward": bwd_rec, "gradients": grads,
+          "peak_bytes": peak, "peak_gib": peak / 2 ** 30,
+          "seconds": time.perf_counter() - t_phase,
+          "card": card, "nvidia_smi": smi})
+
+
+# ------------------------------------------------ device CTC prefix scoring
+
+CTC_VS_HOST_TOL = 1e-3           # the JAX test's TOL
+
+
+def ctc_device_phase(dev, card, smi, Lp=64, levels=16, host_budget_s=30.0):
+    """algo.ctc_device.CTCDeviceModel on prot2dna (-U defaults) and one
+    read: the 3Lp-nt coding sequence of an Lp-aa protein from
+    prot2dna_pairs (GeneWise's decode: which protein does this read
+    encode). The model's build (s, bytes on the card), fill at the root,
+    then fill_all_tokens down the read's own protein, `levels` levels, each
+    level's 20 children held to the host PrefixTree._extend_node's seq
+    and prefix cells and log prefix probabilities within CTC_VS_HOST_TOL
+    (the model is float64, as the host tree is); a level is
+    left out (and listed in `reduced`) once the host side would pass
+    host_budget_s."""
+    from machineboss_tpu_torch.algo.ctc import PrefixTree
+    from machineboss_tpu_torch.algo.ctc_device import CTCDeviceModel
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    t_phase = time.perf_counter()
+    m = make_preset("prot2dna")
+    ev = evaluated(m)
+    protein, read = prot2dna_pairs(1, Lp, seed=0)[0]
+    syms = list(read)
+    toks = ev.output_tokenizer.tokenize(syms)
+    mem0 = torch.cuda.memory_allocated()
+    model, build_ms = synced_ms(lambda: CTCDeviceModel(ev, toks,
+                                                       device=dev))
+    model_bytes = torch.cuda.memory_allocated() - mem0
+
+    def cells_err(a, b):
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        live = b > -1e20
+        check(np.all(a[~live] < -1e20), "ctc_device: a dead cell is live")
+        return float(np.abs(np.where(live, a - b, 0)).max())
+
+    def lpp_err(a, b):
+        if not np.isfinite(b) or b < -1e20:
+            check(a < -1e20, "ctc_device: an impossible prefix scored")
+            return 0.0
+        return abs(float(a) - b)
+
+    t0 = time.perf_counter()
+    tree = PrefixTree(ev, syms)
+    host_s = time.perf_counter() - t0
+    seq, pref, lpp = model.fill(np.zeros((len(syms) + 1, ev.n_states())), 0)
+    root_err = max(cells_err(seq, tree.root.seq_cell),
+                   cells_err(pref, tree.root.prefix_cell),
+                   lpp_err(lpp, tree.root.log_prefix_prob))
+    check(root_err <= CTC_VS_HOST_TOL, "ctc_device: root vs host %.3g"
+          % root_err)
+    node, per_level, level_s = tree.root, [], 0.0
+    for level in range(levels):
+        if host_s + level_s > host_budget_s:
+            break
+        (seqs, prefs, lpps), fill_ms = synced_ms(
+            lambda: model.fill_all_tokens(node.seq_cell))
+        t0 = time.perf_counter()
+        tree._extend_node(node)
+        level_s = time.perf_counter() - t0
+        host_s += level_s
+        check(len(node.child) == seqs.shape[0],
+              "ctc_device: %d children, %d candidates"
+              % (len(node.child), seqs.shape[0]))
+        err_seq = max(cells_err(seqs[c.in_tok - 1], c.seq_cell)
+                      for c in node.child)
+        err_pref = max(cells_err(prefs[c.in_tok - 1], c.prefix_cell)
+                       for c in node.child)
+        err_lpp = max(lpp_err(lpps[c.in_tok - 1], c.log_prefix_prob)
+                      for c in node.child)
+        check(max(err_seq, err_pref, err_lpp) <= CTC_VS_HOST_TOL,
+              "ctc_device: level %d vs host %.3g, %.3g, %.3g"
+              % (level, err_seq, err_pref, err_lpp))
+        per_level.append({"fill_all_tokens_ms": fill_ms,
+                          "seq_cells_max_abs": err_seq,
+                          "prefix_cells_max_abs": err_pref,
+                          "log_prefix_prob_max_abs": err_lpp,
+                          "host_extend_s": level_s})
+        tok = ev.input_tokenizer.sym2tok[protein[level]]
+        node = next(c for c in node.child if c.in_tok == tok)
+    check(per_level, "ctc_device: no level ran")
+    rec, _ = call_record(lambda: model.fill_all_tokens(node.seq_cell))
+    reduced = [] if len(per_level) == levels else [
+        "levels %d of %d: the host side passed %.0f s"
+        % (len(per_level), levels, host_budget_s)]
+    emit({"phase": "ctc_device", "machine": "prot2dna", "S": ev.n_states(),
+          "candidates": model.n_in - 1, "read_nt": len(syms),
+          "protein_aa": Lp, "build_ms": build_ms,
+          "model_bytes_on_card": model_bytes, "levels": len(per_level),
+          "reduced": reduced, "root_max_abs": root_err,
+          "per_level": per_level, "fill_all_tokens": rec,
+          "host_s": host_s, "seconds": time.perf_counter() - t_phase,
+          "card": card, "nvidia_smi": smi})
+
+
 def single_pair_paths(dev, card, smi):
     """The four phases of the single-pair and sparse engines: eager torch
     engines, no kernel of the kernels line."""
@@ -3513,6 +4107,11 @@ def main():
 
     # -- EM training (the autograd E-step, eager torch), at full width ---
     em_phase(dev, card, smi)
+
+    # -- the command line, the neural DP and device CTC scoring ----------
+    cli_phase(dev, card, smi)
+    neural_phase(dev, card, smi)
+    ctc_device_phase(dev, card, smi)
 
     # -- single-pair scoring and the sparse engine ------------------------
     single_pair_paths(dev, card, smi)

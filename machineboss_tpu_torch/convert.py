@@ -22,6 +22,16 @@ from .ops.kernels.wavefront_kernel import merged_operands
 from .utils.device import resolve_device
 
 
+def params_from_numpy(params, device=None):
+    """A parameter dict of numbers and numpy arrays -> the same dict with
+    float32 tensors on `device` (numbers stay numbers), for
+    exprjit/dp_neural calls fed the values a JAX call is fed."""
+    dev = resolve_device(device)
+    return {k: v if isinstance(v, (int, float)) else
+            torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in params.items()}
+
+
 def lowered_from_numpy(a_diag, a_left, a_up, closure, device=None):
     """matrices_2d() numpy output -> float32 tensors on `device`."""
     dev = resolve_device(device)

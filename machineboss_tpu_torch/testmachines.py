@@ -4,9 +4,9 @@ Copies of the fixtures the JAX package's bench and tests build (the random
 dense transducer, the dense 1D generator and the ragged length sampler of
 bench.py, the all-class and indel transducers of
 tests/test_pallas_kernel.py), the prot2dna pair sampler and a float64 1D
-oracle, the mutated long pair of scripts/bench_align.py and the tie-free
-machine of tests/test_device_align.py, so that the port's checks need
-nothing outside this package.
+oracle, the mutated long pair of scripts/bench_align.py, the tie-free
+machine of tests/test_device_align.py and a bitnoise-shaped channel, so
+that the port's checks need nothing outside this package.
 """
 
 import json
@@ -219,6 +219,25 @@ def tiefree_pair():
             ("C", "C")]
     return SeqPair(NamedSeq("x", list("ACAGCC")), NamedSeq("y", list("ACACC")),
                    cols)
+
+
+def bitnoise_json():
+    """A binary noisy channel of the shape of boss's t/machine/bitnoise.json
+    with no silent transition: a start state S and an end state E, each
+    copying a bit with weight p and flipping it with weight q into E, and
+    E also deleting or inserting a bit with weight r. Scored by the neural
+    DP, whose silent closure it never reaches."""
+    def moves(dest):
+        out = []
+        for a in "01":
+            for b in "01":
+                out.append({"in": a, "out": b, "to": dest,
+                            "weight": "p" if a == b else "q"})
+        return out
+    indels = [{"in": a, "to": "E", "weight": "r"} for a in "01"] + \
+        [{"out": b, "to": "E", "weight": "r"} for b in "01"]
+    return {"state": [{"id": "S", "trans": moves("E")},
+                      {"id": "E", "trans": moves("E") + indels}]}
 
 
 # ------------------------------------------------ fused Plan7 read scoring

@@ -245,7 +245,9 @@ VERBATIM = ["utils/logsumexp.py", "core/seqpair.py", "algo/dp_host.py",
             "core/hmmer.py", "algo/fused_align.py", "algo/beam.py",
             "algo/ctc.py", "core/csvprof.py",
             "core/fastseq.py", "core/jphmm.py", "models/__init__.py",
-            "models/tkf91.py", "parallel/__init__.py"]
+            "models/tkf91.py", "parallel/__init__.py", "core/regex.py",
+            "algo/downsample.py", "utils/logger.py", "codegen_impl.py",
+            "codegen.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -648,3 +650,46 @@ def test_objective_seeding_with_all_mass_in_the_leading_members():
     fit = got[1]
     assert abs(fit["pA"] - 0.75) < 1e-2 and abs(fit["pC"] - 0.25) < 1e-2
     assert abs(sum(fit.values()) - 1.0) < 1e-9 and fit["pG"] < 1e-6
+
+
+def test_cli_copy_differs_only_by_the_device_option_and_usage():
+    """cli.py is the JAX package's command line but for --device (an
+    application option passed as device= to the four device entry points,
+    and named in the docstring) and _usage, which names the port's module
+    as the program."""
+    import difflib
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "machineboss_tpu", "cli.py")) as f:
+        original = f.read().splitlines()
+    with open(os.path.join(root, "machineboss_tpu_torch", "cli.py")) as f:
+        copy = f.read().splitlines()
+    removed, added = [], []
+    for line in difflib.unified_diff(original, copy, lineterm="", n=0):
+        if line.startswith(("---", "+++", "@@")):
+            continue
+        (removed if line.startswith("-") else added).append(line[1:])
+    assert removed == [
+        "through the host or TPU DP engines.",
+        '                               engine=vm.get("--engine", "host"))',
+        "            cm = CompiledMachine(machine, params)",
+        "            counts = device_counts(machine, params, data)",
+        "                                                 envelopes=envs)",
+        '    return ("Usage: mboss [construction|application options...]\\n"',
+    ]
+    assert added == [
+        "through the host or device DP engines (--device: cuda, the default,"
+        " or cpu).",
+        '    "--device",',
+        '                               engine=vm.get("--engine", "host"),',
+        '                               device=vm.get("--device"))',
+        '            cm = CompiledMachine(machine, params, '
+        'device=vm.get("--device"))',
+        "            counts = device_counts(machine, params, data,",
+        '                                   device=vm.get("--device"))',
+        "                                                 envelopes=envs,",
+        '                                                 '
+        'device=vm.get("--device"))',
+        '    return ("Usage: python -m machineboss_tpu_torch"',
+        '            " [construction|application options...]\\n"',
+    ]

@@ -175,3 +175,39 @@ def test_em_modules_are_among_the_probed():
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_cli_slice_modules_are_among_the_probed():
+    """The command line's slice (the CLI and its host modules, profiling,
+    the neural DP and the device CTC scorer) is in the walked package;
+    importing those modules alone, and running the package as
+    `python -m machineboss_tpu_torch`, loads neither jax nor
+    machineboss_tpu."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"cli.py", "__main__.py", "codegen.py", "codegen_impl.py",
+            "core/regex.py", "algo/downsample.py", "utils/logger.py",
+            "utils/profiling.py", "ops/exprjit.py", "ops/dp_neural.py",
+            "algo/ctc_device.py"} <= rel
+    probe = ("import machineboss_tpu_torch.cli, "
+             "machineboss_tpu_torch.utils.profiling, "
+             "machineboss_tpu_torch.ops.exprjit, "
+             "machineboss_tpu_torch.ops.dp_neural, "
+             "machineboss_tpu_torch.algo.ctc_device, sys; "
+             "assert 'jax' not in sys.modules "
+             "and 'machineboss_tpu' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    # the module entry, run with python -X importtime: every module it
+    # imported is named on stderr
+    res = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                          "machineboss_tpu_torch", "--preset", "null"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    loaded = {line.rsplit("|", 1)[-1].strip()
+              for line in res.stderr.splitlines() if "|" in line}
+    assert "machineboss_tpu_torch.cli" in loaded
+    assert not {m for m in loaded
+                if m.split(".")[0] in ("jax", "jaxlib", "machineboss_tpu")}
