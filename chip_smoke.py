@@ -138,6 +138,22 @@ five kernels of the line through their counted wrappers):
               tree passes 30 s), each level's 20 children against the host
               PrefixTree (1e-3); one fill_all_tokens' ms and launches.
 
+Then the parallel phase drives the parallel layer (parallel/*, no kernel
+of its own) on a world of one: make_mesh() starts an NCCL group in
+process (the card's machine has one H100, and NCCL takes one rank a
+card), destroyed at the phase's end. (a) forward_batch_sharded on the
+prot2dna path's 512 pairs (the f64 gate on 8, every pair against the
+lowrank scores, 5e-3); (b) lowrank, merged and chained (chain 8) from
+make_wavefront_forward on the rank's block, all-gathered: bit-equal to
+the factory's call on the whole batch, one launch each; (c)
+device_counts(mesh=) on the em phase's pairs and one
+MachineFitter(engine="device", mesh=) iteration, equal to mesh=None;
+(d) the length- and (e) the state-sharded scans on dense1d's generator
+at L=10,000 and (f) one diagonal-sharded 2,000 x 2,000 lattice on the
+dense machine, each against its single-device engine and a float64
+oracle (0.01 nats); each part's ms, launches (torch.profiler) and the
+NCCL kernels the profiler names.
+
 Then four phases drive the eager torch engines of single-pair scoring and
 the sparse engine (no kernel of the kernels line runs in them), each call
 gated against a float64 oracle, timed with torch.cuda.synchronize() around
@@ -1290,6 +1306,20 @@ DESIGN_VARIANTS = {
                           "all_cells": {"skip_dead": False}}}
 
 
+def factory_batch(toks):
+    """(in_toks, out_toks, in_lens, out_lens) numpy arrays of (input,
+    output) token lists, padded to the longest: a factory's inputs."""
+    B = len(toks)
+    Li = max(len(t[0]) for t in toks)
+    Lo = max(len(t[1]) for t in toks)
+    it, ot = np.zeros((B, Li), np.int32), np.zeros((B, Lo), np.int32)
+    for n, (ti, to) in enumerate(toks):
+        it[n, :len(ti)], ot[n, :len(to)] = ti, to
+    il = np.array([len(t[0]) for t in toks], np.int32)
+    ol = np.array([len(t[1]) for t in toks], np.int32)
+    return it, ot, il, ol
+
+
 def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
                  gate_key, chains=(), merged_on_plan=False):
     """A variant kernel at full width through make_wavefront_forward: every
@@ -1306,14 +1336,8 @@ def variant_path(name, kernel, cm, pairs, factory_kw, dev, card, smi,
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
     mats = cm._host_mats()
-    B = len(toks)
-    Li = max(len(t[0]) for t in toks)
-    Lo = max(len(t[1]) for t in toks)
-    it, ot = np.zeros((B, Li), np.int32), np.zeros((B, Lo), np.int32)
-    for n, (ti, to) in enumerate(toks):
-        it[n, :len(ti)], ot[n, :len(to)] = ti, to
-    il = np.array([len(t[0]) for t in toks], np.int32)
-    ol = np.array([len(t[1]) for t in toks], np.int32)
+    it, ot, il, ol = factory_batch(toks)
+    (B, Li), Lo = it.shape, ot.shape[1]
     fn = wk.make_wavefront_forward(*mats, B, Li, Lo, device=dev,
                                    **factory_kw)
     wrappers = counts()
@@ -2516,12 +2540,11 @@ SPARSE_VS_DENSE_TOL = 1e-3       # nats: sparse forms against the dense ones
 BLOCKED_VS_SCAN1D_TOL = 5e-3     # nats: blocked fold against the scan kernel
 
 
-def launches_per_call(fn):
-    """(fn(), kernels, copies) of one call under torch.profiler's CUDA
-    activity: the device's kernel launches, and its memcpy and memset
-    operations (None, None where the profiler saw no device activity).
-    The tracing costs some 40 us a launch on the card's host, so the
-    call's time is taken apart."""
+def cuda_activity(fn):
+    """(fn(), names): the names of the device's activities (kernels,
+    memcpy, memset) in one call under torch.profiler's CUDA activity. The
+    tracing costs some 40 us a launch on the card's host, so the call's
+    time is taken apart."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2536,12 +2559,27 @@ def launches_per_call(fn):
                  if e.device_type() == cuda]
     else:
         names = [e.name for e in prof.events() if e.device_type == cuda]
-    kernels = copies = 0
-    for name in names:
-        if "memcpy" in name.lower() or "memset" in name.lower():
-            copies += 1
-        else:
-            kernels += 1
+    return out, names
+
+
+def device_kernels(names):
+    """The kernel launches among cuda_activity's names."""
+    return [n for n in names
+            if "memcpy" not in n.lower() and "memset" not in n.lower()]
+
+
+def collective_names(names):
+    """The NCCL kernels among cuda_activity's names."""
+    return sorted({n for n in names if "nccl" in n.lower()})
+
+
+def launches_per_call(fn):
+    """(fn(), kernels, copies) of one call under torch.profiler's CUDA
+    activity: the device's kernel launches, and its memcpy and memset
+    operations (None, None where the profiler saw no device activity)."""
+    out, names = cuda_activity(fn)
+    kernels = len(device_kernels(names))
+    copies = len(names) - kernels
     if kernels + copies == 0:
         return out, None, None
     return out, kernels, copies
@@ -3908,6 +3946,323 @@ def ctc_device_phase(dev, card, smi, Lp=64, levels=16, host_budget_s=30.0):
           "card": card, "nvidia_smi": smi})
 
 
+# ------------------------------------------ the parallel layer (NCCL, N=1)
+
+PARALLEL_VS_LOWRANK_TOL = 5e-3   # nats: the wavefront engine vs lowrank's
+                                 # signed SVD factors (KERNEL_VS_F64_TOL)
+
+
+def diag_chain_f64(mats, x, y):
+    """The float64 Forward of one pair on a machine whose every
+    transition consumes an input and emits an output (bench.py's dense
+    machine: no left or up class), where only the cells i == o live: the
+    2D recurrence is then the 1D chain cell(k,k) = cell(k-1,k-1) (x)
+    D[x_k, y_k] (x) C, scored by testmachines.forward_1d_f64 over the
+    tokens x_k * To + y_k."""
+    from machineboss_tpu_torch.testmachines import forward_1d_f64
+    a_diag, a_left, a_up, closure = (np.asarray(m, np.float64) for m in mats)
+    check((a_left <= NEG).all() and (a_up <= NEG).all(),
+          "diag_chain_f64: the machine has a left or an up class")
+    check(len(x) == len(y), "diag_chain_f64: the pair's lengths differ")
+    Ti, To, S, _ = a_diag.shape
+    em = np.where(a_diag > NEG, np.exp(np.minimum(a_diag, 700.0)), 0.0)
+    cl = np.where(closure > NEG, np.exp(np.minimum(closure, 700.0)), 0.0)
+    step = np.einsum("tij,jk->tik", em.reshape(Ti * To, S, S), cl)
+    with np.errstate(divide="ignore"):
+        trans = np.where(step > 0, np.log(np.maximum(step, 1e-300)), -1e30)
+    toks = np.asarray(x, np.int64) * To + np.asarray(y, np.int64)
+    return float(forward_1d_f64(trans, closure, toks[None], [len(toks)])[0])
+
+
+def parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense_cm,
+                   dense_pairs, em_B=128, em_Lp=64, fit_B=8, fit_Lp=16,
+                   L1d=10000, S1d=64,
+                   L2d=2000, n_profile=256, n_profile_2d=128,
+                   mesh_device=None):
+    """The parallel layer (parallel/*) on a world of one (make_mesh with
+    mesh_device, None: the card, NCCL), each part through the entry point a
+    user calls:
+    (a) parallel.infer.forward_batch_sharded on the main path's prot2dna
+        pairs (the scaled wavefront engine): the f64 gate on 8 pairs, and
+        every pair against the main path's lowrank scores;
+    (b) lowrank (prot2dna), merged and chained (chain 8; dense_uniform)
+        from make_wavefront_forward, each scoring the rank's block of the
+        batch, all-gathered on the 'data' axis: bit-equal to the factory's
+        call on the whole batch, one launch of the kernel each;
+    (c) parallel.em.device_counts(mesh=) on the em phase's pairs, bit-equal
+        to mesh=None (no padding on one rank; a SUM over one rank is a
+        copy), and one MachineFitter(engine="device", mesh=) iteration on
+        the em phase's fit set (fit_B flanked pairs of fit_Lp aa: the
+        M-step, not the batch, sets a fit iteration's time) against the
+        mesh-less one: the same parameters;
+    (d) the length-sharded and (e) the state-sharded scan on dense1d's
+        generator, one sequence of L1d, against dp1d.forward_1d_scan and
+        forward_1d_f64 (their float32 drift printed); the state scan's
+        collectives counted;
+    (f) the diagonal-sharded wavefront on dense_uniform's machine, one pair
+        of L2d x L2d, against ops.wavefront.forward_2d_wavefront and
+        diag_chain_f64.
+    Device launches are counted under torch.profiler, for (e) on the first
+    n_profile tokens and for (f) on an n_profile_2d square cut (the
+    tracing costs some 40 us a launch). Ends with
+    destroy_process_group()."""
+    import torch.distributed as dist
+    from machineboss_tpu_torch.algo.fitter import MachineFitter
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.core.seqpair import (NamedSeq, SeqPair,
+                                                    SeqPairList)
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import dp1d
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    from machineboss_tpu_torch.ops.wavefront import forward_2d_wavefront
+    from machineboss_tpu_torch.parallel import mesh as pm
+    from machineboss_tpu_torch.parallel.em import device_counts
+    from machineboss_tpu_torch.parallel.infer import forward_batch_sharded
+    from machineboss_tpu_torch.parallel.lengthshard import (
+        diag_sharded_wavefront_fn, length_sharded_forward_fn)
+    from machineboss_tpu_torch.parallel.stateshard import (
+        state_sharded_scan_fn)
+    from machineboss_tpu_torch.testmachines import (forward_1d_f64,
+                                                    prot2dna_pairs)
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def seq_pairs(pairs):
+        return [SeqPair(NamedSeq("i", list(a)), NamedSeq("o", list(b)))
+                for a, b in pairs]
+
+    def zero_counts():
+        wrappers = counts()
+        for w in wrappers.values():
+            w.launches = 0
+        return wrappers
+
+    t0 = time.perf_counter()
+    mesh = pm.make_mesh(device=mesh_device)
+    init_s = time.perf_counter() - t0
+    world = {"world_size": dist.get_world_size(),
+             "backend": dist.get_backend(),
+             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+             "device": str(pm.mesh_device(mesh)), "init_s": init_s}
+    check(world["world_size"] == 1, "the card's world is one rank")
+    try:
+        # (a) data-parallel inference on the main path's pairs
+        t0 = time.perf_counter()
+        sps = seq_pairs(p2d_pairs)
+        wrappers = zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        scores, first_ms = synced_ms(
+            lambda: forward_batch_sharded(p2d_cm.ev, sps, mesh))
+        peak = torch.cuda.max_memory_allocated()
+        check(all(w.launches == 0 for w in wrappers.values()),
+              "infer: the wavefront engine launched a kernel of the line")
+        _, names = cuda_activity(
+            lambda: forward_batch_sharded(p2d_cm.ev, sps, mesh))
+        times = [synced_ms(lambda: forward_batch_sharded(p2d_cm.ev, sps,
+                                                         mesh))[1]
+                 for _ in range(5)]
+        toks = [(p2d_cm.in_toks(i), p2d_cm.out_toks(o))
+                for i, o in p2d_pairs]
+        n_gate = 8
+        gate = score_err(scores[:n_gate], f64_scores(
+            p2d_cm._host_mats(), toks[:n_gate], key=("prot2dna", n_gate)))
+        check(gate <= GATE_TOL, "infer: f64 gate %.3g nats" % gate)
+        vs_lowrank = score_err(scores, p2d_lls)
+        check(vs_lowrank <= PARALLEL_VS_LOWRANK_TOL,
+              "infer: vs the lowrank kernel %.3g nats" % vs_lowrank)
+        B = len(p2d_pairs)
+        Lp, Lo = len(p2d_pairs[0][0]), len(p2d_pairs[0][1])
+        call_ms = float(np.median(times))
+        infer = {"B": B, "Lp": Lp, "Lo": Lo, "reduced": [],
+                 "first_call_ms": first_ms, "call_ms_median5": call_ms,
+                 "ms_all": times, "peak_bytes": peak,
+                 "launches_per_call": len(device_kernels(names)),
+                 "copies_per_call": len(names) - len(device_kernels(names)),
+                 "collective_kernels": collective_names(names),
+                 "state_cells_per_s": B * (Lp + 1) * (Lo + 1)
+                 * p2d_cm.ev.n_states() / (call_ms / 1e3),
+                 "f64_gate_max_abs": gate, "f64_gate_pairs": n_gate,
+                 "vs_lowrank_max_abs": vs_lowrank}
+        seconds["infer"] = time.perf_counter() - t0
+
+        # (b) the kernels on the rank's block, all-gathered
+        t0 = time.perf_counter()
+        n = pm.axis_size(mesh, "data")
+        idx = pm.axis_index(mesh, "data")
+        blocks = {}
+        for name, cm, pairs, kw, kernel in (
+                ("lowrank", p2d_cm, p2d_pairs, {"variant": "lowrank"},
+                 "lowrank_wavefront"),
+                ("merged", dense_cm, dense_pairs, {"merged": True},
+                 "merged_wavefront"),
+                ("chained", dense_cm, dense_pairs,
+                 {"variant": "chained", "chain": 8}, "chained_wavefront")):
+            mats = cm._host_mats()
+            batch = factory_batch([(cm.in_toks(i), cm.out_toks(o))
+                                   for i, o in pairs])
+            (Bk, Li), Lo = batch[0].shape, batch[1].shape[1]
+            direct = wk.make_wavefront_forward(*mats, Bk, Li, Lo,
+                                               device=pm.mesh_device(mesh),
+                                               **kw)(*batch)
+            local = wk.make_wavefront_forward(*mats, Bk // n, Li, Lo,
+                                              device=pm.mesh_device(mesh),
+                                              **kw)
+            blk = slice(idx * (Bk // n), (idx + 1) * (Bk // n))
+
+            def sharded():
+                return pm.all_gather(local(*(x[blk] for x in batch)), mesh,
+                                     "data").reshape(Bk)
+
+            wrappers = zero_counts()
+            got = sharded()
+            launched = {k: w.launches for k, w in wrappers.items()
+                        if w.launches}
+            check(launched == {kernel: 1},
+                  "%s on the mesh launched %s" % (name, launched))
+            check(torch.equal(got, direct),
+                  "%s: the all-gathered blocks differ from the direct call"
+                  % name)
+            _, names = cuda_activity(sharded)
+            blocks[name] = {
+                "kernel": kernel, "B": Bk, "launches": launched.get(kernel, 0),
+                "sharded_call_ms_median3": float(np.median(
+                    [synced_ms(sharded)[1] for _ in range(3)])),
+                "collective_kernels": collective_names(names),
+                "bit_equal": True}
+        seconds["kernels"] = time.perf_counter() - t0
+
+        # (c) the data-parallel E-step and one fit iteration
+        t0 = time.perf_counter()
+        m = make_preset("prot2dna")
+        params = m.get_param_defs(True)
+        spl = SeqPairList(seq_pairs(prot2dna_pairs(em_B, em_Lp, seed=13,
+                                                   synonymous=True)))
+        plain, plain_ms = synced_ms(lambda: device_counts(m, params, spl,
+                                                          device=dev))
+        meshed, mesh_ms = synced_ms(lambda: device_counts(m, params, spl,
+                                                          mesh=mesh))
+        check(np.array_equal(np.concatenate(plain.count),
+                             np.concatenate(meshed.count))
+              and plain.loglike == meshed.loglike,
+              "em: device_counts(mesh=) differs from mesh=None")
+        fit_spl = SeqPairList(seq_pairs(prot2dna_pairs(
+            fit_B, fit_Lp, seed=14, synonymous=True, flank=8)))
+        fits, fit_s = {}, {}
+        for key, kw in (("plain", {"device": dev}), ("mesh", {"mesh": mesh})):
+            t1 = time.perf_counter()
+            fitted = MachineFitter(machine=m, seed=params, engine="device",
+                                   **kw).fit(fit_spl, max_iterations=1)
+            fit_s[key] = time.perf_counter() - t1
+            fits[key] = {k: float(fitted.defs[k]) for k in fitted.defs}
+        check(fits["plain"] == fits["mesh"],
+              "em: a fit iteration on the mesh differs from one without")
+        em = {"B": em_B, "Lp": em_Lp, "fit_B": fit_B, "fit_Lp": fit_Lp,
+              "estep_ms": plain_ms,
+              "estep_mesh_ms": mesh_ms, "counts_bit_equal": True,
+              "fit_iteration_s": fit_s, "fit_params": len(fits["mesh"]),
+              "fit_params_equal": True, "loglike": meshed.loglike}
+        seconds["em"] = time.perf_counter() - t0
+
+        # (d), (e) the length- and state-sharded scans on dense1d's generator
+        t0 = time.perf_counter()
+        gen, seqs = dense1d_batch(B=1, L=L1d, S=S1d)
+        cm1d = CompiledMachine(gen, device=dev)
+        trans, closure = cm1d.lowered.emit_matrices_1d(output_side=True)
+        toks1d = np.asarray(cm1d.out_toks(seqs[0][1]), np.int64)
+        tt, ct = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in (trans, closure))
+        tk = torch.from_numpy(toks1d).to(dev)
+        f64 = float(forward_1d_f64(trans, closure, toks1d[None], [L1d])[0])
+        scan, scan_ms = synced_ms(
+            lambda: float(dp1d.forward_1d_scan(tt, ct, tk, L1d)))
+        length_fn = length_sharded_forward_fn(mesh)
+        vec, length_ms = synced_ms(lambda: length_fn(tt, ct, tk, L1d))
+        ll_len = float(vec[-1])
+        state_fn = state_sharded_scan_fn(mesh)
+        gathers = [0]
+        real_gather = pm.MeshAxis.all_gather
+
+        def counted(self, x):
+            gathers[0] += 1
+            return real_gather(self, x)
+
+        pm.MeshAxis.all_gather = counted
+        try:
+            ll_state, state_ms = synced_ms(
+                lambda: float(state_fn(tt, ct, tk, L1d)))
+        finally:
+            pm.MeshAxis.all_gather = real_gather
+        _, len_names = cuda_activity(lambda: length_fn(tt, ct, tk, L1d))
+        cut = min(n_profile, L1d)
+        _, state_names = cuda_activity(lambda: state_fn(tt, ct, tk[:cut],
+                                                        cut))
+        scans = {}
+        for name, ll, ms, names, per in (
+                ("length", ll_len, length_ms, len_names, None),
+                ("state", ll_state, state_ms, state_names, cut)):
+            err_scan, err_f64 = abs(ll - scan), abs(ll - f64)
+            check(max(err_scan, err_f64) <= GATE_TOL,
+                  "%s-sharded scan: vs scan %.3g, vs f64 %.3g nats"
+                  % (name, err_scan, err_f64))
+            launches = len(device_kernels(names))
+            scans[name] = {
+                "ll": ll, "call_ms": ms, "vs_scan_max_abs": err_scan,
+                "f32_drift_vs_f64": ll - f64,
+                "collective_kernels": collective_names(names)}
+            if per is None:
+                scans[name]["launches_per_call"] = launches
+            else:
+                scans[name]["launches_per_token"] = launches / per
+                scans[name]["launches_per_token_profiled_on"] = per
+        scans["state"]["all_gathers_per_call"] = gathers[0]
+        scans["scan"] = {"ll": scan, "call_ms": scan_ms, "f64": f64,
+                         "f32_drift_vs_f64": scan - f64, "S": trans.shape[-1],
+                         "L": L1d}
+        seconds["scans"] = time.perf_counter() - t0
+
+        # (f) one long lattice split over the 'len' axis
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(7)
+        sym = np.array(list("ACGT"))
+        x = "".join(sym[rng.randint(0, 4, L2d)])
+        y = "".join(sym[rng.randint(0, 4, L2d)])
+        mats = dense_cm._host_mats()
+        mt = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in mats]
+        xt, yt = dense_cm.in_toks(x), dense_cm.out_toks(y)
+        pair = [torch.tensor([t], dtype=torch.int64, device=dev)
+                for t in (xt, yt)]
+        lens = [torch.tensor([L2d], dtype=torch.int64, device=dev)] * 2
+        diag_fn = diag_sharded_wavefront_fn(mesh)
+        got, diag_ms = synced_ms(lambda: float(diag_fn(*mt, *pair,
+                                                       *lens)[0]))
+        ref, ref_ms = synced_ms(lambda: float(forward_2d_wavefront(
+            *mt, *pair, *lens)[0]))
+        f64_2d = diag_chain_f64(mats, xt, yt)
+        err_ref, err_f64 = abs(got - ref), abs(got - f64_2d)
+        check(max(err_ref, err_f64) <= GATE_TOL,
+              "diag-sharded: vs wavefront %.3g, vs f64 %.3g nats"
+              % (err_ref, err_f64))
+        cut = min(n_profile_2d, L2d)
+        _, names = cuda_activity(lambda: diag_fn(
+            *mt, *(p[:, :cut] for p in pair),
+            *[torch.full_like(l, cut) for l in lens]))
+        per_diag = len(device_kernels(names)) / (2 * cut)
+        diag = {"L": L2d, "S": mats[3].shape[0], "ll": got, "call_ms": diag_ms,
+                "wavefront_ms": ref_ms, "vs_wavefront_max_abs": err_ref,
+                "f64": f64_2d, "f32_drift_vs_f64": got - f64_2d,
+                "launches_per_diagonal": per_diag,
+                "launches_per_diagonal_profiled_on": [cut, cut],
+                "launches_call_from_per_diagonal": per_diag * 2 * L2d,
+                "collective_kernels": collective_names(names)}
+        seconds["diag"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "parallel", **world, "infer": infer, "kernels": blocks,
+          "em": em, "scans": scans, "diag": diag, "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_phase, "card": card,
+          "nvidia_smi": smi})
+
+
 def single_pair_paths(dev, card, smi):
     """The four phases of the single-pair and sparse engines: eager torch
     engines, no kernel of the kernels line."""
@@ -4046,7 +4401,7 @@ def main():
           "kernel_share_of_bound": bound_ms / kernel_ms,
           "card": card, "nvidia_smi": smi})
 
-    p2d_cm, p2d_pairs = cm, pairs
+    p2d_cm, p2d_pairs, p2d_lls = cm, pairs, lls
     kernels = [{
         "name": "lowrank_wavefront", "route": "cuda",
         "source": "machineboss_tpu_torch/csrc/lowrank_wavefront.cu",
@@ -4112,6 +4467,10 @@ def main():
     cli_phase(dev, card, smi)
     neural_phase(dev, card, smi)
     ctc_device_phase(dev, card, smi)
+
+    # -- the parallel layer on a world of one (NCCL) ---------------------
+    parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense,
+                   dense_pairs)
 
     # -- single-pair scoring and the sparse engine ------------------------
     single_pair_paths(dev, card, smi)

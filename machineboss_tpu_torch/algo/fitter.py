@@ -6,8 +6,8 @@ stopping at MaxEMIterations or relative improvement < MinEMImprovement.
 The E-step runs either on host (exact float64, golden parity) or batched on
 one device via ops/fwdback.py (parallel/em.py); set engine='device' for the
 latter, with `device` naming where (None: the CUDA card, raising when CUDA
-is absent; "cpu" for the CPU). The data-parallel E-step (`mesh`) waits for
-parallel/* on torch.distributed (ROADMAP.md queue A, item 8).
+is absent; "cpu" for the CPU), and `mesh` for the data-parallel E-step
+over a torch.distributed mesh's 'data' axis (parallel/mesh.py).
 """
 
 from ..core.eval import EvaluatedMachine
@@ -27,8 +27,10 @@ class MachineFitter:
         self.seed = seed if seed is not None else Params()
         self.constants = constants if constants is not None else Params()
         self.engine = engine
-        # engine='device' + mesh: the data-parallel E-step, not ported
-        # (parallel/em.device_counts raises NotImplementedError)
+        # engine='device' + mesh: the E-step is sharded over the mesh's
+        # 'data' axis (parallel/em.sharded_counts_fn); the full EM loop
+        # then runs on every rank, whose counts are summed and replicated,
+        # so every rank optimizes identical objectives
         self.mesh = mesh
         # engine='device': where the E-step runs
         self.device = device

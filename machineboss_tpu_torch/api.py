@@ -179,8 +179,8 @@ def device_forward_batch(machine, seq_pairs, params=None, dtype=None,
 
 def device_counts_batch(machine, seq_pairs, params=None, mesh=None,
                         device=None):
-    """Batched E-step counts on `device`, as a host MachineCounts
-    (mesh=, the data-parallel form, raises NotImplementedError)."""
+    """Batched E-step counts on `device`, or data-parallel over `mesh`
+    (parallel/mesh.py), as a host MachineCounts."""
     from .parallel.em import device_counts
     m = _machine(machine)
     pairs = SeqPairList([SeqPair(_seq(i), _seq(o)) for i, o in seq_pairs])

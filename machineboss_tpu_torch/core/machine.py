@@ -57,9 +57,10 @@ def _native_mode():
 
 
 def _native_lib():
-    # the port carries no native core: the Python fold is the semantic
-    # reference, so every transform takes the Python path
-    return None
+    if _native_mode() == "off":
+        return None
+    from .. import native
+    return native if native.available() else None
 
 
 def name_dump(name):

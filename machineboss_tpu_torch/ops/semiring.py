@@ -122,6 +122,7 @@ class MaxSemiring:
     def prepare(b):
         return b
 
+    matmul_prepared = matmul
     vecmat_prepared = vecmat
 
     @staticmethod
@@ -172,6 +173,10 @@ class ProbSemiring:
     @staticmethod
     def prepare(b_log):
         return torch.exp(b_log)
+
+    @staticmethod
+    def matmul_prepared(a, eb):
+        return torch.matmul(a, eb)
 
     @staticmethod
     def vecmat_prepared(v, eb):

@@ -253,5 +253,15 @@ def test_device_counts_batch_matches_the_jax_api():
     assert abs(ours.loglike - theirs.loglike) < 1e-3
     for a, b in zip(ours.count, theirs.count):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.device_counts_batch(m, pairs, mesh=object(), device="cpu")
+    # mesh=: a world of one on the CPU, started in process and destroyed
+    import torch.distributed as dist
+    from machineboss_tpu_torch.parallel.mesh import make_mesh
+    assert not dist.is_initialized()
+    try:
+        meshed = api.device_counts_batch(m, pairs, params={"t": 0.3},
+                                         mesh=make_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert meshed.loglike == ours.loglike
+    for a, b in zip(meshed.count, ours.count):
+        assert np.array_equal(a, b)

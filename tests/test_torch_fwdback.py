@@ -224,9 +224,15 @@ def test_device_counts_matches_host(name):
 
 
 def test_device_counts_mesh_raises_naming_item_8():
+    """mesh= runs since the parallel layer was ported (ROADMAP.md queue A;
+    tests/test_torch_parallel.py holds it to the JAX function); what
+    still raises is a device that contradicts the mesh's, a ValueError
+    before any collective."""
+    import types
     m, p, _, spl, _ = _case("tkf91branch")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        device_counts(m, p, spl, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        device_counts(m, p, spl, mesh=types.SimpleNamespace(
+            device_type="cpu"), device="cuda")
 
 
 def test_default_device_is_the_card():

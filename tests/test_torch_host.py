@@ -247,7 +247,7 @@ VERBATIM = ["utils/logsumexp.py", "core/seqpair.py", "algo/dp_host.py",
             "core/fastseq.py", "core/jphmm.py", "models/__init__.py",
             "models/tkf91.py", "parallel/__init__.py", "core/regex.py",
             "algo/downsample.py", "utils/logger.py", "codegen_impl.py",
-            "codegen.py"]
+            "codegen.py", "native.py", "core/machine.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

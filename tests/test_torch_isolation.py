@@ -211,3 +211,26 @@ def test_cli_slice_modules_are_among_the_probed():
     assert "machineboss_tpu_torch.cli" in loaded
     assert not {m for m in loaded
                 if m.split(".")[0] in ("jax", "jaxlib", "machineboss_tpu")}
+
+
+def test_parallel_modules_are_among_the_probed():
+    """The parallel layer's modules (the mesh, data-parallel inference,
+    the length- and state-sharded scans, the E-step) and the native core's
+    bridge are in the walked package, and importing them alone loads
+    neither jax nor machineboss_tpu."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
+    assert {"parallel/mesh.py", "parallel/infer.py",
+            "parallel/lengthshard.py", "parallel/stateshard.py",
+            "parallel/em.py", "native.py"} <= rel
+    probe = ("import machineboss_tpu_torch.parallel.mesh, "
+             "machineboss_tpu_torch.parallel.infer, "
+             "machineboss_tpu_torch.parallel.lengthshard, "
+             "machineboss_tpu_torch.parallel.stateshard, "
+             "machineboss_tpu_torch.parallel.em, "
+             "machineboss_tpu_torch.native, sys; "
+             "assert 'jax' not in sys.modules "
+             "and 'machineboss_tpu' not in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
