@@ -170,8 +170,11 @@ its device launches counted once under torch.profiler:
                   x 96 nt (those three walk every cell, a log_forward's
                   launches or twice them);
   single_pair_1d  the dense1d generator at L=10,000: log_forward with
-                  "auto" (the default rule: "scan" at its 65 states) and
-                  "assoc", forward_1d_all / backward_1d_all, the blocked
+                  "auto" (the card's measured row, dispatch_table_cuda.json,
+                  asserted; no slower than the other route, also timed),
+                  log_viterbi on that route against the scan's max-plus
+                  score (ms, peak memory), forward_1d_all /
+                  backward_1d_all, the blocked
                   fold on the dense1d batch (256 x 10,000; also against
                   the scan1d kernel's scores) and the probability-space
                   scan at 256 x 3,000;
@@ -2774,13 +2777,25 @@ def dense1d_batch(B=256, L=10000, S=64):
     return m, [("", "".join(sym[rng.randint(0, 4, L)])) for _ in range(B)]
 
 
+def table_route(row, S, L):
+    """The JAX class's 1D rule on a measured row: assoc from the smallest
+    winning L of the nearest measured S; scan where assoc never won."""
+    by_s = row["derived"]["assoc_min_L_by_S"]
+    if not by_s:
+        return "scan"
+    nearest = min((int(k) for k in by_s), key=lambda k: abs(k - S))
+    return "assoc" if L >= by_s[str(nearest)] else "scan"
+
+
 def single_pair_1d_phase(dev, card, smi, B=256, L=10000, Lq=3000):
     """The dense1d generator's single-pair calls at L ("auto", which the
-    default rule sends to the scan at 65 states, and "assoc"; the
-    lattices) and the batch engines on the dense1d
-    batch: the blocked fold at B x L, the probability-space scan at
-    B x Lq. Returns the machine and the batch's tokens."""
-    from machineboss_tpu_torch.dispatch import CompiledMachine
+    card's measured row routes, and the other route, the table's route no
+    slower; Viterbi on the table's route against the scan's max-plus
+    score; the lattices) and the batch engines on the dense1d batch: the
+    blocked fold at B x L, the probability-space scan at B x Lq. Returns
+    the machine and the batch's tokens."""
+    from machineboss_tpu_torch.dispatch import (CompiledMachine,
+                                                _load_dispatch_table)
     from machineboss_tpu_torch.ops import dp1d
     from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
     from machineboss_tpu_torch.testmachines import forward_1d_f64
@@ -2796,17 +2811,37 @@ def single_pair_1d_phase(dev, card, smi, B=256, L=10000, Lq=3000):
     one = "forward_1d_f64, 1 sequence"
     calls = {}
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
-    # the default rule (no `cuda` row): assoc for L >= 256 at S <= 64,
-    # where S counts End: the 64-state generator has 65 states
-    auto = "assoc" if (L >= 256 and S <= 64) else "scan"
+    # the card's measured row (dispatch_table_cuda.json, written on the
+    # card by autotune_dispatch.py) under the JAX class's rule; S counts
+    # End: the 64-state generator has 65 states
+    row = _load_dispatch_table(dev.type)
+    check(row is not None, "no %s row in the dispatch tables" % dev.type)
+    auto = table_route(row, S, L)
     check(cm._strategy(0, L, "auto") == auto,
-          "the default rule on cuda at S=%d, L=%d" % (S, L))
-    for strategy in ("auto", "scan" if auto == "assoc" else "assoc"):
+          "the %s row's rule at S=%d, L=%d" % (dev.type, S, L))
+    other = "scan" if auto == "assoc" else "assoc"
+    for strategy in ("auto", other):
         rec, got = call_record(lambda: cm.log_forward(
             "", pairs[0][1], strategy=strategy))
         calls["log_forward_" + cm.last_route] = gated(
             rec, score_err(got, ref[:1]), GATE_TOL, one, "log_forward",
             strategy=strategy, route=cm.last_route)
+    table_ms = calls["log_forward_" + auto]["ms"]
+    other_ms = calls["log_forward_" + other]["ms"]
+    check(table_ms <= other_ms, "the table's route %s took %.2f ms, %s "
+          "%.2f ms: the row is stale, re-run autotune_dispatch"
+          % (auto, table_ms, other, other_ms))
+    # Viterbi on the table's route, against the scan's max-plus score
+    ref_vit, scan_vit_ms = synced_ms(lambda: cm.log_viterbi(
+        "", pairs[0][1], strategy="scan"))
+    torch.cuda.reset_peak_memory_stats()
+    rec, got = call_record(lambda: cm.log_viterbi("", pairs[0][1], "auto"))
+    check(cm.last_route == auto, "log_viterbi took %s" % cm.last_route)
+    calls["log_viterbi_" + auto] = gated(
+        rec, score_err(got, [ref_vit]), GATE_TOL, "log_viterbi's scan "
+        "route on the card, 1 sequence", "log_viterbi", route=auto,
+        scan_ms=scan_vit_ms,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
     t, c = (torch.from_numpy(x).to(dev) for x in (trans, closure))
     tk = torch.from_numpy(toks).to(dev)
     # the lattices carry absolute log values (as the JAX package's do): in
@@ -2859,7 +2894,11 @@ def single_pair_1d_phase(dev, card, smi, B=256, L=10000, Lq=3000):
         "forward_1d_f64, %d of %d sequences of %d" % (n_gate, B, Lq),
         "probs batch")
     emit({"phase": "single_pair_1d", "machine": "dense1d generator",
-          "S": S, "B": B, "L": L, "Lq": Lq, "calls": calls,
+          "S": S, "B": B, "L": L, "Lq": Lq, "table_route": auto,
+          "table_ms": table_ms, "other_route": other, "other_ms": other_ms,
+          "table_card": row.get("nvidia_smi"),
+          "table_assoc_min_L_by_S": row["derived"]["assoc_min_L_by_S"],
+          "calls": calls,
           "seconds": time.perf_counter() - t_phase, "card": card,
           "nvidia_smi": smi})
     return cm, toks

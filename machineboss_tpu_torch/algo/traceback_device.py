@@ -432,11 +432,12 @@ def run_walker_batch(walker, lat, bases, in_toks, out_toks):
             for b in range(len(in_toks))]
 
 
-def run_walker(walker, lat, bases, in_toks, out_toks, li, lo):
-    """Run the device walk of ONE pair, lat (n_diags, W, S), and return
-    host-side (n_cells, ij ndarray, vals ndarray, ok)."""
+def run_walker(walk, lat, bases, in_toks, out_toks, li, lo):
+    """Run the device walk of ONE pair, lat (n_diags, W, S), with the
+    walker `walk` (make_lattice_walker's), and return host-side (n_cells,
+    ij ndarray, vals ndarray, ok)."""
     return run_walker_batch(
-        walker, lat[:, None], bases,
+        walk, lat[:, None], bases,
         [np.asarray(in_toks, np.int32)[:li]],
         [np.asarray(out_toks, np.int32)[:lo]])[0]
 

@@ -8,6 +8,7 @@ hand-authored models (bintern, hamming codes, TKF91, Jukes-Cantor, ternary
 DNA) ship as JSON data files.
 """
 
+import copy
 import json
 import os
 from functools import lru_cache
@@ -475,7 +476,10 @@ def _machine(name):
 
 
 def make_preset(name):
-    return _machine(name)
+    """A fresh copy of the named preset: the cached machine stays as it
+    was built, whatever a caller assigns on the copy (the command line's
+    -P sets its funcs)."""
+    return copy.deepcopy(_machine(name))
 
 
 def preset_names():

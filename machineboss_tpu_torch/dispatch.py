@@ -9,9 +9,11 @@ Single-pair strategy ('auto'):
   - 1D (one side empty), long sequence  -> associative scan (log depth)
   - 1D short / large S                  -> sequential scan
   - 2D                                  -> row scan (ops/dp2d)
-The 1D rule reads the measured thresholds of dispatch_table.json for the
-machine's device type (`cpu`: never assoc); a device type without a row
-(`cuda`) takes the default rule, assoc when L >= 256 and S <= 64.
+The 1D rule reads the measured thresholds of the machine's device type:
+`cuda` from dispatch_table_cuda.json, which autotune_dispatch.py measured
+on the card, `cpu` from dispatch_table.json, the JAX package's table
+(never assoc). A device type without a row takes the default rule, assoc
+when L >= 256 and S <= 64.
 
 log_forward_batch, dense machines:
   - structured 2D machines (lowrank_cost_ratio < 0.6, e.g. GeneWise
@@ -57,13 +59,8 @@ DENSE_MAX_STATES = 512
 LOWRANK_MAX_RATIO = 0.6
 
 
-def _load_dispatch_table(device_type):
-    """Measured engine thresholds (the JAX package's
-    scripts/autotune_dispatch.py), keyed by backend. Returns the row for
-    `device_type` ("cpu" or "cuda") when one was recorded, else None (the
-    default rule applies)."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "dispatch_table.json")
+def _read_row(path, device_type):
+    """The row of `device_type` in the table file at `path`, or None."""
     if not os.path.exists(path):
         return None
     try:
@@ -74,6 +71,22 @@ def _load_dispatch_table(device_type):
     if "backends" in doc:
         return doc["backends"].get(device_type)
     return doc if doc.get("backend") == device_type else None
+
+
+def _load_dispatch_table(device_type):
+    """Measured engine thresholds, keyed by backend. The port's own
+    dispatch_table_<device type>.json (autotune_dispatch.py, run on that
+    device) comes first; else dispatch_table.json, the JAX package's
+    table (rows `cpu` and `tpu`). Returns the row for `device_type`
+    ("cpu" or "cuda") when one was recorded, else None (the default rule
+    applies)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name in ("dispatch_table_%s.json" % device_type,
+                 "dispatch_table.json"):
+        row = _read_row(os.path.join(here, name), device_type)
+        if row is not None:
+            return row
+    return None
 
 
 def _check_engine(engine):
@@ -87,7 +100,7 @@ class CompiledMachine:
     the CUDA card, raising when CUDA is absent; "cpu" runs the plain
     PyTorch versions)."""
 
-    # dispatch_table.json's rows, read once per device type: a process may
+    # the dispatch tables' rows, read once per device type: a process may
     # hold CPU and CUDA machines at once
     _dispatch_tables = {}
 

@@ -17,6 +17,8 @@ float32: the caller must not enable TF32 (PyTorch's default leaves it off
 for matmuls), since chains of these products drift at reduced precision.
 """
 
+import math
+
 import torch
 
 NEG_INF = -1e30  # finite stand-in for log(0); avoids inf-inf NaNs
@@ -98,6 +100,16 @@ class LogSemiring:
     one = 0.0
 
 
+# elements of max-plus matmul's (...,m,k,n) temporary taken at once (1 GiB
+# of float32); a 1D assoc product's first level at S=65, n=16384 has 2.2e9
+MAXPLUS_TEMP_ELEMS = 1 << 28
+
+
+def _maxplus_matmul(a, b):
+    # (...,m,k,1) + (...,1,k,n) -> max over k
+    return (a[..., :, :, None] + b[..., None, :, :]).max(dim=-2).values
+
+
 class MaxSemiring:
     name = "maxplus"
 
@@ -111,8 +123,23 @@ class MaxSemiring:
 
     @staticmethod
     def matmul(a, b):
-        # (...,m,k,1) + (...,1,k,n) -> max over k
-        return (a[..., :, :, None] + b[..., None, :, :]).max(dim=-2).values
+        """(...,m,k) x (...,k,n) -> (...,m,n): the max over k of the
+        (...,m,k,n) sums. Eager torch materialises those sums, so past
+        MAXPLUS_TEMP_ELEMS of them the leading batch is taken in chunks
+        (bit-equal: a max is exact in any grouping)."""
+        m, k = a.shape[-2:]
+        n = b.shape[-1]
+        batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        per = m * k * n
+        count = math.prod(batch)
+        if count * per <= MAXPLUS_TEMP_ELEMS or count == 1:
+            return _maxplus_matmul(a, b)
+        a = a.expand(batch + (m, k)).reshape(count, m, k)
+        b = b.expand(batch + (k, n)).reshape(count, k, n)
+        step = max(1, MAXPLUS_TEMP_ELEMS // per)
+        return torch.cat([_maxplus_matmul(a[i:i + step], b[i:i + step])
+                          for i in range(0, count, step)]
+                         ).reshape(batch + (m, n))
 
     @staticmethod
     def vecmat(v, m):

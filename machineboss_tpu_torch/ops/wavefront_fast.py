@@ -50,14 +50,17 @@ def _pick(y_all, tok):
 
 
 def forward_2d_wavefront_fast(a_diag, a_left, a_up, closure, in_toks,
-                              out_toks, in_lens, out_lens):
+                              out_toks, in_lens, out_lens, precision=None):
     """Batched 2D Forward log-likelihoods.
 
     Log-space machine tensors a_diag (Ti, To, S, S), a_left (Ti, S, S),
     a_up (To, S, S), closure (S, S) as lowering.matrices_2d returns them,
     float32 tensors on one device; in_toks (B, Li), out_toks (B, Lo),
     in_lens/out_lens (B,) integer tensors on the same device. Returns (B,)
-    float32 log-likelihoods (NEG_INF for impossible pairs)."""
+    float32 log-likelihoods (NEG_INF for impossible pairs).
+
+    `precision` is the JAX engine's matrix-unit precision, accepted and
+    ignored: the products here always run in float32 with TF32 off."""
     Ti, To, S, _ = a_diag.shape
     B, Li = in_toks.shape
     Lo = out_toks.shape[1]

@@ -46,9 +46,28 @@ def _run(main, args):
     return status, out.getvalue(), err.getvalue()
 
 
+BINDING = ("-P", "--params", "-F", "--functions")
+
+
 def _jax_main():
+    """The JAX CLI's main, each call on the preset cache as it found it.
+    Given parameters without inference, the JAX CLI sets them on its one
+    cached preset machine, which later calls in this worker would then
+    print (a reference defect the port does not copy; ROADMAP queue C)."""
+    import copy
     from machineboss_tpu import cli as j_cli
-    return j_cli.main
+    from machineboss_tpu.core import presets as j_presets
+
+    def main(argv):
+        if not any(a in BINDING for a in argv):
+            return j_cli.main(argv)
+        kept = copy.deepcopy(j_presets._cache)
+        try:
+            return j_cli.main(argv)
+        finally:
+            j_presets._cache.clear()
+            j_presets._cache.update(kept)
+    return main
 
 
 def _spl(pairs):
@@ -378,3 +397,28 @@ def test_profiling_trace_if_writes_a_chrome_trace(tmp_path):
     with profiling.timed("section", msgs.append):
         pass
     assert len(msgs) == 1 and msgs[0].startswith("section: ")
+
+
+def test_bound_parameters_leave_the_preset_cache_alone(tmp_path):
+    """-P without inference binds the printed machine's parameters. The
+    port's make_preset hands out copies, so a later make_preset in the
+    process gets the preset unbound; the JAX CLI binds its cached machine
+    in place (its cache entry is restored afterwards)."""
+    from machineboss_tpu import cli as j_cli
+    from machineboss_tpu.core import presets as j_presets
+    from machineboss_tpu_torch.core import presets as t_presets
+    params = tmp_path / "t.json"
+    params.write_text(json.dumps({"t": 0.25}))
+    argv = ["--preset", "jukescantor", "-P", str(params)]
+    saved = j_presets._cache.pop("jukescantor", None)
+    try:
+        port = _run(t_cli.main, argv)
+        assert port == _run(j_cli.main, argv)
+        assert port[0] == 0 and '"t":0.25' in port[1].replace(" ", "")
+        assert "t" not in t_presets.make_preset("jukescantor").funcs.defs
+        assert j_presets.make_preset("jukescantor").funcs.defs["t"] == 0.25
+    finally:
+        if saved is None:
+            j_presets._cache.pop("jukescantor", None)
+        else:
+            j_presets._cache["jukescantor"] = saved

@@ -303,39 +303,65 @@ def _gen(S):
     return testmachines.build_generator_1d(S, seed=S)
 
 
-def test_strategy_reads_the_table_of_the_device_type():
-    """One process, a CPU machine and a CUDA one: the CPU takes the
-    table's `cpu` row (assoc never won: "scan"), the card the default rule
-    (assoc from L=256 at S <= 64), each from its own cached row."""
+def _cuda_row():
+    """The card's row: dispatch_table_cuda.json, which autotune_dispatch
+    measured on the card."""
+    from machineboss_tpu_torch.autotune_dispatch import table_path
+    with open(table_path("cuda")) as f:
+        return json.load(f)["backends"]["cuda"]
+
+
+def _row_rule(row, S, L):
+    by_s = row["derived"]["assoc_min_L_by_S"]
+    if not by_s:
+        return "scan"
+    nearest = min((int(k) for k in by_s), key=lambda k: abs(k - S))
+    return "assoc" if L >= by_s[str(nearest)] else "scan"
+
+
+def test_strategy_reads_the_table_of_the_device_type(monkeypatch):
+    """One process, a CPU machine and a CUDA one: the CPU takes the JAX
+    table's `cpu` row (assoc never won: "scan"), the card its measured
+    `cuda` row, each from its own cached row; a device type without a row
+    takes the default rule (assoc from L=256 at S <= 64)."""
+    monkeypatch.setattr(CompiledMachine, "_dispatch_tables",
+                        dict(CompiledMachine._dispatch_tables))
+    on_card = _row_rule(_cuda_row(), 4, 512)
     cpu = CompiledMachine(_gen(3), device="cpu")
     assert cpu._strategy(0, 512, "auto") == "scan"
     card = CompiledMachine(_gen(3), device="cpu")
     card.device = torch.device("cuda")       # decided before any launch
-    assert card._strategy(0, 512, "auto") == "assoc"
+    assert card._strategy(0, 512, "auto") == on_card
     assert cpu._strategy(0, 512, "auto") == "scan"
-    assert cpu._strategy(0, 512, "auto", device_type="cuda") == "assoc"
+    assert cpu._strategy(0, 512, "auto", device_type="cuda") == on_card
     assert card._strategy(0, 512, "auto", device_type="cpu") == "scan"
+    assert cpu._strategy(0, 512, "auto", device_type="xpu") == "assoc"
     tables = CompiledMachine._dispatch_tables
     assert tables["cpu"]["derived"]["assoc_min_L_by_S"] == {}
-    assert tables["cuda"] is None
+    assert tables["cuda"] == _cuda_row()
+    assert tables["xpu"] is None
 
 
 @pytest.mark.parametrize("S", [3, 70])
 @pytest.mark.parametrize("L", [255, 256, 10000])
-def test_strategy_rules_match_jax(L, S):
-    """The JAX class on its CPU backend against the port's CPU machine,
-    and the JAX class's default rule (no table) against the port's `cuda`
-    rule; 2D machines take "rows", non-dense ones "sparse", an explicit
-    strategy is kept."""
+def test_strategy_rules_match_jax(L, S, monkeypatch):
+    """The JAX class on its CPU backend against the port's CPU machine;
+    the JAX class fed the port's `cuda` row against the port's `cuda`
+    rule; the JAX class's default rule (no table) against a device type
+    without a row. 2D machines take "rows", non-dense ones "sparse", an
+    explicit strategy is kept."""
+    monkeypatch.setattr(CompiledMachine, "_dispatch_tables",
+                        dict(CompiledMachine._dispatch_tables))
     jcm = JCompiled(_jmachine(json.loads(_gen(S).to_json_str())))
     tcm = CompiledMachine(_gen(S), device="cpu")
     assert tcm._strategy(0, L, "auto") == jcm._strategy(0, L, "auto")
     old = (type(jcm)._dispatch_table, type(jcm)._dispatch_table_loaded)
     try:
-        type(jcm)._dispatch_table, type(jcm)._dispatch_table_loaded = \
-            None, True
-        assert tcm._strategy(0, L, "auto", device_type="cuda") \
-            == jcm._strategy(0, L, "auto")
+        for table, kind in ((_cuda_row(), "cuda"), (None, "xpu")):
+            type(jcm)._dispatch_table, type(jcm)._dispatch_table_loaded = \
+                table, True
+            assert tcm._strategy(0, L, "auto", device_type=kind) \
+                == jcm._strategy(0, L, "auto")
     finally:
         type(jcm)._dispatch_table, type(jcm)._dispatch_table_loaded = old
     assert tcm._strategy(0, L, "rows") == "rows"

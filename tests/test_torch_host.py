@@ -473,7 +473,8 @@ def test_fused_viterbi_aligner_equal(multihit):
 
 def test_dispatch_table_copy_is_identical():
     """The port's dispatch_table.json is the JAX package's, byte for byte,
-    and the port reads its rows by device type."""
+    and the port reads its rows by device type: `cpu` from it, `cuda` from
+    the port's own dispatch_table_cuda.json (measured on the card)."""
     import os
     from machineboss_tpu_torch.dispatch import _load_dispatch_table
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -485,7 +486,11 @@ def test_dispatch_table_copy_is_identical():
         assert f.read() == original
     rows = json.loads(original)["backends"]
     assert _load_dispatch_table("cpu") == rows["cpu"]
-    assert _load_dispatch_table("cuda") is None
+    with open(os.path.join(root, "machineboss_tpu_torch",
+                           "dispatch_table_cuda.json")) as f:
+        cuda = json.load(f)["backends"]["cuda"]
+    assert "cuda" not in rows
+    assert _load_dispatch_table("cuda") == cuda
 
 
 @pytest.mark.parametrize("k", [None, 1, 3])

@@ -125,19 +125,23 @@ def test_every_kernel_source_is_built_and_calls_no_library():
 
 
 def test_single_pair_modules_are_among_the_probed():
-    """The single-pair and sparse slice's modules are in the walked
-    package, the dispatch table ships beside dispatch.py, and importing
-    them alone loads neither jax nor machineboss_tpu."""
+    """The single-pair and sparse slice's modules and the dispatch-table
+    tool are in the walked package, both dispatch tables ship beside
+    dispatch.py, and importing them alone loads neither jax nor
+    machineboss_tpu."""
     rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
     assert {"ops/sparse.py", "ops/pswm.py", "ops/dp_aligned.py",
             "ops/dp1d.py", "ops/dp2d.py", "ops/fwdback.py",
-            "dispatch.py"} <= rel
-    assert os.path.exists(os.path.join(PKG, "dispatch_table.json"))
+            "dispatch.py", "autotune_dispatch.py"} <= rel
+    for name in ("dispatch_table.json", "dispatch_table_cuda.json"):
+        assert os.path.exists(os.path.join(PKG, name))
     probe = ("import machineboss_tpu_torch.ops.sparse, "
              "machineboss_tpu_torch.ops.pswm, "
              "machineboss_tpu_torch.ops.dp_aligned, "
+             "machineboss_tpu_torch.autotune_dispatch, "
              "machineboss_tpu_torch.dispatch as d, sys; "
              "assert d._load_dispatch_table('cpu') is not None; "
+             "assert d._load_dispatch_table('cuda') is not None; "
              "assert 'jax' not in sys.modules "
              "and 'machineboss_tpu' not in sys.modules")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -117,12 +117,9 @@ def test_ctc_merging_machine_collapses_repeats():
 
 def test_ctc_fit_error_model_device_matches_host():
     """fit_error_model's device E-step (on the CPU here) against the host
-    fit of the same error transducer (jukescantor's branch length). The
-    machine is read from the preset's file: make_preset's cached machine
-    is shared by the process, and the CLI tests' -P sets its funcs in
-    place (as the JAX CLI does to the JAX cache; ROADMAP queue C)."""
-    from machineboss_tpu_torch.core import presets
-    m = Machine.from_json(presets._load_data("jukescantor"))
+    fit of the same error transducer (jukescantor's branch length)."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    m = make_preset("jukescantor")
     reads = [("ACGTACGTAA", "ACGTACCTAA"), ("GGCATT", "GGCATA"),
              ("TTAGC", "TTAGC")]
     seed = {"t": 0.5}

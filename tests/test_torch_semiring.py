@@ -107,3 +107,20 @@ def test_matvec(name):
         v = np.exp(np.maximum(v, -60.0)).astype(np.float32)
     _close(t.matvec(torch.from_numpy(m), torch.from_numpy(v)),
            j.matvec(jnp.array(m), jnp.array(v)))
+
+
+@pytest.mark.parametrize("shapes", [((40, 5, 7), (40, 7, 4)),
+                                    ((6, 1, 5, 7), (1, 9, 7, 4)),
+                                    ((5, 7), (40, 7, 4))])
+def test_maxplus_matmul_in_chunks_is_bit_equal(shapes, monkeypatch):
+    """Past MAXPLUS_TEMP_ELEMS summed terms the max-plus product takes its
+    leading batch in chunks (broadcast batches too); its result is the
+    one-shot product's, bit for bit, and matches the JAX one."""
+    a, b = _log_arrays(6, *shapes)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    whole = ts.MAXPLUS.matmul(ta, tb)
+    monkeypatch.setattr(ts, "MAXPLUS_TEMP_ELEMS", 3 * 5 * 7 * 4)
+    chunked = ts.MAXPLUS.matmul(ta, tb)
+    assert torch.equal(chunked, whole)
+    assert torch.equal(chunked, ts._maxplus_matmul(ta, tb))
+    _close(chunked, js.MAXPLUS.matmul(jnp.array(a), jnp.array(b)))

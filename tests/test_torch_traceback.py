@@ -196,6 +196,26 @@ def test_walk_records_serve_the_host_traceback():
                                    atol=1e-4)
 
 
+def test_run_walker_takes_the_jax_parameter_names():
+    """run_walker's parameters are the JAX function's (the walker is
+    `walk`), so a keyword call gives the positional call's records."""
+    import inspect
+    from machineboss_tpu.algo.traceback_device import run_walker as j_run
+    assert list(inspect.signature(tb.run_walker).parameters) \
+        == list(inspect.signature(j_run).parameters)
+    _, ev, _ = _machine("dense6")
+    tok_in, tok_out = _batch("dense6")
+    diags, Li, Lo = _full_lattice("dense6", tok_in, tok_out)
+    walker = tb.make_lattice_walker(ev, Li, Lo, device="cpu")
+    zeros = np.zeros(Li + Lo + 1, np.int32)
+    li, lo = len(tok_in[0]), len(tok_out[0])
+    _same_records(
+        tb.run_walker(walk=walker, lat=diags[:, 0], bases=zeros,
+                      in_toks=tok_in[0], out_toks=tok_out[0], li=li, lo=lo),
+        tb.run_walker(walker, diags[:, 0], zeros, tok_in[0], tok_out[0], li,
+                      lo))
+
+
 # ---------------------------------------------------- the walk, banded lattice
 
 @pytest.mark.parametrize("seed", [1, 7])

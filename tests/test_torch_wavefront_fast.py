@@ -42,3 +42,17 @@ def test_wavefront_fast_matches_jax(name):
 @pytest.mark.parametrize("name", CASES)
 def test_wavefront_fast_matches_f64(name):
     _assert_close(_port(name), _f64(name), ORACLE_BOUND)
+
+
+def test_wavefront_fast_takes_the_jax_keywords():
+    """The JAX engine's parameters, precision too: accepted and ignored
+    (the port computes in float32 with TF32 off), so a precision= call
+    scores as a call without it, bit for bit."""
+    import inspect
+    assert list(inspect.signature(t_wavefront).parameters) \
+        == list(inspect.signature(j_wavefront).parameters)
+    mats, it, ot, il, ol = _case(CASES[0])
+    tm = lowered_from_numpy(*mats, device="cpu")
+    batch = [torch.from_numpy(x) for x in (it, ot, il, ol)]
+    assert torch.equal(t_wavefront(*tm, *batch, precision="highest"),
+                       t_wavefront(*tm, *batch))
