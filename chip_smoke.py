@@ -91,6 +91,21 @@ i == o (the bound over every cell is printed too); scan1d multiplies only
 the nonzero entries of a position's token matrix (the S * S bound beside
 it).
 
+Then the long_shapes phase drives the four kernels whose shared memory
+grew with the lengths or the profile at a size past a block's 227 KiB,
+each through its entry point, its kernel launched once and no other, the
+kernel alone against its plain version, and the first pair or read
+against a float64 oracle of this script's own on the card
+(forward_2d_f64_card, viterbi_2d_f64_card): prot2dna log_forward_batch
+on 4 pairs of 64-128 aa whose flanked DNA pads to 58,837 (lowrank, the
+pair's tokens in global memory); device_viterbi_matrices on 2
+full-envelope pairs of 3,600 x 3,600 through the 64-state ACGT
+transducer (the fill's buckets in global memory, then the walk);
+Plan7Fused.forward_batch_tokens at 1,200 nodes, 256 reads of 1,200
+(node doubling with the state in global memory); factored on 8 prot2dna
+pairs of 400 x 1,200 (the chunked layout). It prints each plan's layout
+and each case's ms (~150 s).
+
 Then the em phase drives EM training (no kernel of the kernels line runs
 in its E-step: autograd through the batched wavefront, eager torch):
 prot2dna, B=128 pairs of 64 aa x 192 nt whose codons are drawn from each
@@ -4311,6 +4326,391 @@ def single_pair_paths(dev, card, smi):
     pswm_phase(dev, card, smi, cm1d, toks1d)
 
 
+# -- the long shapes: the sizes past a block's shared memory ----------------
+
+def forward_2d_f64_card(mats, x, y, dev):
+    """The float64 Forward of one pair on the card: forward_2d_f64's
+    recurrence in probability space, each cell's states divided by their
+    max with a float64 log scale, one product per class and diagonal over
+    every token's block (an oracle of this script's own, where the host's
+    numpy oracle would take minutes)."""
+    a_diag, a_left, a_up, closure = (
+        torch.tensor(np.asarray(m, np.float64), device=dev) for m in mats)
+    Ti, To, S, _ = a_diag.shape
+    f64 = torch.float64
+
+    def prob(a):
+        return torch.where(a > NEG, torch.exp(torch.clamp(a, max=700.0)),
+                           torch.zeros_like(a))
+
+    up_cat = prob(a_up).permute(1, 0, 2).reshape(S, To * S)
+    left_cat = prob(a_left).permute(1, 0, 2).reshape(S, Ti * S)
+    diag_cat = prob(a_diag).reshape(Ti * To, S, S).permute(1, 0, 2) \
+        .reshape(S, Ti * To * S)
+    has_diag = bool((diag_cat > 0).any())
+    C = prob(closure)
+    Li, Lo = len(x), len(y)
+    W = Li + 1
+    xt = torch.tensor(np.asarray(x, np.int64), device=dev)
+    yt = torch.tensor(np.asarray(y, np.int64), device=dev)
+    i = torch.arange(W, device=dev)
+    neg = torch.tensor(-np.inf, dtype=f64, device=dev)
+
+    def norm(p, m):
+        mx = p.max(dim=-1).values
+        has = mx > 0
+        return (torch.where(has[:, None], p / torch.clamp(mx, min=1e-300)
+                            [:, None], torch.zeros_like(p)),
+                torch.where(has, m + torch.log(torch.clamp(mx, min=1e-300)),
+                            neg))
+
+    p1 = torch.zeros((W, S), dtype=f64, device=dev)
+    m1 = torch.full((W,), -np.inf, dtype=f64, device=dev)
+    p1[0], m1[0] = C[0], 0.0
+    p1, m1 = norm(p1, m1)
+    p2, m2 = torch.zeros_like(p1), torch.full_like(m1, -np.inf)
+    zp, zm = torch.zeros((1, S), dtype=f64, device=dev), neg.reshape(1)
+    xi = xt[torch.clamp(i - 1, 0, max(Li - 1, 0))] if Li else i * 0
+    for d in range(1, Li + Lo + 1):
+        o = d - i
+        yo = yt[torch.clamp(o - 1, 0, max(Lo - 1, 0))] if Lo else i * 0
+        terms = []
+        up = (p1 @ up_cat).reshape(W, To, S)[i, yo]
+        terms.append((up, torch.where(o >= 1, m1, neg)))
+        left = (p1 @ left_cat).reshape(W, Ti, S)
+        left = torch.cat([zp, left[i[:-1], xi[1:]]])
+        terms.append((left, torch.where(i >= 1, torch.cat([zm, m1[:-1]]),
+                                        neg)))
+        if has_diag:
+            dg = (p2 @ diag_cat).reshape(W, Ti * To, S)
+            dg = torch.cat([zp, dg[i[:-1], (xi * To + yo)[1:]]])
+            terms.append((dg, torch.where((i >= 1) & (o >= 1),
+                                          torch.cat([zm, m2[:-1]]), neg)))
+        mu = torch.stack([m for _, m in terms]).max(dim=0).values
+        live = (mu > -np.inf) & (o >= 0) & (o <= Lo)
+        mu_s = torch.where(live, mu, torch.zeros_like(mu))
+        pre = sum(t * torch.exp(m - mu_s)[:, None] for t, m in terms)
+        cur, m = norm(pre @ C, mu_s)
+        cur = torch.where(live[:, None], cur, torch.zeros_like(cur))
+        m = torch.where(live, m, neg)
+        p2, m2, p1, m1 = p1, m1, cur, m
+    end = float(p1[Li, S - 1])
+    return float(m1[Li]) + np.log(end) if end > 0 else -np.inf
+
+
+def viterbi_2d_f64_card(mats, x, y, dev):
+    """The float64 max-plus score of one pair on the card: viterbi_2d_f64's
+    recurrence with each cell's class block gathered by its token."""
+    a_diag, a_left, a_up, closure = (
+        torch.tensor(np.asarray(m, np.float64), device=dev) for m in mats)
+    Ti, To, S, _ = a_diag.shape
+    f64 = torch.float64
+    Li, Lo = len(x), len(y)
+    W = Li + 1
+    xt = torch.tensor(np.asarray(x, np.int64), device=dev)
+    yt = torch.tensor(np.asarray(y, np.int64), device=dev)
+    i = torch.arange(W, device=dev)
+    neg = torch.full((1, S), -1e30, dtype=f64, device=dev)
+    classes = [(name, m) for name, m in (("up", a_up), ("left", a_left),
+                                         ("diag", a_diag.reshape(Ti * To, S,
+                                                                 S)))
+               if bool((m > NEG).any())]
+
+    def mp(v, blocks):                      # (W, S) x (W, S, S) -> (W, S)
+        return (v[:, :, None] + blocks).max(dim=1).values
+
+    p1 = torch.full((W, S), -1e30, dtype=f64, device=dev)
+    p1[0] = closure[0]
+    p2 = torch.full_like(p1, -1e30)
+    xi = xt[torch.clamp(i - 1, 0, max(Li - 1, 0))] if Li else i * 0
+    for d in range(1, Li + Lo + 1):
+        o = d - i
+        yo = yt[torch.clamp(o - 1, 0, max(Lo - 1, 0))] if Lo else i * 0
+        pre = torch.full_like(p1, -1e30)
+        for name, blocks in classes:
+            if name == "up":
+                v = torch.where((o >= 1)[:, None], p1, neg)
+                pre = torch.maximum(pre, mp(v, blocks[yo]))
+            elif name == "left":
+                v = torch.where((i >= 1)[:, None], torch.cat([neg, p1[:-1]]),
+                                neg)
+                pre = torch.maximum(pre, mp(v, blocks[xi]))
+            else:
+                v = torch.where(((i >= 1) & (o >= 1))[:, None],
+                                torch.cat([neg, p2[:-1]]), neg)
+                pre = torch.maximum(pre, mp(v, blocks[xi * To + yo]))
+        cur = mp(pre, closure.expand(W, S, S))
+        cur = torch.where(((o >= 0) & (o <= Lo))[:, None], cur, neg)
+        cur = torch.where(cur > NEG, cur, neg)
+        p2, p1 = p1, cur
+    return float(p1[Li, S - 1])
+
+
+def long_lowrank_case(dev):
+    """prot2dna log_forward_batch on 4 pairs whose DNA runs into tens of
+    kilobases of flank (the lowrank kernel's pair past shared memory)."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.fwdback import pad_bucket
+    from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    cm = CompiledMachine(make_preset("prot2dna"), device=dev)
+    check(cm.route() == "lowrank", "prot2dna must route to lowrank")
+    # seed 0: the first pair, which the f64 oracle scores, has the longest
+    # DNA (40,194 nt)
+    pairs = prot2dna_pairs(4, [64, 64, 96, 128], seed=0, flank=30000)
+    toks = [(cm.in_toks(p), cm.out_toks(d)) for p, d in pairs]
+    Li = pad_bucket(max(len(t[0]) for t in toks), base=16)
+    Lo = pad_bucket(max(len(t[1]) for t in toks), base=16)
+    check(max(len(d) for _, d in pairs) > 39224 and Lo == 58837,
+          "long lowrank: the longest DNA must pad to 58,837 (got %d)" % Lo)
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lls = np.asarray(cm.log_forward_batch(pairs))
+    call_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k == "lowrank_wavefront") for k in wrappers},
+          "long lowrank: launches %s" % got)
+    check(np.isfinite(lls).all() and (lls > NEG).all(),
+          "long lowrank: scores not all finite")
+    mats = cm._host_mats()
+    plan, host = lk.prepare_lowrank(*mats)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1], dev)
+    batch = padded_batch(toks, Li, Lo, dev)
+    cfg = lk.launch_config(ops, len(toks), Li, Lo)
+    check(lk.smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],
+          "long lowrank: the shared layout differs from launch_plan's")
+    kernel_ms, kern = event_ms(lambda: lk.lowrank_wavefront(ops, *batch))
+    kern = kern.cpu().numpy()
+    check(score_err(kern, lls) == 0.0, "long lowrank: kernel alone differs")
+    plain_ms, plain = event_ms(lambda: lk.lowrank_forward_plain(ops, *batch))
+    err = score_err(kern, plain.cpu().numpy())
+    check(err <= KERNEL_VS_PLAIN_TOL, "long lowrank: kernel vs plain %.3g "
+          "nats" % err)
+    t0 = time.perf_counter()
+    ref = forward_2d_f64_card(mats, *toks[0], dev)
+    oracle_s = time.perf_counter() - t0
+    gate = score_err(kern[:1], [ref])
+    check(gate <= GATE_TOL, "long lowrank: f64 gate %.3g nats" % gate)
+    return {"kernel": "lowrank_wavefront", "entry": "log_forward_batch",
+            "B": len(pairs), "lengths": [[len(p), len(d)] for p, d in pairs],
+            "padded": [Li, Lo], "layout": cfg, "call_s": call_s,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_vs_plain": err, "scores": lls.tolist(),
+            "f64_gate_pair0": gate, "f64_oracle_s": oracle_s}
+
+
+def long_fill_case(dev):
+    """device_viterbi_matrices on 2 full-envelope pairs of 3,600 x 3,600
+    through the 64-state ACGT transducer (the fill's buckets in global
+    memory, then the walk)."""
+    from machineboss_tpu_torch.algo import traceback_device as tb
+    from machineboss_tpu_torch.algo.viterbi_device import \
+        device_viterbi_matrices
+    from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
+    from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
+    from machineboss_tpu_torch.ops.lowering import LoweredMachine
+    from machineboss_tpu_torch.testmachines import build_random_transducer
+    B, L = 2, 3600
+    machine = build_random_transducer(64, list("ACGT"))
+    ev = evaluated(machine)
+    rng = np.random.RandomState(17)
+    sym = np.array(list("ACGT"))
+    pairs = [SeqPair(NamedSeq("x", list(sym[rng.randint(0, 4, L)])),
+                     NamedSeq("y", list(sym[rng.randint(0, 4, L)])))
+             for _ in range(B)]
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    vms = device_viterbi_matrices(ev, pairs, lowered=LoweredMachine(
+        ev, dtype=np.float32), device=dev)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k in ("viterbi_wavefront", "lattice_walk"))
+                  for k in wrappers}, "long fill: launches %s" % got)
+    lls = np.array([m.log_like() for m in vms])
+    check(np.isfinite(lls).all() and (lls > NEG).all(),
+          "long fill: scores not all finite")
+    paths = [m.path(machine) for m in vms]
+    fallbacks = sum(m._full is not None for m in vms)
+    check(fallbacks == 0, "long fill: %d pairs fell back" % fallbacks)
+    check(all(len(p.trans) >= L for p in paths), "long fill: short paths")
+    del vms
+    tok_in = [np.array(ev.input_tokenizer.tokenize(sp.input.seq),
+                       np.int32) - 1 for sp in pairs]
+    tok_out = [np.array(ev.output_tokenizer.tokenize(sp.output.seq),
+                        np.int32) - 1 for sp in pairs]
+    t0 = time.perf_counter()
+    ref = viterbi_2d_f64_card(maxplus_mats(ev, np.float64), tok_in[0],
+                              tok_out[0], dev)
+    oracle_s = time.perf_counter() - t0
+    gate = score_err(lls[:1], [ref])
+    check(gate <= GATE_TOL, "long fill: f64 gate %.3g nats" % gate)
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*maxplus_mats(ev)), dev)
+    batch, Li, Lo = ragged_batch(tok_in, tok_out, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = vk.fill_launch_plan(ops, B, Li, Lo, sms)
+    check(cfg["buckets"] == "global", "long fill: buckets %s"
+          % cfg["buckets"])
+    check(vk.fill_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],
+          "long fill: the shared layout differs from the plan's")
+    fill_ms, kern = event_ms(lambda: vk.viterbi_wavefront(ops, *batch))
+    plain_ms, plain = event_ms(lambda: vk.viterbi_forward_plain(ops, *batch))
+    # 13 GB lattices: compared a diagonal at a time where they differ
+    err = 0.0 if torch.equal(kern, plain) else max(
+        max_abs_diff(a, b) for a, b in zip(kern, plain))
+    check(err <= VITERBI_VS_PLAIN_TOL, "long fill: kernel vs plain %.3g" % err)
+    del plain
+    walker = tb.make_lattice_walker(ev, Li, Lo, device=dev)
+    wargs = tb.walk_tensors(walker, np.zeros(Li + Lo + 1, np.int32), tok_in,
+                            tok_out)
+    walk_ms, walked = event_ms(lambda: tb.lattice_walk(walker, kern, *wargs))
+    walk_plain_ms, walked_plain = event_ms(
+        lambda: tb.lattice_walk_plain(walker, kern, *wargs))
+    walk_err = walk_equal("long fill", walked, walked_plain)
+    del kern
+    return {"kernel": "viterbi_wavefront", "entry":
+            "device_viterbi_matrices", "B": B, "lengths": [L, L],
+            "layout": cfg, "call_s": call_s, "fill_ms": fill_ms,
+            "plain_ms": plain_ms, "kernel_vs_plain": err, "walk_ms": walk_ms,
+            "walk_plain_ms": walk_plain_ms, "walk_vs_plain": walk_err,
+            "fallbacks": fallbacks, "scores": lls.tolist(),
+            "f64_gate_pair0": gate, "f64_oracle_s": oracle_s}
+
+
+def long_plan7_case(dev):
+    """Plan7Fused.forward_batch_tokens: a seeded 1,200-node profile with the
+    2-state noise transducer, 256 reads of 1,200 (the read's state in
+    global memory)."""
+    from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
+    from machineboss_tpu_torch.testmachines import (
+        AMINO, noise_transducer_json, plan7_reads, random_plan7_hmm_text)
+    K, B, Lr = 1200, 256, 1200
+    text = random_plan7_hmm_text(K, AMINO, seed=5)
+    noise = noise_transducer_json(AMINO)
+    f, _, _ = plan7_model(text, noise, dev, multihit=True)
+    reads = plan7_reads(AMINO, B, Lr, seed=5)
+    s2t = f.td_ev.output_tokenizer.sym2tok
+    toks = np.array([[s2t[c] for c in r] for r in reads], np.int32)
+    lens = np.full(B, Lr, np.int32)
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lls = f.forward_batch_tokens(toks, lens)
+    call_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k == "fused_plan7") for k in wrappers},
+          "long plan7: launches %s" % got)
+    check(np.isfinite(lls).all() and (lls > NEG).all(),
+          "long plan7: scores not all finite")
+    ops = f._kernel_ops
+    plan = fk._plan(ops, B, None, None)
+    check(plan["layout"] == "node_doubling" and plan["state"] == "global",
+          "long plan7: layout %s" % plan)
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    kernel_ms, kern = event_ms(lambda: fk.fused_plan7_forward_kernel(ops, t,
+                                                                     n))
+    kll = fk.decode(kern.cpu().numpy())
+    check(score_err(kll, lls) == 0.0, "long plan7: kernel alone differs")
+    plain_ms, plain = event_ms(lambda: fk.fused_plan7_forward_plain(ops, t,
+                                                                    n))
+    err = score_err(kll, fk.decode(plain.cpu().numpy()))
+    check(err <= KERNEL_VS_PLAIN_TOL, "long plan7: kernel vs plain %.3g "
+          "nats" % err)
+    t0 = time.perf_counter()
+    f64, _, _ = plan7_model(text, noise, dev, multihit=True,
+                            dtype=torch.float64)
+    ref = f64.forward_batch_tokens(toks[:1], lens[:1], impl="vmap")
+    oracle_s = time.perf_counter() - t0
+    gate = score_err(lls[:1], ref)
+    check(gate <= GATE_TOL, "long plan7: f64 gate %.3g nats" % gate)
+    return {"kernel": "fused_plan7", "entry": "Plan7Fused."
+            "forward_batch_tokens", "K": K, "St": f.St, "B": B, "L": Lr,
+            "layout": plan, "call_s": call_s, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "kernel_vs_plain": err,
+            "f64_gate_read0": gate, "f64_oracle_s": oracle_s}
+
+
+def long_factored_case(dev):
+    """make_wavefront_forward(variant="factored") on 8 prot2dna pairs of
+    400 x 1,200 (the chunked layout)."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    cm = CompiledMachine(make_preset("prot2dna"), device=dev)
+    pairs = prot2dna_pairs(8, 400, seed=7)
+    toks = [(cm.in_toks(p), cm.out_toks(d)) for p, d in pairs]
+    it, ot, il, ol = factory_batch(toks)
+    (B, Li), Lo = it.shape, ot.shape[1]
+    mats = cm._host_mats()
+    fn = wk.make_wavefront_forward(*mats, B, Li, Lo, variant="factored",
+                                   device=dev)
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lls = fn(it, ot, il, ol).cpu().numpy()
+    call_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check(got == {k: int(k == "factored_wavefront") for k in wrappers},
+          "long factored: launches %s" % got)
+    check(np.isfinite(lls).all() and (lls > NEG).all(),
+          "long factored: scores not all finite")
+    ops = wk.factored_operands(wk.prepare_factored(*mats), dev)
+    batch = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+             for x in (it, ot, il, ol)]
+    cfg = wk.factored_launch_config(ops, B, Li, Lo)
+    check(cfg["CC"] > 0, "long factored: not the chunked layout")
+    check(wk.factored_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"],
+          "long factored: the shared layout differs from the plan's")
+    check(wk.factored_chunk_gbytes_on_card(ops, Li)
+          == wk.factored_chunk_gbytes(ops.Sa, Li),
+          "long factored: the global layout differs from the plan's")
+    kernel_ms, kern = event_ms(lambda: wk.factored_wavefront(ops, *batch))
+    kern = kern.cpu().numpy()
+    check(score_err(kern, lls) == 0.0, "long factored: kernel alone differs")
+    plain_ms, plain = event_ms(lambda: wk.factored_forward_plain(ops,
+                                                                 *batch))
+    err = score_err(kern, plain.cpu().numpy())
+    check(err <= KERNEL_VS_PLAIN_TOL, "long factored: kernel vs plain %.3g "
+          "nats" % err)
+    t0 = time.perf_counter()
+    ref = forward_2d_f64_card(mats, *toks[0], dev)
+    oracle_s = time.perf_counter() - t0
+    gate = score_err(kern[:1], [ref])
+    check(gate <= GATE_TOL, "long factored: f64 gate %.3g nats" % gate)
+    return {"kernel": "factored_wavefront", "entry":
+            "make_wavefront_forward(variant='factored')", "B": B,
+            "padded": [Li, Lo], "layout": cfg, "call_s": call_s,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_vs_plain": err, "f64_gate_pair0": gate,
+            "f64_oracle_s": oracle_s}
+
+
+def long_shapes_phase(dev, card, smi):
+    """Each of the four kernels whose shared memory grew with the lengths
+    or the profile, at a size past a block's 227 KiB, through its entry
+    point: the path's kernel launched once and no other, the kernel alone
+    against its plain version on the same inputs, and one pair or read
+    against a float64 oracle. Prints the layout each plan chose and each
+    case's ms."""
+    t0 = time.perf_counter()
+    cases = {"lowrank": long_lowrank_case(dev),
+             "fill": long_fill_case(dev),
+             "plan7": long_plan7_case(dev),
+             "factored": long_factored_case(dev)}
+    emit({"phase": "long_shapes", "cases": cases,
+          "seconds": time.perf_counter() - t0, "card": card,
+          "nvidia_smi": smi})
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4498,6 +4898,9 @@ def main():
 
     # -- fused Plan7 read scoring, at full width --------------------------
     kernels.append(plan7_path(dev, card, smi))
+
+    # -- the four kernels past a block's shared memory --------------------
+    long_shapes_phase(dev, card, smi)
 
     # -- EM training (the autograd E-step, eager torch), at full width ---
     em_phase(dev, card, smi)

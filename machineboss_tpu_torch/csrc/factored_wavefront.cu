@@ -62,7 +62,22 @@
 //     goes to shared memory where it fits. factored_launch_plan
 //     (ops/kernels/wavefront_kernel.py) chooses ns, seg and E's place; a
 //     plan that does not fit is refused.
-//  5. Deterministic: every output element is summed in one fixed order
+//  5. Past the lengths where a whole diagonal's state operands no longer fit
+//     beside the tables (prot2dna: about 200 cells a diagonal), the
+//     chunked layout (`CC` > 0, one walker): the walker's last three
+//     diagonals of states and its cells' log scales live in a global buffer
+//     of the block's own (3 x KP x W states, a row of W cells a state, and
+//     3 W scales), and a step takes the diagonal in chunks of at most CC
+//     cells, as the lowrank kernel takes its operand chunk: the chunk's
+//     neighbour cells of d-1 and d-2 are copied into the shared operand
+//     (zero outside their diagonals' cells), stages A and B run on the
+//     chunk as on a whole diagonal (the tables streamed once a chunk), and
+//     stage B writes the chunk's states to the global diagonal, which the
+//     rescale then divides in place; the pair's tokens are read from global
+//     memory. factored_launch_plan picks it by size alone, the whole
+//     diagonal wherever it fits; each layout is its own instantiation of
+//     the kernel, so the whole-diagonal layout's loads stay shared loads.
+//  6. Deterministic: every output element is summed in one fixed order
 //     (units in class and rank order, source states in order) and a max
 //     does not depend on the order, so the scores do not depend on the grid,
 //     the walkers or the group size.
@@ -86,7 +101,8 @@ constexpr int NO_MAX = (int)0x80000000;  // below every float's bits
 
 enum { KIND_UP = 0, KIND_LEFT = 1, KIND_DIAG = 2 };
 // a walker's state, 16 ints in shared memory
-enum { ST_B = 0, ST_D, ST_IL, ST_OL, ST_BAD, ST_ACT, ST_DONE, ST_NT = 15 };
+enum { ST_B = 0, ST_D, ST_IL, ST_OL, ST_BAD, ST_ACT, ST_DONE, ST_CS,
+       ST_NT = 15 };                      // ST_CS: the chunk's first cell
 
 struct FacClass {
   int kind;    // KIND_*
@@ -112,24 +128,30 @@ __host__ __device__ inline long up4(long n) { return (n + 3) / 4 * 4; }
 // cell -1, zero), pre (KP rows, stride
 // QS, cell i at s * CQ + i), per class and cell the weight and the token,
 // three roles of log scales, the rescale's maxima, the pairs'
-// tokens, the walkers' state and the step's tile list.
+// tokens, the walkers' state and the step's tile list. The chunked layout
+// (CC > 0, one walker) lays out CQ = CC cells where the whole one lays out
+// the diagonal's, keeps the maxima of a chunk's cells, and has no log
+// scales or tokens here (chunk_gfloats: the block's global buffer, the
+// scales then the states, a diagonal of KP rows of WG cells).
 struct Layout {
   long tab, e, p, pre, wgt, tok, ms, mx, xs, ys, st, tl, total;
-  int W, CQ, CS, KP, PS, QS;
-  bool resident;
+  int W, CQ, CS, KP, PS, QS, WG;
+  bool resident, chunked;
 };
 
 __host__ __device__ inline Layout layout(int Sa, int NR, int Li, int Lo,
                                          int ns, int nbp, int seg,
-                                         int e_floats) {
+                                         int e_floats, int CC) {
   Layout L;
   const int KT = (Sa + 7) / 8, n_mt = (Sa + 15) / 16;
   const long U = (long)KT * FRAG_A;
   const long NU = (long)n_mt * (NR + 1);
   L.W = Li + 1;
-  L.CQ = (L.W + 7) / 8 * 8;
+  L.chunked = CC > 0;
+  L.CQ = L.chunked ? CC : (L.W + 7) / 8 * 8;
   L.CS = L.CQ + CELL0;
   L.KP = KT * 8;
+  L.WG = (int)up4(L.W);
   L.PS = bank_stride(ns * L.CS);
   L.QS = bank_stride(ns * L.CQ);
   L.resident = seg >= NU;
@@ -140,14 +162,20 @@ __host__ __device__ inline Layout layout(int Sa, int NR, int Li, int Lo,
   L.pre = o; o += (long)L.KP * L.QS;
   L.wgt = o; o += up4((long)MAX_CLS * ns * L.CQ);
   L.tok = o; o += up4((long)MAX_CLS * ns * L.CQ);
-  L.ms = o; o += up4(3L * ns * L.W);
-  L.mx = o; o += up4((long)ns * L.W);
-  L.xs = o; o += up4((long)ns * Li);
-  L.ys = o; o += up4((long)ns * Lo);
+  L.ms = o; if (!L.chunked) o += up4(3L * ns * L.W);
+  L.mx = o; o += up4((long)ns * (L.chunked ? L.CQ : L.W));
+  L.xs = o; if (!L.chunked) o += up4((long)ns * Li);
+  L.ys = o; if (!L.chunked) o += up4((long)ns * Lo);
   L.st = o; o += 16L * ns;
   L.tl = o; o += up4((long)ns * L.CQ / 8);
   L.total = o;
   return L;
+}
+
+// Floats of a block's global buffer in the chunked layout.
+__host__ __device__ inline long chunk_gfloats(int Sa, int Li) {
+  const long W = Li + 1, KP = (Sa + 7) / 8 * 8;
+  return up4(3 * W) + 3 * KP * up4(W);
 }
 
 struct Args {
@@ -182,24 +210,44 @@ struct Smem {
   int* ys;
   int* st;
   int* tl;
+  float* G;            // the chunked layout: three diagonals of states
 };
+
+// Walker s's input token i and output token o.
+template <bool CH>
+__device__ __forceinline__ int tok_x(const Args& a, const Smem& S, int s,
+                                     int i) {
+  if constexpr (CH) return a.in_toks[(long)S.st[16 * s + ST_B] * a.Li + i];
+  return S.xs[s * a.Li + i];
+}
+template <bool CH>
+__device__ __forceinline__ int tok_y(const Args& a, const Smem& S, int s,
+                                     int o) {
+  if constexpr (CH) return a.out_toks[(long)S.st[16 * s + ST_B] * a.Lo + o];
+  return S.ys[s * a.Lo + o];
+}
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
 // The score of walker s's pair from its last diagonal (states in P buffer
-// `pb`, log scales in role `rm`); lane 0 writes it.
+// `pb`, or in the chunked layout in global diagonal `rm`; log scales in
+// role `rm`); lane 0 writes it.
+template <bool CH>
 __device__ void readout(const Args& a, const Layout& L, const Smem& S, int s,
                         int pb, int rm, int lane) {
   const int* st = S.st + 16 * s;
   const int il = st[ST_IL];
-  const float* pc = S.P + (long)pb * L.KP * L.PS + s * L.CS + CELL0 + il;
+  const float* pc = CH ? S.G + (long)rm * L.KP * L.WG + il
+                       : S.P + (long)pb * L.KP * L.PS + s * L.CS + CELL0 + il;
+  const long ks = CH ? L.WG : L.PS;
   float e = 0.f;
   if (a.sink) {
-    for (int k = lane; k < a.Sa; k += 32) e = fmaf(pc[(long)k * L.PS], a.wv[k], e);
+    for (int k = lane; k < a.Sa; k += 32)
+      e = fmaf(pc[(long)k * ks], a.wv[k], e);
     for (int off = 16; off > 0; off >>= 1)
       e += __shfl_xor_sync(0xffffffffu, e, off);
   } else {
-    e = pc[(long)(a.Sa - 1) * L.PS];
+    e = pc[(long)(a.Sa - 1) * ks];
   }
   if (lane == 0) {
     const int c = (rm * a.ns + s) * L.W + il;
@@ -213,6 +261,7 @@ __device__ void readout(const Args& a, const Layout& L, const Smem& S, int s,
 // pair that is complete and take pairs from the queue until one needs a
 // step (or the queue is empty). The d = 0 state goes to the role the step
 // reads as d - 1.
+template <bool CH>
 __device__ void prep(const Args& a, const Layout& L, const Smem& S, int s,
                      int lane, int pb, int rm) {
   int* st = S.st + 16 * s;
@@ -221,7 +270,7 @@ __device__ void prep(const Args& a, const Layout& L, const Smem& S, int s,
     __syncwarp();
     if (lane == 0) st[ST_D] = d;
     if (d > st[ST_IL] + st[ST_OL]) {
-      readout(a, L, S, s, pb, rm, lane);
+      readout<CH>(a, L, S, s, pb, rm, lane);
       __syncwarp();
       if (lane == 0) st[ST_ACT] = 0;
     }
@@ -243,19 +292,27 @@ __device__ void prep(const Args& a, const Layout& L, const Smem& S, int s,
       if (lane == 0) a.out[b] = nan_f();   // bad length
       continue;
     }
-    for (int v = lane; v < a.Li; v += 32)
-      S.xs[s * a.Li + v] = a.in_toks[(long)b * a.Li + v];
-    for (int v = lane; v < a.Lo; v += 32)
-      S.ys[s * a.Lo + v] = a.out_toks[(long)b * a.Lo + v];
-    // the walker's columns of every state buffer: zero, then the start cell
-    for (int q = 0; q < a.nbp; ++q) {
-      float* pq = S.P + (long)q * L.KP * L.PS + s * L.CS;
-      for (int v = lane; v < L.KP * L.CS; v += 32)
-        pq[(long)(v / L.CS) * L.PS + v % L.CS] = 0.f;
+    if constexpr (CH) {
+      // the start cell of global diagonal rm; the chunks' operands are
+      // copied from the diagonals' own cells only
+      float* p0 = S.G + (long)rm * L.KP * L.WG;
+      for (int v = lane; v < a.Sa; v += 32) p0[(long)v * L.WG] = a.c0[v];
+    } else {
+      for (int v = lane; v < a.Li; v += 32)
+        S.xs[s * a.Li + v] = a.in_toks[(long)b * a.Li + v];
+      for (int v = lane; v < a.Lo; v += 32)
+        S.ys[s * a.Lo + v] = a.out_toks[(long)b * a.Lo + v];
+      // the walker's columns of every state buffer: zero, then the start
+      // cell
+      for (int q = 0; q < a.nbp; ++q) {
+        float* pq = S.P + (long)q * L.KP * L.PS + s * L.CS;
+        for (int v = lane; v < L.KP * L.CS; v += 32)
+          pq[(long)(v / L.CS) * L.PS + v % L.CS] = 0.f;
+      }
+      __syncwarp();
+      float* p0 = S.P + (long)pb * L.KP * L.PS + s * L.CS + CELL0;
+      for (int v = lane; v < a.Sa; v += 32) p0[(long)v * L.PS] = a.c0[v];
     }
-    __syncwarp();
-    float* p0 = S.P + (long)pb * L.KP * L.PS + s * L.CS + CELL0;
-    for (int v = lane; v < a.Sa; v += 32) p0[(long)v * L.PS] = a.c0[v];
     if (lane == 0) {
       const int c = (rm * a.ns + s) * L.W;
       S.ms[c] = 0.f;
@@ -268,7 +325,7 @@ __device__ void prep(const Args& a, const Layout& L, const Smem& S, int s,
     }
     __syncwarp();
     if (il + ol == 0) {                    // read out at the start cell
-      readout(a, L, S, s, pb, rm, lane);
+      readout<CH>(a, L, S, s, pb, rm, lane);
       __syncwarp();
       if (lane == 0) st[ST_ACT] = 0;
       __syncwarp();
@@ -324,6 +381,7 @@ __device__ __forceinline__ int tile_groups(int n_m, int T, int& ng) {
 // float4 of the states (and, for a class that reads cell i - 1, the one
 // state before it) feed 16 multiply-adds. The two neighbour shifts have a
 // loop each: a select per source state measured slower.
+template <bool CH>
 __device__ void stage_a(const Args& a, const Layout& L, const Smem& S,
                         const float* Tb, int u0, int u1, int pb_prev,
                         int pb_prev2, int lane, int warp) {
@@ -409,11 +467,13 @@ __device__ void stage_a(const Args& a, const Layout& L, const Smem& S,
 }
 
 // Stage B on units [u0, u1) (destination tile m = u - NA): the states
-// C^T pre of the step's cells into P buffer `pb_out`; on a rescale
-// diagonal each cell's max over states into mx.
+// C^T pre of the step's cells into P buffer `pb_out` (the chunked layout:
+// the chunk's cells of global diagonal `gout`); on a rescale diagonal each
+// cell's max over states into mx.
+template <bool CH>
 __device__ void stage_b(const Args& a, const Layout& L, const Smem& S,
-                        const float* Tb, int u0, int u1, int pb_out, int lane,
-                        int warp) {
+                        const float* Tb, int u0, int u1, int pb_out,
+                        float* gout, int lane, int warp) {
   const long U = (long)a.KT * FRAG_A;
   const int NA = a.n_mt * a.NR;
   const int T = S.st[ST_NT];
@@ -422,6 +482,7 @@ __device__ void stage_b(const Args& a, const Layout& L, const Smem& S,
   const int groups = tile_groups(n_m, T, ng);
   const int g = lane >> 2, t = lane & 3;
   float* Po = S.P + (long)pb_out * L.KP * L.PS;
+  const int cs = CH ? S.st[ST_CS] : 0;   // the chunk's first cell
   for (int item = warp; item < n_m * groups; item += NWARPS) {
     const int ml = item / groups;
     const int t0 = (item - ml * groups) * ng;
@@ -486,8 +547,12 @@ __device__ void stage_b(const Args& a, const Layout& L, const Smem& S,
         v[e] = tb[j][e] + ts[j][e];
         const int dst = m * 16 + g + (e >> 1) * 8;
         const int cell = cj[j] + 2 * t + (e & 1);
-        if (dst < a.Sa && cell >= lo[j] && cell <= hi[j])
-          Po[(long)dst * L.PS + sj[j] * L.CS + CELL0 + cell] = v[e];
+        if (dst < a.Sa && cs + cell >= lo[j] && cs + cell <= hi[j]) {
+          if constexpr (CH)
+            gout[(long)dst * L.WG + cs + cell] = v[e];
+          else
+            Po[(long)dst * L.PS + sj[j] * L.CS + CELL0 + cell] = v[e];
+        }
       }
       if (fire[j]) {
         // each cell's max over this tile's 16 rows (the padded rows hold
@@ -499,23 +564,87 @@ __device__ void stage_b(const Args& a, const Layout& L, const Smem& S,
           m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
         }
         const int cell = cj[j] + 2 * t;
-        int* mx = S.mx + sj[j] * L.W;
-        if (g == 0 && cell >= lo[j] && cell <= hi[j])
+        int* mx = CH ? S.mx : S.mx + sj[j] * L.W;
+        if (g == 0 && cs + cell >= lo[j] && cs + cell <= hi[j])
           atomicMax(mx + cell, __float_as_int(m0));
-        if (g == 0 && cell + 1 >= lo[j] && cell + 1 <= hi[j])
+        if (g == 0 && cs + cell + 1 >= lo[j] && cs + cell + 1 <= hi[j])
           atomicMax(mx + cell + 1, __float_as_int(m1));
       }
     }
   }
 }
 
+// Cell i of walker s on diagonal d: each class's weight and token into
+// column c of the weights (position ci0 + c of a class's row), its new log
+// scale into role rm_out, and its max reset on a rescale diagonal (at
+// mx_at).
+template <bool CH>
+__device__ __forceinline__ void cell_weights(const Args& a, const Layout& L,
+                                             const Smem& S, int s, int d,
+                                             int i, int ci, int mx_at,
+                                             int nsq, int rm_out, int rm_prev,
+                                             int rm_prev2) {
+  const int o = d - i;
+  float wq[MAX_CLS];
+  int tq[MAX_CLS];
+  float mu = NEG_INF;
+  for (int q = 0; q < a.n_cls; ++q) {
+    const FacClass& c = a.cls[q];
+    int rl = rm_prev, cell = -1, tok = 0;
+    if (c.kind == KIND_UP) {
+      if (o >= 1) { cell = i; tok = tok_y<CH>(a, S, s, o - 1); }
+    } else if (c.kind == KIND_LEFT) {
+      if (i >= 1) { cell = i - 1; tok = tok_x<CH>(a, S, s, i - 1); }
+    } else if (i >= 1 && o >= 1) {
+      rl = rm_prev2;
+      cell = i - 1;
+      tok = tok_x<CH>(a, S, s, i - 1) * a.To + tok_y<CH>(a, S, s, o - 1);
+    }
+    float mv = NEG_INF;
+    if (cell >= 0) {
+      mv = S.ms[(rl * a.ns + s) * L.W + cell];
+      if (tok < 0 || tok >= c.n_tok) {
+        S.st[16 * s + ST_BAD] = 1;
+        tok = 0;
+        mv = NEG_INF;
+      }
+    }
+    wq[q] = mv;
+    tq[q] = tok;
+    mu = fmaxf(mu, mv);
+  }
+  const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
+  for (int q = 0; q < a.n_cls; ++q) {
+    S.wgt[q * nsq + ci] = wq[q] > NEG_INF / 2 ? expf(wq[q] - mu_safe) : 0.f;
+    S.tok[q * nsq + ci] = tq[q];
+  }
+  S.ms[(rm_out * a.ns + s) * L.W + i] = mu;
+  if (d % a.rescale_every <= 1) S.mx[mx_at] = NO_MAX;
+}
+
+// The rescale of cell i's state k (in `pk`) by its max's bits, and, for
+// k == 0, of its log scale m: divided by the max (a cell whose max is not
+// positive zeroed), the log of the max added to the scale.
+__device__ __forceinline__ void rescale_state(int bits, int k, float* pk,
+                                              float* m) {
+  const float mx = __int_as_float(bits);
+  const bool has = mx > 0.f;
+  const float den = fmaxf(mx, 1e-37f);
+  *pk = has ? *pk / den : 0.f;
+  if (k == 0) *m = has ? *m + logf(den) : NEG_INF;
+}
+
+// CH: the chunked layout, CC cells a chunk, gbuf chunk_gfloats a block
+// (parameters of their own: a field more in Args can change ptxas's
+// allocation of the whole kernel)
+template <bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
-factored_wavefront_kernel(Args a) {
+factored_wavefront_kernel(Args a, float* gbuf, int CC) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Layout L = layout(a.Sa, a.NR, a.Li, a.Lo, a.ns, a.nbp, a.seg,
-                          a.e_floats);
+                          a.e_floats, CH ? CC : 0);
   Smem S;
   S.tab = sm + L.tab;
   S.E = a.e_floats > 0 ? sm + L.e : a.ek;
@@ -523,12 +652,20 @@ factored_wavefront_kernel(Args a) {
   S.pre = sm + L.pre;
   S.wgt = sm + L.wgt;
   S.tok = reinterpret_cast<int*>(sm + L.tok);
-  S.ms = sm + L.ms;
   S.mx = reinterpret_cast<int*>(sm + L.mx);
-  S.xs = reinterpret_cast<int*>(sm + L.xs);
-  S.ys = reinterpret_cast<int*>(sm + L.ys);
   S.st = reinterpret_cast<int*>(sm + L.st);
   S.tl = reinterpret_cast<int*>(sm + L.tl);
+  if constexpr (CH) {
+    float* g = gbuf + (long)blockIdx.x * chunk_gfloats(a.Sa, a.Li);
+    S.ms = g;
+    S.G = g + up4(3L * L.W);
+    S.xs = S.ys = nullptr;
+  } else {
+    S.ms = sm + L.ms;
+    S.xs = reinterpret_cast<int*>(sm + L.xs);
+    S.ys = reinterpret_cast<int*>(sm + L.ys);
+    S.G = nullptr;
+  }
   const long U = (long)a.KT * FRAG_A;
   const int NA = a.n_mt * a.NR, NU = NA + a.n_mt;
   const bool resident = L.resident;
@@ -553,80 +690,8 @@ factored_wavefront_kernel(Args a) {
 
   const int nsq = a.ns * L.CQ;
   long rg = 0;                   // groups consumed: the ring's parity
-  for (int step = 0;; ++step) {
-    // roles: P buffer written (out), read as d-1 (prev) and as d-2 (prev2);
-    // log scales likewise over three roles
-    const int pb_out = step % a.nbp;
-    const int pb_prev = (step + 1) % a.nbp;
-    const int pb_prev2 = pb_out;
-    const int rm_out = step % 3, rm_prev = (step + 2) % 3,
-              rm_prev2 = (step + 1) % 3;
-    if (warp < a.ns) prep(a, L, S, warp, lane, pb_prev, rm_prev);
-    __syncthreads();
-    int n_act = 0;
-    for (int s = 0; s < a.ns; ++s) n_act += S.st[16 * s + ST_ACT];
-    if (n_act == 0) break;
-
-    // each cell's class weights, tokens and new log scale
-    for (int idx = tid; idx < nsq; idx += THREADS) {
-      const int s = idx / L.CQ, i = idx - s * L.CQ;
-      const int* st = S.st + 16 * s;
-      if (!st[ST_ACT]) continue;
-      const int d = st[ST_D];
-      const int lo = max(0, d - st[ST_OL]), hi = min(d, st[ST_IL]);
-      if (i < lo || i > hi) continue;
-      const int o = d - i;
-      float wq[MAX_CLS];
-      int tq[MAX_CLS];
-      float mu = NEG_INF;
-      for (int q = 0; q < a.n_cls; ++q) {
-        const FacClass& c = a.cls[q];
-        int rl = rm_prev, cell = -1, tok = 0;
-        if (c.kind == KIND_UP) {
-          if (o >= 1) { cell = i; tok = S.ys[s * a.Lo + o - 1]; }
-        } else if (c.kind == KIND_LEFT) {
-          if (i >= 1) { cell = i - 1; tok = S.xs[s * a.Li + i - 1]; }
-        } else if (i >= 1 && o >= 1) {
-          rl = rm_prev2;
-          cell = i - 1;
-          tok = S.xs[s * a.Li + i - 1] * a.To + S.ys[s * a.Lo + o - 1];
-        }
-        float mv = NEG_INF;
-        if (cell >= 0) {
-          mv = S.ms[(rl * a.ns + s) * L.W + cell];
-          if (tok < 0 || tok >= c.n_tok) {
-            S.st[16 * s + ST_BAD] = 1;
-            tok = 0;
-            mv = NEG_INF;
-          }
-        }
-        wq[q] = mv;
-        tq[q] = tok;
-        mu = fmaxf(mu, mv);
-      }
-      const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
-      for (int q = 0; q < a.n_cls; ++q) {
-        const int ci = q * nsq + s * L.CQ + i;
-        S.wgt[ci] = wq[q] > NEG_INF / 2 ? expf(wq[q] - mu_safe) : 0.f;
-        S.tok[ci] = tq[q];
-      }
-      S.ms[(rm_out * a.ns + s) * L.W + i] = mu;
-      if (d % a.rescale_every <= 1) S.mx[s * L.W + i] = NO_MAX;
-    }
-    if (tid == 0) {
-      // the step's 8-cell tiles, (walker << 16) | tile
-      int n = 0;
-      for (int s = 0; s < a.ns; ++s) {
-        const int* st = S.st + 16 * s;
-        if (!st[ST_ACT]) continue;
-        const int d = st[ST_D];
-        const int lo = max(0, d - st[ST_OL]), hi = min(d, st[ST_IL]);
-        for (int j = lo / 8; j <= hi / 8; ++j) S.tl[n++] = (s << 16) | j;
-      }
-      S.st[ST_NT] = n;
-    }
-    __syncthreads();
-
+  // the step's (or the chunk's) groups of units: stage A, then stage B
+  auto groups = [&](int pb_prev, int pb_prev2, int pb_out, float* gout) {
     for (int g = 0; g < n_groups; ++g) {
       int u0, u1;
       group_units(a, resident, g, u0, u1);
@@ -643,12 +708,109 @@ factored_wavefront_kernel(Args a) {
         Tb = S.tab + (rg & 1) * a.seg * U;
       }
       if (u0 < NA)
-        stage_a(a, L, S, Tb, u0, u1, pb_prev, pb_prev2, lane, warp);
+        stage_a<CH>(a, L, S, Tb, u0, u1, pb_prev, pb_prev2, lane, warp);
       else
-        stage_b(a, L, S, Tb, u0, u1, pb_out, lane, warp);
+        stage_b<CH>(a, L, S, Tb, u0, u1, pb_out, gout, lane, warp);
       __syncthreads();
       ++rg;
     }
+  };
+  for (int step = 0;; ++step) {
+    // roles: P buffer written (out), read as d-1 (prev) and as d-2 (prev2);
+    // log scales (and the chunked layout's global diagonals) likewise over
+    // three roles
+    const int pb_out = step % a.nbp;
+    const int pb_prev = (step + 1) % a.nbp;
+    const int pb_prev2 = pb_out;
+    const int rm_out = step % 3, rm_prev = (step + 2) % 3,
+              rm_prev2 = (step + 1) % 3;
+    if (warp < a.ns) prep<CH>(a, L, S, warp, lane, pb_prev, rm_prev);
+    __syncthreads();
+    int n_act = 0;
+    for (int s = 0; s < a.ns; ++s) n_act += S.st[16 * s + ST_ACT];
+    if (n_act == 0) break;
+
+    if constexpr (CH) {
+      // one walker; the diagonal in chunks of at most CQ cells, the
+      // neighbours copied into P buffers 0 (d-1) and 1 (d-2)
+      const int* st = S.st;
+      const int d = st[ST_D], il = st[ST_IL], ol = st[ST_OL];
+      const int lo = max(0, d - ol), hi = min(d, il);
+      const int lo1 = max(0, d - 1 - ol), hi1 = min(d - 1, il);
+      const int lo2 = max(0, d - 2 - ol), hi2 = min(d - 2, il);
+      const bool fire = d % a.rescale_every <= 1;
+      const long dg = (long)L.KP * L.WG;
+      float* gout = S.G + rm_out * dg;
+      const float* gin1 = S.G + rm_prev * dg;
+      const float* gin2 = S.G + rm_prev2 * dg;
+      const int n = hi - lo + 1;
+      const int nch = (n + L.CQ - 1) / L.CQ;
+      const int per = ((n + nch - 1) / nch + 7) / 8 * 8;
+      for (int cs = lo; cs <= hi; cs += per) {
+        const int ncc = min(per, hi - cs + 1);
+        // the neighbours: cells cs - 1 .. cs + ncc - 1 at columns CELL0 - 1
+        // on, zero outside their diagonal's cells
+        const int ncol = ncc + 1;
+        for (int idx = tid; idx < a.nbp * a.Sa * ncol; idx += THREADS) {
+          const int q = idx / (a.Sa * ncol);
+          const int rest = idx - q * a.Sa * ncol;
+          const int k = rest / ncol, c = rest - k * ncol;
+          const int cell = cs - 1 + c;
+          const bool in = q ? cell >= lo2 && cell <= hi2
+                            : cell >= lo1 && cell <= hi1;
+          const float* gi = q ? gin2 : gin1;
+          S.P[q * L.KP * L.PS + (long)k * L.PS + CELL0 - 1 + c] =
+              in ? gi[(long)k * L.WG + cell] : 0.f;
+        }
+        for (int c = tid; c < ncc; c += THREADS)
+          cell_weights<CH>(a, L, S, 0, d, cs + c, c, c, nsq, rm_out, rm_prev,
+                           rm_prev2);
+        if (tid == 0) {
+          int nt = 0;
+          for (int j = 0; j * 8 < ncc; ++j) S.tl[nt++] = j;
+          S.st[ST_NT] = nt;
+          S.st[ST_CS] = cs;
+        }
+        __syncthreads();
+        groups(0, a.nbp > 1 ? 1 : 0, 0, gout);
+        if (fire) {
+          for (int idx = tid; idx < a.Sa * ncc; idx += THREADS) {
+            const int k = idx / ncc, c = idx - k * ncc;
+            rescale_state(S.mx[c], k, gout + (long)k * L.WG + cs + c,
+                          S.ms + rm_out * L.W + cs + c);
+          }
+        }
+        __syncthreads();
+      }
+      continue;
+    }
+
+    // each cell's class weights, tokens and new log scale
+    for (int idx = tid; idx < nsq; idx += THREADS) {
+      const int s = idx / L.CQ, i = idx - s * L.CQ;
+      const int* st = S.st + 16 * s;
+      if (!st[ST_ACT]) continue;
+      const int d = st[ST_D];
+      const int lo = max(0, d - st[ST_OL]), hi = min(d, st[ST_IL]);
+      if (i < lo || i > hi) continue;
+      cell_weights<CH>(a, L, S, s, d, i, s * L.CQ + i, s * L.W + i, nsq,
+                       rm_out, rm_prev, rm_prev2);
+    }
+    if (tid == 0) {
+      // the step's 8-cell tiles, (walker << 16) | tile
+      int n = 0;
+      for (int s = 0; s < a.ns; ++s) {
+        const int* st = S.st + 16 * s;
+        if (!st[ST_ACT]) continue;
+        const int d = st[ST_D];
+        const int lo = max(0, d - st[ST_OL]), hi = min(d, st[ST_IL]);
+        for (int j = lo / 8; j <= hi / 8; ++j) S.tl[n++] = (s << 16) | j;
+      }
+      S.st[ST_NT] = n;
+    }
+    __syncthreads();
+
+    groups(pb_prev, pb_prev2, pb_out, nullptr);
 
     // the rescale, on two consecutive diagonals of every rescale_every:
     // each fired cell's states divided by their max (a cell whose max is
@@ -662,16 +824,10 @@ factored_wavefront_kernel(Args a) {
       const int d = st[ST_D];
       if (d % a.rescale_every > 1) continue;
       if (i < max(0, d - st[ST_OL]) || i > min(d, st[ST_IL])) continue;
-      const float mx = __int_as_float(S.mx[s * L.W + i]);
-      const bool has = mx > 0.f;
-      const float den = fmaxf(mx, 1e-37f);
-      float* pk = S.P + (long)pb_out * L.KP * L.PS + (long)k * L.PS + s * L.CS +
-                  CELL0 + i;
-      *pk = has ? *pk / den : 0.f;
-      if (k == 0) {
-        float* m = S.ms + (rm_out * a.ns + s) * L.W + i;
-        *m = has ? *m + logf(den) : NEG_INF;
-      }
+      rescale_state(S.mx[s * L.W + i], k,
+                    S.P + (long)pb_out * L.KP * L.PS + (long)k * L.PS +
+                        s * L.CS + CELL0 + i,
+                    S.ms + (rm_out * a.ns + s) * L.W + i);
     }
     __syncthreads();
   }
@@ -682,9 +838,13 @@ factored_wavefront_kernel(Args a) {
 
 extern "C" long factored_wavefront_smem_bytes(int Sa, int NR, int Li, int Lo,
                                               int ns, int nbp, int seg,
-                                              int e_floats) {
-  return layout(Sa, NR, Li, Lo, ns, nbp, seg, e_floats).total *
+                                              int e_floats, int CC) {
+  return layout(Sa, NR, Li, Lo, ns, nbp, seg, e_floats, CC).total *
          (long)sizeof(float);
+}
+
+extern "C" long factored_wavefront_chunk_gfloats(int Sa, int Li) {
+  return chunk_gfloats(Sa, Li);
 }
 
 // Launches the kernel on `stream` with `grid` blocks of `ns` walkers and
@@ -695,19 +855,22 @@ extern "C" long factored_wavefront_smem_bytes(int Sa, int NR, int Li, int Lo,
 // order; seg >= n_mt * (NR + 1) keeps them resident. e_floats > 0 copies
 // that many floats of `ek` into shared memory. `order` holds the B pair
 // indices in the order the walkers take them; `counter` is one int that the
-// caller has set to 0.
+// caller has set to 0. CC > 0 (a multiple of 8, one walker) is the chunked
+// layout, with `gbuf` holding grid blocks of chunk_gfloats (not read with
+// CC = 0).
 extern "C" int factored_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* in_lens,
     const void* out_lens, const void* order, void* counter, const void* c0,
-    const void* wvec, const void* tab, const void* ek, void* out, int B,
-    int Li, int Lo, int Sa, int To, int rescale_every, int sink, int n_cls,
-    const int* desc, int NR, int KT, int n_mt, int SaP, int ns, int nbp,
-    int seg, int e_floats, int grid, void* stream) {
+    const void* wvec, const void* tab, const void* ek, void* out, void* gbuf,
+    int B, int Li, int Lo, int Sa, int To, int rescale_every, int sink,
+    int n_cls, const int* desc, int NR, int KT, int n_mt, int SaP, int ns,
+    int nbp, int seg, int e_floats, int grid, int CC, void* stream) {
   if (n_cls < 1 || n_cls > MAX_CLS || rescale_every < 1 || Sa < 1 ||
       KT != (Sa + 7) / 8 || n_mt != (Sa + 15) / 16 || SaP < Sa || NR < 1 ||
       NR > MAX_NR || ns < 1 || ns > MAX_NS || nbp < 1 || nbp > 2 ||
       seg < 1 || e_floats < 0 || e_floats % 4 != 0 || grid < 1 || Li < 0 ||
-      Lo < 0 || Li + 1 > 0xffff * 8)
+      Lo < 0 || Li + 1 > 0xffff * 8 || CC < 0 || CC % 8 != 0 ||
+      (CC > 0 && (ns != 1 || gbuf == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.in_toks = (const int*)in_toks;
@@ -741,14 +904,15 @@ extern "C" int factored_wavefront_launch(
   if (k != NR || nbp != (diag ? 2 : 1)) return (int)cudaErrorInvalidValue;
   a.NR = NR; a.KT = KT; a.n_mt = n_mt; a.SaP = SaP;
   a.ns = ns; a.nbp = nbp; a.seg = seg; a.e_floats = e_floats;
-  const long smem =
-      layout(Sa, NR, Li, Lo, ns, nbp, seg, e_floats).total * (long)sizeof(float);
+  const long smem = layout(Sa, NR, Li, Lo, ns, nbp, seg, e_floats, CC).total *
+                    (long)sizeof(float);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = CC > 0 ? factored_wavefront_kernel<true>
+                     : factored_wavefront_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      factored_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  factored_wavefront_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a, (float*)gbuf, CC);
   return (int)cudaGetLastError();
 }

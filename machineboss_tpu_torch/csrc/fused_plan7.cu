@@ -85,6 +85,18 @@
 // (3St K)^2 lower-block-triangular prefix-product matrix instead, the closed
 // form that suits a matrix unit: K/2 (3St)^2 multiply-adds per node.
 //
+// Past the profiles whose per-read state (12 K St floats) and per-node tables
+// fit a block's shared memory beside the constants (918 nodes at St = 2, 512
+// at St = 4), the node-doubling layout keeps each read's node blocks, the
+// solve's buffers and ix_aff in a global buffer of its own, read and
+// written through L1/L2, and reads the per-node scalars and matrices from
+// global memory as it reads the doubling's matrices there (`gstate`); only
+// the constants and the per-warp reduction slots stay in shared memory.
+// launch_plan picks it by size alone, the shared state wherever it fits; it
+// is its own instantiation of the kernel, so the shared layout's loads stay
+// shared loads. Why this and not a read spread over a block of warps: PERF.md
+// (the PR that added it) has the reckoning.
+//
 // Built with -DPHASE_PROFILE (a separate library), lane 0 of each read sums
 // clock64 cycles per phase of a row into prof (B, N_PROF).
 
@@ -699,18 +711,28 @@ fused_plan7_warp(const float* __restrict__ consts_g,
 // Floats of one block's dynamic shared memory: the constants, the per-node
 // scalars and matrices, the doubling's matrices and the panels when `tables`,
 // and per read the node blocks, the solve's two b buffers,
-// ix_aff and the reduction slots.
+// ix_aff and the reduction slots. With `gstate` the per-node scalars and
+// matrices are read from global memory, and a read's state (state_floats)
+// lies in the global buffer: shared memory holds the constants and each
+// read's reduction slots.
+__host__ __device__ inline long state_floats(int K, int ST) {
+  return round4(5 * K * ST) + 2L * round4(3 * K * ST) + round4(K * ST);
+}
+__host__ __device__ inline int red_floats(int ST, int TPR) {
+  return round4((TPR >> 5) * (ST + 1));
+}
 __host__ __device__ inline int per_read_floats(int K, int ST, int TPR) {
   return round4(5 * K * ST) + 2 * round4(3 * K * ST) + round4(K * ST) +
          round4((TPR >> 5) * (ST + 1));
 }
-inline int smem_floats(int K, int ST, int n_sym, int n_lev, int R, int TPR,
-                       int tables) {
+inline long smem_floats(int K, int ST, int n_sym, int n_lev, int R, int TPR,
+                        int tables, int gstate) {
   const int N = ST * ST;
-  int n = round4(4 * N + ST + 3 + 2 * n_sym * N) + round4(N_SC * K) +
-          round4(N_CO * K * N);
-  if (tables) n += round4(n_lev * K * 9 * N) + 2 * round4(n_sym * K * N);
-  return n + R * per_read_floats(K, ST, TPR);
+  long n = round4(4 * N + ST + 3 + 2 * n_sym * N);
+  if (gstate) return n + (long)R * red_floats(ST, TPR);
+  n += round4(N_SC * K) + round4(N_CO * K * N);
+  if (tables) n += round4(n_lev * K * 9 * N) + 2L * round4(n_sym * K * N);
+  return n + (long)R * per_read_floats(K, ST, TPR);
 }
 
 // One doubling level for node k >= off: v = cur[k] + cur[k - off] P[k],
@@ -747,10 +769,11 @@ __device__ __forceinline__ void doubling_step(const float* cur,
 
 // consts as Consts reads them; ksc (7, K); kco (8, K, ST, ST); alev: n_lev
 // levels of K (3ST, 3ST) matrices in doubling_step's layout; emm, emi
-// (n_sym, K, ST, ST); toks (B, L) 1-based; lens (B,); out (3, B).
+// (n_sym, K, ST, ST); toks (B, L) 1-based; lens (B,); out (3, B); GS: gst
+// holds state_floats for each of the grid's R-read slots.
 // blockDim.x = R * TPR, TPR a multiple of 32, R <= 15 (one named barrier a
 // read).
-template <int ST, bool MULTIHIT>
+template <int ST, bool MULTIHIT, bool GS>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_plan7_nodes(const float* __restrict__ consts_g,
                   const float* __restrict__ ksc_g,
@@ -760,6 +783,7 @@ fused_plan7_nodes(const float* __restrict__ consts_g,
                   const float* __restrict__ emi_g,
                   const int* __restrict__ toks, const int* __restrict__ lens,
                   float* __restrict__ out, long long* __restrict__ prof,
+                  float* __restrict__ gst,
                   int B, int L, int K, int n_sym, int n_lev, int R, int TPR,
                   int tables, int n_consts) {
   constexpr int N = ST * ST, D3 = 3 * ST;
@@ -770,13 +794,15 @@ fused_plan7_nodes(const float* __restrict__ consts_g,
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = blockDim.x, tid = threadIdx.x;
 
-  // ---- carve the shared memory and fill the tables
+  // ---- carve the shared memory and fill the tables (GS: the per-node
+  // scalars and matrices stay in global memory; the shared layout's code is
+  // kept as it was, since a reordering changed ptxas's allocation of it)
   float* s_consts = smem;
   int at = round4(n_consts);
-  float* s_ksc = smem + at;
-  at += round4(N_SC * K);
-  float* s_kco = smem + at;
-  at += round4(N_CO * K * N);
+  float* s_ksc = GS ? const_cast<float*>(ksc_g) : smem + at;
+  if (!GS) at += round4(N_SC * K);
+  float* s_kco = GS ? const_cast<float*>(kco_g) : smem + at;
+  if (!GS) at += round4(N_CO * K * N);
   const float* alev = alev_g;
   const float* emm = emm_g;
   const float* emi = emi_g;
@@ -799,15 +825,19 @@ fused_plan7_nodes(const float* __restrict__ consts_g,
     emi = s_emi;
   }
   for (int i = tid; i < n_consts; i += T) s_consts[i] = consts_g[i];
-  for (int i = tid; i < N_SC * K; i += T) s_ksc[i] = ksc_g[i];
-  for (int i = tid; i < N_CO * K * N; i += T) s_kco[i] = kco_g[i];
+  if (!GS) {
+    for (int i = tid; i < N_SC * K; i += T) s_ksc[i] = ksc_g[i];
+    for (int i = tid; i < N_CO * K * N; i += T) s_kco[i] = kco_g[i];
+  }
 
   const int r = tid / TPR, j = tid - r * TPR;
   const int w = j >> 5, lane = tid & 31, nw = TPR >> 5;
-  float* X = smem + at + r * per_read_floats(K, ST, TPR);
+  float* X = GS ? gst + ((size_t)blockIdx.x * R + r) * state_floats(K, ST)
+                : smem + at + r * per_read_floats(K, ST, TPR);
   float* BC = X + round4(5 * K * ST);        // two buffers of 3 K ST
   float* IXA = BC + 2 * round4(3 * K * ST);
-  float* red = IXA + round4(K * ST);
+  float* red = GS ? smem + at + r * red_floats(ST, TPR)
+                  : IXA + round4(K * ST);
   for (int k = j; k < K; k += TPR)
 #pragma unroll
     for (int blk = 0; blk < 5; ++blk)
@@ -1079,19 +1109,19 @@ int launch_warp(const float* consts, const float* ntab, const float* span,
   return (int)cudaGetLastError();
 }
 
-template <int ST, bool MH>
+template <int ST, bool MH, bool GS>
 int launch_nodes(const float* consts, const float* ksc, const float* kco,
                  const float* alev, const float* emm, const float* emi,
                  const int* toks, const int* lens, float* out,
-                 long long* prof, int B, int L, int K, int n_sym, int n_lev,
-                 int R, int TPR, int tables, int smem, int n_consts,
-                 cudaStream_t stream) {
-  auto kern = fused_plan7_nodes<ST, MH>;
+                 long long* prof, float* gst, int B, int L, int K, int n_sym,
+                 int n_lev, int R, int TPR, int tables, int smem,
+                 int n_consts, cudaStream_t stream) {
+  auto kern = fused_plan7_nodes<ST, MH, GS>;
   const int err = set_smem(kern, smem);
   if (err != 0 || B == 0) return err;
   kern<<<(B + R - 1) / R, R * TPR, smem, stream>>>(
-      consts, ksc, kco, alev, emm, emi, toks, lens, out, prof, B, L, K, n_sym,
-      n_lev, R, TPR, tables, n_consts);
+      consts, ksc, kco, alev, emm, emi, toks, lens, out, prof, gst, B, L, K,
+      n_sym, n_lev, R, TPR, tables, n_consts);
   return (int)cudaGetLastError();
 }
 
@@ -1163,33 +1193,42 @@ extern "C" int fused_plan7_warp_launch(
 
 // Launches the node-doubling layout on `stream`: (B + R - 1) / R blocks of
 // R * TPR threads with `smem` bytes of dynamic shared memory, which must be
-// what smem_floats says. prof as above. Returns cudaGetLastError().
+// what smem_floats says. gstate = 1 keeps each read's state in `gst`,
+// (B + R - 1) / R * R times nodes_state_floats (not read with gstate = 0).
+// prof as above. Returns cudaGetLastError().
+extern "C" long fused_plan7_nodes_state_floats(int K, int St) {
+  return state_floats(K, St);
+}
+
 extern "C" int fused_plan7_nodes_launch(
     const void* consts, const void* ksc, const void* kco, const void* alev,
     const void* emm, const void* emi, const void* toks, const void* lens,
-    void* out, void* prof, int B, int L, int K, int St, int n_sym, int n_lev,
-    int multihit, int R, int TPR, int tables, int smem, int n_consts,
-    void* stream) {
+    void* out, void* prof, void* gst, int B, int L, int K, int St, int n_sym,
+    int n_lev, int multihit, int R, int TPR, int tables, int gstate,
+    int smem, int n_consts, void* stream) {
   if (St < 1 || St > 4 || K < 1 || n_sym < 1 || R < 1 || R > 15 || TPR < 32 ||
       TPR % 32 != 0 || R * TPR > MAX_THREADS || B < 0 || L < 0 ||
-      n_lev != ceil_log2(K) ||
+      n_lev != ceil_log2(K) || gstate < 0 || gstate > 1 ||
+      (gstate && (gst == nullptr || tables)) ||
       n_consts != 4 * St * St + St + 3 + 2 * n_sym * St * St ||
-      smem != 4 * smem_floats(K, St, n_sym, n_lev, R, TPR, tables))
+      smem != 4 * smem_floats(K, St, n_sym, n_lev, R, TPR, tables, gstate))
     return (int)cudaErrorInvalidValue;
 #ifdef PHASE_PROFILE
   if (prof == nullptr) return (int)cudaErrorInvalidValue;
 #endif
-#define PLAN7_CASE(ST, MH)                                                   \
-  if (St == ST && (multihit != 0) == MH)                                     \
-    return launch_nodes<ST, MH>(                                             \
+#define PLAN7_CASE(ST, MH, GS)                                               \
+  if (St == ST && (multihit != 0) == MH && (gstate != 0) == GS)              \
+    return launch_nodes<ST, MH, GS>(                                         \
         (const float*)consts, (const float*)ksc, (const float*)kco,          \
         (const float*)alev, (const float*)emm, (const float*)emi,            \
         (const int*)toks, (const int*)lens, (float*)out, (long long*)prof,   \
-        B, L, K, n_sym, n_lev, R, TPR, tables, smem, n_consts,               \
+        (float*)gst, B, L, K, n_sym, n_lev, R, TPR, tables, smem, n_consts,  \
         (cudaStream_t)stream);
-  PLAN7_CASE(1, false) PLAN7_CASE(1, true) PLAN7_CASE(2, false)
-  PLAN7_CASE(2, true) PLAN7_CASE(3, false) PLAN7_CASE(3, true)
-  PLAN7_CASE(4, false) PLAN7_CASE(4, true)
+#define PLAN7_CASES(ST)                                                      \
+  PLAN7_CASE(ST, false, false) PLAN7_CASE(ST, true, false)                   \
+  PLAN7_CASE(ST, false, true) PLAN7_CASE(ST, true, true)
+  PLAN7_CASES(1) PLAN7_CASES(2) PLAN7_CASES(3) PLAN7_CASES(4)
+#undef PLAN7_CASES
 #undef PLAN7_CASE
   return (int)cudaErrorInvalidValue;
 }

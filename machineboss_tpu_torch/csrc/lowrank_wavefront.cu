@@ -10,7 +10,7 @@
 //
 // What it computes, per pair b, on the cells (i, o) of its lattice, diagonal
 // d = i + o, carried as scaled probabilities p (Sa floats) with a per-cell
-// log scale m:
+// log scale m (float64):
 //   * each present class reads one neighbour: up (i, o-1) and left (i-1, o)
 //     on d-1, diag (i-1, o-1) on d-2; w_c = exp(m_c - mu), mu = max m_c;
 //   * a src-side class adds  M_c @ concat_r(p_c * w_c * E_c[r-block, tok]),
@@ -71,11 +71,26 @@
 //     Two pair walkers run in a block, each a group of warps with its own
 //     named barrier (bar.sync 1 + walker), sharing the resident factors, so
 //     one walker's loads overlap the other's products.
+//     Past the lengths where the pair's tokens no longer fit beside the
+//     chunk (Li + Lo words), the walker reads them from global memory
+//     through L1/L2 (`pair_mode` 1), and past those where the cells' log
+//     scales, divisors and maxima (7 (Li + 1) words) do not fit either, they
+//     live in a global buffer of the walker's own (`pair_mode` 2), as the
+//     diagonal states already do. launch_plan picks the mode by size alone,
+//     the shared one wherever it fits; each mode is its own instantiation
+//     of the kernel, so the shared mode's loads stay shared loads.
 //  5. Chained mode is the same per-pair walk with a diagonal offset: no
 //     strip schedule, the whole grid busy.
 //  6. One walker computes a pair, in a fixed order, with no atomic sums (a
 //     max does not depend on the order): the scores do not depend on the
 //     grid or the walkers.
+//  7. The cells' log scales and the scores are float64 (the states and all
+//     products stay float32): a float32 scale gains a rounding of its own
+//     size at every rescale, and a GeneWise pair against tens of kilobases
+//     of genomic DNA takes some 10^4 of them along its path at scales near
+//     10^4-10^5 nats; in float32 that drifted 0.033 nats from the float64
+//     oracle at 16 aa x 10,048 nt (the plain version, on the CPU), past the
+//     0.01-nat gate. The TPU kernel keeps them in float32.
 
 #include "tf32_mma.cuh"
 
@@ -118,7 +133,7 @@ struct Args {
   const float* a;      // n_mt slabs of packed A tiles
   const float* et;     // every class's ET, packed
   float* pbuf;
-  float* out;
+  double* out;
   const int* order;
   int* counter;
   int B, Li, Lo, Sa, SaP, To, rescale_every, n_chain;
@@ -132,23 +147,30 @@ struct Args {
 // seg_mt), the token scales ET when they fit (et_floats, a multiple of 4),
 // then per walker: the operand chunk Z (KZ/8 k-tiles of CC/8 B tiles,
 // stride zstride), the chunk's tokens per class, the bad-token flag and the
-// next pair's slot (4), the pair's tokens (Li + Lo), and per cell of three
-// diagonal slots its log scale and its rescale divisor (3 W each) and the
-// current diagonal's max bits (W), W = Li + 1; rounded up to 4 floats.
+// next pair's slot (4), per cell of three diagonal slots its log scale (a
+// double: 3 W of them) and its rescale divisor (3 W) and the current
+// diagonal's max bits (W), W = Li + 1 (pair_mode 0 and 1; in pair_mode 2
+// these 10 W words are the walker's in `cbuf`), then the pair's tokens
+// (Li + Lo; pair_mode 0 only); rounded up to 4 floats. The words before the
+// log scales are even in number, so the doubles are 8-byte aligned.
+enum { PAIR_SHARED = 0, TOKENS_GLOBAL = 1, CELLS_GLOBAL = 2 };
 __host__ __device__ inline int zstride(int CC) { return CC / 8 * FRAG_B + 8; }
 __host__ __device__ inline long a_floats(int n_mt, int slab, int seg_mt) {
   return seg_mt >= n_mt ? (long)n_mt * slab : 2L * seg_mt * slab;
 }
-__host__ __device__ inline long walker_floats(int KZ, int CC, int Li,
-                                              int Lo) {
-  const long n = (long)(KZ / 8) * zstride(CC) + MAX_CLS * CC + 4 + Li + Lo +
-                 7L * (Li + 1);
+__host__ __device__ inline long cell_floats(int Li) { return 10L * (Li + 1); }
+__host__ __device__ inline long walker_floats(int KZ, int CC, int Li, int Lo,
+                                              int pair_mode) {
+  long n = (long)(KZ / 8) * zstride(CC) + MAX_CLS * CC + 4;
+  if (pair_mode != CELLS_GLOBAL) n += cell_floats(Li);
+  if (pair_mode == PAIR_SHARED) n += Li + Lo;
   return (n + 3) / 4 * 4;
 }
 long smem_bytes(int n_mt, int slab, int seg_mt, int KZ, int CC, int walkers,
-                int et_floats, int Li, int Lo) {
+                int et_floats, int Li, int Lo, int pair_mode) {
   return (a_floats(n_mt, slab, seg_mt) + et_floats +
-          walkers * walker_floats(KZ, CC, Li, Lo)) * (long)sizeof(float);
+          walkers * walker_floats(KZ, CC, Li, Lo, pair_mode)) *
+         (long)sizeof(float);
 }
 
 struct Walker {
@@ -157,9 +179,9 @@ struct Walker {
   int* tok;          // the chunk's tokens, per class
   int* bad;
   int* next;
-  int* xs;           // the pair's tokens
-  int* ys;
-  float* ms;         // log scales, 3 slots of W cells
+  const int* xs;     // the pair's tokens
+  const int* ys;
+  double* ms;        // log scales, 3 slots of W cells
   float* dn;         // rescale divisors (1: none, 0: zeroed), 3 slots
   int* mx;           // the current diagonal's max over states, float bits
   int id, tid, nthr, warp, nwarps, lane;
@@ -190,12 +212,12 @@ __device__ void load_slabs(const Args& a, float* dst, int mt0, int nmt,
 // The rescale of a cell whose max over states has the bits `bits`: its
 // divisor (0 when the max is not positive: the cell is zeroed) and its new
 // log scale.
-__device__ __forceinline__ void rescale_cell(int bits, float* dn, float* ms) {
+__device__ __forceinline__ void rescale_cell(int bits, float* dn, double* ms) {
   const float mx = __int_as_float(bits);
   const bool has = mx > 0.f;
   const float den = fmaxf(mx, 1e-37f);
   *dn = has ? den : 0.f;
-  *ms = has ? *ms + logf(den) : NEG_INF;
+  *ms = has ? *ms + (double)logf(den) : (double)NEG_INF;
 }
 
 // Build the operand chunk of cells cs .. cs + ncc - 1 of diagonal d (slots
@@ -203,6 +225,7 @@ __device__ __forceinline__ void rescale_cell(int bits, float* dn, float* ms) {
 // cell's class weights and tokens and loading its states s0p + lane + 32 j
 // of every neighbour before anything is stored, so that the loads overlap;
 // lane 0 writes the cell's new log scale, its divisor and its tokens.
+template <int PM>
 __device__ void build(const Args& a, const Walker& w, int d, int cs, int ncc,
                       int s0, int s1, int s2, bool fire) {
   const int Sa = a.Sa, SaP = a.SaP, CC = a.CC, zs = zstride(CC);
@@ -211,13 +234,15 @@ __device__ void build(const Args& a, const Walker& w, int d, int cs, int ncc,
   const float* p2 = w.pb + (size_t)s2 * W * SaP;
   for (int c = w.warp; c < ncc; c += w.nwarps) {
     const int i = cs + c, o = d - i;
+    double mq[MAX_CLS];
     float wq[MAX_CLS], dq[MAX_CLS];
     int tq[MAX_CLS];
     const float* src[MAX_CLS];
-    float mu = NEG_INF;
+    double mu = NEG_INF;
 #pragma unroll
     for (int q = 0; q < MAX_CLS; ++q) {
-      float mv = NEG_INF, dv = 1.f;
+      double mv = NEG_INF;
+      float dv = 1.f;
       int tok = 0;
       src[q] = nullptr;
       if (q < a.n_cls) {
@@ -242,12 +267,12 @@ __device__ void build(const Args& a, const Walker& w, int d, int cs, int ncc,
           tok = 0;
         }
       }
-      wq[q] = mv;
+      mq[q] = mv;
       dq[q] = dv;
       tq[q] = tok;
-      mu = fmaxf(mu, mv);
+      mu = fmax(mu, mv);
     }
-    const float mu_safe = mu > NEG_INF / 2 ? mu : 0.f;
+    const double mu_safe = mu > NEG_INF / 2 ? mu : 0.0;
     for (int s0p = 0; s0p < Sa; s0p += 32 * PV) {
       float pv[MAX_CLS][PV];
 #pragma unroll
@@ -264,7 +289,7 @@ __device__ void build(const Args& a, const Walker& w, int d, int cs, int ncc,
 #pragma unroll
         for (int q = 0; q < MAX_CLS; ++q) {
           const float wv =
-              wq[q] > NEG_INF / 2 ? expf(wq[q] - mu_safe) : 0.f;
+              mq[q] > NEG_INF / 2 ? expf((float)(mq[q] - mu_safe)) : 0.f;
           wq[q] = wv == 0.f ? 0.f : dq[q] == 1.f ? wv : wv / dq[q];
         }
         if (w.lane == 0) {
@@ -303,6 +328,7 @@ __device__ void build(const Args& a, const Walker& w, int d, int cs, int ncc,
 // The class products of one group of 16-row tiles (mt0 .. mt0 + nmt - 1,
 // their slabs at `As`) for the chunk's nt cell tiles, written to p0; on a
 // rescale diagonal each cell's max over states goes to w.mx.
+template <int PM>
 __device__ void products(const Args& a, const Walker& w, const float* As,
                          int mt0, int nmt, int cs, int ncc, float* p0,
                          bool fire) {
@@ -418,6 +444,7 @@ __device__ void products(const Args& a, const Walker& w, const float* As,
 // One diagonal d over cells lo..hi, in chunks of at most CC cells, then the
 // rescale's divisors. Every thread of the walker calls it; it ends
 // synchronised.
+template <int PM>
 __device__ void step(const Args& a, const Walker& w, float* A, int d, int lo,
                      int hi, int off) {
   const int W = a.Li + 1, SaP = a.SaP;
@@ -431,10 +458,10 @@ __device__ void step(const Args& a, const Walker& w, float* A, int d, int lo,
   for (int cs = lo; cs <= hi; cs += per) {
     const int ncc = min(per, hi - cs + 1);
     if (!resident) load_slabs(a, A, 0, min(a.seg_mt, a.n_mt), w);
-    build(a, w, d, cs, ncc, s0, s1, s2, fire);
+    build<PM>(a, w, d, cs, ncc, s0, s1, s2, fire);
     if (resident) {
       wbar(w);
-      products(a, w, A, 0, a.n_mt, cs, ncc, p0, fire);
+      products<PM>(a, w, A, 0, a.n_mt, cs, ncc, p0, fire);
     } else {
       const int n_seg = (a.n_mt + a.seg_mt - 1) / a.seg_mt;
       const size_t ring = (size_t)a.seg_mt * a.slab;
@@ -449,8 +476,8 @@ __device__ void step(const Args& a, const Walker& w, float* A, int d, int lo,
         }
         wbar(w);
         const int mt0 = sg * a.seg_mt;
-        products(a, w, A + (sg & 1) * ring, mt0, min(a.seg_mt, a.n_mt - mt0),
-                 cs, ncc, p0, fire);
+        products<PM>(a, w, A + (sg & 1) * ring, mt0,
+                     min(a.seg_mt, a.n_mt - mt0), cs, ncc, p0, fire);
         if (sg + 1 < n_seg) wbar(w);
       }
     }
@@ -466,6 +493,7 @@ __device__ void step(const Args& a, const Walker& w, float* A, int d, int lo,
 }
 
 // Walk pair b from its start cell to its readout and write its score.
+template <int PM>
 __device__ void walk_pair(const Args& a, const Walker& w, float* A, int b) {
   const int W = a.Li + 1;
   int il, ol, off = 0;
@@ -477,16 +505,25 @@ __device__ void walk_pair(const Args& a, const Walker& w, float* A, int b) {
     il = a.in_lens[b];
     ol = a.out_lens[b];
     if (il < 0 || il > a.Li || ol < 0 || ol > a.Lo) {
-      if (w.tid == 0) a.out[b] = __int_as_float(0x7fc00000);  // bad length
+      if (w.tid == 0)
+        a.out[b] = __longlong_as_double(0x7ff8000000000000LL);  // bad length
       return;
     }
   }
   // d = 0: only cell (0, 0), p = c0 (closure row 0), m = 0; the tokens
+  Walker wg = w;                     // pair_mode 1, 2: tokens in global
   for (int s = w.tid; s < a.SaP; s += w.nthr) w.pb[s] = a.c0[s];
-  for (int v = w.tid; v < a.Li; v += w.nthr)
-    w.xs[v] = a.in_toks[(size_t)b * a.Li + v];
-  for (int v = w.tid; v < a.Lo; v += w.nthr)
-    w.ys[v] = a.out_toks[(size_t)b * a.Lo + v];
+  if constexpr (PM == PAIR_SHARED) {
+    int* xs = const_cast<int*>(w.xs);
+    int* ys = const_cast<int*>(w.ys);
+    for (int t = w.tid; t < a.Li; t += w.nthr)
+      xs[t] = a.in_toks[(size_t)b * a.Li + t];
+    for (int t = w.tid; t < a.Lo; t += w.nthr)
+      ys[t] = a.out_toks[(size_t)b * a.Lo + t];
+  } else {
+    wg.xs = a.in_toks + (size_t)b * a.Li;
+    wg.ys = a.out_toks + (size_t)b * a.Lo;
+  }
   if (w.warp == 0) {
     // the chained start cell takes its step's rescale
     float mx = -3.4e38f;
@@ -494,7 +531,7 @@ __device__ void walk_pair(const Args& a, const Walker& w, float* A, int b) {
     mx = warp_max(mx);
     if (w.lane == 0) {
       *w.bad = 0;
-      w.ms[0] = 0.f;
+      w.ms[0] = 0.0;
       w.dn[0] = 1.f;
       if (off > 0 && off % a.rescale_every <= 1)
         rescale_cell(__float_as_int(mx), w.dn, w.ms);
@@ -502,28 +539,36 @@ __device__ void walk_pair(const Args& a, const Walker& w, float* A, int b) {
   }
   wbar(w);
   const int dfin = il + ol;
-  for (int d = 1; d <= dfin; ++d)
-    step(a, w, A, d, max(0, d - ol), min(d, il), off);
+  if constexpr (PM == PAIR_SHARED) {
+    for (int d = 1; d <= dfin; ++d)
+      step<PM>(a, w, A, d, max(0, d - ol), min(d, il), off);
+  } else {
+    for (int d = 1; d <= dfin; ++d)
+      step<PM>(a, wg, A, d, max(0, d - ol), min(d, il), off);
+  }
   if (w.tid == 0) {
     const int slot = dfin % 3;
     const float den = w.dn[slot * W + il];
     float e = w.pb[((size_t)slot * W + il) * a.SaP + a.Sa - 1];
     e = den == 1.f ? e : den > 0.f ? e / den : 0.f;
-    const float m = w.ms[slot * W + il];
-    float v = e > 0.f ? m + logf(fmaxf(e, 1e-37f)) : NEG_INF;
-    if (*w.bad) v = __int_as_float(0x7fc00000);              // bad token
+    const double m = w.ms[slot * W + il];
+    double v = e > 0.f ? m + (double)logf(fmaxf(e, 1e-37f)) : NEG_INF;
+    if (*w.bad) v = __longlong_as_double(0x7ff8000000000000LL);  // bad token
     a.out[b] = v;
   }
 }
 
+// cbuf: pair_mode 2's 10 W floats a walker (a parameter of its own: a field
+// more in Args can change ptxas's allocation of the whole kernel)
+template <int PM>
 __global__ void __launch_bounds__(THREADS, 1)
-lowrank_wavefront_kernel(Args a) {
+lowrank_wavefront_kernel(Args a, float* cbuf) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const bool resident = a.seg_mt >= a.n_mt;
   float* A = sm;
   const long af = a_floats(a.n_mt, a.slab, a.seg_mt) + a.et_floats;
-  const long wf = walker_floats(a.KZ, a.CC, a.Li, a.Lo);
+  const long wf = walker_floats(a.KZ, a.CC, a.Li, a.Lo, PM);
   if (resident) {
     const float4* src = reinterpret_cast<const float4*>(a.a);
     float4* dst = reinterpret_cast<float4*>(A);
@@ -552,12 +597,17 @@ lowrank_wavefront_kernel(Args a) {
   w.tok = reinterpret_cast<int*>(base + (long)(a.KZ / 8) * zstride(a.CC));
   w.bad = w.tok + MAX_CLS * a.CC;
   w.next = w.bad + 1;
-  w.xs = w.bad + 4;
-  w.ys = w.xs + a.Li;
-  w.ms = reinterpret_cast<float*>(w.ys + a.Lo);
-  w.dn = w.ms + 3 * W;
-  w.mx = reinterpret_cast<int*>(w.dn + 3 * W);
   const size_t slot = (size_t)blockIdx.x * a.walkers + w.id;
+  float* cells = reinterpret_cast<float*>(w.bad + 4);
+  if constexpr (PM == CELLS_GLOBAL) cells = cbuf + slot * cell_floats(a.Li);
+  w.ms = reinterpret_cast<double*>(cells);
+  w.dn = reinterpret_cast<float*>(w.ms + 3 * W);
+  w.mx = reinterpret_cast<int*>(w.dn + 3 * W);
+  w.xs = w.ys = nullptr;             // pair_mode 1 and 2: set per pair
+  if constexpr (PM == PAIR_SHARED) {
+    w.xs = w.mx + W;
+    w.ys = w.xs + a.Li;
+  }
   w.pb = a.pbuf + slot * 3 * W * a.SaP;
 
   for (;;) {
@@ -568,7 +618,7 @@ lowrank_wavefront_kernel(Args a) {
     if (k >= a.B) break;
     const int b = a.order[k];
     if (b < 0 || b >= a.B) continue;       // not an index of this batch
-    walk_pair(a, w, A, b);
+    walk_pair<PM>(a, w, A, b);
   }
 }
 
@@ -576,8 +626,10 @@ lowrank_wavefront_kernel(Args a) {
 
 extern "C" long lowrank_wavefront_smem_bytes(int n_mt, int slab, int seg_mt,
                                              int KZ, int CC, int walkers,
-                                             int et_floats, int Li, int Lo) {
-  return smem_bytes(n_mt, slab, seg_mt, KZ, CC, walkers, et_floats, Li, Lo);
+                                             int et_floats, int Li, int Lo,
+                                             int pair_mode) {
+  return smem_bytes(n_mt, slab, seg_mt, KZ, CC, walkers, et_floats, Li, Lo,
+                    pair_mode);
 }
 
 // Launches the kernel on `stream` with `grid` blocks of `walkers` pair
@@ -587,19 +639,24 @@ extern "C" long lowrank_wavefront_smem_bytes(int n_mt, int slab, int seg_mt,
 // lengths are read); n_chain >= 1 chained mode (B a multiple of n_chain,
 // the lengths not read). `order` holds the B pair indices in the order the
 // walkers take them; `counter` is one int that the caller has set to 0.
+// pair_mode: the pair's tokens and cells in shared memory (0), the tokens
+// read from global memory (1), and the cells' 10 (Li + 1) floats too, in
+// `cbuf`, grid * walkers of them (2; cbuf is not read otherwise).
 extern "C" int lowrank_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* in_lens,
     const void* out_lens, const void* c0, const void* a_tiles,
     const void* et, void* pbuf, void* out, const void* order, void* counter,
-    int B, int Li, int Lo, int Sa, int SaP, int To, int rescale_every,
-    int n_cls, const int* desc, int n_mt, int slab, int KZ, int CC,
-    int seg_mt, int walkers, int et_floats, int grid, int n_chain,
-    void* stream) {
+    void* cbuf, int B, int Li, int Lo, int Sa, int SaP, int To,
+    int rescale_every, int n_cls, const int* desc, int n_mt, int slab, int KZ,
+    int CC, int seg_mt, int walkers, int et_floats, int grid, int n_chain,
+    int pair_mode, void* stream) {
   if (n_cls < 0 || n_cls > MAX_CLS || rescale_every < 1 || CC < 8 ||
       CC % 8 != 0 || KZ % 8 != 0 || slab % FRAG_A != 0 || seg_mt < 1 ||
       (walkers != 1 && walkers != 2) || (seg_mt < n_mt && walkers != 1) ||
       grid < 1 || n_chain < 0 || Sa > n_mt * 16 || SaP < Sa ||
       et_floats < 0 || et_floats % 4 != 0 || Li < 0 || Lo < 0 ||
+      pair_mode < PAIR_SHARED || pair_mode > CELLS_GLOBAL ||
+      (pair_mode == CELLS_GLOBAL && cbuf == nullptr) ||
       (n_chain > 0 && (B % n_chain != 0 || Li < 1 || Lo < 1)))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -611,7 +668,7 @@ extern "C" int lowrank_wavefront_launch(
   a.a = (const float*)a_tiles;
   a.et = (const float*)et;
   a.pbuf = (float*)pbuf;
-  a.out = (float*)out;
+  a.out = (double*)out;
   a.order = (const int*)order;
   a.counter = (int*)counter;
   a.B = B; a.Li = Li; a.Lo = Lo; a.Sa = Sa; a.SaP = SaP; a.To = To;
@@ -628,14 +685,17 @@ extern "C" int lowrank_wavefront_launch(
   a.n_mt = n_mt; a.slab = slab; a.KZ = KZ; a.CC = CC; a.seg_mt = seg_mt;
   a.walkers = walkers;
   a.et_floats = et_floats;
-  const long smem =
-      smem_bytes(n_mt, slab, seg_mt, KZ, CC, walkers, et_floats, Li, Lo);
+  const long smem = smem_bytes(n_mt, slab, seg_mt, KZ, CC, walkers, et_floats,
+                              Li, Lo, pair_mode);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = lowrank_wavefront_kernel<CELLS_GLOBAL>;
+  if (pair_mode == PAIR_SHARED) kern = lowrank_wavefront_kernel<PAIR_SHARED>;
+  if (pair_mode == TOKENS_GLOBAL)
+    kern = lowrank_wavefront_kernel<TOKENS_GLOBAL>;
   cudaError_t err = cudaFuncSetAttribute(
-      lowrank_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
-  lowrank_wavefront_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a, (float*)cbuf);
   return (int)cudaGetLastError();
 }

@@ -47,7 +47,11 @@
 //     0), with one cluster barrier a diagonal.
 //  4. Staged bookkeeping: the band's bounds and the tokens they reach are
 //     copied to shared memory by cp.async in chunks of CH diagonals, the
-//     next chunk in flight while the current one is walked.
+//     next chunk in flight while the current one is walked. A band too wide
+//     for a chunk's tokens (about 2 Wb ints, twice over: some 14,000 cells)
+//     stages the bounds alone and reads the tokens from global memory
+//     through L1/L2 (`staged` = 0, with read-back: its own instantiations,
+//     so the staged layout's loads stay shared loads).
 //  5. Only band cells are items. An item is (cell, 4 destination states)
 //     taken by `split` neighbouring lanes (1, 2, 4 or 8; each split its own
 //     kernel instantiation), each over every split-th source state; the
@@ -79,11 +83,12 @@ __host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
 // The staged ints of one chunk: CH rows of (lo, hi, base), the x tokens
 // from index base_ref - 1 (XW) and the y tokens (YW), where base_ref is the
 // base of the previous chunk's first diagonal (of diagonal 0 for chunk 0):
-// a chunk's cells lie in i in [base_ref, base_ref + 2 CH + Wb).
+// a chunk's cells lie in i in [base_ref, base_ref + 2 CH + Wb). Unstaged
+// tokens: the rows alone.
 __host__ __device__ inline int xw(int Wb) { return 2 * CH + Wb + 1; }
 __host__ __device__ inline int yw(int Wb) { return 3 * CH + Wb; }
-__host__ __device__ inline int stage_ints(int Wb) {
-  return up4(3 * CH + xw(Wb) + yw(Wb));
+__host__ __device__ inline int stage_ints(int Wb, bool staged) {
+  return up4(3 * CH + (staged ? xw(Wb) + yw(Wb) : 0));
 }
 
 // Column groups a rank owns (the last ranks may own fewer, or none), and
@@ -101,12 +106,13 @@ __host__ __device__ inline int row_groups(int SP, int csize) {
 // columns, the slots, two staged chunks and their reference bases.
 __host__ __device__ inline long smem_floats(int S, int SP, int Wb,
                                             int n_tok_sum, int csize,
-                                            int resident, int slots) {
+                                            int resident, int slots,
+                                            int staged) {
   long n = BAR_FLOATS;
   if (resident)
     n += (long)n_tok_sum * S * TD * row_groups(SP, csize);
   if (slots) n += NSLOT * Wb * SP;
-  return n + 2 * stage_ints(Wb) + 4;
+  return n + 2 * stage_ints(Wb, staged) + 4;
 }
 
 struct Args {
@@ -139,16 +145,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Issues the copies of chunk c into `st` (stage_ints(Wb) ints) and sets
-// *ref to its reference base; out-of-range entries are left unwritten (no
-// cell reads them).
+// Issues the copies of chunk c into `st` (stage_ints(Wb, STG) ints) and
+// sets *ref to its reference base; out-of-range entries are left unwritten
+// (no cell reads them).
+template <bool STG>
 __device__ void stage_chunk(const Args& a, int c, int base_ref, int* st,
                             int* ref) {
   const int n_diags = a.Li + a.Lo + 1;
   const int XW = xw(a.Wb), YW = yw(a.Wb);
   const int xb = base_ref - 1;
   const int yb = c * CH - base_ref - 2 * CH - a.Wb;
-  const int n = 3 * CH + XW + YW;
+  const int n = 3 * CH + (STG ? XW + YW : 0);
   for (int e = threadIdx.x; e < n; e += THREADS) {
     if (e < 3 * CH) {
       if (c * CH * 3 + e < n_diags * 3) cp_async4(st + e, a.meta + c * CH * 3 + e);
@@ -261,7 +268,7 @@ __device__ __forceinline__ void copy_out(const Args& a, int rank,
   }
 }
 
-template <bool RES, bool SLOTS, int SPLIT>
+template <bool RES, bool SLOTS, int SPLIT, bool STG>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_banded_wavefront_kernel(Args a) {
   extern __shared__ float4 smem4[];
@@ -302,7 +309,7 @@ viterbi_banded_wavefront_kernel(Args a) {
   float* slots = sm + o;
   if (SLOTS) o += NSLOT * sslab;
   int* stage = reinterpret_cast<int*>(sm + o);
-  const int SI = stage_ints(Wb);
+  const int SI = stage_ints(Wb, STG);
   int* refs = stage + 2 * SI;
 
   // the resident columns (each rank's slice is contiguous in `packed`)
@@ -317,7 +324,7 @@ viterbi_banded_wavefront_kernel(Args a) {
       dst += n;
     }
   }
-  stage_chunk(a, 0, __ldg(a.meta + 2), stage, refs);
+  stage_chunk<STG>(a, 0, __ldg(a.meta + 2), stage, refs);
   cp_async_commit();
   if (mbar && tid == 0) {
     for (int k = 0; k < NSLOT; ++k) mbar_init(bars + k);
@@ -340,7 +347,7 @@ viterbi_banded_wavefront_kernel(Args a) {
       cp_async_wait_all();
       __syncthreads();                // chunk c is staged, chunk c-1 is read
       if ((c + 1) * CH < n_diags)
-        stage_chunk(a, c + 1, stage[(c & 1) * SI + 2],
+        stage_chunk<STG>(a, c + 1, stage[(c & 1) * SI + 2],
                     stage + ((c + 1) & 1) * SI, refs + ((c + 1) & 1));
       cp_async_commit();
     }
@@ -348,8 +355,10 @@ viterbi_banded_wavefront_kernel(Args a) {
     const int r3 = (d - c * CH) * 3;
     const int lo = st[r3], hi = st[r3 + 1], base = st[r3 + 2];
     const int bref = refs[c & 1];
-    const int* xs = st + 3 * CH - (bref - 1);                 // xs[i - 1]
-    const int* ys = st + 3 * CH + xw(Wb) - (c * CH - bref - 2 * CH - Wb);
+    const int* xs = STG ? st + 3 * CH - (bref - 1)            // xs[i - 1]
+                        : a.in_toks;
+    const int* ys = STG ? st + 3 * CH + xw(Wb) - (c * CH - bref - 2 * CH - Wb)
+                        : a.out_toks;
     const int s1 = base - b1, s2 = base - b2;
     const int ilo = max(max(lo, base), max(d - a.Lo, 0));
     const int ihi = min(min(hi, base + Wb), min(a.Li + 1, d + 1));
@@ -490,16 +499,21 @@ using Kernel = void (*)(Args);
 
 // The kernel of a layout: the columns resident or not, slots or read-back,
 // 1, 2, 4 or 8 lanes an item (each its own instantiation, so that a
-// diagonal's loop holds one split's code).
-Kernel pick(int resident, int slots, int split) {
-#define K(R, S) {viterbi_banded_wavefront_kernel<R, S, 1>, \
-                 viterbi_banded_wavefront_kernel<R, S, 2>, \
-                 viterbi_banded_wavefront_kernel<R, S, 4>, \
-                 viterbi_banded_wavefront_kernel<R, S, 8>}
-  static const Kernel table[2][2][4] = {{K(false, false), K(false, true)},
-                                        {K(true, false), K(true, true)}};
+// diagonal's loop holds one split's code), the tokens staged or not (not:
+// read-back only; null for slots without staged tokens).
+Kernel pick(int resident, int slots, int split, int staged) {
+#define K(R, S, T) {viterbi_banded_wavefront_kernel<R, S, 1, T>, \
+                    viterbi_banded_wavefront_kernel<R, S, 2, T>, \
+                    viterbi_banded_wavefront_kernel<R, S, 4, T>, \
+                    viterbi_banded_wavefront_kernel<R, S, 8, T>}
+  static const Kernel table[2][2][4] = {
+      {K(false, false, true), K(false, true, true)},
+      {K(true, false, true), K(true, true, true)}};
+  static const Kernel unstaged[2][4] = {K(false, false, false),
+                                        K(true, false, false)};
 #undef K
   const int l = split == 8 ? 3 : split == 4 ? 2 : split == 2 ? 1 : 0;
+  if (!staged) return slots ? nullptr : unstaged[resident ? 1 : 0][l];
   return table[resident ? 1 : 0][slots ? 1 : 0][l];
 }
 
@@ -537,12 +551,13 @@ bool valid(int S, int SP, int Wb, int csize, int split) {
 
 }  // namespace
 
-// Shared bytes of a block in the layout (csize, resident, slots).
+// Shared bytes of a block in the layout (csize, resident, slots, staged).
 extern "C" long viterbi_banded_smem_bytes(int S, int SP, int Wb, int n_up,
                                           int n_left, int n_diag, int csize,
-                                          int resident, int slots) {
+                                          int resident, int slots,
+                                          int staged) {
   return smem_floats(S, SP, Wb, n_up + n_left + n_diag, csize, resident,
-                     slots) * (long)sizeof(float);
+                     slots, staged) * (long)sizeof(float);
 }
 
 // The card's occupancy calculator: how many clusters of this layout can be
@@ -550,12 +565,13 @@ extern "C" long viterbi_banded_smem_bytes(int S, int SP, int Wb, int n_up,
 extern "C" int viterbi_banded_max_clusters(int S, int SP, int Wb, int n_up,
                                            int n_left, int n_diag, int csize,
                                            int resident, int slots,
-                                           int split) {
+                                           int split, int staged) {
   if (!valid(S, SP, Wb, csize, split)) return -1;
   const long smem = viterbi_banded_smem_bytes(S, SP, Wb, n_up, n_left, n_diag,
-                                              csize, resident, slots);
+                                              csize, resident, slots, staged);
   if (smem > SMEM_MAX) return 0;
-  const Kernel k = pick(resident, slots, split);
+  const Kernel k = pick(resident, slots, split, staged);
+  if (k == nullptr) return -1;
   cudaError_t err = prepare(k, csize, smem);
   if (err != cudaSuccess) return -1;
   cudaLaunchAttribute attr[1];
@@ -569,15 +585,16 @@ extern "C" int viterbi_banded_max_clusters(int S, int SP, int Wb, int n_up,
 // pair, with the class columns `resident` in shared memory (from `packed`,
 // pack_banded's layout for csize) or read through L2, the previous
 // diagonals in shared `slots` or read back from the lattice, `split` lanes
-// an item. n_up, n_left, n_diag: the tokens of each class's blocks (0:
-// absent). Returns cudaGetLastError() (or the launch's error): nonzero
-// means the launch was refused.
+// an item, the band's tokens `staged` in shared memory or read from global
+// memory (with read-back only). n_up, n_left, n_diag: the tokens of each
+// class's blocks (0: absent). Returns cudaGetLastError() (or the launch's
+// error): nonzero means the launch was refused.
 extern "C" int viterbi_banded_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* meta,
     const void* c0, const void* up, const void* left, const void* diag,
     const void* packed, void* lat, int Li, int Lo, int Wb, int S, int SP,
     int Ti, int To, int n_up, int n_left, int n_diag, int csize, int resident,
-    int slots, int split, void* stream) {
+    int slots, int split, int staged, void* stream) {
   if (!valid(S, SP, Wb, csize, split) || Li < 0 || Lo < 0 || n_up < 0 ||
       n_left < 0 || n_diag < 0 || (n_up > 0 && !up) || (n_left > 0 && !left) ||
       (n_diag > 0 && !diag) || (resident && !packed))
@@ -598,9 +615,10 @@ extern "C" int viterbi_banded_wavefront_launch(
   a.Li = Li; a.Lo = Lo; a.Wb = Wb; a.S = S; a.SP = SP; a.Ti = Ti; a.To = To;
   a.csize = csize;
   const long smem = viterbi_banded_smem_bytes(S, SP, Wb, n_up, n_left, n_diag,
-                                              csize, resident, slots);
+                                              csize, resident, slots, staged);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const Kernel k = pick(resident, slots, split);
+  const Kernel k = pick(resident, slots, split, staged);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare(k, csize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];

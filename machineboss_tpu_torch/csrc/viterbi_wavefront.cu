@@ -35,7 +35,15 @@
 //     states), loads its token's S x 4 strip once (one float4 a source
 //     state) and applies it to every cell of the piece, whose neighbour
 //     states are broadcast reads from the slots.
-//  4. The classes' maxima meet in shared memory by atomicMax on an
+//  4. Past the lengths where a diagonal's buckets no longer fit in shared
+//     memory beside the pair's tokens (about 15 W words with three classes),
+//     the tokens and the buckets of each block live in a global buffer of
+//     the block's own (`gbuck`), read and written through L1/L2, with the
+//     same bucketing; only the per-token counts and cursors and the slots
+//     stay in shared memory. fill_launch_plan picks it by size alone, the
+//     shared buckets wherever they fit; it is its own instantiation of the
+//     kernel, so the shared layout's loads stay shared loads.
+//  5. The classes' maxima meet in shared memory by atomicMax on an
 //     order-preserving integer image of the float, which is exact; then
 //     the diagonal is converted back and written out once, in coalesced
 //     rows. Only float32 adds and maxes occur, so the lattice equals the
@@ -83,14 +91,26 @@ struct Args {
 // (n_slots x W x S), the pair's tokens (Li, Lo), then per class the cells
 // sorted by token (W), each token's first cell in that order (n_tok + 1),
 // a cursor per token (n_tok), the pieces (W + n_tok int4s: first position
-// in the sorted cells, cells, token, class), and 4 counts.
+// in the sorted cells, cells, token, class), and 4 counts. With gbuck the
+// tokens, the sorted cells and the pieces are the block's in the global
+// buffer (gbuck_floats each, in that order), and shared memory holds the
+// slots, the counts, and per class the first cells and cursors.
 __host__ __device__ inline long up4(long n) { return (n + 3) / 4 * 4; }
 __host__ __device__ inline long smem_floats(int Li, int Lo, int S, int n_slots,
-                                            const int* n_tok) {
+                                            const int* n_tok, int gbuck) {
   const long W = Li + 1;
-  long n = up4((long)n_slots * W * S) + up4(Li) + up4(Lo) + 4;
-  for (int q = 0; q < 3; ++q)
-    n += up4(W) + up4(n_tok[q] + 1) + up4(n_tok[q]) + 4 * (W + n_tok[q]);
+  long n = up4((long)n_slots * W * S) + 4;
+  if (!gbuck) n += up4(Li) + up4(Lo);
+  for (int q = 0; q < 3; ++q) {
+    n += up4(n_tok[q] + 1) + up4(n_tok[q]);
+    if (!gbuck) n += up4(W) + 4 * (W + n_tok[q]);
+  }
+  return n;
+}
+__host__ __device__ inline long gbuck_floats(int Li, int Lo, const int* n_tok) {
+  const long W = Li + 1;
+  long n = up4(Li) + up4(Lo);
+  for (int q = 0; q < 3; ++q) n += up4(W) + 4 * (W + n_tok[q]);
   return n;
 }
 
@@ -103,6 +123,7 @@ struct Buckets {
 
 // The token class q reads at cell i of diagonal d (o = d - i), or -1 when
 // the neighbour lies outside the lattice or the token outside the alphabet.
+template <bool GB>
 __device__ __forceinline__ int cell_token(const Args& a, const int* xs,
                                           const int* ys, int q, int i,
                                           int o) {
@@ -124,6 +145,7 @@ __device__ __forceinline__ int cell_token(const Args& a, const int* xs,
 // One warp: bucket the cells lo..hi of diagonal d by class q's token into
 // pieces of at most cb cells (their first position counted from sorted0);
 // the number of pieces goes to *n_pieces.
+template <bool GB>
 __device__ void bucket(const Args& a, const Buckets& k, const int* sorted0,
                        const int* xs, const int* ys, int q, int d, int lo,
                        int hi, int* n_pieces, int lane) {
@@ -131,7 +153,7 @@ __device__ void bucket(const Args& a, const Buckets& k, const int* sorted0,
   for (int t = lane; t < nt; t += 32) k.cursor[t] = 0;
   __syncwarp();
   for (int i = lo + lane; i <= hi; i += 32) {
-    const int t = cell_token(a, xs, ys, q, i, d - i);
+    const int t = cell_token<GB>(a, xs, ys, q, i, d - i);
     if (t >= 0) atomicAdd(k.cursor + t, 1);
   }
   __syncwarp();
@@ -169,13 +191,17 @@ __device__ void bucket(const Args& a, const Buckets& k, const int* sorted0,
   for (int t = lane; t < nt; t += 32) k.cursor[t] = k.base[t];
   __syncwarp();
   for (int i = lo + lane; i <= hi; i += 32) {
-    const int t = cell_token(a, xs, ys, q, i, d - i);
+    const int t = cell_token<GB>(a, xs, ys, q, i, d - i);
     if (t >= 0) k.sorted[atomicAdd(k.cursor + t, 1)] = i;
   }
 }
 
+// gbuf: GB's buffer, gbuck_floats a block (a parameter of its own: a field
+// more in Args changed ptxas's allocation of the whole kernel and slowed the
+// shared layout; as it is, that layout compiles as it did without GB)
+template <bool GB>
 __global__ void __launch_bounds__(THREADS)
-viterbi_wavefront_kernel(Args a) {
+viterbi_wavefront_kernel(Args a, float* gbuf) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -197,23 +223,45 @@ viterbi_wavefront_kernel(Args a) {
   const unsigned peer = a.csize > 1 && a.n_slots > 0 ? peer_addr(slots, rank ^ 1)
                                                      : 0u;
   long o = up4((long)a.n_slots * wS);
-  int* xs = reinterpret_cast<int*>(sm + o); o += up4(a.Li);
-  int* ys = reinterpret_cast<int*>(sm + o); o += up4(a.Lo);
+  // gbuck: the tokens, sorted cells and pieces at g, the block's buffer
+  float* g = GB ? gbuf + (long)blockIdx.x * gbuck_floats(a.Li, a.Lo, a.n_tok)
+                : nullptr;
+  long og = 0;
+  int* xs;
+  int* ys;
+  if constexpr (GB) {
+    xs = reinterpret_cast<int*>(g + og); og += up4(a.Li);
+    ys = reinterpret_cast<int*>(g + og); og += up4(a.Lo);
+  } else {
+    xs = reinterpret_cast<int*>(sm + o); o += up4(a.Li);
+    ys = reinterpret_cast<int*>(sm + o); o += up4(a.Lo);
+  }
   int* n_pieces = reinterpret_cast<int*>(sm + o); o += 4;
   Buckets bk[3];
   int pbase[3];                    // each class's first piece, in int4s
-  const int* sorted0 = reinterpret_cast<int*>(sm + o);
+  const int* sorted0 = reinterpret_cast<int*>(GB ? g + og : sm + o);
   const int4* pieces0 = nullptr;
   for (int q = 0; q < 3; ++q) {
     const int nt = a.n_tok[q];
-    int* p = reinterpret_cast<int*>(sm + o);
-    bk[q].sorted = p; p += up4(W);
-    bk[q].base = p; p += up4(nt + 1);
-    bk[q].cursor = p; p += up4(nt);
-    bk[q].pieces = reinterpret_cast<int4*>(p); p += 4 * (W + nt);
+    if constexpr (GB) {
+      int* p = reinterpret_cast<int*>(g + og);
+      bk[q].sorted = p; p += up4(W);
+      bk[q].pieces = reinterpret_cast<int4*>(p); p += 4 * (W + nt);
+      og = reinterpret_cast<float*>(p) - g;
+      int* c = reinterpret_cast<int*>(sm + o);
+      bk[q].base = c; c += up4(nt + 1);
+      bk[q].cursor = c; c += up4(nt);
+      o = reinterpret_cast<float*>(c) - sm;
+    } else {
+      int* p = reinterpret_cast<int*>(sm + o);
+      bk[q].sorted = p; p += up4(W);
+      bk[q].base = p; p += up4(nt + 1);
+      bk[q].cursor = p; p += up4(nt);
+      bk[q].pieces = reinterpret_cast<int4*>(p); p += 4 * (W + nt);
+      o = reinterpret_cast<float*>(p) - sm;
+    }
     if (q == 0) pieces0 = bk[0].pieces;
     pbase[q] = (int)(bk[q].pieces - pieces0);
-    o = reinterpret_cast<float*>(p) - sm;
   }
   const int n_walk = gridDim.x / a.csize;
   const int walker = blockIdx.x / a.csize;
@@ -245,7 +293,7 @@ viterbi_wavefront_kernel(Args a) {
       }
       if (d > 0 && warp < 3) {
         if (a.n_tok[warp] > 0)
-          bucket(a, bk[warp], sorted0, xs, ys, warp, d, lo, hi,
+          bucket<GB>(a, bk[warp], sorted0, xs, ys, warp, d, lo, hi,
                  n_pieces + warp, lane);
         else if (lane == 0)
           n_pieces[warp] = 0;
@@ -350,9 +398,17 @@ viterbi_wavefront_kernel(Args a) {
 
 extern "C" long viterbi_wavefront_smem_bytes(int Li, int Lo, int S,
                                              int n_slots, int n_up,
-                                             int n_left, int n_diag) {
+                                             int n_left, int n_diag,
+                                             int gbuck) {
   const int nt[3] = {n_up, n_left, n_diag};
-  return smem_floats(Li, Lo, S, n_slots, nt) * (long)sizeof(float);
+  return smem_floats(Li, Lo, S, n_slots, nt, gbuck) * (long)sizeof(float);
+}
+
+// The floats of the global buffer a block takes with gbuck.
+extern "C" long viterbi_wavefront_gbuck_floats(int Li, int Lo, int n_up,
+                                               int n_left, int n_diag) {
+  const int nt[3] = {n_up, n_left, n_diag};
+  return gbuck_floats(Li, Lo, nt);
 }
 
 // Launches the kernel on `stream`: `grid` pair walkers, each a cluster of
@@ -360,21 +416,24 @@ extern "C" long viterbi_wavefront_smem_bytes(int Li, int Lo, int S,
 // (0: read back from the lattice), pieces of at most `cb` cells (1 .. 8)
 // of one token, the source states in `n_sc` chunks an item (0: as many as
 // make two items a thread, at most 3). n_up, n_left, n_diag: the tokens of each
-// class's blocks (0: absent; the pointer is then not read). Returns
+// class's blocks (0: absent; the pointer is then not read). gbuck = 1 keeps
+// the tokens and buckets in `gbuf`, grid * csize blocks of
+// viterbi_wavefront_gbuck_floats (not read with gbuck = 0). Returns
 // cudaGetLastError() (or the launch's error): nonzero means the launch was
 // refused.
 extern "C" int viterbi_wavefront_launch(
     const void* in_toks, const void* out_toks, const void* in_lens,
     const void* out_lens, const void* c0, const void* up, const void* left,
-    const void* diag, void* lat, int B, int Li, int Lo, int S, int SP, int To,
-    int n_up, int n_left, int n_diag, int n_slots, int csize, int cb,
-    int n_sc, int grid, void* stream) {
+    const void* diag, void* lat, void* gbuf, int B, int Li, int Lo, int S,
+    int SP, int To, int n_up, int n_left, int n_diag, int n_slots, int csize,
+    int cb, int n_sc, int grid, int gbuck, void* stream) {
   if (grid < 1 || S < 1 || SP < S || SP % viterbi::TD != 0 || Li < 0 ||
       Lo < 0 || (csize != 1 && csize != 2) || n_slots < 0 || n_slots > 3 ||
       n_up < 0 || n_left < 0 || n_diag < 0 || (n_up > 0 && !up) ||
       (n_left > 0 && !left) || (n_diag > 0 && (!diag || To < 1)) ||
       (n_slots > 0 && n_slots < (n_diag > 0 ? 3 : 2)) || cb < 1 || cb > CB ||
-      n_sc < 0 || n_sc > MAX_SC)
+      n_sc < 0 || n_sc > MAX_SC || gbuck < 0 || gbuck > 1 ||
+      (gbuck && !gbuf))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.in_toks = (const int*)in_toks;
@@ -394,11 +453,13 @@ extern "C" int viterbi_wavefront_launch(
   a.csize = csize;
   a.cb = cb;
   a.n_sc = n_sc;
-  const long smem = smem_floats(Li, Lo, S, n_slots, a.n_tok) * (long)sizeof(float);
+  const long smem =
+      smem_floats(Li, Lo, S, n_slots, a.n_tok, gbuck) * (long)sizeof(float);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = gbuck ? viterbi_wavefront_kernel<true>
+                    : viterbi_wavefront_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      viterbi_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B == 0) return 0;
   cudaLaunchConfig_t cfg = {};
@@ -413,7 +474,7 @@ extern "C" int viterbi_wavefront_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, viterbi_wavefront_kernel, a);
+  err = cudaLaunchKernelEx(&cfg, kern, a, (float*)gbuf);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

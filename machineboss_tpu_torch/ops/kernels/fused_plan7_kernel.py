@@ -481,22 +481,31 @@ def n_levels(K):
     return max(K - 1, 0).bit_length()
 
 
-def _smem_floats(K, St, n_sym, R, TPR, tables):
+def _state_floats(K, St):
+    """Floats of one read's state in the node-doubling layout: the node
+    blocks, the solve's two b buffers and ix_aff."""
+    return (_round_up(5 * K * St, 4) + 2 * _round_up(3 * K * St, 4)
+            + _round_up(K * St, 4))
+
+
+def _smem_floats(K, St, n_sym, R, TPR, tables, state="shared"):
     """Shared-memory floats of one block of the node-doubling layout, as
     csrc/fused_plan7.cu lays them out (every region rounded up to 4
     floats); `tables`: the doubling's matrices and the paired-emission
-    panels too."""
+    panels too; `state` "global": only the constants and each read's
+    reduction slots (the per-node tables and the state in global
+    memory)."""
     n = St * St
     total = _round_up(4 * n + St + 3 + 2 * n_sym * n, 4)     # consts
+    red = _round_up((TPR // 32) * (St + 1), 4)
+    if state == "global":
+        return total + R * red
     total += _round_up(len(KSC_NAMES) * K, 4)
     total += _round_up(len(KCO_NAMES) * K * n, 4)
     if tables:
         total += _round_up(n_levels(K) * K * 9 * n, 4)
         total += 2 * _round_up(n_sym * K * n, 4)
-    per_read = (_round_up(5 * K * St, 4) + 2 * _round_up(3 * K * St, 4)
-                + _round_up(K * St, 4)
-                + _round_up((TPR // 32) * (St + 1), 4))
-    return total + R * per_read
+    return total + R * (_state_floats(K, St) + red)
 
 
 def warp_smem_floats(K, St, n_sym, in_smem):
@@ -514,7 +523,11 @@ def warp_smem_floats(K, St, n_sym, in_smem):
     return total
 
 
-def _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block):
+STATES = ("shared", "global")
+
+
+def _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block, state,
+                        mem_bytes=None):
     TPR = min(_round_up(K, 32), 256)
     r_max = min(max(_MAX_THREADS // TPR, 1), _MAX_READS)
     want = reads_per_block if reads_per_block is not None \
@@ -522,20 +535,41 @@ def _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block):
     if want < 1 or (reads_per_block is not None and want > r_max):
         raise ValueError("reads_per_block must lie in [1, %d] for K=%d"
                          % (r_max, K))
+    if state not in (None,) + STATES:
+        raise ValueError("state must be one of %s, not %r" % (STATES, state))
     R = min(want, r_max)
-    while True:
-        for tables in (True, False):
-            nbytes = 4 * _smem_floats(K, St, n_sym, R, TPR, tables)
-            if nbytes <= _SMEM_LIMIT:
-                return {"layout": "node_doubling", "reads": R,
-                        "threads_per_read": TPR, "tables": tables,
-                        "smem": nbytes}
-        if R == 1 or reads_per_block is not None:
+    if state != "global":
+        while True:
+            for tables in (True, False):
+                nbytes = 4 * _smem_floats(K, St, n_sym, R, TPR, tables)
+                if nbytes <= _SMEM_LIMIT:
+                    return {"layout": "node_doubling", "reads": R,
+                            "threads_per_read": TPR, "tables": tables,
+                            "state": "shared", "smem": nbytes}
+            if R == 1 or reads_per_block is not None:
+                break
+            R -= 1
+        if state == "shared":
             raise ValueError(
                 "fused plan7 kernel: K=%d, St=%d needs %d bytes of shared "
                 "memory for %d reads a block, over the %d a block may take"
                 % (K, St, nbytes, R, _SMEM_LIMIT))
-        R -= 1
+        R = min(want, r_max)
+    nbytes = 4 * _smem_floats(K, St, n_sym, R, TPR, False, "global")
+    if nbytes > _SMEM_LIMIT:
+        raise ValueError(
+            "fused plan7 kernel: K=%d, St=%d needs %d bytes of shared memory "
+            "for %d reads a block with the state in global memory, over the "
+            "%d a block may take" % (K, St, nbytes, R, _SMEM_LIMIT))
+    gbytes = 4 * -(-B // R) * R * _state_floats(K, St)
+    if mem_bytes is not None and gbytes > mem_bytes:
+        raise ValueError(
+            "fused plan7 kernel: %d reads of a K=%d, St=%d profile take %d "
+            "bytes of device memory for their state, over the card's %d"
+            % (B, K, St, gbytes, mem_bytes))
+    return {"layout": "node_doubling", "reads": R, "threads_per_read": TPR,
+            "tables": False, "state": "global", "smem": nbytes,
+            "bytes": gbytes}
 
 
 def default_layout(K):
@@ -544,7 +578,8 @@ def default_layout(K):
     return "warp" if K <= WARP_DEFAULT_MAX_K else "node_doubling"
 
 
-def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None, layout=None):
+def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None, layout=None,
+                state=None, mem_bytes=None):
     """The kernel's layout for a batch of B reads on a card of n_sm
     multiprocessors, a dict with "layout", "reads" (a block) and "smem"
     (bytes); `layout` None takes default_layout(K).
@@ -557,11 +592,20 @@ def launch_plan(K, St, n_sym, B, n_sm, reads_per_block=None, layout=None):
     "node_doubling": "threads_per_read" (one a node up to 256), reads a
     block within the thread, barrier (15) and shared-memory limits, the
     doubling's matrices and the panels in shared memory when both fit
-    beside the state ("tables")."""
+    beside the state ("tables"), and "state": "shared" where each read's
+    state (12 K St floats) and the per-node tables fit shared memory for
+    one read a block at least, else "global" (the state in a global buffer
+    of the read's own, the per-node tables read from global memory, whose
+    device bytes the plan gives as "bytes" and checks against `mem_bytes`,
+    the card's memory, when given); `state` forces it (node_doubling
+    only)."""
     if layout is None:
         layout = default_layout(K)
     if layout == "node_doubling":
-        return _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block)
+        return _node_doubling_plan(K, St, n_sym, B, n_sm, reads_per_block,
+                                   state, mem_bytes)
+    if state is not None:
+        raise ValueError("state applies to the node_doubling layout")
     if layout != "warp":
         raise ValueError("layout must be one of %s, not %r"
                          % (LAYOUTS, layout))
@@ -595,27 +639,38 @@ def _launcher(lib, layout):
             fn.argtypes = [P] * 8 + [I] * 12 + [P]
         else:
             fn = load(lib).fused_plan7_nodes_launch
-            fn.argtypes = [P] * 10 + [I] * 12 + [P]
+            fn.argtypes = [P] * 11 + [I] * 13 + [P]
         fn.restype = I
         _launchers[(lib, layout)] = fn
     return _launchers[(lib, layout)]
 
 
-def _plan(ops, B, reads_per_block, layout):
+def _plan(ops, B, reads_per_block, layout, state=None):
     """launch_plan for these operands and B reads, made once per key."""
-    key = (B, reads_per_block, layout)
+    key = (B, reads_per_block, layout, state)
     if key not in ops.plans:
         dev = ops.consts.device
         if "n_sm" not in ops.plans:
-            ops.plans["n_sm"] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
+            props = torch.cuda.get_device_properties(dev)
+            ops.plans["n_sm"] = props.multi_processor_count
+            ops.plans["mem"] = props.total_memory
         ops.plans[key] = launch_plan(ops.K, ops.St, ops.n_sym, B,
                                      ops.plans["n_sm"], reads_per_block,
-                                     layout)
+                                     layout, state, ops.plans["mem"])
     return ops.plans[key]
 
 
-def _run_on_card(ops, toks, lens, reads_per_block, layout, profile):
+def state_floats_on_card(K, St):
+    """One read's state floats in the node-doubling layout, from the built
+    library: must equal _state_floats."""
+    fn = load("fused_plan7").fused_plan7_nodes_state_floats
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_long
+    return fn(K, St)
+
+
+def _run_on_card(ops, toks, lens, reads_per_block, layout, profile,
+                 state=None):
     dev = ops.consts.device
     B, L = toks.shape
     _check(toks, "toks", torch.int32, (B, L), dev)
@@ -625,7 +680,7 @@ def _run_on_card(ops, toks, lens, reads_per_block, layout, profile):
         if profile else None
     if B == 0:
         return out, prof
-    plan = _plan(ops, B, reads_per_block, layout)
+    plan = _plan(ops, B, reads_per_block, layout, state)
     tables = layout_tables(ops, plan["layout"])
     fn = _launcher("fused_plan7_profile" if profile else "fused_plan7",
                    plan["layout"])
@@ -641,27 +696,32 @@ def _run_on_card(ops, toks, lens, reads_per_block, layout, profile):
                 int(ops.multihit), plan["reads"], bits, plan["smem"],
                 ops.consts.numel(), stream)
     else:
+        gstate = plan["state"] == "global"
+        R = plan["reads"]
+        gst = torch.empty(-(-B // R) * R * _state_floats(ops.K, ops.St)
+                          if gstate else 1, dtype=torch.float32, device=dev)
         rc = fn(ops.consts.data_ptr(), ops.ksc.data_ptr(),
                 ops.kco.data_ptr(), tables[0].data_ptr(),
                 ops.emm.data_ptr(), ops.emi.data_ptr(), toks.data_ptr(),
-                lens.data_ptr(), out.data_ptr(), pp, B, L, ops.K, ops.St,
-                ops.n_sym, n_levels(ops.K), int(ops.multihit),
-                plan["reads"], plan["threads_per_read"],
-                int(plan["tables"]), plan["smem"], ops.consts.numel(),
-                stream)
+                lens.data_ptr(), out.data_ptr(), pp, gst.data_ptr(), B, L,
+                ops.K, ops.St, ops.n_sym, n_levels(ops.K),
+                int(ops.multihit), R, plan["threads_per_read"],
+                int(plan["tables"]), int(gstate), plan["smem"],
+                ops.consts.numel(), stream)
     if rc != 0:
         raise RuntimeError("fused_plan7 launch failed: CUDA error %d" % rc)
     return out, prof
 
 
 def fused_plan7_forward_kernel(ops, toks, lens, reads_per_block=None,
-                               layout=None):
+                               layout=None, state=None):
     """The row solve over a read batch: (3, B) float32 (mantissa, exponent
     sum, dead flag).
 
     A CUDA tensor launches csrc/fused_plan7.cu once for the whole batch,
     laid out by launch_plan (`reads_per_block` reads share a block,
-    `layout` "warp" or "node_doubling"; default: as launch_plan picks),
+    `layout` "warp" or "node_doubling", `state` "shared" or "global" for
+    the node-doubling layout; default: as launch_plan picks),
     and counts one launch in `fused_plan7_forward_kernel.launches`; a CPU
     tensor takes fused_plan7_forward_plain. toks (B, L) 1-based int32 and
     lens (B,) int32, contiguous, on the device of `ops`."""
@@ -670,7 +730,8 @@ def fused_plan7_forward_kernel(ops, toks, lens, reads_per_block=None,
     if toks.device.type != "cuda":
         raise ValueError("fused_plan7_forward_kernel runs on cuda or cpu "
                          "tensors, not %s" % toks.device)
-    out, _ = _run_on_card(ops, toks, lens, reads_per_block, layout, False)
+    out, _ = _run_on_card(ops, toks, lens, reads_per_block, layout, False,
+                          state)
     if toks.shape[0]:
         fused_plan7_forward_kernel.launches += 1
     return out

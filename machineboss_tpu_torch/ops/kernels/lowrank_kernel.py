@@ -19,18 +19,22 @@ NEG_INF convention and readout, in each of two modes:
 - `lowrank_forward_plain` (plain mode) and `lowrank_chained_forward_plain`
   (chained mode: `chain` uniform-length pairs per strip, staggered by
   Lo + 2 diagonals, the lengths ignored): the torch walk of
-  ops/kernels/plain_walk.py in float32, used on the CPU and as the card's
-  comparison;
+  ops/kernels/plain_walk.py in float32 with the cells' log scales in
+  float64 (as the kernel keeps them: a float32 scale drifts past the
+  0.01-nat gate on a pair against tens of kilobases), used on the CPU and
+  as the card's comparison;
 - `lowrank_wavefront` and `lowrank_chained_wavefront`: the wrappers of the
   hand-written CUDA kernel (csrc/lowrank_wavefront.cu), one persistent
   per-pair walk that serves both modes, each wrapper with its own launch
   count. A CUDA tensor launches the kernel or raises; only a CPU tensor
   takes the plain version. `pack_lowrank` lays the plan out for the
   kernel (factors in mma.m16n8k8 fragment order) and `launch_plan` the
-  block (walkers, chunk, resident or streamed factors, shared bytes).
+  block (walkers, chunk, resident or streamed factors, the pair's tokens
+  and cells in shared or global memory, shared bytes).
 
 `make_lowrank_forward` keeps the JAX factory's signature and return
-contract, fn(in_toks, out_toks, in_lens, out_lens) -> (B,); chain > 1 is
+contract, fn(in_toks, out_toks, in_lens, out_lens) -> (B,) (float64 here,
+float32 in the JAX factory); chain > 1 is
 chained mode, chain None, 0 or 1 plain mode, as in the JAX factory.
 """
 
@@ -311,13 +315,14 @@ def lowrank_operands(plan, mats, To, device):
 
 def lowrank_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
                           rescale_every=4, diag_offset=None):
-    """Plain PyTorch version of the lowrank wavefront, float32.
+    """Plain PyTorch version of the lowrank wavefront: float32 states,
+    float64 log scales and scores.
 
     in_toks (B, Li), out_toks (B, Lo), in_lens/out_lens (B,) integer
     tensors on the device of `ops`; the walk is plain_walk.walk_plain with
     the lowrank class term. `diag_offset` (B,), if given, is the absolute
     diagonal each pair starts on, which the rescale rule reads (the chained
-    schedule). Returns (B,) log-likelihoods."""
+    schedule). Returns (B,) float64 log-likelihoods."""
     Sa = ops.Sa
     by_name = {cs.name: (cs, M, E) for cs, (M, E) in zip(ops.classes,
                                                          ops.mats)}
@@ -333,7 +338,8 @@ def lowrank_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
 
     return walk_plain(ops.c0, term, [cs.name for cs in ops.classes],
                       in_toks, out_toks, in_lens, out_lens, ops.To,
-                      rescale_every, diag_offset=diag_offset)
+                      rescale_every, diag_offset=diag_offset,
+                      m_dtype=torch.float64)
 
 
 def lowrank_chained_forward_plain(ops, in_toks, out_toks, in_lens=None,
@@ -345,38 +351,75 @@ def lowrank_chained_forward_plain(ops, in_toks, out_toks, in_lens=None,
                         n_chain, rescale_every)
 
 
-def _walker_bytes(KZ, CC, Li, Lo):
+PAIR_MODES = ("shared", "tokens_global", "cells_global")
+
+
+def _walker_bytes(KZ, CC, Li, Lo, pair=0):
     # the operand chunk (KZ/8 k-tiles of CC/8 8x8 tiles and 8 floats of
     # padding), the chunk's tokens per class, the bad flag and the queue
-    # slot, the pair's tokens, the log scales and rescale divisors of three
-    # diagonal slots and one diagonal's maxima (csrc/lowrank_wavefront.cu)
-    n = KZ // 8 * (CC // 8 * 64 + 8) + 3 * CC + 4 + Li + Lo + 7 * (Li + 1)
+    # slot, the log scales (doubles) and rescale divisors of three diagonal
+    # slots and one diagonal's maxima (pair modes 0 and 1), the pair's
+    # tokens (pair mode 0) (csrc/lowrank_wavefront.cu)
+    n = KZ // 8 * (CC // 8 * 64 + 8) + 3 * CC + 4
+    if pair < 2:
+        n += 10 * (Li + 1)
+    if pair == 0:
+        n += Li + Lo
     return _round_up(n, 4) * 4
 
 
-def launch_plan(ops, Li, Lo, walkers=None):
+def launch_plan(ops, Li, Lo, walkers=None, pair=None):
     """How the kernel lays out a block for this plan and padded lengths:
     a dict with `walkers` (pair walkers per block, 1 or 2), `CC`
     (cells per operand chunk), `seg_mt` (16-row factor tiles per copy;
     n_mt when all are resident), `resident`, `et_floats` (the token scales
-    kept in shared memory, 0 when they are read from global memory) and
+    kept in shared memory, 0 when they are read from global memory),
+    `pair` (where a walker keeps its pair: "shared"; "tokens_global", the
+    Li + Lo tokens read from global memory; "cells_global", the cells' 10
+    (Li + 1) words of log scales, divisors and maxima in a global buffer
+    too) and
     `smem` (bytes).
 
     The factor tiles stay resident when they fit beside the operand chunk;
     otherwise they stream through a ring of two groups of seg_mt tiles, with
     one walker. `walkers` None takes two where each chunk holds at least 16
     cells (or the whole diagonal), else one. The token scales go to shared
-    memory where they fit too. A plan that fits no way raises ValueError."""
+    memory where they fit too. The pair modes are tried in that order, each
+    with every layout above before the next: a pair that fits in shared
+    memory keeps the layout it always had. `pair` forces a mode. A plan
+    that fits no way raises ValueError."""
     if walkers not in (None, 1, 2):
         raise ValueError("walkers must be 1 or 2")
+    if pair is not None and pair not in PAIR_MODES:
+        raise ValueError("pair must be one of %s, not %r"
+                         % (PAIR_MODES, pair))
     cells = _round_up(Li + 1, 8)
     a_res = ops.n_mt * ops.slab * 4
+    for pm in ((PAIR_MODES.index(pair),) if pair else range(3)):
+        cfg = _plan_in_mode(ops, Li, Lo, walkers, pm, cells, a_res)
+        if cfg is not None:
+            return dict(cfg, pair=PAIR_MODES[pm])
+    raise ValueError(
+        "lowrank kernel: %d factor floats per 16 states and %d operand rows "
+        "do not fit a block's %d bytes of shared memory%s%s at %d x %d "
+        "(the least walker takes %d bytes)"
+        % (ops.slab, ops.KZ, SMEM_MAX,
+           " with two walkers" if walkers == 2 else "",
+           " with the pair %s" % pair.replace("_", " ") if pair else "",
+           Li, Lo, _walker_bytes(ops.KZ, 8, Li, Lo,
+                                 PAIR_MODES.index(pair) if pair else 2)))
+
+
+def _plan_in_mode(ops, Li, Lo, walkers, pm, cells, a_res):
+    """launch_plan's search in pair mode `pm`; None if nothing fits."""
 
     def wbytes(cc):
-        return _walker_bytes(ops.KZ, cc, Li, Lo)
+        return _walker_bytes(ops.KZ, cc, Li, Lo, pm)
 
     def fit(room):
-        cc = cells
+        # wbytes grows by (KZ + 3) words a cell: start near the bound
+        cc = min(cells, _round_up(max(
+            (room // 4 - wbytes(0) // 4) // (ops.KZ + 3), 0), 8) + 8)
         while cc >= 8 and wbytes(cc) > room:
             cc -= 8
         return cc
@@ -399,11 +442,7 @@ def launch_plan(ops, Li, Lo, walkers=None):
                     return {"walkers": 1, "CC": cc, "seg_mt": seg,
                             "resident": False, "et_floats": et,
                             "smem": base + wbytes(cc)}
-    raise ValueError(
-        "lowrank kernel: %d factor floats per 16 states and %d operand rows "
-        "do not fit a block's %d bytes of shared memory%s"
-        % (ops.slab, ops.KZ, SMEM_MAX,
-           " with two walkers" if walkers == 2 else ""))
+    return None
 
 
 def _check(t, name, dtype, shape, device):
@@ -420,14 +459,15 @@ def _check(t, name, dtype, shape, device):
 
 
 def lowrank_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                      rescale_every=4, grid=None, walkers=None):
-    """Lowrank wavefront Forward: (B,) float32 log-likelihoods.
+                      rescale_every=4, grid=None, walkers=None, pair=None):
+    """Lowrank wavefront Forward: (B,) float64 log-likelihoods.
 
     A CUDA tensor launches csrc/lowrank_wavefront.cu (a persistent grid of
     `grid` blocks, default one per multiprocessor, each with `walkers` pair
     walkers (launch_plan) that take the pairs longest first from an atomic
-    counter) and counts one launch in `lowrank_wavefront.launches`; a CPU
-    tensor takes lowrank_forward_plain. Token and length tensors are int32
+    counter; `pair` forces launch_plan's pair mode) and counts one launch
+    in `lowrank_wavefront.launches`; a CPU tensor takes
+    lowrank_forward_plain. Token and length tensors are int32
     and contiguous, on the device of `ops`. A pair whose length exceeds the
     padded shape or whose token lies outside its alphabet comes back NaN."""
     if in_toks.device.type == "cpu":
@@ -438,7 +478,7 @@ def lowrank_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     order = torch.argsort((in_lens + out_lens).long(), descending=True,
                           stable=True).to(torch.int32)
     out = _launch(ops, [in_toks, out_toks, in_lens, out_lens], order, B, Li,
-                  Lo, rescale_every, 0, grid, walkers)
+                  Lo, rescale_every, 0, grid, walkers, pair)
     lowrank_wavefront.launches += 1
     return out
 
@@ -448,8 +488,8 @@ lowrank_wavefront.launches = 0
 
 def lowrank_chained_wavefront(ops, in_toks, out_toks, in_lens=None,
                               out_lens=None, n_chain=4, rescale_every=4,
-                              grid=None, walkers=None):
-    """Lowrank chained mode over a uniform-length batch: (B,) float32
+                              grid=None, walkers=None, pair=None):
+    """Lowrank chained mode over a uniform-length batch: (B,) float64
     log-likelihoods, every pair read out at (Li, Lo) (the lengths are
     ignored; B must be a multiple of n_chain, Li and Lo at least 1).
 
@@ -469,7 +509,7 @@ def lowrank_chained_wavefront(ops, in_toks, out_toks, in_lens=None,
     check_chain(B, Li, Lo, n_chain)
     order = torch.arange(B, dtype=torch.int32, device=in_toks.device)
     out = _launch(ops, [in_toks, out_toks, in_toks, out_toks], order, B, Li,
-                  Lo, rescale_every, n_chain, grid, walkers)
+                  Lo, rescale_every, n_chain, grid, walkers, pair)
     lowrank_chained_wavefront.launches += 1
     return out
 
@@ -501,41 +541,65 @@ def _check_batch(kernel, ops, in_toks, out_toks, in_lens, out_lens,
     return B, Li, Lo
 
 
-def launch_config(ops, B, Li, Lo, grid=None, walkers=None):
+def global_bytes(ops, cfg, B, Li):
+    """Device bytes a launch of layout `cfg` (with its grid) allocates:
+    each walker's three diagonals of states (and its cells in the
+    cells_global mode), and the scores."""
+    n_walk = cfg["grid"] * cfg["walkers"]
+    cells = 10 * (Li + 1) if cfg["pair"] == "cells_global" else 0
+    return 4 * n_walk * (3 * (Li + 1) * ops.SaP + cells) + 8 * B
+
+
+def launch_config(ops, B, Li, Lo, grid=None, walkers=None, pair=None,
+                  mem_bytes=None):
     """launch_plan's layout plus the grid a launch takes: `grid` blocks
-    (default one per multiprocessor, no more than the batch needs)."""
-    plan = launch_plan(ops, Li, Lo, walkers)
+    (default one per multiprocessor, no more than the batch needs), and
+    `bytes`, global_bytes. A layout whose bytes exceed `mem_bytes` (the
+    card's memory; default: the card's own, on the card) raises
+    ValueError."""
+    plan = launch_plan(ops, Li, Lo, walkers, pair)
+    if grid is None or mem_bytes is None:
+        props = torch.cuda.get_device_properties(ops.c0.device)
     if grid is None:
-        sms = torch.cuda.get_device_properties(
-            ops.c0.device).multi_processor_count
-        grid = max(1, min(sms, -(-B // plan["walkers"])))
+        grid = max(1, min(props.multi_processor_count,
+                          -(-B // plan["walkers"])))
     if int(grid) < 1:
         raise ValueError("grid must be >= 1")
     plan["grid"] = int(grid)
+    plan["bytes"] = global_bytes(ops, plan, B, Li)
+    mem = props.total_memory if mem_bytes is None else mem_bytes
+    if plan["bytes"] > mem:
+        raise ValueError(
+            "lowrank kernel: %d x %d takes %d bytes of device memory for %d "
+            "walkers, over the card's %d" % (Li, Lo, plan["bytes"],
+                                             grid * plan["walkers"], mem))
     return plan
 
 
 def _launch(ops, inputs, order, B, Li, Lo, rescale_every, n_chain, grid,
-            walkers):
+            walkers, pair=None):
     """Launch the lowrank kernel: `inputs` (tokens and lengths; in chained
     mode any int32 tensors, the lengths are not read), the operands, the
-    diagonal states of grid x walkers walkers, the queue; raise if the
-    launch was refused."""
+    diagonal states of grid x walkers walkers (and their cells' scales in
+    the cells_global mode), the queue; raise if the launch was refused."""
     dev = ops.c0.device
-    cfg = launch_config(ops, B, Li, Lo, grid, walkers)
+    cfg = launch_config(ops, B, Li, Lo, grid, walkers, pair)
     n_walk = cfg["grid"] * cfg["walkers"]
     f32 = torch.float32
     pbuf = torch.empty(max(n_walk * 3 * (Li + 1) * ops.SaP, 1), dtype=f32,
                        device=dev)
-    out = torch.empty(B, dtype=f32, device=dev)
+    pm = PAIR_MODES.index(cfg["pair"])
+    cbuf = torch.empty(n_walk * 10 * (Li + 1) if pm == 2 else 1, dtype=f32,
+                       device=dev)
+    out = torch.empty(B, dtype=torch.float64, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     _call("lowrank_wavefront", "lowrank_wavefront",
           inputs + [ops.c0_pad, ops.a, ops.et, pbuf, out,
-                    order.contiguous(), counter],
+                    order.contiguous(), counter, cbuf],
           [B, Li, Lo, ops.Sa, ops.SaP, ops.To, rescale_every,
            len(ops.classes)], ops.desc,
           [ops.n_mt, ops.slab, ops.KZ, cfg["CC"], cfg["seg_mt"],
-           cfg["walkers"], cfg["et_floats"], cfg["grid"], n_chain], dev)
+           cfg["walkers"], cfg["et_floats"], cfg["grid"], n_chain, pm], dev)
     return out
 
 
@@ -544,10 +608,11 @@ def smem_bytes_on_card(ops, cfg, Li, Lo):
     launch_plan for padded lengths Li, Lo), from the built library: must
     equal cfg["smem"]."""
     fn = load("lowrank_wavefront").lowrank_wavefront_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 9
+    fn.argtypes = [ctypes.c_int] * 10
     fn.restype = ctypes.c_long
     return fn(ops.n_mt, ops.slab, cfg["seg_mt"], ops.KZ, cfg["CC"],
-              cfg["walkers"], cfg["et_floats"], Li, Lo)
+              cfg["walkers"], cfg["et_floats"], Li, Lo,
+              PAIR_MODES.index(cfg["pair"]))
 
 
 def _call(lib, entry, ptrs, ints, desc, tail, dev):
@@ -573,7 +638,7 @@ def make_lowrank_forward(a_diag, a_left, a_up, closure, B, Li, Lo,
     """Build the low-rank wavefront Forward for fixed tensors/shapes.
 
     Log-space numpy tensors as lowering.matrices_2d returns them. Returns
-    fn(in_toks (B,Li), out_toks (B,Lo), in_lens, out_lens) -> (B,) float32
+    fn(in_toks (B,Li), out_toks (B,Lo), in_lens, out_lens) -> (B,) float64
     log-likelihoods on `device` (None: the card). chain=N with N > 1 walks
     the pairs on the chained schedule (B a multiple of N, Li and Lo at
     least 1, the lengths ignored); chain None, 0 or 1 is plain mode, as in

@@ -25,7 +25,10 @@ cells indexed by i); each plain version passes its class term:
   the rule reads the absolute step, and a pair whose start step is past 0
   has its start cell rescaled too when that step fires;
 - the readout at (il, ol) is m + log(p[Sa-1]), or m + log(w . p) with
-  `readout_w`.
+  `readout_w`;
+- m is float32, or `m_dtype` (the lowrank version's float64 scales): the
+  weights exp(m_c - mu) are float32 either way, and the scores come back
+  in m's type.
 
 `walk_chained` makes a chained schedule's plain version out of a plain
 version that takes `diag_offset`.
@@ -38,8 +41,8 @@ NEG_INF = -1e30
 
 def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
                rescale_every=4, readout_w=None, mu_all=False, closure_t=None,
-               diag_offset=None, closure_mm=None):
-    """(B,) float32 log-likelihoods. c0 (Sa,) is the start cell (0, 0) with
+               diag_offset=None, closure_mm=None, m_dtype=torch.float32):
+    """(B,) log-likelihoods in m_dtype. c0 (Sa,) is the start cell (0, 0) with
     m = 0; kinds the present classes in order; token and length tensors are
     integer tensors on c0's device. `closure_mm(x, y)`, if given, takes the
     place of x @ y in the closure product. The loop stops at the batch's
@@ -50,7 +53,7 @@ def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
     W = Li + 1
     dev = c0.device
     f32 = torch.float32
-    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=m_dtype, device=dev)
     i_idx = torch.arange(W, device=dev)
     b_idx = torch.arange(B, device=dev)
     il = in_lens.long()
@@ -75,7 +78,7 @@ def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
 
     p1 = torch.zeros((B, W, Sa), dtype=f32, device=dev)
     p1[:, 0] = c0
-    m1 = torch.full((B, W), NEG_INF, dtype=f32, device=dev)
+    m1 = torch.full((B, W), NEG_INF, dtype=m_dtype, device=dev)
     m1[:, 0] = 0.0
     off = None
     if diag_offset is not None:
@@ -97,7 +100,7 @@ def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
 
     res = torch.where(dfin == 0, readout(p1, m1), neg)
     zp = torch.zeros((B, 1, Sa), dtype=f32, device=dev)
-    zm = torch.full((B, 1), NEG_INF, dtype=f32, device=dev)
+    zm = torch.full((B, 1), NEG_INF, dtype=m_dtype, device=dev)
     n_diag = int(dfin.max()) if B else 0
     for d in range(1, n_diag + 1):
         o_idx = d - i_idx
@@ -114,7 +117,7 @@ def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
               "diag": (torch.cat([zp, p2[:, :-1]], 1),
                        torch.cat([zm, m2[:, :-1]], 1),
                        x_tok * To + y_tok, has_x & has_y)}
-        mu = torch.full((B, W), NEG_INF, dtype=f32, device=dev)
+        mu = torch.full((B, W), NEG_INF, dtype=m_dtype, device=dev)
         for name in (("up", "left", "diag") if mu_all else kinds):
             _, m_op, _, has = nb[name]
             mu = torch.maximum(mu, torch.where(has, m_op, neg))
@@ -124,6 +127,7 @@ def walk_plain(c0, term, kinds, in_toks, out_toks, in_lens, out_lens, To,
             p_op, m_op, tok, has = nb[name]
             w = torch.where(has & (m_op > NEG_INF / 2),
                             torch.exp(m_op - mu_safe), torch.zeros_like(m_op))
+            w = w.to(f32)
             cur = cur + term(name, p_op * w[:, :, None], tok)
         if closure_t is not None:
             cur = closure_mm(cur, closure_t.t()) if closure_mm is not None \

@@ -404,21 +404,41 @@ def _n_toks(ops):
                  for t in (ops.up, ops.left, ops.diag))
 
 
-def fill_smem_bytes(Li, Lo, S, n_slots, n_toks):
+def fill_smem_bytes(Li, Lo, S, n_slots, n_toks, gbuck=False):
     """Shared bytes of a block of the batched fill (the layout of
     csrc/viterbi_wavefront.cu): n_slots (W, S) diagonals, the pair's
-    tokens, and per class the diagonal's cells bucketed by token."""
+    tokens, and per class the diagonal's cells bucketed by token; with
+    `gbuck` the tokens, the sorted cells and the pieces are in the block's
+    global buffer (fill_gbuck_bytes) and shared memory keeps the per-token
+    counts."""
     W = Li + 1
-    n = _round_up(n_slots * W * S, 4) + _round_up(Li, 4) \
-        + _round_up(Lo, 4) + 4
+    n = _round_up(n_slots * W * S, 4) + 4
+    if not gbuck:
+        n += _round_up(Li, 4) + _round_up(Lo, 4)
     for nt in n_toks:
-        n += _round_up(W, 4) + _round_up(nt + 1, 4) + _round_up(nt, 4) \
-            + 4 * (W + nt)
+        n += _round_up(nt + 1, 4) + _round_up(nt, 4)
+        if not gbuck:
+            n += _round_up(W, 4) + 4 * (W + nt)
     return 4 * n
 
 
+def fill_gbuck_bytes(Li, Lo, n_toks):
+    """Global bytes a block of the batched fill takes with its buckets in
+    global memory: the pair's tokens, and per class the sorted cells and
+    the pieces."""
+    W = Li + 1
+    n = _round_up(Li, 4) + _round_up(Lo, 4)
+    for nt in n_toks:
+        n += _round_up(W, 4) + 4 * (W + nt)
+    return 4 * n
+
+
+BUCKETS = ("shared", "global")
+
+
 def fill_launch_plan(ops, B, Li, Lo, sms, grid=None, cluster=None,
-                     slots=None, piece=None, chunks=None):
+                     slots=None, piece=None, chunks=None, buckets=None,
+                     mem_bytes=None):
     """How the batched fill walks a batch: a dict with `grid` (pair
     walkers, default one per pair), `cluster` (blocks a pair: 2 when the
     batch has fewer pairs than the card's `sms` multiprocessors and the
@@ -428,16 +448,28 @@ def fill_launch_plan(ops, B, Li, Lo, sms, grid=None, cluster=None,
     cells of one token that share a load of its block, 1 to 8, default 8),
     `chunks` (the source states an item takes, in 1 to 8 chunks; 0, the
     default: the kernel takes, per diagonal, as many as make two items a
-    thread, at most 3) and `smem` (bytes). `cluster` (1 or 2), `slots` (True: keep
-    them, False: read back), `piece` and `chunks` force a choice; a plan
-    that does not fit raises ValueError."""
+    thread, at most 3), `buckets` ("shared": the pair's tokens and the
+    diagonal's token buckets in shared memory; "global": in a global
+    buffer of each block's own, where they do not fit shared memory) and
+    `smem` (bytes), and `bytes` (device bytes: the lattice it writes and
+    the global buckets). `cluster` (1 or 2), `slots` (True: keep
+    them, False: read back), `piece`, `chunks` and `buckets` force a
+    choice; a plan that does not fit raises ValueError, as does one whose
+    bytes exceed `mem_bytes` (the card's memory; None: not checked)."""
     n_toks = _n_toks(ops)
     if cluster not in (None, 1, 2):
         raise ValueError("cluster must be 1 or 2")
+    if buckets not in (None,) + BUCKETS:
+        raise ValueError("buckets must be one of %s, not %r"
+                         % (BUCKETS, buckets))
     if cluster is None:
         cluster = 2 if B < sms and ops.SP // _TD >= 2 else 1
     want = 3 if ops.diag is not None else 2
-    fits = fill_smem_bytes(Li, Lo, ops.S, want, n_toks) <= SMEM_MAX
+    if buckets is None:
+        buckets = "shared" if fill_smem_bytes(
+            Li, Lo, ops.S, 0, n_toks) <= SMEM_MAX else "global"
+    gbuck = buckets == "global"
+    fits = fill_smem_bytes(Li, Lo, ops.S, want, n_toks, gbuck) <= SMEM_MAX
     if slots is None:
         slots = fits
     elif slots and not fits:
@@ -445,11 +477,11 @@ def fill_launch_plan(ops, B, Li, Lo, sms, grid=None, cluster=None,
                          "do not fit a block's %d bytes of shared memory"
                          % (want, Li + 1, ops.S, SMEM_MAX))
     n_slots = want if slots else 0
-    smem = fill_smem_bytes(Li, Lo, ops.S, n_slots, n_toks)
+    smem = fill_smem_bytes(Li, Lo, ops.S, n_slots, n_toks, gbuck)
     if smem > SMEM_MAX:
-        raise ValueError("viterbi fill: the token buckets of %d cells do not "
-                         "fit a block's %d bytes of shared memory"
-                         % (Li + 1, SMEM_MAX))
+        raise ValueError("viterbi fill: the token buckets of %d cells (%d "
+                         "bytes) do not fit a block's %d bytes of shared "
+                         "memory" % (Li + 1, smem, SMEM_MAX))
     grid = max(B, 1) if grid is None else int(grid)
     if grid < 1:
         raise ValueError("grid must be >= 1")
@@ -459,22 +491,39 @@ def fill_launch_plan(ops, B, Li, Lo, sms, grid=None, cluster=None,
     chunks = 0 if chunks is None else int(chunks)
     if not 0 <= chunks <= 8:
         raise ValueError("chunks must be 0 to 8")
+    nbytes = 4 * (Li + Lo + 1) * B * (Li + 1) * ops.S \
+        + (grid * cluster * fill_gbuck_bytes(Li, Lo, n_toks) if gbuck else 0)
+    if mem_bytes is not None and nbytes > mem_bytes:
+        raise ValueError("viterbi fill: %d pairs of %d x %d take %d bytes of "
+                         "device memory (the lattice and the buckets), over "
+                         "the card's %d" % (B, Li, Lo, nbytes, mem_bytes))
     return {"grid": grid, "cluster": cluster, "n_slots": n_slots,
-            "piece": piece, "chunks": chunks, "smem": smem}
+            "piece": piece, "chunks": chunks, "buckets": buckets,
+            "smem": smem, "bytes": nbytes}
 
 
 def fill_smem_bytes_on_card(ops, cfg, Li, Lo):
     """The shared bytes the kernel's own layout takes for `cfg` (a
     fill_launch_plan), from the built library: must equal cfg["smem"]."""
     fn = load("viterbi_wavefront").viterbi_wavefront_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 7
+    fn.argtypes = [ctypes.c_int] * 8
     fn.restype = ctypes.c_long
-    return fn(Li, Lo, ops.S, cfg["n_slots"], *_n_toks(ops))
+    return fn(Li, Lo, ops.S, cfg["n_slots"], *_n_toks(ops),
+              int(cfg["buckets"] == "global"))
+
+
+def fill_gbuck_bytes_on_card(ops, Li, Lo):
+    """The global bytes a block takes with its buckets in global memory,
+    from the built library: must equal fill_gbuck_bytes."""
+    fn = load("viterbi_wavefront").viterbi_wavefront_gbuck_floats
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_long
+    return 4 * fn(Li, Lo, *_n_toks(ops))
 
 
 def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
                       grid=None, cluster=None, slots=None, piece=None,
-                      chunks=None):
+                      chunks=None, buckets=None):
     """Max-plus wavefront fill: (Li + Lo + 1, B, Li + 1, S) float32 slabs.
 
     A CUDA tensor launches csrc/viterbi_wavefront.cu and counts one launch
@@ -486,8 +535,10 @@ def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
     that share the destination states, and keeps the previous diagonals in
     shared memory or reads them back (`slots`), and loads a token's block
     once for up to `piece` cells of that token, over the source states in
-    `chunks`; fill_launch_plan chooses all four by default. The cells beyond a pair's (in_len, out_len) hold
-    NEG_INF, which no reader of a pair's lattice touches."""
+    `chunks`, with its token buckets in shared or global memory
+    (`buckets`); fill_launch_plan chooses all five by default. The cells
+    beyond a pair's (in_len, out_len) hold NEG_INF, which no reader of a
+    pair's lattice touches."""
     if in_toks.device.type == "cpu":
         return viterbi_forward_plain(ops, in_toks, out_toks, in_lens,
                                      out_lens)
@@ -505,22 +556,26 @@ def viterbi_wavefront(ops, in_toks, out_toks, in_lens=None, out_lens=None,
         out_lens = torch.full((B,), Lo, dtype=torch.int32, device=dev)
     _check(in_lens, "in_lens", torch.int32, (B,), dev)
     _check(out_lens, "out_lens", torch.int32, (B,), dev)
-    cfg = fill_launch_plan(
-        ops, B, Li, Lo,
-        torch.cuda.get_device_properties(dev).multi_processor_count, grid,
-        cluster, slots, piece, chunks)
+    props = torch.cuda.get_device_properties(dev)
+    cfg = fill_launch_plan(ops, B, Li, Lo, props.multi_processor_count,
+                           grid, cluster, slots, piece, chunks, buckets,
+                           props.total_memory)
     n_diags = Li + Lo + 1
     out = torch.empty((n_diags, B, Li + 1, ops.S), dtype=torch.float32,
                       device=dev)
+    gbuck = cfg["buckets"] == "global"
+    gbuf = torch.empty(
+        cfg["grid"] * cfg["cluster"] * fill_gbuck_bytes(Li, Lo, _n_toks(ops))
+        // 4 if gbuck else 1, dtype=torch.float32, device=dev)
     fn = load("viterbi_wavefront").viterbi_wavefront_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 9 + [I] * 14 + [P]
+    fn.argtypes = [P] * 10 + [I] * 15 + [P]
     fn.restype = I
     rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), in_lens.data_ptr(),
             out_lens.data_ptr(), ops.c0.data_ptr(), *_class_ptrs(ops),
-            out.data_ptr(), B, Li, Lo, ops.S, ops.SP, ops.To, *_n_toks(ops),
-            cfg["n_slots"], cfg["cluster"], cfg["piece"], cfg["chunks"],
-            cfg["grid"],
+            out.data_ptr(), gbuf.data_ptr(), B, Li, Lo, ops.S, ops.SP,
+            ops.To, *_n_toks(ops), cfg["n_slots"], cfg["cluster"],
+            cfg["piece"], cfg["chunks"], cfg["grid"], int(gbuck),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("viterbi_wavefront launch failed: CUDA error %d"
@@ -591,31 +646,33 @@ def unpack_banded(packed, ops, csize):
     return tuple(out)
 
 
-def banded_smem_bytes(ops, Wb, csize, resident, slots):
+def banded_smem_bytes(ops, Wb, csize, resident, slots, staged=True):
     """Shared bytes of a block of the banded fill (the layout of
     csrc/viterbi_banded_wavefront.cu): the rank's resident columns of
     every class block, five (Wb, SP) diagonal slots and their mbarriers,
-    two staged chunks of CH diagonals (bounds and the tokens they reach)
-    and their bases."""
+    two staged chunks of CH diagonals (bounds and, when `staged`, the
+    tokens they reach) and their bases."""
     n = 12                             # the slots' five mbarriers
     if resident:
         n += sum(_n_toks(ops)) * ops.S * _TD * _row_groups(ops.SP, csize)
     if slots:
         n += 5 * Wb * ops.SP
-    stage = _round_up(3 * _BAND_CH + (2 * _BAND_CH + Wb + 1)
-                      + (3 * _BAND_CH + Wb), 4)
+    toks = (2 * _BAND_CH + Wb + 1) + (3 * _BAND_CH + Wb) if staged else 0
+    stage = _round_up(3 * _BAND_CH + toks, 4)
     return 4 * (n + 2 * stage + 4)
 
 
 def banded_launch_plan(ops, geom, sms, cluster=None, resident=None,
-                       split=None, max_clusters=None):
+                       split=None, max_clusters=None, staged=None):
     """How the banded fill walks its pair: a dict with `cluster` (the
     cluster's blocks, which split the destination states), `resident`
     (each block's columns of the class blocks in its shared memory, or
     read through L2), `slots` (the previous diagonals in shared memory, or
     read back from the lattice when five windows do not fit), `split`
-    (the lanes an item takes over the source states), `smem` (bytes) and
-    `groups_per_rank`.
+    (the lanes an item takes over the source states), `staged` (the band's
+    tokens staged in shared memory with its bounds; False past the band
+    whose tokens fit, about 14,000 cells, where they are read from global
+    memory, with read-back), `smem` (bytes) and `groups_per_rank`.
 
     Defaults: split 8 from 32 states (4 from 8, else 1); the previous
     diagonals in slots where they fit; the smallest portable cluster (1,
@@ -624,8 +681,8 @@ def banded_launch_plan(ops, geom, sms, cluster=None, resident=None,
     fit one pass of the block's 512 threads and whose columns fit beside
     the slots, resident; if none fits resident, the smallest whose items
     fit, streamed. `cluster` (1 to 16,
-    at most SP / 4), `resident` and `split` (1, 2, 4, 8) force a choice;
-    a forced choice that does not fit raises ValueError.
+    at most SP / 4), `resident`, `split` (1, 2, 4, 8) and `staged` force a
+    choice; a forced choice that does not fit raises ValueError.
     `max_clusters(cfg)`, if given, is the card's occupancy calculator
     (banded_max_clusters_on_card): a layout it gives no cluster is passed
     over, or raises when forced. `sms` bounds the cluster size."""
@@ -639,12 +696,19 @@ def banded_launch_plan(ops, geom, sms, cluster=None, resident=None,
         raise ValueError("cluster must be one of %s, at most SP / 4 = %d "
                          "and at most %d" % (_CLUSTERS, n_dg, sms))
     Wb = geom.Wb
-    slots = banded_smem_bytes(ops, Wb, 1, False, True) <= SMEM_MAX
+    fits = banded_smem_bytes(ops, Wb, 1, False, False) <= SMEM_MAX
+    if staged and not fits:
+        raise ValueError("banded fill: the tokens of a band of %d cells do "
+                         "not fit a block's %d bytes of shared memory"
+                         % (Wb, SMEM_MAX))
+    staged = fits if staged is None else bool(staged)
+    slots = staged and banded_smem_bytes(ops, Wb, 1, False, True) <= SMEM_MAX
 
     def layout(c, res):
         cfg = {"cluster": c, "resident": res, "slots": slots,
-               "split": split, "groups_per_rank": _groups_per_rank(ops.SP, c),
-               "smem": banded_smem_bytes(ops, Wb, c, res, slots)}
+               "split": split, "staged": staged,
+               "groups_per_rank": _groups_per_rank(ops.SP, c),
+               "smem": banded_smem_bytes(ops, Wb, c, res, slots, staged)}
         ok = cfg["smem"] <= SMEM_MAX and (max_clusters is None
                                           or max_clusters(cfg) >= 1)
         return cfg, ok
@@ -681,10 +745,10 @@ def banded_smem_bytes_on_card(ops, geom, cfg):
     """The shared bytes the kernel's own layout takes for `cfg` (a
     banded_launch_plan), from the built library: must equal cfg["smem"]."""
     fn = load("viterbi_banded_wavefront").viterbi_banded_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 9
+    fn.argtypes = [ctypes.c_int] * 10
     fn.restype = ctypes.c_long
     return fn(ops.S, ops.SP, geom.Wb, *_n_toks(ops), cfg["cluster"],
-              int(cfg["resident"]), int(cfg["slots"]))
+              int(cfg["resident"]), int(cfg["slots"]), int(cfg["staged"]))
 
 
 def banded_max_clusters_on_card(ops, geom, cfg):
@@ -692,23 +756,24 @@ def banded_max_clusters_on_card(ops, geom, cfg):
     the banded fill in layout `cfg`: how many such clusters fit the card at
     once; 0 means the layout cannot launch. Raises on a CUDA error."""
     fn = load("viterbi_banded_wavefront").viterbi_banded_max_clusters
-    fn.argtypes = [ctypes.c_int] * 10
+    fn.argtypes = [ctypes.c_int] * 11
     fn.restype = ctypes.c_int
     n = fn(ops.S, ops.SP, geom.Wb, *_n_toks(ops), cfg["cluster"],
-           int(cfg["resident"]), int(cfg["slots"]), cfg["split"])
+           int(cfg["resident"]), int(cfg["slots"]), cfg["split"],
+           int(cfg["staged"]))
     if n < 0:
         raise RuntimeError("viterbi_banded_max_clusters failed for %r" % cfg)
     return n
 
 
 def viterbi_banded_wavefront(ops, geom, in_toks, out_toks, cluster=None,
-                             resident=None, split=None):
+                             resident=None, split=None, staged=None):
     """Banded max-plus fill of ONE pair: (Li + Lo + 1, Wb, S) float32
     windows, left on the device for the lattice walk.
 
     A CUDA tensor launches csrc/viterbi_banded_wavefront.cu (one cluster of
     blocks walks every diagonal, in the layout of banded_launch_plan, which
-    `cluster`, `resident` and `split` force; the card's occupancy
+    `cluster`, `resident`, `split` and `staged` force; the card's occupancy
     calculator vets the layout before the launch) and counts one launch in
     `viterbi_banded_wavefront.launches`; a refused launch raises
     RuntimeError. A CPU tensor takes viterbi_banded_forward_plain (the
@@ -728,19 +793,21 @@ def viterbi_banded_wavefront(ops, geom, in_toks, out_toks, cluster=None,
     cfg = banded_launch_plan(
         ops, geom, torch.cuda.get_device_properties(dev).multi_processor_count,
         cluster, resident, split,
-        max_clusters=lambda c: banded_max_clusters_on_card(ops, geom, c))
+        max_clusters=lambda c: banded_max_clusters_on_card(ops, geom, c),
+        staged=staged)
     packed = pack_banded(ops, cfg["cluster"]) if cfg["resident"] else None
     out = torch.empty((n_diags, Wb, ops.S), dtype=torch.float32, device=dev)
     fn = load("viterbi_banded_wavefront").viterbi_banded_wavefront_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 9 + [I] * 14 + [P]
+    fn.argtypes = [P] * 9 + [I] * 15 + [P]
     fn.restype = I
     rc = fn(in_toks.data_ptr(), out_toks.data_ptr(), geom.meta.data_ptr(),
             ops.c0.data_ptr(), *_class_ptrs(ops),
             0 if packed is None else packed.data_ptr(), out.data_ptr(), Li,
             Lo, Wb, ops.S, ops.SP, ops.Ti, ops.To, *_n_toks(ops),
             cfg["cluster"], int(cfg["resident"]), int(cfg["slots"]),
-            cfg["split"], torch.cuda.current_stream(dev).cuda_stream)
+            cfg["split"], int(cfg["staged"]),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("viterbi_banded_wavefront launch failed: CUDA "
                            "error %d" % rc)

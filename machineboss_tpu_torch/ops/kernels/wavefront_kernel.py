@@ -579,6 +579,9 @@ class FactoredOperands:
 FDESC_LEN = 4
 _FAC_MAX_NR = 128
 _FAC_MIN_SEG_TWO = 2
+# the chunked factored layout: the least group of units it takes a smaller
+# chunk for (each chunk streams every unit once)
+_FAC_MIN_SEG_CHUNK = 4
 SMEM_MAX = 232448
 
 
@@ -705,85 +708,145 @@ def _bank_stride(n):
     return s
 
 
-def factored_smem_bytes(Sa, NR, Li, Lo, ns, nbp, seg, e_floats):
+def factored_smem_bytes(Sa, NR, Li, Lo, ns, nbp, seg, e_floats, CC=0):
     """The shared bytes of the factored kernel's block (the layout of
     csrc/factored_wavefront.cu): the tables (all units, or a ring of two
     groups of `seg`), E (e_floats, 0 when read from global memory), nbp
     state operands and pre, and per walker its cells' weights, tokens, log
-    scales and maxima, its pair's tokens and its state."""
+    scales and maxima, its pair's tokens and its state. CC > 0 is the
+    chunked layout (one walker): operands, pre, weights, tokens and maxima
+    of CC cells, and no log scales or pair tokens (in global memory,
+    factored_chunk_gbytes)."""
     KT, n_mt = -(-Sa // 8), -(-Sa // 16)
     U = KT * 128
     NU = n_mt * (NR + 1)
     W = Li + 1
-    CQ = _round_up(W, 8)
+    CQ = CC if CC else _round_up(W, 8)
     KP = KT * 8
     PS, QS = _bank_stride(ns * (CQ + 4)), _bank_stride(ns * CQ)
     n = (NU * U if seg >= NU else 2 * seg * U) + _round_up(e_floats, 4) \
         + nbp * KP * PS + KP * QS + 2 * _round_up(3 * ns * CQ, 4) \
-        + _round_up(3 * ns * W, 4) + _round_up(ns * W, 4) \
-        + _round_up(ns * Li, 4) + _round_up(ns * Lo, 4) + 16 * ns \
-        + _round_up(ns * CQ // 8, 4)
+        + 16 * ns + _round_up(ns * CQ // 8, 4)
+    if CC:
+        n += _round_up(ns * CQ, 4)
+    else:
+        n += _round_up(3 * ns * W, 4) + _round_up(ns * W, 4) \
+            + _round_up(ns * Li, 4) + _round_up(ns * Lo, 4)
     return 4 * n
 
 
-def factored_launch_plan(ops, Li, Lo, walkers=None):
+def factored_chunk_gbytes(Sa, Li):
+    """The global bytes a block of the chunked factored layout takes: its
+    cells' log scales of three diagonals and three diagonals of states (KP
+    rows of round_up(Li + 1, 4) cells)."""
+    W, KP = Li + 1, -(-Sa // 8) * 8
+    return 4 * (_round_up(3 * W, 4) + 3 * KP * _round_up(W, 4))
+
+
+def factored_launch_plan(ops, Li, Lo, walkers=None, chunk=None):
     """How the factored kernel lays out a block for this plan and padded
     lengths: a dict with `walkers` (pairs a block walks in lockstep, 1 or
     2), `seg` (units per streamed group; all units when `resident`),
     `resident`, `e_floats` (E in shared memory, 0 when read from global
-    memory) and `smem` (bytes).
+    memory), `CC` (0: a whole diagonal in shared memory; else the chunked
+    layout's cells a chunk) and `smem` (bytes).
 
     The tables stay resident when they fit, else they stream in the
     largest groups that fit. `walkers` None takes two where the tables are
     resident or stream in groups of at least 2 units (each streamed byte
     then serves both walkers' cells), else one. E goes to shared memory
-    unless that costs the tables residency or group size. A plan that fits
-    no way raises ValueError."""
+    unless that costs the tables residency or group size. Where a whole
+    diagonal fits no way, the chunked layout (one walker): the largest
+    chunk of cells beside which the tables stream in groups of at least
+    _FAC_MIN_SEG_CHUNK units (or all of them), else the largest chunk that
+    fits. `chunk` forces the layout: 0 a whole diagonal, a multiple of 8
+    the chunked layout with that many cells a chunk. A plan that fits no
+    way raises ValueError."""
     if walkers not in (None, 1, 2):
         raise ValueError("walkers must be 1 or 2")
+    if chunk is not None and (chunk < 0 or chunk % 8):
+        raise ValueError("chunk must be 0 or a positive multiple of 8, not "
+                         "%r" % (chunk,))
     if ops.NR > _FAC_MAX_NR:
         raise ValueError("factored kernel: %d ranks, at most %d"
                          % (ops.NR, _FAC_MAX_NR))
     NU = ops.n_mt * (ops.NR + 1)
 
-    def best(ns):
+    def best(ns, cc=0):
         """The largest group of units that fits, E shared if it can be."""
         out = None
         for e in (ops.e_floats, 0):
             def size(seg):
                 return factored_smem_bytes(ops.Sa, ops.NR, Li, Lo, ns,
-                                           ops.nbp, seg, e)
+                                           ops.nbp, seg, e, cc)
             seg = next((c for c in range(NU, 0, -1)
                         if size(c) <= SMEM_MAX), 0)
             if seg and (out is None or seg > out["seg"]):
                 out = {"walkers": ns, "seg": seg, "resident": seg >= NU,
-                       "e_floats": e, "smem": size(seg)}
+                       "e_floats": e, "CC": cc, "smem": size(seg)}
         return out
 
-    for ns in ((walkers,) if walkers else (2, 1)):
-        cfg = best(ns)
-        if cfg is not None and (walkers or ns == 1 or cfg["resident"]
-                                or cfg["seg"] >= _FAC_MIN_SEG_TWO):
-            return cfg
+    if not chunk:
+        for ns in ((walkers,) if walkers else (2, 1)):
+            cfg = best(ns)
+            if cfg is not None and (walkers or ns == 1 or cfg["resident"]
+                                    or cfg["seg"] >= _FAC_MIN_SEG_TWO):
+                return cfg
+    if chunk != 0 and walkers != 2:
+        least = min(NU, _FAC_MIN_SEG_CHUNK)
+        fits = None
+        # the largest chunk that fits at all (one unit a group, E global)
+        lo, hi = 0, _round_up(Li + 1, 8) // 8
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if factored_smem_bytes(ops.Sa, ops.NR, Li, Lo, 1, ops.nbp, 1, 0,
+                                   8 * mid) <= SMEM_MAX:
+                lo = mid
+            else:
+                hi = mid - 1
+        for cc in ((chunk,) if chunk else range(8 * lo, 7, -8)):
+            cfg = best(1, cc)
+            if cfg is None:
+                continue
+            fits = fits or cfg
+            if cfg["seg"] >= least:
+                return cfg
+        if fits is not None:
+            return fits
     raise ValueError(
         "factored kernel: %d states, %d ranks and %d cells a diagonal do not "
-        "fit a block's %d bytes of shared memory%s"
+        "fit a block's %d bytes of shared memory%s (a whole diagonal of one "
+        "walker takes %d bytes with E in global memory and 1 unit a group)"
         % (ops.Sa, ops.NR, Li + 1, SMEM_MAX,
-           " with two walkers" if walkers == 2 else ""))
+           " with two walkers" if walkers == 2 else
+           " in chunks of %d cells" % chunk if chunk else
+           " in a whole diagonal" if chunk == 0 else "",
+           factored_smem_bytes(ops.Sa, ops.NR, Li, Lo, 1, ops.nbp, 1, 0)))
 
 
-def factored_launch_config(ops, B, Li, Lo, grid=None, walkers=None):
+def factored_launch_config(ops, B, Li, Lo, grid=None, walkers=None,
+                           chunk=None, mem_bytes=None):
     """factored_launch_plan's layout plus the grid a launch takes: `grid`
     blocks (default one per multiprocessor, no more than the batch
-    needs)."""
-    plan = factored_launch_plan(ops, Li, Lo, walkers)
+    needs), and `bytes`, the chunked layout's global buffers (0 for a
+    whole diagonal). Bytes over `mem_bytes` (the card's memory; default:
+    the card's own, on the card) raise ValueError."""
+    plan = factored_launch_plan(ops, Li, Lo, walkers, chunk)
+    if grid is None or mem_bytes is None:
+        props = torch.cuda.get_device_properties(ops.c0.device)
     if grid is None:
-        sms = torch.cuda.get_device_properties(
-            ops.c0.device).multi_processor_count
-        grid = max(1, min(sms, -(-B // plan["walkers"])))
+        grid = max(1, min(props.multi_processor_count,
+                          -(-B // plan["walkers"])))
     if int(grid) < 1:
         raise ValueError("grid must be >= 1")
     plan["grid"] = int(grid)
+    plan["bytes"] = grid * factored_chunk_gbytes(ops.Sa, Li) \
+        if plan["CC"] else 0
+    mem = props.total_memory if mem_bytes is None else mem_bytes
+    if plan["bytes"] > mem:
+        raise ValueError(
+            "factored kernel: %d x %d takes %d bytes of device memory for %d "
+            "blocks, over the card's %d" % (Li, Lo, plan["bytes"], grid, mem))
     return plan
 
 
@@ -792,10 +855,19 @@ def factored_smem_bytes_on_card(ops, cfg, Li, Lo):
     factored_launch_plan for padded lengths Li, Lo), from the built
     library: must equal cfg["smem"]."""
     fn = load("factored_wavefront").factored_wavefront_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 8
+    fn.argtypes = [ctypes.c_int] * 9
     fn.restype = ctypes.c_long
     return fn(ops.Sa, ops.NR, Li, Lo, cfg["walkers"], ops.nbp, cfg["seg"],
-              cfg["e_floats"])
+              cfg["e_floats"], cfg["CC"])
+
+
+def factored_chunk_gbytes_on_card(ops, Li):
+    """The chunked layout's global bytes a block, from the built library:
+    must equal factored_chunk_gbytes."""
+    fn = load("factored_wavefront").factored_wavefront_chunk_gfloats
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_long
+    return 4 * fn(ops.Sa, Li)
 
 
 def factored_forward_plain(ops, in_toks, out_toks, in_lens, out_lens,
@@ -1233,15 +1305,17 @@ seqscale_wavefront.launches = 0
 
 
 def factored_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
-                       rescale_every=4, grid=None, walkers=None):
+                       rescale_every=4, grid=None, walkers=None,
+                       chunk=None):
     """Destination-factored wavefront Forward: (B,) float32
     log-likelihoods.
 
     `ops` is a FactoredOperands. A CUDA tensor launches
     csrc/factored_wavefront.cu (a persistent grid of `grid` blocks, default
     one per multiprocessor, each walking `walkers` pairs in lockstep
-    (factored_launch_plan), the pairs taken longest first from an atomic
-    counter) and counts one launch in `factored_wavefront.launches`; a CPU
+    (factored_launch_plan; `chunk` forces its layout), the pairs taken
+    longest first from an atomic counter) and counts one launch in
+    `factored_wavefront.launches`; a CPU
     tensor takes factored_forward_plain. Token and length tensors are int32
     and contiguous, on the device of `ops`. A pair whose length exceeds the
     padded shape or whose token lies outside its alphabet comes back NaN. A
@@ -1252,18 +1326,20 @@ def factored_wavefront(ops, in_toks, out_toks, in_lens, out_lens,
     B, Li, Lo = _check_batch("factored_wavefront", ops, in_toks, out_toks,
                              in_lens, out_lens, rescale_every, ops.tab)
     dev = ops.c0.device
-    cfg = factored_launch_config(ops, B, Li, Lo, grid, walkers)
+    cfg = factored_launch_config(ops, B, Li, Lo, grid, walkers, chunk)
     order = torch.argsort((in_lens + out_lens).long(), descending=True,
                           stable=True).to(torch.int32).contiguous()
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty(B, dtype=torch.float32, device=dev)
+    gbuf = torch.empty(max(cfg["bytes"] // 4, 1), dtype=torch.float32,
+                       device=dev)
     _call("factored_wavefront", "factored_wavefront",
           [in_toks, out_toks, in_lens, out_lens, order, counter, ops.c0_pad,
-           ops.w_pad, ops.tab, ops.ek, out],
+           ops.w_pad, ops.tab, ops.ek, out, gbuf],
           [B, Li, Lo, ops.Sa, ops.To, rescale_every, int(ops.sink),
            len(ops.classes)], ops.desc,
           [ops.NR, ops.KT, ops.n_mt, ops.SaP, cfg["walkers"], ops.nbp,
-           cfg["seg"], cfg["e_floats"], cfg["grid"]], dev)
+           cfg["seg"], cfg["e_floats"], cfg["grid"], cfg["CC"]], dev)
     factored_wavefront.launches += 1
     return out
 

@@ -187,8 +187,15 @@ def test_launch_plan_at_prot2dna_and_dense64():
 
 def test_launch_plan_refuses_what_fits_nothing():
     p2d = _plan_ops("prot2dna")
+    # 401 cells a diagonal: no whole diagonal fits beside the tables, the
+    # chunked layout does (one walker)
     with pytest.raises(ValueError, match="do not fit"):
-        wk.factored_launch_plan(p2d, 400, 1200)
+        wk.factored_launch_plan(p2d, 400, 1200, chunk=0)
+    cfg = wk.factored_launch_plan(p2d, 400, 1200)
+    assert cfg["CC"] > 0 and cfg["walkers"] == 1
+    assert cfg["smem"] == wk.factored_smem_bytes(
+        131, 5, 400, 1200, 1, 1, cfg["seg"], cfg["e_floats"],
+        cfg["CC"]) <= wk.SMEM_MAX
     with pytest.raises(ValueError, match="ranks"):
         wk.factored_launch_plan(SimpleNamespace(
             Sa=8, NR=200, n_mt=1, e_floats=4, nbp=1), 8, 8)
@@ -361,3 +368,55 @@ def test_walkers_and_grid_do_not_change_the_scores_on_card():
             for g, w in ((None, None), (1, 1), (1, 2), (2, 1), (3, 2))]
     for r in runs[1:]:
         assert np.array_equal(r, runs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,chunk", [("prot2dna_full", 24),
+                                        ("prot2dna_full", 72),
+                                        ("dense64_deep", 32),
+                                        ("allclass", 8)])
+def test_chunked_layout_matches_whole_diagonal_on_card(name, chunk):
+    """The chunked layout (states and log scales in global memory, a
+    diagonal taken `chunk` cells at a time) against the whole diagonal in
+    shared memory, one walker each: the same sums in the same order, so
+    the scores are equal bit for bit; the all-class batch holds a bad
+    token and a bad length (NaN in both)."""
+    dev = _card()
+    kind, it, ot, il, ol, _ = _case(name)
+    it, il = it.copy(), il.copy()
+    if name == "allclass":
+        it[2, 0] = 7                      # outside the 2-letter alphabet
+        il[4] = it.shape[1] + 1           # past the padded shape
+    ops = wk.factored_operands(_plan(kind), dev)
+    Li, Lo = it.shape[1], ot.shape[1]
+    cfg = wk.factored_launch_config(ops, len(il), Li, Lo, chunk=chunk)
+    assert cfg["CC"] == chunk and cfg["walkers"] == 1
+    assert wk.factored_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"]
+    assert wk.factored_chunk_gbytes_on_card(ops, Li) == \
+        wk.factored_chunk_gbytes(ops.Sa, Li)
+    batch = _on(dev, it, ot, il, ol)
+    want = wk.factored_wavefront(ops, *batch, walkers=1, chunk=0)
+    got = wk.factored_wavefront(ops, *batch, chunk=chunk)
+    want, got = want.cpu().numpy(), got.cpu().numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(got[~np.isnan(got)], want[~np.isnan(want)])
+
+
+@pytest.mark.cuda
+def test_long_pairs_match_plain_on_card():
+    """prot2dna, 4 proteins of 400 against their 1,200-base DNA: a whole
+    diagonal of states does not fit beside the tables, so the plan takes
+    the chunked layout; the kernel within 1e-3 nats of the plain version
+    (both on the card)."""
+    dev = _card()
+    it, ot = _prot2dna_batch(4, 400, 11)
+    il, ol = np.full(4, 400, np.int32), np.full(4, 1200, np.int32)
+    ops = wk.factored_operands(_plan("prot2dna"), dev)
+    cfg = wk.factored_launch_config(ops, 4, 400, 1200)
+    assert cfg["CC"] > 0 and cfg["smem"] <= wk.SMEM_MAX
+    batch = _on(dev, it, ot, il, ol)
+    before = wk.factored_wavefront.launches
+    kern = wk.factored_wavefront(ops, *batch).cpu().numpy()
+    assert wk.factored_wavefront.launches == before + 1
+    plain = wk.factored_forward_plain(ops, *batch).cpu().numpy()
+    _assert_close(kern, plain, CARD_BOUND)

@@ -321,8 +321,15 @@ def test_launch_plan_forced_reads_per_block():
     assert fk.launch_plan(3, 2, 4, 8, 132, reads_per_block=8)["reads"] == 8
     with pytest.raises(ValueError, match="reads_per_block"):
         fk.launch_plan(86, 2, 20, 64, 132, reads_per_block=9)
+    # 3,000 nodes at 4 states: no read's state fits shared memory, so the
+    # node-doubling layout keeps it in global memory; forced, it raises
     with pytest.raises(ValueError, match="shared"):
-        fk.launch_plan(3000, 4, 20, 8, 132)
+        fk.launch_plan(3000, 4, 20, 8, 132, state="shared")
+    big = fk.launch_plan(3000, 4, 20, 8, 132)
+    assert (big["layout"], big["state"], big["tables"]) == \
+        ("node_doubling", "global", False)
+    assert big["smem"] == 4 * fk._smem_floats(3000, 4, 20, big["reads"], 256,
+                                              False, "global")
     # the node-doubling layout keeps its own limits when asked for
     nodes = fk.launch_plan(86, 2, 20, 1024, 132, layout="node_doubling")
     assert (nodes["reads"], nodes["threads_per_read"], nodes["tables"]) == \
@@ -674,3 +681,56 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     lens = torch.ones(2, dtype=torch.int32, device=dev)
     with pytest.raises((TypeError, ValueError)):
         fk.fused_plan7_forward_kernel(ops, toks, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("amino86", True), ("amino300/3", False)],
+                         ids=["amino86_multihit", "amino300_St3_single"])
+def test_cuda_global_state_matches_shared_state(case):
+    """The node-doubling layout with each read's state in global memory and
+    the per-node tables read from there: the same sums in the same order
+    as with them in shared memory, so the result is equal bit for bit."""
+    dev = _card()
+    profile, multihit = case
+    f = port_model(profile, device=dev, multihit=multihit)
+    ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
+    toks, lens = batch(f, 16, 24, seed=8)
+    toks[3, 0] = 0                                    # a dead read
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    want = fk.fused_plan7_forward_kernel(ops, t, n, layout="node_doubling",
+                                         state="shared")
+    got = fk.fused_plan7_forward_kernel(ops, t, n, layout="node_doubling",
+                                        state="global")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", ["amino1200", "amino1000/4"])
+def test_cuda_long_profile_matches_plain(profile):
+    """A profile past what shared memory holds of a read's state (918
+    nodes at 2 states, 512 at 4): the plan keeps the state in global
+    memory, and the kernel is within 1e-3 nats of the plain version."""
+    dev = _card()
+    f = port_model(profile, device=dev, multihit=True)
+    ops = fk.plan7_operands(fk.prepare_fused_plan7(f), dev)
+    B = 8
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fk.launch_plan(f.K, f.St, ops.n_sym, B, n_sm)
+    assert plan["layout"] == "node_doubling" and plan["state"] == "global"
+    assert fk.state_floats_on_card(f.K, f.St) == fk._state_floats(f.K, f.St)
+    toks, lens = batch(f, B, 40, seed=9)
+    toks[3, 0] = 0                                    # a dead read
+    t = torch.from_numpy(toks).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    before = fk.fused_plan7_forward_kernel.launches
+    kern = fk.fused_plan7_forward_kernel(ops, t, n)
+    torch.cuda.synchronize()
+    assert fk.fused_plan7_forward_kernel.launches == before + 1
+    plain = fk.fused_plan7_forward_plain(ops, t, n)
+    assert torch.equal(kern[2], plain[2]) and kern[2, 3] == 1.0
+    kll, pll = fk.decode(kern.cpu().numpy()), fk.decode(plain.cpu().numpy())
+    live = pll > -1e29
+    assert live.sum() == B - 1
+    assert np.abs(kll[live] - pll[live]).max() <= CARD_BOUND

@@ -557,3 +557,69 @@ def test_chained_odd_stagger_below_88_nats_on_card():
         *[torch.from_numpy(x) for x in (it, ot)], n_chain=3).numpy()
     _assert_close(kern, plain, CARD_BOUND)
     _assert_close(kern, ref, JAX_BOUND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["tokens_global", "cells_global"])
+def test_pair_modes_match_the_shared_pair_on_card(pair):
+    """The pair's tokens read from global memory, and with them its cells'
+    log scales, divisors and maxima in a global buffer: the same sums in
+    the same order as with the pair in shared memory, so the scores are
+    equal bit for bit, with one walker a block and two, in both modes."""
+    dev = _card()
+    mats, it, ot, il, ol = _case("prot2dna_long")
+    ops = _ops(mats, dev)
+    assert lk.launch_plan(ops, it.shape[1], ot.shape[1])["pair"] == "shared"
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    for walkers in (1, 2):
+        want = lk.lowrank_wavefront(ops, *batch, walkers=walkers)
+        got = lk.lowrank_wavefront(ops, *batch, walkers=walkers, pair=pair)
+        assert torch.equal(got, want)
+    mats, it, ot, _, _ = _case("prot2dna_c2")
+    ops = _ops(mats, dev, chained=True)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot)]
+    want = lk.lowrank_chained_wavefront(ops, *batch, n_chain=2)
+    got = lk.lowrank_chained_wavefront(ops, *batch, n_chain=2, pair=pair)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_long_dna_matches_plain_on_card():
+    """prot2dna, 2 pairs of 64 amino acids whose codon DNA lies inside
+    about 20,000 random bases on each side (the preset's flank states give
+    them a path): the longer DNA pads to 58,837, past what the pair's
+    tokens leave room for in shared memory, so the plan reads them from
+    global memory; the kernel within 1e-3 nats of the plain version, and
+    its scores, below -50,000 nats, are where the float64 log scales
+    matter."""
+    from machineboss_tpu_torch.ops.fwdback import pad_bucket
+    dev = _card()
+    m = make_preset("prot2dna")
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    mats = tuple(np.asarray(x) for x in
+                 LoweredMachine(ev, dtype=np.float32).matrices_2d())
+    rng = np.random.RandomState(9)
+    pairs = []
+    for n, (p, dna) in enumerate(testmachines.prot2dna_pairs(2, 64, seed=9)):
+        left, right = ("".join("ACGT"[c] for c in rng.randint(0, 4, k))
+                       for k in (20000 - 400 * n, 19900))
+        pairs.append((p, left + dna + right))
+    Li = pad_bucket(64, base=16)
+    Lo = pad_bucket(max(len(d) for _, d in pairs), base=16)
+    assert Lo == 58837
+    it = np.zeros((2, Li), np.int32)
+    ot = np.zeros((2, Lo), np.int32)
+    for n, (p, dna) in enumerate(pairs):
+        it[n, :len(p)] = [ev.input_tokenizer.sym2tok[c] - 1 for c in p]
+        ot[n, :len(dna)] = [ev.output_tokenizer.sym2tok[c] - 1 for c in dna]
+    il = np.array([len(p) for p, _ in pairs], np.int32)
+    ol = np.array([len(d) for _, d in pairs], np.int32)
+    ops = _ops(mats, dev)
+    cfg = lk.launch_config(ops, 2, Li, Lo)
+    assert cfg["pair"] == "tokens_global" and cfg["smem"] <= lk.SMEM_MAX
+    assert lk.smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"]
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot, il, ol)]
+    kern = lk.lowrank_wavefront(ops, *batch).cpu().numpy()
+    plain = lk.lowrank_forward_plain(ops, *batch).cpu().numpy()
+    assert (kern < -5e4).all()
+    _assert_close(kern, plain, CARD_BOUND)

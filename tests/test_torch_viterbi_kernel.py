@@ -293,8 +293,14 @@ def test_fill_launch_plan():
         vk.fill_launch_plan(allclass, 1, 3400, 3, 132, slots=True)
     assert vk.fill_launch_plan(allclass, 4, 8, 8, 132,
                                slots=False)["n_slots"] == 0
+    # 20,001 cells a diagonal: the token buckets go to global memory;
+    # forced into shared memory, they raise
     with pytest.raises(ValueError, match="token buckets"):
-        vk.fill_launch_plan(allclass, 1, 20000, 3, 132)
+        vk.fill_launch_plan(allclass, 1, 20000, 3, 132, buckets="shared")
+    far = vk.fill_launch_plan(allclass, 1, 20000, 3, 132)
+    assert far["buckets"] == "global" and far["n_slots"] == 0
+    assert far["smem"] == vk.fill_smem_bytes(20000, 3, allclass.S, 0,
+                                             vk._n_toks(allclass), True)
     for bad in ({"cluster": 4}, {"piece": 0}, {"piece": 9}, {"chunks": 9},
                 {"grid": 0}):
         with pytest.raises(ValueError):
@@ -855,3 +861,102 @@ def test_banded_bad_tokens_and_empty_sides_on_card(kw):
         torch.cuda.synchronize()
         assert torch.equal(kern, vk.viterbi_banded_forward_plain(
             ops, g, t_it[:li], t_ot[:lo]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fill_global_buckets_match_shared_buckets_on_card(name, cluster):
+    """The token buckets in each block's global buffer instead of shared
+    memory: the same adds and maxes, so the lattice is the shared layout's
+    bit for bit."""
+    dev = _card()
+    _, _, mats, it, ot = _case(name)
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*mats), dev)
+    batch = [torch.from_numpy(x).to(dev) for x in (it, ot)]
+    want = vk.viterbi_wavefront(ops, *batch, cluster=cluster)
+    got = vk.viterbi_wavefront(ops, *batch, cluster=cluster,
+                               buckets="global")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fill_past_the_shared_buckets_matches_plain_on_card():
+    """A pair of 4,000 x 3 on the all-class machine: its buckets (about 16
+    words a cell) pass a block's shared memory, so the plan keeps them in
+    global memory, and the lattice equals the plain version's."""
+    dev = _card()
+    mats = _case("allclass")[2]
+    Li, Lo = 4000, 3
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*mats), dev)
+    assert vk.fill_smem_bytes(Li, Lo, ops.S, 0, vk._n_toks(ops)) > vk.SMEM_MAX
+    cfg = vk.fill_launch_plan(ops, 1, Li, Lo, 132)
+    assert cfg["buckets"] == "global" and cfg["smem"] <= vk.SMEM_MAX
+    assert vk.fill_smem_bytes_on_card(ops, cfg, Li, Lo) == cfg["smem"]
+    assert vk.fill_gbuck_bytes_on_card(ops, Li, Lo) == \
+        vk.fill_gbuck_bytes(Li, Lo, vk._n_toks(ops))
+    rng = np.random.RandomState(13)
+    t_it = torch.zeros((1, Li), dtype=torch.int32, device=dev)
+    t_ot = torch.from_numpy(
+        rng.randint(0, 2, (1, Lo)).astype(np.int32)).to(dev)
+    before = vk.viterbi_wavefront.launches
+    kern = vk.viterbi_wavefront(ops, t_it, t_ot)
+    torch.cuda.synchronize()
+    assert vk.viterbi_wavefront.launches == before + 1
+    assert torch.equal(kern, vk.viterbi_forward_plain(ops, t_it, t_ot))
+    assert (kern[Li // 2] > NEG).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense64", "prot2dna"])
+def test_banded_unstaged_tokens_match_staged_on_card(kind):
+    """The band's tokens read from global memory instead of staged with
+    its bounds (read-back, the layout of a band past some 14,000 cells)
+    against the default layout at a small band: the same adds and maxes,
+    so the lattice is equal bit for bit."""
+    dev = _card()
+    ev, ops = _big_ops(kind, dev)
+    Li, Lo = (300, 300) if kind == "dense64" else (64, 192)
+    geom = _band_of(Li, Lo, 18, 5, dev)
+    rng = np.random.RandomState(6)
+    t_it = torch.from_numpy(rng.randint(0, ops.Ti, Li).astype(np.int32)
+                            ).to(dev)
+    t_ot = torch.from_numpy(rng.randint(0, ops.To, Lo).astype(np.int32)
+                            ).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = vk.banded_launch_plan(ops, geom, sms, staged=False)
+    assert not cfg["staged"] and not cfg["slots"]
+    assert vk.banded_smem_bytes_on_card(ops, geom, cfg) == cfg["smem"]
+    want = vk.viterbi_banded_wavefront(ops, geom, t_it, t_ot)
+    got = vk.viterbi_banded_wavefront(ops, geom, t_it, t_ot, staged=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_banded_past_the_staged_tokens_matches_plain_on_card():
+    """A full band of 15,000 x 3 on the all-class machine: 15,001 cells
+    a diagonal pass the band whose tokens a block can stage, so the plan
+    reads them from global memory; the lattice equals the plain
+    version's."""
+    dev = _card()
+    mats = _case("allclass")[2]
+    ops = vk.viterbi_operands(vk.maxplus_class_mats(*mats), dev)
+    Li, Lo = 15000, 3
+    d = np.arange(Li + Lo + 1)
+    geom = vk.band_geometry(Li, Lo, np.zeros_like(d), np.minimum(Li, d) + 1,
+                            dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = vk.banded_launch_plan(ops, geom, sms)
+    assert not cfg["staged"] and cfg["smem"] <= vk.SMEM_MAX
+    rng = np.random.RandomState(14)
+    t_it = torch.zeros(Li, dtype=torch.int32, device=dev)
+    t_ot = torch.from_numpy(rng.randint(0, 2, Lo).astype(np.int32)).to(dev)
+    before = vk.viterbi_banded_wavefront.launches
+    kern = vk.viterbi_banded_wavefront(ops, geom, t_it, t_ot)
+    torch.cuda.synchronize()
+    assert vk.viterbi_banded_wavefront.launches == before + 1
+    assert torch.equal(kern, vk.viterbi_banded_forward_plain(ops, geom, t_it,
+                                                             t_ot))
+    assert (kern[Li // 2] > NEG).any()
