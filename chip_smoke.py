@@ -6,8 +6,8 @@
 Builds every CUDA kernel of the port from csrc/ and the two phase-profile
 libraries (one nvcc process each, all at once), holds each against its
 plain PyTorch version and the float64 oracles at small sizes, then drives
-thirteen paths at full width, each gated against a float64 oracle on 8
-pairs or reads. Four go through
+thirteen paths at full width (and the row kernel's calls, below), each
+gated against a float64 oracle on 8 pairs or reads. Four go through
 CompiledMachine.log_forward_batch:
 
   prot2dna       B=512, protein 64 against its 192-base codon DNA
@@ -169,24 +169,33 @@ dense machine, each against its single-device engine and a float64
 oracle (0.01 nats); each part's ms, launches (torch.profiler) and the
 NCCL kernels the profiler names.
 
-Then four phases drive the eager torch engines of single-pair scoring and
-the sparse engine (no kernel of the kernels line runs in them), each call
-gated against a float64 oracle, timed with torch.cuda.synchronize() around
-it (the median of 5 where a call takes under 1 s, else over its pairs) and
-its device launches counted once under torch.profiler:
+Then four phases drive single-pair scoring and the sparse engine, each
+call gated against a float64 oracle, timed with torch.cuda.synchronize()
+around it (the median of 5 where a call takes under 1 s, else over its
+pairs) and its device launches counted once under torch.profiler. The 2D
+single-pair calls run the row kernel (row_scan, the kernels line's 14th
+entry); the other phases run eager torch engines, no kernel of the line:
 
-  single_pair_2d  prot2dna, 2 pairs of 64 aa x 192 nt: log_forward and
-                  log_viterbi (the row engine), dp2d.forward_2d with the
-                  associative rows, dp_aligned.forward_aligned along each
-                  pair's Viterbi path and api.device_forward_batch on the
-                  pairs; forward_2d_banded in an Envelope of width 16
-                  around the first pair's path; log_backward_lattice and
-                  fwdback.posterior_lattice on the first pair cut to 32 aa
-                  x 96 nt (those three walk every cell, a log_forward's
-                  launches or twice them);
+  single_pair_2d  prot2dna, 8 pairs of 64 aa x 192 nt, each call with
+                  row_scan launched once (posterior_lattice twice) and no
+                  other kernel, the kernel alone timed by CUDA events and
+                  held to its plain version on the card (logsumexp 1e-3
+                  nats, max-plus 0.0): log_forward and log_viterbi,
+                  log_backward_lattice and fwdback.posterior_lattice on
+                  the first pair (every cell), forward_2d_banded in an
+                  Envelope of width 16 around each pair's path,
+                  api.device_forward_batch on 64 pairs, and
+                  DeviceViterbiMatrix's default fill (the host's
+                  alignments); dp2d.forward_2d with the associative rows
+                  (eager, 2 pairs) and dp_aligned.forward_aligned along
+                  each pair's path; then the 512-state machine, a pair of
+                  64 x 64 (states_512), and the 64-state ACGT machine at
+                  3,000 x 3,000, its rows in global memory, against the
+                  f64 oracle on the card (long_pair);
   single_pair_1d  the dense1d generator at L=10,000: log_forward with
                   "auto" (the card's measured row, dispatch_table_cuda.json,
-                  asserted; no slower than the other route, also timed),
+                  asserted, and on the card "assoc"; no slower than the
+                  other route, also timed),
                   log_viterbi on that route against the scan's max-plus
                   score (ms, peak memory), forward_1d_all /
                   backward_1d_all, the blocked
@@ -562,6 +571,7 @@ def counts():
     from machineboss_tpu_torch.algo import traceback_device as tb
     from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
     from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
     from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
@@ -577,7 +587,8 @@ def counts():
             "viterbi_wavefront": vk.viterbi_wavefront,
             "viterbi_banded_wavefront": vk.viterbi_banded_wavefront,
             "lattice_walk": tb.lattice_walk,
-            "fused_plan7": fk.fused_plan7_forward_kernel}
+            "fused_plan7": fk.fused_plan7_forward_kernel,
+            "row_scan": rk.row_scan}
 
 
 def drive(name, cm, pairs, kernel, route):
@@ -2654,26 +2665,118 @@ def lattice_err(lat, ref):
     return float(np.abs(lat[live] - ref[live]).max())
 
 
-def single_pair_2d_phase(dev, card, smi, B=2, Lp=64, n_band=1, Lc=32):
-    """prot2dna's single-pair calls on B pairs of Lp aa x 3Lp nt: the row
-    engine (log_forward, log_viterbi), the associative rows, the Backward
-    lattice and posteriors of the first pair cut to Lc aa x 3Lc nt, the
-    banded fill (n_band pairs), the aligned scan and the batched row
-    engine, each held to its float64 host oracle. The lattice calls and
-    the banded fill walk every cell, each a log_forward's launches or
-    twice them; they are cut so that the phase keeps to its time."""
+ROW_VS_PLAIN_TOL = {"logsumexp": 1e-3, "maxplus": 0.0}   # nats: exact
+# per-destination sums against the plain version's shifted products;
+# max-plus takes the same float32 sums and maxes
+
+
+def row_err(kern, plain):
+    """max |kern - plain| over the finite cells of two score or lattice
+    tensors; their impossible cells (<= NEG) must be the same."""
+    a = kern.detach().cpu().numpy().astype(np.float64).reshape(-1)
+    b = plain.detach().cpu().numpy().astype(np.float64).reshape(-1)
+    check(a.shape == b.shape and np.array_equal(a <= NEG, b <= NEG),
+          "row kernel: shape or impossible cells differ from plain")
+    live = b > NEG
+    return float(np.abs(a[live] - b[live]).max()) if live.any() else 0.0
+
+
+def row_bound(mats, toks, lattice):
+    """(bound_ms, bound_by, operations, bytes) of the row engine's work on
+    the pairs `toks`: each cell's products with the finite entries of the
+    four matrices it uses (A_up[y] and A_diag[x, y] of the row before,
+    A_left[x] and the closure in the chain) as multiply-adds (two
+    operations each), and 8 S exps and logs a cell (the four products'
+    source exponentials and destination logs), at the float32 peak; the
+    matrices and tokens read once, the scores or lattices written once."""
+    a_diag, a_left, a_up, closure = (np.asarray(m) for m in mats)
+    S = closure.shape[-1]
+
+    def nz(m):
+        return (m > NEG).sum(axis=(-2, -1)).astype(np.float64)
+
+    nd, nl, nu, nc = nz(a_diag), nz(a_left), nz(a_up), float(nz(closure))
+    macs = cells = 0.0
+    for x, y in toks:
+        x, y = np.asarray(x, np.int64), np.asarray(y, np.int64)
+        n = (len(x) + 1.0) * (len(y) + 1.0)
+        cells += n
+        macs += nc * n + (len(y) + 1) * nl[x].sum() \
+            + (len(x) + 1) * nu[y].sum() + nd[x][:, y].sum()
+    flops = 2.0 * macs + 8.0 * S * cells
+    out = 4.0 * S * cells if lattice else 4.0 * len(toks)
+    nbytes = float(sum(m.size * 4 for m in (a_diag, a_left, a_up, closure))
+                   + 4 * sum(len(x) + len(y) for x, y in toks)) + out
+    ms, by = bound(flops, nbytes)
+    # beside it: every entry of the four matrices, 4 S^2 multiply-adds a
+    # cell, as the kernel takes them
+    dense_ms, _ = bound(2.0 * 4 * S * S * cells + 8.0 * S * cells, nbytes)
+    return ms, by, flops, nbytes, dense_ms
+
+
+def row_record(name, fns, kernel_fn, plain_fn, sr_name, per_call=1):
+    """One call form of the row engine over its inputs (a zero-argument
+    function each): every call's row_scan launches (set to 0 just before,
+    read just after: `per_call`, and no other counted kernel), then
+    call_record's ms and device launches; the kernel alone (kernel_fn:
+    row_scan on the first input) by CUDA events, median of 5, and against
+    its plain version (plain_fn) on the card. Returns (record, the first
+    run's results)."""
+    wrappers = counts()
+    outs = []
+    for fn in fns:
+        for w in wrappers.values():
+            w.launches = 0
+        outs.append(fn())
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        check(got == {k: per_call * (k == "row_scan") for k in wrappers},
+              "%s: launches %s, expected %d of row_scan" % (name, got,
+                                                            per_call))
+    rec, _ = call_record(fns)
+    kern = kernel_fn()
+    plain, plain_ms = synced_ms(plain_fn)
+    err = row_err(kern, plain)
+    check(err <= ROW_VS_PLAIN_TOL[sr_name], "%s: row kernel vs plain %.3g "
+          "nats" % (name, err))
+    kernel_ms = float(np.median([event_ms(kernel_fn)[0] for _ in range(5)]))
+    rec.update(row_scan_per_call=per_call, row_scan_launches=per_call *
+               len(fns), kernel_ms=kernel_ms, plain_ms=plain_ms,
+               kernel_vs_plain=err, semiring=sr_name)
+    return rec, outs
+
+
+def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
+                         L_long=3000, L_wide=64):
+    """prot2dna's single-pair calls on B pairs of Lp aa x 3Lp nt, each
+    through the row kernel (one row_scan launch a call; posterior_lattice
+    two), held to its plain version on the card and to the float64 host
+    oracle: log_forward, log_viterbi, log_backward_lattice and
+    posterior_lattice (the first pair, every cell), forward_2d_banded in
+    an Envelope of width 16 around each pair's Viterbi path,
+    api.device_forward_batch on n_batch pairs, DeviceViterbiMatrix's
+    default fill (the host's alignments); the associative rows (eager, on
+    n_assoc pairs) and the aligned scan. Then the 512-state machine (one
+    pair of L_wide x L_wide) and the 64-state ACGT machine at L_long x
+    L_long (rows past a block's shared memory). Returns the kernels-line
+    entry of row_scan (log_forward's)."""
     from machineboss_tpu_torch import api
     from machineboss_tpu_torch.algo.dp_host import (
         BackwardMatrix, ForwardMatrix, ViterbiMatrix)
+    from machineboss_tpu_torch.algo.viterbi_device import DeviceViterbiMatrix
     from machineboss_tpu_torch.core.presets import make_preset
     from machineboss_tpu_torch.core.seqpair import Envelope, NamedSeq, SeqPair
     from machineboss_tpu_torch.dispatch import CompiledMachine
     from machineboss_tpu_torch.ops import dp2d, dp_aligned, fwdback
+    from machineboss_tpu_torch.ops.fwdback import tokenize_batch
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP, MAXPLUS
     from machineboss_tpu_torch.testmachines import prot2dna_pairs
     t_phase = time.perf_counter()
     Lo = 3 * Lp
     cm = CompiledMachine(make_preset("prot2dna"), device=dev)
-    pairs = prot2dna_pairs(B, Lp, seed=0)
+    batch_pairs = prot2dna_pairs(n_batch, Lp, seed=0)
+    pairs = batch_pairs[:B]
     toks = [(cm.in_toks(i), cm.out_toks(o)) for i, o in pairs]
     f64 = f64_scores(cm._host_mats(), toks, key=("prot2dna", B, Lp))
     plain = [SeqPair(NamedSeq("i", list(p)), NamedSeq("o", list(d)))
@@ -2681,77 +2784,115 @@ def single_pair_2d_phase(dev, card, smi, B=2, Lp=64, n_band=1, Lc=32):
     oracle = "host_oracle.forward_2d_f64, %d pairs" % B
     calls = {}
 
+    def on_card(mats):
+        return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+                for x in mats]
+
+    mats = on_card(cm._host_mats())
+    vmats = on_card(cm.lowered.matrices_2d("maxplus"))
+    dt = [(torch.tensor(i, device=dev), torch.tensor(o, device=dev))
+          for i, o in toks]
+    x0, y0 = dt[0]
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+
     check(cm._strategy(Lp, Lo, "auto") == "rows", "prot2dna: not rows")
-    rec, got = call_record([lambda p=p: cm.log_forward(*p) for p in pairs])
+    # the path's run: B log_forward calls, each counted from 0
+    rec, got = row_record(
+        "log_forward", [lambda p=p: cm.log_forward(*p) for p in pairs],
+        lambda: rk.row_scan(*mats, x0, y0, LOGSUMEXP, lens=(Lp, Lo)),
+        lambda: dp2d.forward_2d_plain(*mats, x0, y0, Lp, Lo), "logsumexp")
     check(cm.last_route == "rows", "log_forward took %s" % cm.last_route)
+    path_launches = rec["row_scan_launches"]
     calls["log_forward"] = gated(rec, score_err(got, f64), GATE_TOL, oracle,
                                  "log_forward")
+    bound_ms, bound_by, flops, nbytes, dense_ms = row_bound(
+        cm._host_mats(), toks[:1], False)
+    calls["log_forward"].update(bound_ms=bound_ms, bound_by=bound_by,
+                                flops=flops, bytes=nbytes,
+                                bound_every_entry_ms=dense_ms,
+                                kernel_share_of_bound=bound_ms /
+                                calls["log_forward"]["kernel_ms"],
+                                layout=rk.row_launch_plan(
+                                    mats[3].shape[0], Lp, Lo, 1))
+    cfg = calls["log_forward"]["layout"]
+    check(rk.row_smem_bytes_on_card(cfg, mats[3].shape[0], Lp)
+          == cfg["smem_bytes"], "row_scan: the kernel's shared bytes differ "
+          "from row_launch_plan's")
     host_vit = [ViterbiMatrix(cm.ev, sp) for sp in plain]
     vit = [max(v.log_like(), -1e30) for v in host_vit]
+    host_paths = [v.path(cm.machine) for v in host_vit]
     # each pair with its Viterbi path's alignment: the banded fill's
     # envelope and the aligned scan's columns
-    sps = [SeqPair(sp.input, sp.output,
-                   SeqPair.alignment_from_path(v.path(cm.machine)))
-           for sp, v in zip(plain, host_vit)]
-    rec, got = call_record([lambda p=p: cm.log_viterbi(*p) for p in pairs])
+    sps = [SeqPair(sp.input, sp.output, SeqPair.alignment_from_path(h))
+           for sp, h in zip(plain, host_paths)]
+    rec, got = row_record(
+        "log_viterbi", [lambda p=p: cm.log_viterbi(*p) for p in pairs],
+        lambda: rk.row_scan(*vmats, x0, y0, MAXPLUS, lens=(Lp, Lo)),
+        lambda: dp2d.forward_2d_plain(*vmats, x0, y0, Lp, Lo, sr=MAXPLUS),
+        "maxplus")
     check(all(v <= f + 1e-4 for v, f in zip(got, f64)), "Viterbi > Forward")
     calls["log_viterbi"] = gated(rec, score_err(got, vit), GATE_TOL,
                                  "dp_host.ViterbiMatrix, %d pairs" % B,
                                  "log_viterbi")
 
-    mats = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-            for x in cm._host_mats()]
-    dt = [(torch.tensor(i, device=dev), torch.tensor(o, device=dev))
-          for i, o in toks]
-    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
     rec, got = call_record([lambda x=x: float(dp2d.forward_2d(
-        *mats, *x, Lp, Lo, assoc=True)) for x in dt])
-    calls["forward_2d_assoc"] = gated(rec, score_err(got, f64), GATE_TOL,
-                                      oracle, "assoc rows")
+        *mats, *x, Lp, Lo, assoc=True)) for x in dt[:n_assoc]])
+    calls["forward_2d_assoc"] = gated(rec, score_err(got, f64[:n_assoc]),
+                                      GATE_TOL, "host_oracle.forward_2d_f64,"
+                                      " %d pairs" % n_assoc, "assoc rows")
 
-    # the Backward lattice and the posteriors of one pair, every cell
-    cut = (pairs[0][0][:Lc], pairs[0][1][:3 * Lc])
-    cut_sp = SeqPair(NamedSeq("i", list(cut[0])), NamedSeq("o", list(cut[1])))
-    cut_toks = (cm.in_toks(cut[0]), cm.out_toks(cut[1]))
-    host_b = BackwardMatrix(cm.ev, cut_sp).cell           # (Li+1, Lo+1, S)
-    host_f = ForwardMatrix(cm.ev, cut_sp).cell
-    rec, (lat,) = call_record(lambda: cm.log_backward_lattice(*cut))
+    # the Backward lattice and the posteriors of the first pair, every cell
+    host_b = BackwardMatrix(cm.ev, plain[0]).cell         # (Li+1, Lo+1, S)
+    host_f = ForwardMatrix(cm.ev, plain[0]).cell
+    rev = [m.transpose(-1, -2).contiguous() for m in mats]
+    eN = dp2d._e0(mats[3].shape[0], torch.float32, LOGSUMEXP, dev,
+                  state=mats[3].shape[0] - 1)
+    rec, (lat,) = row_record(
+        "log_backward_lattice", [lambda: cm.log_backward_lattice(*pairs[0])],
+        lambda: rk.row_scan(*rev, x0.flip(-1), y0.flip(-1), LOGSUMEXP,
+                            start_vec=eN),
+        lambda: dp2d.forward_2d_lattice_plain(*rev, x0.flip(-1),
+                                              y0.flip(-1), start_vec=eN),
+        "logsumexp")
     ref = np.maximum(np.transpose(host_b, (1, 0, 2)), -1e30)
-    fb = abs(float(lat[0, 0, 0])
-             - f64_scores(cm._host_mats(), [cut_toks])[0])
+    fb = abs(float(lat[0, 0, 0]) - f64[0])
     check(fb <= SINGLE_FB_TOL, "backward total vs forward %.3g" % fb)
     calls["log_backward_lattice"] = gated(
         rec, lattice_err(lat, ref), GATE_TOL,
-        "dp_host.BackwardMatrix, every cell of the cut pair",
-        "backward lattice",
-        backward_total_vs_forward=fb)
+        "dp_host.BackwardMatrix, every cell of the first pair",
+        "backward lattice", backward_total_vs_forward=fb)
     live = (host_f > -1e29) & (host_b > -1e29)
     ref = np.transpose(np.where(live, host_f + host_b - host_f[-1, -1, -1],
                                 -1e30), (1, 0, 2))
-    cut_dt = [torch.tensor(x, device=dev) for x in cut_toks]
-    rec, (post,) = call_record(lambda: fwdback.posterior_lattice(
-        *mats, *cut_dt))
+    rec, (post,) = row_record(
+        "posterior_lattice", [lambda: fwdback.posterior_lattice(
+            *mats, x0, y0)],
+        lambda: rk.row_scan(*mats, x0, y0, LOGSUMEXP),
+        lambda: dp2d.forward_2d_lattice_plain(*mats, x0, y0), "logsumexp",
+        per_call=2)
     calls["posterior_lattice"] = gated(
         rec, lattice_err(torch.clamp(post, min=-1e30), ref), GATE_TOL,
         "dp_host ForwardMatrix + BackwardMatrix - ll, every cell of the "
-        "cut pair",
-        "posteriors")
+        "first pair", "posteriors")
 
     # the banded fill and the aligned scan along each pair's path
-    # the banded fill, as the JAX package's, masks the band inside a walk
-    # of every cell (a log_forward's time a pair): n_band of the pairs
-    envs = [Envelope(sp, width=16) for sp in sps[:n_band]]
+    envs = [Envelope(sp, width=16) for sp in sps]
     band = [(torch.tensor(e.in_start, device=dev),
              torch.tensor(e.in_end, device=dev)) for e in envs]
-    rec, got = call_record([lambda x=x, b=b: float(dp2d.forward_2d_banded(
-        *mats, *x, *b, Lp, Lo)) for x, b in zip(dt, band)])
+    rec, got = row_record(
+        "forward_2d_banded", [lambda x=x, b=b: float(dp2d.forward_2d_banded(
+            *mats, *x, *b, Lp, Lo)) for x, b in zip(dt, band)],
+        lambda: rk.row_scan(*mats, x0, y0, LOGSUMEXP, lens=(Lp, Lo),
+                            band=band[0]),
+        lambda: dp2d.forward_2d_banded_plain(*mats, x0, y0, *band[0], Lp,
+                                             Lo), "logsumexp")
     check(all(g <= f + 1e-4 for g, f in zip(got, f64)), "banded > full")
     ref = [max(ForwardMatrix(cm.ev, sp, e).log_like(), -1e30)
            for sp, e in zip(sps, envs)]
     calls["forward_2d_banded"] = gated(
         rec, score_err(got, ref), GATE_TOL,
-        "dp_host.ForwardMatrix(ev, sp, Envelope(sp, 16)), %d pairs"
-        % n_band, "banded", band_cells=[e.n_cells() for e in envs])
+        "dp_host.ForwardMatrix(ev, sp, Envelope(sp, 16)), %d pairs" % B,
+        "banded", band_cells=[e.n_cells() for e in envs])
     lt = torch.from_numpy(np.ascontiguousarray(cm.lowered.log_trans,
                                                np.float32)).to(dev)
     lt64 = torch.from_numpy(np.asarray(cm.lowered.log_trans, np.float64))
@@ -2766,21 +2907,134 @@ def single_pair_2d_phase(dev, card, smi, B=2, Lp=64, n_band=1, Lc=32):
         rec, score_err(got, ref), GATE_TOL, "the same scan on the CPU in "
         "float64, %d paths; aligned <= forward" % B, "aligned")
 
-    rec, (got,) = call_record(lambda: api.device_forward_batch(
-        make_preset("prot2dna"), pairs, device=dev))
-    calls["device_forward_batch"] = gated(rec, score_err(got, f64),
-                                          GATE_TOL, oracle,
-                                          "device_forward_batch")
+    # the batched row engine: every pair in one launch, a block each
+    bt = tokenize_batch(cm.ev, [SeqPair(NamedSeq("i", list(p)),
+                                        NamedSeq("o", list(d)))
+                                for p, d in batch_pairs], device=dev)
+    rec, (got,) = row_record(
+        "device_forward_batch", [lambda: api.device_forward_batch(
+            make_preset("prot2dna"), batch_pairs, device=dev)],
+        lambda: rk.row_scan(*mats, bt[0], bt[1], LOGSUMEXP,
+                            lens=(bt[2], bt[3])),
+        lambda: dp2d.forward_2d_plain(*mats, *bt), "logsumexp")
+    calls["device_forward_batch"] = gated(
+        rec, score_err(got[:B], f64), GATE_TOL, oracle + " of %d" % n_batch,
+        "device_forward_batch", pairs=n_batch)
+
+    # DeviceViterbiMatrix's default fill: the host's alignments
+    rec, dvm = row_record(
+        "DeviceViterbiMatrix", [lambda sp=sp: DeviceViterbiMatrix(
+            cm.ev, sp, lowered=cm.lowered, device=dev) for sp in plain],
+        lambda: rk.row_scan(*vmats, x0, y0, MAXPLUS),
+        lambda: dp2d.forward_2d_lattice_plain(*vmats, x0, y0, sr=MAXPLUS),
+        "maxplus")
+
+    def trans(path):
+        return [(t.in_, t.out, t.dest) for t in path.trans]
+
+    for b, (m, h) in enumerate(zip(dvm, host_paths)):
+        check(trans(m.path(cm.machine)) == trans(h), "DeviceViterbiMatrix: "
+              "pair %d is not aligned as the host aligns it" % b)
+    calls["DeviceViterbiMatrix"] = gated(
+        rec, score_err([m.log_like() for m in dvm], vit), GATE_TOL,
+        "dp_host.ViterbiMatrix, %d pairs, and its alignments" % B,
+        "DeviceViterbiMatrix")
+
+    wide = row_wide_case(dev, L_wide)
+    long_pair = row_long_case(dev, L_long)
+    lf = calls["log_forward"]
     emit({"phase": "single_pair_2d", "machine": "prot2dna",
           "S": cm.ev.n_states(), "pairs": B, "Li": Lp, "Lo": Lo,
-          "reduced": ["%d pairs, not 8: the row engine takes some 7 s a "
-                      "pair, and the script keeps to its time" % B,
-                      "log_backward_lattice and posterior_lattice on the "
-                      "first pair cut to %d aa x %d nt" % (Lc, 3 * Lc),
-                      "forward_2d_banded on %d of the %d pairs"
-                      % (n_band, B)],
-          "calls": calls, "seconds": time.perf_counter() - t_phase,
+          "reduced": ["forward_2d_assoc (eager, not the row kernel) on %d "
+                      "of the %d pairs" % (n_assoc, B)],
+          "calls": calls, "states_512": wide, "long_pair": long_pair,
+          "seconds": time.perf_counter() - t_phase,
           "card": card, "nvidia_smi": smi})
+    return {"name": "row_scan", "route": "cuda",
+            "source": "machineboss_tpu_torch/csrc/row_scan.cu",
+            "replaces": "machineboss_tpu/ops/dp2d.py:103-200 (forward_2d, "
+                        "forward_2d_lattice, backward_2d_lattice, "
+                        "forward_2d_banded: jitted lax.scans, no "
+                        "pallas_call)",
+            "launches": path_launches, "max_abs_err": lf["kernel_vs_plain"],
+            "ms": lf["kernel_ms"], "plain_ms": lf["plain_ms"],
+            "bound_ms": lf["bound_ms"], "bound_by": lf["bound_by"],
+            "library_ms": None}
+
+
+def row_wide_case(dev, L):
+    """The 512-state machine (511 states and End: dispatch's
+    DENSE_MAX_STATES), one pair of L x L through log_forward: the closure
+    read from global memory, one lane a destination; the kernel alone
+    against its plain version and the call against the float64 host
+    oracle."""
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import dp2d
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
+    from machineboss_tpu_torch.testmachines import build_random_transducer
+    cm = CompiledMachine(build_random_transducer(511, list("ACGT")),
+                         device=dev)
+    S = cm.ev.n_states()
+    check(S == 512 and cm._strategy(L, L, "auto") == "rows",
+          "the 512-state machine: %d states, route %s"
+          % (S, cm._strategy(L, L, "auto")))
+    rng = np.random.RandomState(5)
+    x = "".join("ACGT"[c] for c in rng.randint(0, 4, L))
+    y = "".join("ACGT"[c] for c in rng.randint(0, 4, L))
+    mats = [torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(dev)
+            for m in cm._host_mats()]
+    xt = torch.tensor(cm.in_toks(x), device=dev)
+    yt = torch.tensor(cm.out_toks(y), device=dev)
+    rec, (got,) = row_record(
+        "states_512", [lambda: cm.log_forward(x, y)],
+        lambda: rk.row_scan(*mats, xt, yt, LOGSUMEXP, lens=(L, L)),
+        lambda: dp2d.forward_2d_plain(*mats, xt, yt, L, L), "logsumexp")
+    ref = f64_scores(cm._host_mats(), [(cm.in_toks(x), cm.out_toks(y))])
+    bound_ms, bound_by, _, _, dense_ms = row_bound(
+        cm._host_mats(), [(cm.in_toks(x), cm.out_toks(y))], False)
+    return gated(rec, score_err([got], ref), GATE_TOL,
+                 "host_oracle.forward_2d_f64", "states_512", S=S, L=L,
+                 layout=rk.row_launch_plan(S, L, L, 1), bound_ms=bound_ms,
+                 bound_by=bound_by, bound_every_entry_ms=dense_ms)
+
+
+def row_long_case(dev, L):
+    """The 64-state ACGT machine, one pair of L x L (a sequence and a copy
+    with 10% of its positions redrawn) through log_forward: its two rows
+    past a block's shared memory, in global memory; one call, against the
+    float64 oracle on the card (forward_2d_f64_card; the eager plain
+    version would take hours at this size)."""
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.testmachines import (align_pair,
+                                                    build_random_transducer)
+    cm = CompiledMachine(build_random_transducer(64, list("ACGT")),
+                         device=dev)
+    S = cm.ev.n_states()
+    sp = align_pair(L, seed=12)
+    x, y = "".join(sp.input.seq), "".join(sp.output.seq)
+    cfg = rk.row_launch_plan(S, L, L, 1)
+    check(cfg["rows"] == "global", "long pair: rows %s" % cfg["rows"])
+    wrappers = counts()
+    for w in wrappers.values():
+        w.launches = 0
+    got, ms = synced_ms(lambda: cm.log_forward(x, y))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(launches == {k: int(k == "row_scan") for k in wrappers},
+          "long pair: launches %s" % launches)
+    t0 = time.perf_counter()
+    ref = forward_2d_f64_card(cm._host_mats(), cm.in_toks(x), cm.out_toks(y),
+                              dev)
+    oracle_s = time.perf_counter() - t0
+    bound_ms, bound_by, _, _, dense_ms = row_bound(
+        cm._host_mats(), [(cm.in_toks(x), cm.out_toks(y))], False)
+    gate = score_err([got], [ref])
+    check(gate <= GATE_TOL, "long pair: f64 gate %.3g nats" % gate)
+    return {"S": S, "L": L, "layout": cfg, "call_ms": ms, "score": got,
+            "f64_gate_max_abs": gate, "f64_oracle_s": oracle_s,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_every_entry_ms": dense_ms}
 
 
 def dense1d_batch(B=256, L=10000, S=64):
@@ -2834,6 +3088,11 @@ def single_pair_1d_phase(dev, card, smi, B=256, L=10000, Lq=3000):
     auto = table_route(row, S, L)
     check(cm._strategy(0, L, "auto") == auto,
           "the %s row's rule at S=%d, L=%d" % (dev.type, S, L))
+    if dev.type == "cuda":
+        # the card's row measured the log-depth product faster from L=128
+        check(auto == "assoc", "the cuda row's assoc_min_L_by_S %s routes "
+              "dense1d to %s, not assoc"
+              % (row["derived"]["assoc_min_L_by_S"], auto))
     other = "scan" if auto == "assoc" else "assoc"
     for strategy in ("auto", other):
         rec, got = call_record(lambda: cm.log_forward(
@@ -3085,8 +3344,8 @@ def pswm_phase(dev, card, smi, cm1d, toks1d, L1=1000, K=128, Lp=16):
     oh2 = pswm.pswm_from_tokens(to, To, dtype=f64).cpu().numpy()
     oh = one_hot_check("dense 2D", abs(
         dense2d(pswm.forward_2d_pswm, f64, ih, oh2)
-        - float(dp2d.forward_2d(*[on(x, f64) for x in mats], ti, to, Li,
-                                Lo))))
+        - float(dp2d.forward_2d_plain(*[on(x, f64) for x in mats], ti, to,
+                                      Li, Lo))))
     m32, p32 = [on(x) for x in mats], (on(ip), on(op))
     record(("forward_2d_pswm", "backward_2d_pswm"),
            (lambda: pswm.forward_2d_pswm(*m32, *p32, Li, Lo),
@@ -4318,12 +4577,14 @@ def parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense_cm,
 
 
 def single_pair_paths(dev, card, smi):
-    """The four phases of the single-pair and sparse engines: eager torch
-    engines, no kernel of the kernels line."""
-    single_pair_2d_phase(dev, card, smi)
+    """The four phases of the single-pair and sparse engines: the row
+    kernel under the 2D single-pair calls, eager torch under the rest.
+    Returns the kernels-line entry of row_scan."""
+    row = single_pair_2d_phase(dev, card, smi)
     cm1d, toks1d = single_pair_1d_phase(dev, card, smi)
     sparse_phase(dev, card, smi)
     pswm_phase(dev, card, smi, cm1d, toks1d)
+    return row
 
 
 # -- the long shapes: the sizes past a block's shared memory ----------------
@@ -4914,12 +5175,12 @@ def main():
     parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense,
                    dense_pairs)
 
-    # -- single-pair scoring and the sparse engine ------------------------
-    single_pair_paths(dev, card, smi)
+    # -- single-pair scoring (the row kernel) and the sparse engine -------
+    kernels.append(single_pair_paths(dev, card, smi))
 
     # no single PyTorch call computes a wavefront, this scan, this walk or
     # this row solve: library_ms is null for every kernel
-    check(len(kernels) == 13, "the kernels line has %d entries" % len(kernels))
+    check(len(kernels) == 14, "the kernels line has %d entries" % len(kernels))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

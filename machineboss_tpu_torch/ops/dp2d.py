@@ -17,13 +17,21 @@ semiring matmuls). `backward_2d_lattice` runs the same engine on the
 reversed problem; `forward_2d_banded` masks cells outside an envelope.
 
 Token arrays may carry leading batch dimensions ((B, Li) and (B, Lo), with
-(B,) lengths): every pair of a batch goes through the same arithmetic, one
-torch call per step for the whole batch. Padded positions never feed the
-cells that are read out.
+(B,) lengths): every pair of a batch goes through the same arithmetic.
+Padded positions never feed the cells that are read out.
+
+The sequential fill (`assoc=False`) and the banded fill go through
+kernels/row_kernel.row_scan: on a CUDA tensor one launch of the
+hand-written kernel (csrc/row_scan.cu) for the whole call, on a CPU
+tensor the plain versions below (`forward_2d_plain`,
+`forward_2d_lattice_plain`, `forward_2d_banded_plain`: the eager loop, one
+torch call per step for the whole batch). The associative rows
+(`assoc=True`) run the plain versions on either device.
 """
 
 import torch
 
+from .kernels import row_kernel
 from .semiring import LOGSUMEXP, NEG_INF, associative_scan
 
 
@@ -137,8 +145,19 @@ def forward_2d(a_diag, a_left, a_up, closure, in_toks, out_toks,
                in_len, out_len, sr=LOGSUMEXP, assoc=False):
     """Log-likelihood (or Viterbi score) of the (in, out) pair: cell
     (in_len, out_len) at the end state. With (B, Li) and (B, Lo) tokens and
-    (B,) lengths, the (B,) scores of a batch, rows computed up to the
-    longest out_len."""
+    (B,) lengths, the (B,) scores of a batch, each pair read at its own
+    lengths."""
+    if assoc:
+        return forward_2d_plain(a_diag, a_left, a_up, closure, in_toks,
+                                out_toks, in_len, out_len, sr, assoc=True)
+    return row_kernel.row_scan(a_diag, a_left, a_up, closure, in_toks,
+                               out_toks, sr, lens=(in_len, out_len))
+
+
+def forward_2d_plain(a_diag, a_left, a_up, closure, in_toks, out_toks,
+                     in_len, out_len, sr=LOGSUMEXP, assoc=False):
+    """forward_2d by the eager loop, rows computed up to the longest
+    out_len."""
     solver = _row_assoc if assoc else _row_scan
     S = closure.shape[-1]
     if in_toks.dim() == 1:
@@ -164,9 +183,22 @@ def forward_2d(a_diag, a_left, a_up, closure, in_toks, out_toks,
 def forward_2d_lattice(a_diag, a_left, a_up, closure, in_toks, out_toks,
                        sr=LOGSUMEXP, assoc=False):
     """The whole lattice, (..., Lo+1, Li+1, S): output rows first."""
+    if assoc:
+        return forward_2d_lattice_plain(a_diag, a_left, a_up, closure,
+                                        in_toks, out_toks, sr, assoc=True)
+    return row_kernel.row_scan(a_diag, a_left, a_up, closure, in_toks,
+                               out_toks, sr)
+
+
+def forward_2d_lattice_plain(a_diag, a_left, a_up, closure, in_toks,
+                             out_toks, sr=LOGSUMEXP, assoc=False,
+                             start_vec=None):
+    """forward_2d_lattice by the eager loop; row 0 seeded from `start_vec`
+    (None: state 0)."""
     solver = _row_assoc if assoc else _row_scan
     return torch.stack(list(_rows(a_diag, a_left, a_up, closure, in_toks,
-                                  out_toks, solver, sr)), dim=-3)
+                                  out_toks, solver, sr, start_vec=start_vec)),
+                       dim=-3)
 
 
 def backward_2d_lattice(a_diag, a_left, a_up, closure, in_toks, out_toks,
@@ -179,13 +211,15 @@ def backward_2d_lattice(a_diag, a_left, a_up, closure, in_toks, out_toks,
     forward engine directly (b includes the same-cell silent closure, like
     the reference BackwardMatrix)."""
     S = closure.shape[-1]
-    solver = _row_assoc if assoc else _row_scan
     eN = _e0(S, closure.dtype, sr, closure.device, state=S - 1)
-    lattice_r = torch.stack(list(_rows(
-        a_diag.transpose(-1, -2), a_left.transpose(-1, -2),
-        a_up.transpose(-1, -2), closure.transpose(-1, -2),
-        in_toks.flip(-1), out_toks.flip(-1), solver, sr, start_vec=eN)),
-        dim=-3)
+    rev = (a_diag.transpose(-1, -2), a_left.transpose(-1, -2),
+           a_up.transpose(-1, -2), closure.transpose(-1, -2),
+           in_toks.flip(-1), out_toks.flip(-1))
+    if assoc:
+        lattice_r = forward_2d_lattice_plain(*rev, sr, assoc=True,
+                                             start_vec=eN)
+    else:
+        lattice_r = row_kernel.row_scan(*rev, sr, start_vec=eN)
     return lattice_r.flip(-3, -2)
 
 
@@ -217,6 +251,15 @@ def forward_2d_banded(a_diag, a_left, a_up, closure, in_toks, out_toks,
     in_start/in_end: (Lo+1,) int arrays (the envelope rows; for padded rows
     beyond out_len pass [0, Li+1)). As in the JAX package, every row of
     out_toks is filled and the last row is read at in_len."""
+    return row_kernel.row_scan(a_diag, a_left, a_up, closure, in_toks,
+                               out_toks, sr, lens=(in_len, out_len),
+                               band=(in_start, in_end))
+
+
+def forward_2d_banded_plain(a_diag, a_left, a_up, closure, in_toks,
+                            out_toks, in_start, in_end, in_len, out_len,
+                            sr=LOGSUMEXP):
+    """forward_2d_banded by the eager loop."""
     S = closure.shape[-1]
     Li = in_toks.shape[0]
     dtype, dev = closure.dtype, closure.device

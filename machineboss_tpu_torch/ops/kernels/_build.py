@@ -35,7 +35,8 @@ SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
            "viterbi_wavefront": "viterbi_wavefront.cu",
            "viterbi_banded_wavefront": "viterbi_banded_wavefront.cu",
            "lattice_walk": "lattice_walk.cu",
-           "fused_plan7": "fused_plan7.cu"}
+           "fused_plan7": "fused_plan7.cu",
+           "row_scan": "row_scan.cu"}
 
 # phase-profile library -> the kernel whose source it builds, with
 # PROFILE_FLAG: the kernel's clock64 counters, never in a path's library

@@ -184,6 +184,24 @@ def main():
             lambda K: takes(fk.launch_plan, K, St, 20, 256, SMS,
                             mem_bytes=CARD_BYTES), lo=1, hi=1 << 17))
 
+    # the row engine: one pair of L x L, its score (the two rows leave
+    # shared memory past largest_L_rows_shared) and its whole lattice
+    try:
+        from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    except ImportError:                 # a tree from before the row kernel
+        return
+    for kind, S in (("prot2dna", mats("prot2dna")[3].shape[0]),
+                    ("dense64", mm[3].shape[0]), ("states512", 512)):
+        emit("row_scan", machine=kind, S=S, B=1,
+             largest_L=largest(lambda L: takes(
+                 rk.row_launch_plan, S, L, L, 1, mem_bytes=CARD_BYTES)),
+             largest_L_rows_shared=largest(
+                 lambda L: rk.row_launch_plan(S, L, L, 1)["rows"] ==
+                 "shared"),
+             largest_L_lattice=largest(lambda L: takes(
+                 rk.row_launch_plan, S, L, L, 1, lattice=True,
+                 mem_bytes=CARD_BYTES)))
+
 
 if __name__ == "__main__":
     main()

@@ -184,7 +184,8 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         "lowrank_wavefront", "merged_wavefront", "chained_ragged_wavefront",
         "chained_wavefront", "generic_wavefront", "seqscale_wavefront",
         "factored_wavefront", "scan1d", "viterbi_wavefront",
-        "viterbi_banded_wavefront", "lattice_walk", "fused_plan7"}
+        "viterbi_banded_wavefront", "lattice_walk", "fused_plan7",
+        "row_scan"}
     for name, deps in (("merged_wavefront", 2),
                        ("chained_ragged_wavefront", 2),
                        ("chained_wavefront", 2), ("generic_wavefront", 2),
@@ -192,12 +193,12 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
                        ("lowrank_wavefront", 2), ("scan1d", 1),
                        ("viterbi_wavefront", 2),
                        ("viterbi_banded_wavefront", 2), ("lattice_walk", 1),
-                       ("fused_plan7", 1)):
+                       ("fused_plan7", 1), ("row_scan", 1)):
         files = _build.source_files(name)
         assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
         assert all(f.startswith(str(csrc)) for f in files)
     before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
-    assert len(set(before.values())) == 12
+    assert len(set(before.values())) == 13
     with open(csrc / "wavefront_common.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}

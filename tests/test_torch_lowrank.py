@@ -21,6 +21,8 @@ test runs where only torch is installed:
     python -m pytest --noconftest tests/test_torch_lowrank.py -m cuda
 """
 
+from contextlib import contextmanager, nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -399,6 +401,27 @@ def _forward_3xtf32(ops, it, ot, il, ol):
                       ops.To)
 
 
+@contextmanager
+def _one_thread():
+    """torch and numpy's BLAS on one thread for the block: pytest-xdist's
+    workers share the machine's cores, and with a thread a core each these
+    small products spend their time waiting on each other (the
+    prot2dna_full case took minutes in a loaded six-worker run, seconds
+    alone on one thread)."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:                 # numpy's BLAS keeps its threads
+        def threadpool_limits(_):
+            return nullcontext()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _p2d_full():
     """prot2dna at chip_smoke's main-path width: B=4 proteins of 64 and
     their 192-base DNA."""
@@ -425,18 +448,19 @@ def test_3xtf32_products_hold_the_f64_bound(name):
     Forward within the f64 bounds (5e-3 nats on the small machine, the
     0.01 gate at prot2dna's full width) and within the card bound of the
     float32 plain version."""
-    if name == "prot2dna_full":
-        mats, it, ot, il, ol, ref = _p2d_full()
-        bound = 0.01
-    else:
-        mats, it, ot, il, ol = _case(name)
-        ref, bound = _f64(name), JAX_BOUND
-    plan, host = lk.prepare_lowrank(*mats)
-    ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
-                              torch.device("cpu"))
-    split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
-    plain = lk.lowrank_forward_plain(
-        ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    with _one_thread():
+        if name == "prot2dna_full":
+            mats, it, ot, il, ol, ref = _p2d_full()
+            bound = 0.01
+        else:
+            mats, it, ot, il, ol = _case(name)
+            ref, bound = _f64(name), JAX_BOUND
+        plan, host = lk.prepare_lowrank(*mats)
+        ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
+                                  torch.device("cpu"))
+        split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
+        plain = lk.lowrank_forward_plain(
+            ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
     _assert_close(split, ref, bound)
     _assert_close(split, plain, CARD_BOUND)
 
