@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from csrc/ and the two phase-profile
+Builds every CUDA kernel of the port from csrc/ and the three phase-profile
 libraries (one nvcc process each, all at once), holds each against its
 plain PyTorch version and the float64 oracles at small sizes, then drives
 thirteen paths at full width (and the row kernel's calls, below), each
@@ -172,15 +172,18 @@ NCCL kernels the profiler names.
 Then four phases drive single-pair scoring and the sparse engine, each
 call gated against a float64 oracle, timed with torch.cuda.synchronize()
 around it (the median of 5 where a call takes under 1 s, else over its
-pairs) and its device launches counted once under torch.profiler. The 2D
-single-pair calls run the row kernel (row_scan, the kernels line's 14th
-entry); the other phases run eager torch engines, no kernel of the line:
+pairs) and its device launches counted once under torch.profiler; a fifth,
+row_profile, reads the row kernel. The 2D single-pair calls run the row
+kernel (row_scan, the kernels line's 14th entry); the other phases run
+eager torch engines, no kernel of the line:
 
   single_pair_2d  prot2dna, 8 pairs of 64 aa x 192 nt, each call with
                   row_scan launched once (posterior_lattice twice) and no
-                  other kernel, the kernel alone timed by CUDA events and
-                  held to its plain version on the card (logsumexp 1e-3
-                  nats, max-plus 0.0): log_forward and log_viterbi,
+                  other kernel, the kernel alone timed by CUDA events, its
+                  plan (the cluster of blocks a pair) and its tables'
+                  build ms recorded, and held to its plain version on the
+                  card (logsumexp 1e-3 nats, max-plus 0.0): log_forward
+                  and log_viterbi,
                   log_backward_lattice and fwdback.posterior_lattice on
                   the first pair (every cell), forward_2d_banded in an
                   Envelope of width 16 around each pair's path,
@@ -190,8 +193,17 @@ entry); the other phases run eager torch engines, no kernel of the line:
                   (eager, 2 pairs) and dp_aligned.forward_aligned along
                   each pair's path; then the 512-state machine, a pair of
                   64 x 64 (states_512), and the 64-state ACGT machine at
-                  3,000 x 3,000, its rows in global memory, against the
-                  f64 oracle on the card (long_pair);
+                  3,000 x 3,000 on 16 blocks, against the f64 oracle on
+                  the card (long_pair), and again on 8 blocks, whose ring
+                  of diagonals no longer fits shared memory (global
+                  memory: bit-equal, timed);
+  row_profile     one prot2dna pair of 64 x 192, each semiring: the row
+                  kernel's clock64 phase profile (its profile library; a
+                  warp's SM cycles a diagonal and a cell's in each phase)
+                  at the plan's cluster and on one block, the kernel
+                  against its CPU twin (row_kernel.row_scan_diagonal, run
+                  on the card on the same tables), and the kernel alone at
+                  each cluster size 1-16, bit-equal;
   single_pair_1d  the dense1d generator at L=10,000: log_forward with
                   "auto" (the card's measured row, dispatch_table_cuda.json,
                   asserted, and on the card "assoc"; no slower than the
@@ -2665,9 +2677,9 @@ def lattice_err(lat, ref):
     return float(np.abs(lat[live] - ref[live]).max())
 
 
-ROW_VS_PLAIN_TOL = {"logsumexp": 1e-3, "maxplus": 0.0}   # nats: exact
-# per-destination sums against the plain version's shifted products;
-# max-plus takes the same float32 sums and maxes
+ROW_VS_PLAIN_TOL = {"logsumexp": 1e-3, "maxplus": 0.0}   # nats: the
+# plain version's prepared exponentials summed in another order; max-plus
+# takes the same float32 sums and maxes
 
 
 def row_err(kern, plain):
@@ -2714,14 +2726,18 @@ def row_bound(mats, toks, lattice):
     return ms, by, flops, nbytes, dense_ms
 
 
-def row_record(name, fns, kernel_fn, plain_fn, sr_name, per_call=1):
+def row_record(name, fns, kernel_fn, plain_fn, sr_name, mats, per_call=1):
     """One call form of the row engine over its inputs (a zero-argument
     function each): every call's row_scan launches (set to 0 just before,
     read just after: `per_call`, and no other counted kernel), then
     call_record's ms and device launches; the kernel alone (kernel_fn:
-    row_scan on the first input) by CUDA events, median of 5, and against
-    its plain version (plain_fn) on the card. Returns (record, the first
-    run's results)."""
+    row_scan on the first input) by CUDA events, median of 5, its launch
+    plan (the cluster of blocks a pair) and the build ms of its tables
+    (row_tables on `mats`, the kernel's operands, timed apart), and
+    against its plain version (plain_fn) on the card. Returns (record,
+    the first run's results)."""
+    from machineboss_tpu_torch.ops import semiring
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
     wrappers = counts()
     outs = []
     for fn in fns:
@@ -2735,6 +2751,8 @@ def row_record(name, fns, kernel_fn, plain_fn, sr_name, per_call=1):
                                                             per_call))
     rec, _ = call_record(fns)
     kern = kernel_fn()
+    plan = rk.row_scan.last["plan"]
+    prep_ms = rk.row_tables(*mats, getattr(semiring, sr_name.upper())).prep_ms
     plain, plain_ms = synced_ms(plain_fn)
     err = row_err(kern, plain)
     check(err <= ROW_VS_PLAIN_TOL[sr_name], "%s: row kernel vs plain %.3g "
@@ -2742,7 +2760,8 @@ def row_record(name, fns, kernel_fn, plain_fn, sr_name, per_call=1):
     kernel_ms = float(np.median([event_ms(kernel_fn)[0] for _ in range(5)]))
     rec.update(row_scan_per_call=per_call, row_scan_launches=per_call *
                len(fns), kernel_ms=kernel_ms, plain_ms=plain_ms,
-               kernel_vs_plain=err, semiring=sr_name)
+               kernel_vs_plain=err, semiring=sr_name,
+               cluster=plan["cluster"], plan=plan, tables_prep_ms=prep_ms)
     return rec, outs
 
 
@@ -2800,7 +2819,8 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
     rec, got = row_record(
         "log_forward", [lambda p=p: cm.log_forward(*p) for p in pairs],
         lambda: rk.row_scan(*mats, x0, y0, LOGSUMEXP, lens=(Lp, Lo)),
-        lambda: dp2d.forward_2d_plain(*mats, x0, y0, Lp, Lo), "logsumexp")
+        lambda: dp2d.forward_2d_plain(*mats, x0, y0, Lp, Lo), "logsumexp",
+        mats)
     check(cm.last_route == "rows", "log_forward took %s" % cm.last_route)
     path_launches = rec["row_scan_launches"]
     calls["log_forward"] = gated(rec, score_err(got, f64), GATE_TOL, oracle,
@@ -2811,10 +2831,13 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
                                 flops=flops, bytes=nbytes,
                                 bound_every_entry_ms=dense_ms,
                                 kernel_share_of_bound=bound_ms /
-                                calls["log_forward"]["kernel_ms"],
-                                layout=rk.row_launch_plan(
-                                    mats[3].shape[0], Lp, Lo, 1))
-    cfg = calls["log_forward"]["layout"]
+                                calls["log_forward"]["kernel_ms"])
+    cfg = calls["log_forward"]["plan"]
+    check(cfg == rk.row_launch_plan(
+        mats[3].shape[0], Lp, Lo, 1, sms=torch.cuda.get_device_properties(
+            dev).multi_processor_count, n_tab=cfg["n_tab"],
+        mem_bytes=torch.cuda.get_device_properties(dev).total_memory),
+          "row_scan: the call's plan is not row_launch_plan's")
     check(rk.row_smem_bytes_on_card(cfg, mats[3].shape[0], Lp)
           == cfg["smem_bytes"], "row_scan: the kernel's shared bytes differ "
           "from row_launch_plan's")
@@ -2829,7 +2852,7 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
         "log_viterbi", [lambda p=p: cm.log_viterbi(*p) for p in pairs],
         lambda: rk.row_scan(*vmats, x0, y0, MAXPLUS, lens=(Lp, Lo)),
         lambda: dp2d.forward_2d_plain(*vmats, x0, y0, Lp, Lo, sr=MAXPLUS),
-        "maxplus")
+        "maxplus", vmats)
     check(all(v <= f + 1e-4 for v, f in zip(got, f64)), "Viterbi > Forward")
     calls["log_viterbi"] = gated(rec, score_err(got, vit), GATE_TOL,
                                  "dp_host.ViterbiMatrix, %d pairs" % B,
@@ -2853,7 +2876,7 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
                             start_vec=eN),
         lambda: dp2d.forward_2d_lattice_plain(*rev, x0.flip(-1),
                                               y0.flip(-1), start_vec=eN),
-        "logsumexp")
+        "logsumexp", rev)
     ref = np.maximum(np.transpose(host_b, (1, 0, 2)), -1e30)
     fb = abs(float(lat[0, 0, 0]) - f64[0])
     check(fb <= SINGLE_FB_TOL, "backward total vs forward %.3g" % fb)
@@ -2869,7 +2892,7 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
             *mats, x0, y0)],
         lambda: rk.row_scan(*mats, x0, y0, LOGSUMEXP),
         lambda: dp2d.forward_2d_lattice_plain(*mats, x0, y0), "logsumexp",
-        per_call=2)
+        mats, per_call=2)
     calls["posterior_lattice"] = gated(
         rec, lattice_err(torch.clamp(post, min=-1e30), ref), GATE_TOL,
         "dp_host ForwardMatrix + BackwardMatrix - ll, every cell of the "
@@ -2885,7 +2908,7 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
         lambda: rk.row_scan(*mats, x0, y0, LOGSUMEXP, lens=(Lp, Lo),
                             band=band[0]),
         lambda: dp2d.forward_2d_banded_plain(*mats, x0, y0, *band[0], Lp,
-                                             Lo), "logsumexp")
+                                             Lo), "logsumexp", mats)
     check(all(g <= f + 1e-4 for g, f in zip(got, f64)), "banded > full")
     ref = [max(ForwardMatrix(cm.ev, sp, e).log_like(), -1e30)
            for sp, e in zip(sps, envs)]
@@ -2916,7 +2939,7 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
             make_preset("prot2dna"), batch_pairs, device=dev)],
         lambda: rk.row_scan(*mats, bt[0], bt[1], LOGSUMEXP,
                             lens=(bt[2], bt[3])),
-        lambda: dp2d.forward_2d_plain(*mats, *bt), "logsumexp")
+        lambda: dp2d.forward_2d_plain(*mats, *bt), "logsumexp", mats)
     calls["device_forward_batch"] = gated(
         rec, score_err(got[:B], f64), GATE_TOL, oracle + " of %d" % n_batch,
         "device_forward_batch", pairs=n_batch)
@@ -2927,7 +2950,7 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
             cm.ev, sp, lowered=cm.lowered, device=dev) for sp in plain],
         lambda: rk.row_scan(*vmats, x0, y0, MAXPLUS),
         lambda: dp2d.forward_2d_lattice_plain(*vmats, x0, y0, sr=MAXPLUS),
-        "maxplus")
+        "maxplus", vmats)
 
     def trans(path):
         return [(t.in_, t.out, t.dest) for t in path.trans]
@@ -2962,6 +2985,98 @@ def single_pair_2d_phase(dev, card, smi, B=8, Lp=64, n_batch=64, n_assoc=2,
             "library_ms": None}
 
 
+ROW_CLUSTERS = (1, 2, 4, 8, 16)   # the cluster sizes the row kernel takes
+
+
+def row_profiles(mats, x, y, sr, lens, clusters=(None, 1)):
+    """The row kernel's clock64 phase profile (the profile library: a
+    warp's SM cycles a diagonal and a cell's in each phase) at each cluster
+    size (None: the plan's), each profiled result equal to the path
+    library's. Returns (the path's result, its plan, {cluster: profile})."""
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    got = rk.row_scan(*mats, x, y, sr, lens=lens)
+    plan = rk.row_scan.last["plan"]
+    out = {}
+    for cluster in clusters:
+        res, prof = rk.row_scan_profile(*mats, x, y, sr, lens=lens,
+                                        cluster=cluster)
+        check(torch.equal(res, got), "row profile: cluster %d differs from "
+              "the path library" % prof["cluster"])
+        out[prof["cluster"]] = prof
+    return got, plan, out
+
+
+def row_cluster_sweep(mats, it, ot, il, ol, reps=5, clusters=ROW_CLUSTERS):
+    """The row kernel alone in logsumexp (CUDA events, median of `reps`)
+    at each cluster size, each result bit-equal to the plan's; with the
+    shape, the plan, and the lists' entries and build ms."""
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
+    tables = rk.row_tables(*mats, LOGSUMEXP)
+
+    def kernel(cluster=None):
+        return rk.row_scan(*mats, it, ot, LOGSUMEXP, lens=(il, ol),
+                           cluster=cluster)
+
+    want = kernel()
+    rec = {"S": int(mats[3].shape[0]),
+           "B": 1 if it.dim() == 1 else int(it.shape[0]),
+           "Li": int(it.shape[-1]), "Lo": int(ot.shape[-1]),
+           "plan": rk.row_scan.last["plan"], "tables_ms": tables.prep_ms,
+           "n_tab": tables.n_tab, "ms": {}, "rows": {}}
+    for cluster in clusters:
+        check(torch.equal(kernel(cluster), want), "row kernel: cluster %d "
+              "differs from the plan's" % cluster)
+        rec["rows"][cluster] = rk.row_scan.last["plan"]["rows"]
+        rec["ms"][cluster] = float(np.median(
+            [event_ms(lambda: kernel(cluster))[0] for _ in range(reps)]))
+    return rec
+
+
+def row_profile_phase(dev, card, smi, Lp=64):
+    """The row kernel on one prot2dna pair of Lp aa x 3 Lp nt, each
+    semiring: its phase profile at the plan's cluster and on one block
+    (row_profiles); the kernel against its CPU twin
+    (row_kernel.row_scan_diagonal) run on the card on the same tables,
+    score and lattice (max-plus bit-equal on the live cells, logsumexp
+    within ROW_VS_PLAIN_TOL); in logsumexp, the kernel alone at each
+    cluster size 1-16 (row_cluster_sweep). scripts/row_profile.py takes
+    the same readings on more shapes."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP, MAXPLUS
+    from machineboss_tpu_torch.testmachines import prot2dna_pairs
+    t_phase = time.perf_counter()
+    cm = CompiledMachine(make_preset("prot2dna"), device=dev)
+    (p, d), = prot2dna_pairs(1, Lp, seed=0)
+    x = torch.tensor(cm.in_toks(p), device=dev)
+    y = torch.tensor(cm.out_toks(d), device=dev)
+    lens = (len(p), len(d))
+    out = {}
+    for sr in (LOGSUMEXP, MAXPLUS):
+        mats = [torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(dev)
+                for m in cm.lowered.matrices_2d(sr.name)]
+        got, plan, profile = row_profiles(mats, x, y, sr, lens)
+        rec = {"plan": plan, "profile": profile}
+        tables = rk.row_tables(*mats, sr)
+        lat = rk.row_scan(*mats, x, y, sr)
+        twin = (rk.row_scan_diagonal(tables, x, y, lens=lens),
+                rk.row_scan_diagonal(tables, x, y))
+        err = max(row_err(got, twin[0]), row_err(lat, twin[1]))
+        check(err <= ROW_VS_PLAIN_TOL[sr.name], "row kernel vs its twin "
+              "%.3g nats" % err)
+        rec["kernel_vs_twin"] = err
+        if sr is LOGSUMEXP:
+            rec["kernel_ms_by_cluster"] = row_cluster_sweep(
+                mats, x, y, *lens)["ms"]
+        out[sr.name] = rec
+    emit({"phase": "row_profile", "machine": "prot2dna", "Li": lens[0],
+          "Lo": lens[1], "S": cm.ev.n_states(), "semirings": out,
+          "seconds": time.perf_counter() - t_phase, "card": card,
+          "nvidia_smi": smi})
+
+
 def row_wide_case(dev, L):
     """The 512-state machine (511 states and End: dispatch's
     DENSE_MAX_STATES), one pair of L x L through log_forward: the closure
@@ -2989,24 +3104,28 @@ def row_wide_case(dev, L):
     rec, (got,) = row_record(
         "states_512", [lambda: cm.log_forward(x, y)],
         lambda: rk.row_scan(*mats, xt, yt, LOGSUMEXP, lens=(L, L)),
-        lambda: dp2d.forward_2d_plain(*mats, xt, yt, L, L), "logsumexp")
+        lambda: dp2d.forward_2d_plain(*mats, xt, yt, L, L), "logsumexp",
+        mats)
     ref = f64_scores(cm._host_mats(), [(cm.in_toks(x), cm.out_toks(y))])
     bound_ms, bound_by, _, _, dense_ms = row_bound(
         cm._host_mats(), [(cm.in_toks(x), cm.out_toks(y))], False)
     return gated(rec, score_err([got], ref), GATE_TOL,
                  "host_oracle.forward_2d_f64", "states_512", S=S, L=L,
-                 layout=rk.row_launch_plan(S, L, L, 1), bound_ms=bound_ms,
-                 bound_by=bound_by, bound_every_entry_ms=dense_ms)
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 bound_every_entry_ms=dense_ms)
 
 
 def row_long_case(dev, L):
     """The 64-state ACGT machine, one pair of L x L (a sequence and a copy
-    with 10% of its positions redrawn) through log_forward: its two rows
-    past a block's shared memory, in global memory; one call, against the
-    float64 oracle on the card (forward_2d_f64_card; the eager plain
-    version would take hours at this size)."""
+    with 10% of its positions redrawn) through log_forward (the plan's
+    cluster of 16 blocks, the ring in shared memory); one call, against
+    the float64 oracle on the card (forward_2d_f64_card; the eager plain
+    version would take hours at this size). Then the kernel on 8 blocks,
+    whose ring (three diagonals of 376 cells a block) is past a block's
+    shared memory, in global memory: bit-equal, timed by CUDA events."""
     from machineboss_tpu_torch.dispatch import CompiledMachine
     from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
     from machineboss_tpu_torch.testmachines import (align_pair,
                                                     build_random_transducer)
     cm = CompiledMachine(build_random_transducer(64, list("ACGT")),
@@ -3014,8 +3133,6 @@ def row_long_case(dev, L):
     S = cm.ev.n_states()
     sp = align_pair(L, seed=12)
     x, y = "".join(sp.input.seq), "".join(sp.output.seq)
-    cfg = rk.row_launch_plan(S, L, L, 1)
-    check(cfg["rows"] == "global", "long pair: rows %s" % cfg["rows"])
     wrappers = counts()
     for w in wrappers.values():
         w.launches = 0
@@ -3023,6 +3140,22 @@ def row_long_case(dev, L):
     launches = {k: w.launches for k, w in wrappers.items()}
     check(launches == {k: int(k == "row_scan") for k in wrappers},
           "long pair: launches %s" % launches)
+    cfg = rk.row_scan.last["plan"]
+    mats = cm._device_mats(("2d_dev", "logsumexp"), cm._host_mats)
+    xt = torch.tensor(cm.in_toks(x), device=dev)
+    yt = torch.tensor(cm.out_toks(y), device=dev)
+    prep_ms = rk.row_tables(*mats, LOGSUMEXP).prep_ms
+
+    def kernel(cluster=None):
+        return rk.row_scan(*mats, xt, yt, LOGSUMEXP, lens=(L, L),
+                           cluster=cluster)
+
+    kernel_ms, alone = event_ms(kernel)
+    check(float(alone) == got, "long pair: the kernel alone differs")
+    global_ms, other = event_ms(lambda: kernel(8))
+    glob = rk.row_scan.last["plan"]
+    check(glob["rows"] == "global" and torch.equal(other, alone),
+          "long pair: the global ring (%s) differs" % glob["rows"])
     t0 = time.perf_counter()
     ref = forward_2d_f64_card(cm._host_mats(), cm.in_toks(x), cm.out_toks(y),
                               dev)
@@ -3031,8 +3164,10 @@ def row_long_case(dev, L):
         cm._host_mats(), [(cm.in_toks(x), cm.out_toks(y))], False)
     gate = score_err([got], [ref])
     check(gate <= GATE_TOL, "long pair: f64 gate %.3g nats" % gate)
-    return {"S": S, "L": L, "layout": cfg, "call_ms": ms, "score": got,
-            "f64_gate_max_abs": gate, "f64_oracle_s": oracle_s,
+    return {"S": S, "L": L, "plan": cfg, "cluster": cfg["cluster"],
+            "tables_prep_ms": prep_ms, "call_ms": ms, "kernel_ms": kernel_ms,
+            "global_ring": {"plan": glob, "kernel_ms": global_ms},
+            "score": got, "f64_gate_max_abs": gate, "f64_oracle_s": oracle_s,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_every_entry_ms": dense_ms}
 
@@ -4577,10 +4712,12 @@ def parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense_cm,
 
 
 def single_pair_paths(dev, card, smi):
-    """The four phases of the single-pair and sparse engines: the row
-    kernel under the 2D single-pair calls, eager torch under the rest.
-    Returns the kernels-line entry of row_scan."""
+    """The four phases of the single-pair and sparse engines (the row
+    kernel under the 2D single-pair calls, eager torch under the rest) and
+    the row kernel's profile. Returns the kernels-line entry of
+    row_scan."""
     row = single_pair_2d_phase(dev, card, smi)
+    row_profile_phase(dev, card, smi)
     cm1d, toks1d = single_pair_1d_phase(dev, card, smi)
     sparse_phase(dev, card, smi)
     pswm_phase(dev, card, smi, cm1d, toks1d)

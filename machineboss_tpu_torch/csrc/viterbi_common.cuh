@@ -54,7 +54,8 @@ constexpr int TD = 4;  // destination states per thread
 // it), the shared::cluster address of the same shared offset in block
 // `rank` of the cluster, and a store there (distributed shared memory).
 // Both fills walk a pair with a cluster of blocks that split the
-// destination states.
+// destination states; the row kernel (row_scan.cu) with a cluster of
+// blocks that split the input positions.
 __device__ __forceinline__ int cluster_rank() {
   unsigned r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));

@@ -41,7 +41,8 @@ SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
 # phase-profile library -> the kernel whose source it builds, with
 # PROFILE_FLAG: the kernel's clock64 counters, never in a path's library
 PROFILES = {"lattice_walk_profile": "lattice_walk",
-            "fused_plan7_profile": "fused_plan7"}
+            "fused_plan7_profile": "fused_plan7",
+            "row_scan_profile": "row_scan"}
 PROFILE_FLAG = "-DPHASE_PROFILE"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -205,14 +205,15 @@ def test_backward_lattice_matches_jax_and_host(name, sr_name):
             _close(got.numpy(), ref, HOST_BOUND)
 
 
-def _banded_case(name, width):
+def _banded_case(name, width, n_cols=9):
     """A pair with a path alignment and its Envelope, as the JAX package's
-    tests/test_device_dp.py builds one: the columns of a random path."""
+    tests/test_device_dp.py builds one: the n_cols columns of a random
+    path."""
     ev, mats, _ = _case(name, "logsumexp")
     rng = np.random.RandomState(width + 3)
     alphabet = MACHINES[name][1]
     cols = []
-    for k in rng.randint(0, 3, 9):
+    for k in rng.randint(0, 3, n_cols):
         a = alphabet[rng.randint(len(alphabet))] if k != 2 else ""
         b = alphabet[rng.randint(len(alphabet))] if k != 1 else ""
         cols.append((a, b))

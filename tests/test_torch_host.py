@@ -193,7 +193,7 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
                        ("lowrank_wavefront", 2), ("scan1d", 1),
                        ("viterbi_wavefront", 2),
                        ("viterbi_banded_wavefront", 2), ("lattice_walk", 1),
-                       ("fused_plan7", 1), ("row_scan", 1)):
+                       ("fused_plan7", 1), ("row_scan", 2)):
         files = _build.source_files(name)
         assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
         assert all(f.startswith(str(csrc)) for f in files)
@@ -214,8 +214,8 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     assert changed == {"lowrank_wavefront", "factored_wavefront"}
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
     # the chained schedule walks pair by pair on walk_pair (its strip
-    # header is gone), and the cluster helpers both Viterbi fills use live
-    # once, in viterbi_common.cuh
+    # header is gone), and the cluster helpers both Viterbi fills and the
+    # row kernel use live once, in viterbi_common.cuh
     assert not (csrc / "strip.cuh").exists()
     common = (csrc / "viterbi_common.cuh").read_text()
     sources = [(csrc / f).read_text() for f in _build.SOURCES.values()]
@@ -224,7 +224,8 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         define = re.compile(r"__forceinline__ \w+ %s\(" % helper)
         assert len(define.findall(common)) == 1
         assert not any(define.search(src) for src in sources)
-    for name in ("viterbi_wavefront", "viterbi_banded_wavefront"):
+    for name in ("viterbi_wavefront", "viterbi_banded_wavefront",
+                 "row_scan"):
         src = (csrc / _build.SOURCES[name]).read_text()
         assert "cluster_rank()" in src and "cluster_sync()" in src \
             and "peer_addr(" in src
@@ -237,7 +238,7 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         f.write(b"\n// edited\n")
     changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
     assert changed == {"scan1d", "viterbi_wavefront",
-                       "viterbi_banded_wavefront"}
+                       "viterbi_banded_wavefront", "row_scan"}
 
 
 # ---- the host side of alignment: utils/logsumexp, core/seqpair, algo/dp_host
