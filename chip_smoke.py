@@ -106,25 +106,34 @@ Plan7Fused.forward_batch_tokens at 1,200 nodes, 256 reads of 1,200
 pairs of 400 x 1,200 (the chunked layout). It prints each plan's layout
 and each case's ms (~150 s).
 
-Then the em phase drives EM training (no kernel of the kernels line runs
-in its E-step: autograd through the batched wavefront, eager torch):
-prot2dna, B=128 pairs of 64 aa x 192 nt whose codons are drawn from each
-amino acid's synonymous codons, through parallel.em.device_counts (first
-call s, median of 3 ms, pairs/s, state-cells/s, launches and copies a
-call, peak memory, beside the same batch's log_forward_batch ms), gated
-(a) on the first 4 pairs against the host MachineCounts, (b) on every
-pair's ll against log_forward_batch (one lowrank launch), (c) on the
-emitted-token counts against the lengths and (d) on tkf91branch and the
-indel transducer against host counts; then MachineFitter(engine="device")
-for 3 iterations with a checkpoint (each iteration's s and E/M split; the
-loglike may not fall) and a host and a device fit of 8 flanked pairs of
-16 aa: every parameter the data use within 1e-3, and the two fits'
-likelihoods within 0.01 nats (a parameter whose transitions the data use
-less than 0.01 times, such as the intron extension, is printed).
+Then the em phase drives EM training, whose E-step runs two kernels of
+the line: the row kernel (row_scan) and the expected counts
+(expected_counts, the kernels line's 15th entry), under
+ops/kernels/counts_kernel.RowLoglike: prot2dna, B=128 pairs of 64 aa x
+192 nt whose codons are drawn from each amino acid's synonymous codons,
+through parallel.em.device_counts (first call s, median of 3 ms,
+pairs/s, state-cells/s, the kernels' own launch counts (row_scan 1 + 2 a
+chunk, expected_counts 1 a chunk, no other kernel, the wavefront autograd
+never called) beside torch.profiler's launches and copies a call, peak
+memory, the tables' build ms, beside the same batch's log_forward_batch
+ms), gated (a) on the first 4 pairs against the host MachineCounts, (b)
+on every pair's ll against log_forward_batch (one lowrank launch), (c) on
+the emitted-token counts against the lengths and (d) on tkf91branch and
+the indel transducer against host counts; the 128 pairs' counts against
+the wavefront route's (rtol 1e-3, atol 1e-4); expected_counts alone on
+the E-step's own lattices against its plain version on the card (8
+pairs, then all 128; 1e-5 + 1e-3 relative), the same bits twice, timed
+beside its bound and the lattices' launches; then
+MachineFitter(engine="device") for 3 iterations with a checkpoint (each
+iteration's s and E/M split; the loglike may not fall) and a host and a
+device fit of 8 flanked pairs of 16 aa: every parameter the data use
+within 1e-3, and the two fits' likelihoods within 0.01 nats (a parameter
+whose transitions the data use less than 0.01 times, such as the intron
+extension, is printed).
 
 Then three phases drive what a user reaches without writing Python, and
 the neural and CTC scorers (no kernel of their own; the cli phase reaches
-five kernels of the line through their counted wrappers):
+seven kernels of the line through their counted wrappers):
 
   cli         machineboss_tpu_torch.cli.main in process, stdout captured, on
               files written to a temporary directory: prot2dna --loglike
@@ -133,7 +142,8 @@ five kernels of the line through their counted wrappers):
               --viterbi on align_prot2dna's 64 pairs (the batched fill and
               the walk), --align --wiggle-room 16 on align_banded's pair
               (the banded fill and the walk), --counts on 16 of the em
-              batch's pairs (no kernel): each call's launches, its output
+              batch's pairs (row_scan three times, expected_counts once):
+              each call's launches, its output
               equal to the text a direct call of the same entry point
               gives, f64 gates on 8 pairs, the host's alignments with no
               fallback, the call's ms split into machine build,
@@ -161,8 +171,9 @@ prot2dna path's 512 pairs (the f64 gate on 8, every pair against the
 lowrank scores, 5e-3); (b) lowrank, merged and chained (chain 8) from
 make_wavefront_forward on the rank's block, all-gathered: bit-equal to
 the factory's call on the whole batch, one launch each; (c)
-device_counts(mesh=) on the em phase's pairs and one
-MachineFitter(engine="device", mesh=) iteration, equal to mesh=None;
+device_counts(mesh=) on the em phase's pairs (row_scan three times,
+expected_counts once) and one MachineFitter(engine="device", mesh=)
+iteration, equal to mesh=None;
 (d) the length- and (e) the state-sharded scans on dense1d's generator
 at L=10,000 and (f) one diagonal-sharded 2,000 x 2,000 lattice on the
 dense machine, each against its single-device engine and a float64
@@ -581,6 +592,7 @@ def scan1d_cases(dev):
 
 def counts():
     from machineboss_tpu_torch.algo import traceback_device as tb
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
     from machineboss_tpu_torch.ops.kernels import fused_plan7_kernel as fk
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import row_kernel as rk
@@ -600,7 +612,8 @@ def counts():
             "viterbi_banded_wavefront": vk.viterbi_banded_wavefront,
             "lattice_walk": tb.lattice_walk,
             "fused_plan7": fk.fused_plan7_forward_kernel,
-            "row_scan": rk.row_scan}
+            "row_scan": rk.row_scan,
+            "expected_counts": ck.expected_counts}
 
 
 def drive(name, cm, pairs, kernel, route):
@@ -3561,6 +3574,50 @@ EMISSION_TOL = 1e-4              # relative: emitted-token counts vs lengths
 FIT_TOL = 1e-3                   # per parameter: device fit vs host fit
 FIT_MIN_USES = 0.01              # expected uses below which data fit nothing
 EM_RISE_TOL = 1e-6               # of |ll|: EM's loglike may not fall
+# expected_counts against its plain version on the card's own lattices:
+# both are float32 terms exp(x), x a sum of lattice values of magnitude
+# ~|LL| (some 10^2-10^3 nats at 64 x 192), whose rounding (an ulp of |LL|,
+# ~6e-5 at 10^3) moves each term by as much relative; the kernel takes the
+# closure terms from its incoming and outgoing sums where the plain version
+# takes logsumexps, and both sum in other orders
+COUNTS_KERNEL_RTOL, COUNTS_KERNEL_ATOL = 1e-3, 1e-5
+
+
+def counts_close(got, want):
+    """(max |got - want| over the four gradients, the largest excess over
+    COUNTS_KERNEL_ATOL + COUNTS_KERNEL_RTOL |want| (<= 0 passes))."""
+    diff = excess = 0.0
+    for a, b in zip(got, want):
+        d = (a.double() - b.double()).abs()
+        diff = max(diff, float(d.max()) if d.numel() else 0.0)
+        if d.numel():
+            excess = max(excess, float((d - COUNTS_KERNEL_ATOL
+                                        - COUNTS_KERNEL_RTOL
+                                        * b.double().abs()).max()))
+    return diff, excess
+
+
+def counts_bound(mats, it, ot, il, ol, tables, lattice_bytes):
+    """(bound_ms, bound_by, operations, bytes) of expected_counts on these
+    pairs: each live cell's finite terms (incoming: A_up[y_o], A_diag[x_i,
+    y_o], A_left[x_i]; outgoing: the same matrices of the cells it feeds;
+    the closure's), each an exp, two adds forming its exponent and one add
+    into its sum (four operations at the float32 peak); bytes: the two
+    lattices and the lists read once, the float64 sums written once."""
+    nz = [(m > NEG).sum(dim=(-2, -1)).double().cpu().numpy() for m in mats]
+    nd, nl, nu, nc = nz[0], nz[1], nz[2], float(nz[3])
+    it, ot = it.long().cpu().numpy(), ot.long().cpu().numpy()
+    il, ol = il.long().cpu().numpy(), ol.long().cpu().numpy()
+    terms = 0.0
+    for b in range(len(il)):
+        x, y = it[b, :il[b]], ot[b, :ol[b]]
+        terms += 2.0 * ((il[b] + 1) * nu[y].sum() + (ol[b] + 1) * nl[x].sum()
+                        + nd[x][:, y].sum()) \
+            + nc * (il[b] + 1) * (ol[b] + 1)
+    flops = 4.0 * terms
+    nbytes = 2.0 * lattice_bytes + tables.nbytes + 8.0 * tables.n_fin
+    ms, by = bound(flops, nbytes)
+    return ms, by, flops, nbytes
 
 
 def count_err(got, host):
@@ -3597,18 +3654,29 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     """EM training at full width: prot2dna (S=132, 249 transitions, its 68
     default parameters in 21 norm groups and 3 probabilities), B pairs of
     Lp aa x 3Lp nt whose codons are drawn from each amino acid's
-    synonymous codons. The E-step (parallel.em.device_counts, autograd
-    through the batched wavefront, eager torch) is timed and its launches
-    counted; gates: (a) the first n_host pairs' counts and lls against the
-    host MachineCounts, (b) every pair's ll against log_forward_batch (one
-    lowrank_wavefront launch), (c) the emitted-token counts against the
-    lengths, (d) tkf91branch and the indel transducer against host counts.
-    Then MachineFitter(engine="device") for fit_iters iterations with a
+    synonymous codons. The E-step (parallel.em.device_counts: the rows
+    route of counts_kernel.estep_route, row_scan's score under RowLoglike,
+    whose backward is a Forward and a Backward lattice and expected_counts
+    a chunk) is timed (ms, median of 3; peak memory; its tables' build
+    ms), its launches counted by the kernels' own counters (row_scan 1 + 2
+    a chunk, expected_counts 1 a chunk, no other, and the wavefront
+    autograd never called) beside torch.profiler's count; gates: (a) the
+    first n_host pairs' counts and lls against the host MachineCounts, (b)
+    every pair's ll against log_forward_batch (one lowrank_wavefront
+    launch), (c) the emitted-token counts against the lengths, (d)
+    tkf91branch and the indel transducer against host counts; the B pairs'
+    counts against the wavefront route's (COUNT_RTOL, COUNT_ATOL); and
+    expected_counts alone on the E-step's own lattices against its plain
+    version on the card (8 pairs, then all B; COUNTS_KERNEL_RTOL, _ATOL),
+    the same bits in a second launch, timed by CUDA events beside its
+    bound, the lattices' and the score's launches timed too. Then
+    MachineFitter(engine="device") for fit_iters iterations with a
     checkpoint (each iteration's s and its E/M split; the loglike may not
     fall), and a host and a device fit of fit_B flanked pairs of fit_Lp
     aa: every parameter the data use within FIT_TOL, the fits'
-    likelihoods within EM_LL_TOL. The sizes are arguments, so the phase
-    rehearses on the CPU at small sizes."""
+    likelihoods within EM_LL_TOL. Returns the kernels line's
+    expected_counts entry. The sizes are arguments, so the phase rehearses
+    on the CPU at small sizes."""
     import os
     import tempfile
     from machineboss_tpu_torch.algo.counts import MachineCounts
@@ -3619,7 +3687,11 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     from machineboss_tpu_torch.core.seqpair import (
         NamedSeq, SeqPair, SeqPairList)
     from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.ops import fwdback
     from machineboss_tpu_torch.ops.fwdback import CountModel, tokenize_batch
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
     from machineboss_tpu_torch.parallel.em import device_counts
     from machineboss_tpu_torch.testmachines import prot2dna_pairs
     t_phase = time.perf_counter()
@@ -3637,22 +3709,48 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     pairs = prot2dna_pairs(B, Lp, seed=13, synonymous=True)
     spl = seq_pairs(pairs)
 
-    # the E-step: no kernel of the kernels line runs in it
+    # the E-step: row_scan (the score, then a Forward and a Backward
+    # lattice a chunk) and expected_counts (one a chunk) and no other kernel
+    # of the line; the wavefront engine, the other route, never called
     wrappers = counts()
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    mem0 = torch.cuda.memory_allocated()
-    dc, first_ms = synced_ms(lambda: device_counts(m, params, spl,
-                                                   device=dev))
-    peak = torch.cuda.max_memory_allocated() - mem0
-    times = [synced_ms(lambda: device_counts(m, params, spl,
-                                             device=dev))[1]
-             for _ in range(3)]
-    check(all(w.launches == 0 for w in wrappers.values()),
-          "the E-step launched a kernel of the kernels line")
-    _, launches, copies = launches_per_call(
-        lambda: device_counts(m, params, spl, device=dev))
+    wavefront = fwdback.forward_2d_wavefront_fast
+    wavefront_calls = []
+
+    def spy(*args, **kw):
+        wavefront_calls.append(1)
+        return wavefront(*args, **kw)
+
+    def tables_ms():
+        return ck.RowLoglike.last["tables_ms"] \
+            + ck.estep_backward.last["tables_ms"]
+
+    fwdback.forward_2d_wavefront_fast = spy
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        dc, first_ms = synced_ms(lambda: device_counts(m, params, spl,
+                                                       device=dev))
+        peak = torch.cuda.max_memory_allocated() - mem0
+        launched = {k: w.launches for k, w in wrappers.items()}
+        chunks = ck.estep_backward.last["chunks"]
+        pairs_per_chunk = ck.estep_backward.last["pairs_per_chunk"]
+        first_tables_ms = tables_ms()
+        times, tables = [], []
+        for _ in range(3):
+            times.append(synced_ms(lambda: device_counts(
+                m, params, spl, device=dev))[1])
+            tables.append(tables_ms())
+        _, launches, copies = launches_per_call(
+            lambda: device_counts(m, params, spl, device=dev))
+    finally:
+        fwdback.forward_2d_wavefront_fast = wavefront
+    want = {k: 0 for k in wrappers}
+    want.update(row_scan=1 + 2 * chunks, expected_counts=chunks)
+    check(launched == want, "the E-step launched %s, expected %s"
+          % ({k: v for k, v in launched.items() if v}, want))
+    check(not wavefront_calls, "the E-step took the wavefront autograd")
     estep_ms = float(np.median(times))
     flat = np.concatenate(dc.count)
     check(flat.shape == (n_trans,) and np.isfinite(flat).all()
@@ -3662,6 +3760,8 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     model = CountModel(ev, device=dev)
     toks = tokenize_batch(ev, spl.seq_pairs, device=dev)
     grads, total, lls = model.counts_and_loglike(*toks)
+    check(model.last_route == "rows", "the E-step's route is %s"
+          % model.last_route)
     lls = lls.cpu().numpy()
     check(abs(float(total) - dc.loglike) <= EM_RISE_TOL * abs(dc.loglike),
           "CountModel total %r vs device_counts %r" % (float(total),
@@ -3672,6 +3772,61 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     err_b = score_err(lls, fwd)
     check(err_b <= EM_LL_TOL, "(b) E-step lls vs log_forward_batch %.3g"
           % err_b)
+
+    # the 128 pairs' counts against the wavefront route's (autograd
+    # through the batched scaled wavefront, the same function)
+    wf_model = CountModel(ev, device=dev)
+    wf_model.route = "wavefront"
+    (wf_grads, wf_total, wf_lls), wf_ms = synced_ms(
+        lambda: wf_model.counts_and_loglike(*toks))
+    wf_diff = (grads - wf_grads).abs()
+    wf_excess = float((wf_diff - COUNT_ATOL - COUNT_RTOL
+                       * wf_grads.abs()).max())
+    wf_ll_err = score_err(lls, wf_lls.cpu().numpy())
+    check(wf_excess <= 0.0, "rows vs wavefront route counts past "
+          "tolerance by %.3g" % wf_excess)
+    check(wf_ll_err <= EM_LL_TOL and abs(float(total) - float(wf_total))
+          <= EM_LL_TOL * B, "rows vs wavefront route lls %.3g, totals %r, "
+          "%r" % (wf_ll_err, float(total), float(wf_total)))
+    del wf_model, wf_grads
+
+    # expected_counts alone on the E-step's own lattices: against its plain
+    # version on 8 pairs and on all of them, timed, and its bound
+    mats = [x.detach() for x in model.build_tensors(model.logw)]
+    it, ot, il, ol = toks
+    g = torch.ones(B, device=dev)
+    F = rk.row_scan(*mats, it, ot, LOGSUMEXP)
+    Br = ck.backward_lattices(*mats, it, ot, il, ol)
+    sub = (F[:8], Br[:8], *mats, it[:8], ot[:8], il[:8], ol[:8], g[:8])
+    diff8, excess8 = counts_close(ck.expected_counts(*sub),
+                                  ck.expected_counts_plain(*sub))
+    check(excess8 <= 0.0, "expected_counts vs plain on 8 pairs past "
+          "tolerance by %.3g" % excess8)
+    kern = ck.expected_counts(F, Br, *mats, *toks, g)
+    plan = ck.expected_counts.last["plan"]
+    tables_c, _ = ck.counts_tables_cached(*mats)
+    check(ck.counts_smem_bytes_on_card(
+        S, tables_c.n_fin, plan["acc"] == "shared") == plan["smem_bytes"],
+        "expected_counts' shared layout differs from its plan's")
+    plain, counts_plain_ms = synced_ms(
+        lambda: ck.expected_counts_plain(F, Br, *mats, *toks, g))
+    diff_all, excess_all = counts_close(kern, plain)
+    check(excess_all <= 0.0, "expected_counts vs plain on %d pairs past "
+          "tolerance by %.3g" % (B, excess_all))
+    del plain
+    again = ck.expected_counts(F, Br, *mats, *toks, g)
+    check(all(torch.equal(a, b_) for a, b_ in zip(kern, again)),
+          "expected_counts differs run to run")
+    counts_ms = cuda_ms(lambda: ck.expected_counts(F, Br, *mats, *toks, g),
+                        10)
+    lattice_ms = cuda_ms(lambda: rk.row_scan(*mats, it, ot, LOGSUMEXP), 5)
+    backward_ms = cuda_ms(lambda: ck.backward_lattices(*mats, it, ot, il,
+                                                       ol), 5)
+    score_ms = cuda_ms(lambda: rk.row_scan(*mats, it, ot, LOGSUMEXP,
+                                           lens=(il, ol)), 5)
+    c_bound, c_by, c_flops, c_bytes = counts_bound(
+        mats, it, ot, il, ol, tables_c, F.numel() * 4.0)
+    del F, Br, kern, again
 
     # (c) each input (output) token is emitted by one edge with an input
     # (output) token: their counts sum to the summed lengths
@@ -3805,12 +3960,38 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     state_cells = B * (Lp + 1) * (3 * Lp + 1) * S
     emit({"phase": "em", "machine": "prot2dna", "S": S, "transitions": n_trans,
           "pairs": B, "Li": Lp, "Lo": 3 * Lp, "codons": "synonymous",
-          "estep": {"first_call_s": first_ms / 1e3, "ms_median3": estep_ms,
+          "estep": {"route": model.last_route,
+                    "first_call_s": first_ms / 1e3, "ms_median3": estep_ms,
                     "ms_all": times, "pairs_per_s": B / (estep_ms / 1e3),
                     "state_cells_per_s": state_cells / (estep_ms / 1e3),
-                    "launches_per_call": launches,
-                    "copies_per_call": copies,
+                    "kernel_launches": {k: v for k, v in launched.items()
+                                        if v},
+                    "chunks": chunks, "pairs_per_chunk": pairs_per_chunk,
+                    "wavefront_calls": len(wavefront_calls),
+                    "profiler_launches_per_call": launches,
+                    "profiler_copies_per_call": copies,
+                    "profiler_reads_null": launches is None,
+                    "tables_ms_first": first_tables_ms,
+                    "tables_ms": tables,
+                    "kernel_ms": {"score": score_ms, "forward_lattice":
+                                  lattice_ms, "backward_lattice": backward_ms,
+                                  "expected_counts": counts_ms},
                     "peak_bytes": peak, "peak_gib": peak / 2 ** 30},
+          "vs_wavefront_route": {"count_max_abs": float(wf_diff.max()),
+                                 "count_excess_over_tol": wf_excess,
+                                 "ll_max_abs": wf_ll_err,
+                                 "total_diff": float(total) - float(wf_total),
+                                 "wavefront_first_call_ms": wf_ms},
+          "expected_counts": {"plan": plan, "n_fin": tables_c.n_fin,
+                              "max_abs_8_pairs": diff8,
+                              "excess_8_pairs": excess8,
+                              "max_abs_all": diff_all,
+                              "excess_all": excess_all,
+                              "kernel_ms": counts_ms,
+                              "plain_ms": counts_plain_ms,
+                              "bound_ms": c_bound, "bound_by": c_by,
+                              "flops": c_flops, "bytes": c_bytes,
+                              "share_of_bound": c_bound / counts_ms},
           "log_forward_batch": {"ms_median5": fwd_ms,
                                 "lowrank_launches": fwd_launches,
                                 "estep_over_forward": estep_ms / fwd_ms},
@@ -3829,14 +4010,22 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
           "fit_host_vs_device_coding_only": fit_coding,
           "seconds": time.perf_counter() - t_phase,
           "card": card, "nvidia_smi": smi})
+    return {"name": "expected_counts", "route": "cuda",
+            "source": "machineboss_tpu_torch/csrc/expected_counts.cu",
+            "replaces": "machineboss_tpu/ops/fwdback.py:112 (value_and_grad "
+                        "of vmap(dp2d.forward_2d): the backward XLA derives)",
+            "launches": launched["expected_counts"],
+            "max_abs_err": max(diff8, diff_all), "ms": counts_ms,
+            "plain_ms": counts_plain_ms, "bound_ms": c_bound,
+            "bound_by": c_by, "library_ms": None}
 
 
 # ------------------------------------------------------- the command line
 
 JAX_CLI_MKV_LL = -5.54518        # the JAX CLI's --loglike of MKV / ATGAAAGTT
 CLI_SUBPROCESS_TOL = 1e-3        # nats: the module entry against that score
-CLI_COUNTS_RTOL = 1e-5           # CLI counts vs a direct call: float32 sums
-CLI_COUNTS_ATOL = 1e-6           # in another order (autograd's atomics)
+CLI_COUNTS_RTOL = 1e-5           # CLI counts vs a direct call: the same
+CLI_COUNTS_ATOL = 1e-6           # kernels on the same pairs (ordered sums)
 
 
 class CliSplit:
@@ -3912,9 +4101,12 @@ def run_cli(argv):
 
 
 def cli_expect(name, launches, kernels):
-    """The call launched each of `kernels` once and no other kernel."""
-    want = {k: int(k in kernels) for k in launches}
-    check(launches == want, "cli %s: launches %s, expected one of each of %s"
+    """The call launched each of `kernels` once (a dict: its number of
+    times) and no other kernel."""
+    if not isinstance(kernels, dict):
+        kernels = dict.fromkeys(kernels, 1)
+    want = {k: kernels.get(k, 0) for k in launches}
+    check(launches == want, "cli %s: launches %s, expected %s"
           % (name, {k: v for k, v in launches.items() if v}, kernels))
 
 
@@ -4160,13 +4352,15 @@ def cli_phase(dev, card, smi, B=512, Lp=64, B1d=256, L1d=10000, S1d=64,
                build_random_transducer(64, list("ACGT"), seed=3), [sp],
                band, ["viterbi_banded_wavefront", "lattice_walk"])
 
-    # -- --counts on the em batch's first pairs: no kernel of the line
+    # -- --counts on the em batch's first pairs: the E-step's kernels,
+    # row_scan (the score, a Forward and a Backward lattice) and
+    # expected_counts, for a batch of one chunk
     cpairs = prot2dna_pairs(128, Lp, seed=13, synonymous=True)[:B_counts]
     data = write("counts.json", spl(cpairs).to_json_str())
     res = run_cli(["--preset", "prot2dna", "-U", "--data", data, "--counts",
                    "--engine", "device"])
     out = ok("counts", res)
-    cli_expect("counts", res[3], [])
+    cli_expect("counts", res[3], {"row_scan": 3, "expected_counts": 1})
     got = json.loads(out)
     direct = device_counts(p2d, params, spl(cpairs), device=dev)
     want = json.loads(direct.param_counts_json_str(p2d, params))
@@ -4587,8 +4781,14 @@ def parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense_cm,
                                                    synonymous=True)))
         plain, plain_ms = synced_ms(lambda: device_counts(m, params, spl,
                                                           device=dev))
+        wrappers = zero_counts()
         meshed, mesh_ms = synced_ms(lambda: device_counts(m, params, spl,
                                                           mesh=mesh))
+        em_launches = {k: w.launches for k, w in wrappers.items() if
+                       w.launches}
+        check(em_launches == {"row_scan": 3, "expected_counts": 1},
+              "em: device_counts(mesh=) launched %s, expected row_scan 3 "
+              "and expected_counts once" % em_launches)
         check(np.array_equal(np.concatenate(plain.count),
                              np.concatenate(meshed.count))
               and plain.loglike == meshed.loglike,
@@ -4606,7 +4806,8 @@ def parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense_cm,
               "em: a fit iteration on the mesh differs from one without")
         em = {"B": em_B, "Lp": em_Lp, "fit_B": fit_B, "fit_Lp": fit_Lp,
               "estep_ms": plain_ms,
-              "estep_mesh_ms": mesh_ms, "counts_bit_equal": True,
+              "estep_mesh_ms": mesh_ms, "estep_mesh_launches": em_launches,
+              "counts_bit_equal": True,
               "fit_iteration_s": fit_s, "fit_params": len(fits["mesh"]),
               "fit_params_equal": True, "loglike": meshed.loglike}
         seconds["em"] = time.perf_counter() - t0
@@ -5300,8 +5501,8 @@ def main():
     # -- the four kernels past a block's shared memory --------------------
     long_shapes_phase(dev, card, smi)
 
-    # -- EM training (the autograd E-step, eager torch), at full width ---
-    em_phase(dev, card, smi)
+    # -- EM training (the row kernel and expected_counts), at full width -
+    kernels.append(em_phase(dev, card, smi))
 
     # -- the command line, the neural DP and device CTC scoring ----------
     cli_phase(dev, card, smi)
@@ -5315,9 +5516,10 @@ def main():
     # -- single-pair scoring (the row kernel) and the sparse engine -------
     kernels.append(single_pair_paths(dev, card, smi))
 
-    # no single PyTorch call computes a wavefront, this scan, this walk or
-    # this row solve: library_ms is null for every kernel
-    check(len(kernels) == 14, "the kernels line has %d entries" % len(kernels))
+    # no single PyTorch call computes a wavefront, this scan, this walk,
+    # this row solve or these expected counts: library_ms is null for every
+    # kernel
+    check(len(kernels) == 15, "the kernels line has %d entries" % len(kernels))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -9,19 +9,24 @@ takes torch.autograd.grad of the summed log-likelihood, which yields the
 count vector in the host's (state, transIndex) layout. Silent-transition
 counts flow through the differentiable closure C = (I - N)^{-1}.
 
-Deliberate difference: the JAX class differentiates a vmap of the row
-scan (dp2d.forward_2d); this one differentiates the batched scaled
-wavefront (ops/wavefront_fast.py), the same function, whose launches
-serve the whole batch a diagonal at a time where the port's eager row
-engine makes some thirty a cell. It also runs a generator (an empty input
-side), on which the JAX class raises (its row scan indexes the empty
-a_left).
+The JAX class differentiates a vmap of the row scan (dp2d.forward_2d)
+and XLA derives the backward; this one takes the same algorithm by the
+route of kernels/counts_kernel.estep_route: "rows" for float32 and up to
+512 states, the row kernel's Forward score under
+counts_kernel.RowLoglike, whose backward is the expected counts over the
+row kernel's Forward and Backward lattices (csrc/expected_counts.cu on the
+card, their plain versions on the CPU); "wavefront" for any other dtype
+or size, autograd through the batched scaled wavefront
+(ops/wavefront_fast.py), the same function. It also runs a generator (an
+empty input side), on which the JAX class raises (its row scan indexes
+the empty a_left).
 """
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .kernels.counts_kernel import RowLoglike, estep_route
 from .semiring import NEG_INF
 from .wavefront_fast import forward_2d_wavefront_fast
 
@@ -29,7 +34,14 @@ from .wavefront_fast import forward_2d_wavefront_fast
 class CountModel:
     """Static (host-side) description binding a machine's transitions to
     the differentiable device tensors, on `device` (None: the CUDA card,
-    raising when CUDA is absent; "cpu" for the CPU)."""
+    raising when CUDA is absent; "cpu" for the CPU).
+
+    `route` None takes estep_route's for the weights' dtype and the
+    states; "rows" or "wavefront" forces one. `last_route` names the route
+    the last batch_loglike took."""
+
+    route = None
+    last_route = None
 
     def __init__(self, ev, dtype=torch.float32, device=None):
         self.ev = ev
@@ -113,8 +125,15 @@ class CountModel:
         weight 0 removes a (padding) pair from both the total and, through
         the gradient, the expected counts. Impossible pairs (ll <=
         NEG_INF/2) drop out of the sum."""
-        lls = forward_2d_wavefront_fast(*self.build_tensors(logw), in_toks,
-                                        out_toks, in_lens, out_lens)
+        route = self.route or estep_route(logw.dtype, self.n_states)
+        mats = self.build_tensors(logw)
+        if route == "rows":
+            lls = RowLoglike.apply(*mats, in_toks, out_toks, in_lens,
+                                   out_lens)
+        else:
+            lls = forward_2d_wavefront_fast(*mats, in_toks, out_toks,
+                                            in_lens, out_lens)
+        self.last_route = route
         valid = lls > NEG_INF / 2
         w = torch.ones_like(lls) if weights is None else weights
         return torch.sum(torch.where(valid, lls, torch.zeros_like(lls)) * w), \

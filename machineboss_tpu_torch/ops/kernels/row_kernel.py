@@ -25,9 +25,12 @@ diagonal, where the ring of the last three diagonals lives ("shared" or
 shared and device bytes; it refuses only what the card's memory cannot
 hold.
 
-No caller differentiates the row engine (the E-step differentiates the
-batched wavefront, ops/wavefront_fast.py), so an input that requires grad
-raises rather than being detached.
+The row engine has no gradient of its own: the E-step's
+(counts_kernel.RowLoglike) calls it on detached matrices in its forward
+and backward and takes the gradient from csrc/expected_counts.cu, so an
+input that requires grad raises rather than being detached. A machine
+with an empty input or output alphabet (a generator or a recognizer)
+runs with that side's matrices as one impossible token (`nonempty`).
 """
 
 import ctypes
@@ -153,29 +156,29 @@ def row_tables(a_diag, a_left, a_up, closure, sr):
 
 
 _TABLES = {}         # key -> (weakrefs to the matrices' bases, versions,
-_TABLES_MAX = 16     #        RowTables)
+_TABLES_MAX = 16     #        tables)
 
 
 def _owner(t):
     return t._base if t._base is not None else t
 
 
-def row_tables_cached(a_diag, a_left, a_up, closure, sr):
-    """(RowTables, built): row_tables kept per set of operand tensors. The
-    key is each matrix's address, shape, strides, dtype and device (a
-    transposed view is its own entry); an entry is taken only while weak
-    references to the matrices' storage owners still point at the same
-    objects and their versions are unchanged, so a new tensor at a reused
-    address, or one written in place, is built anew."""
-    mats = (a_diag, a_left, a_up, closure)
-    key = (sr.name,) + tuple((m.data_ptr(), tuple(m.shape), m.stride(),
-                              m.dtype, str(m.device)) for m in mats)
+def tables_cached(tag, mats, build):
+    """(tables, built): build() kept per set of operand tensors and `tag`
+    (the kind of tables). The key is each matrix's address, shape,
+    strides, dtype and device (a transposed view is its own entry); an
+    entry is taken only while weak references to the matrices' storage
+    owners still point at the same objects and their versions are
+    unchanged, so a new tensor at a reused address, or one written in
+    place, is built anew."""
+    key = (tag,) + tuple((m.data_ptr(), tuple(m.shape), m.stride(),
+                          m.dtype, str(m.device)) for m in mats)
     versions = tuple(m._version for m in mats)
     hit = _TABLES.get(key)
     if hit is not None and hit[1] == versions and all(
             r() is _owner(m) for r, m in zip(hit[0], mats)):
         return hit[2], False
-    tables = row_tables(*mats, sr)
+    tables = build()
     for k in [k for k, v in _TABLES.items() if any(r() is None
                                                    for r in v[0])]:
         del _TABLES[k]
@@ -184,6 +187,13 @@ def row_tables_cached(a_diag, a_left, a_up, closure, sr):
     _TABLES[key] = (tuple(weakref.ref(_owner(m)) for m in mats), versions,
                     tables)
     return tables, True
+
+
+def row_tables_cached(a_diag, a_left, a_up, closure, sr):
+    """(RowTables, built): row_tables kept per set of operand tensors and
+    semiring (tables_cached)."""
+    mats = (a_diag, a_left, a_up, closure)
+    return tables_cached(sr.name, mats, lambda: row_tables(*mats, sr))
 
 
 def row_columns(tables):
@@ -293,6 +303,28 @@ def row_smem_bytes_on_card(cfg, S, Li):
         ctypes.c_int(int(cfg["rows"] == "shared")), ctypes.c_int(n_tab)))
 
 
+def nonempty(a_diag, a_left, a_up):
+    """The matrices with an empty alphabet side given one token whose
+    matrices are all NEG_INF (a_left (0, S, S) of a generator becomes (1,
+    S, S), a_diag gains the matching row or column), so every token, 0 on
+    a padded side, indexes a matrix and no path consumes that side; the
+    others are returned as they are."""
+    n_in, n_out = a_left.shape[0], a_up.shape[0]
+    if n_in and n_out:
+        return a_diag, a_left, a_up
+    S = a_left.shape[-1]
+
+    def neg(*shape):
+        return torch.full(shape, NEG_INF, dtype=a_left.dtype,
+                          device=a_left.device)
+
+    n_in1, n_out1 = max(n_in, 1), max(n_out, 1)
+    diag = neg(n_in1, n_out1, S, S)
+    diag[:n_in, :n_out] = a_diag
+    return (diag, a_left if n_in else neg(1, S, S),
+            a_up if n_out else neg(1, S, S))
+
+
 def _as_int32(t, dev):
     return torch.as_tensor(t, device=dev).to(torch.int32).contiguous()
 
@@ -313,7 +345,8 @@ def row_scan(a_diag, a_left, a_up, closure, in_toks, out_toks, sr,
     """The row engine of ops/dp2d.py in one call.
 
     Matrices as lowering.matrices_2d gives them (any strides: Backward
-    hands over transposed views); tokens (Li,) and (Lo,) for one pair or
+    hands over transposed views; an empty alphabet side is given one
+    impossible token by `nonempty`); tokens (Li,) and (Lo,) for one pair or
     (B, Li) and (B, Lo) for a batch. `lens` (in_len, out_len): the score
     cell(in_len, out_len, S-1) of each pair, a 0-dim tensor for one pair
     or (B,); None: the whole lattice, (Lo+1, Li+1, S) or (B, Lo+1, Li+1,
@@ -331,6 +364,7 @@ def row_scan(a_diag, a_left, a_up, closure, in_toks, out_toks, sr,
     if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise ValueError("the row engine has no gradient: its inputs must "
                          "not require grad")
+    a_diag, a_left, a_up = nonempty(a_diag, a_left, a_up)
     dev = closure.device
     if dev.type == "cpu":
         from .. import dp2d

@@ -8,7 +8,9 @@ or profile) by bisection until its plan raises ValueError, and prints one
 JSON line a kernel with the largest size it takes ("unbounded" where no
 shared-memory limit depends on it up to 2^22). Where a plan checks the
 card's memory (`mem_bytes`), the sweep passes the H100's 80 GB, so a size
-it refuses is past the card's memory, not past a block's 227 KiB.
+it refuses is past the card's memory, not past a block's 227 KiB. The
+E-step's chunk plan (counts_kernel.counts_chunk_plan) is swept the same
+way: the pairs a chunk at a shape, and the longest pair one chunk takes.
 
 --tree DIR sweeps the copy of the package at DIR instead (e.g. a
 `git archive` of the parent commit unpacked there), so that the sizes
@@ -201,6 +203,32 @@ def main():
              largest_L_lattice=largest(lambda L: takes(
                  rk.row_launch_plan, S, L, L, 1, lattice=True,
                  mem_bytes=CARD_BYTES)))
+
+    # the E-step's backward (RowLoglike): the pairs a chunk at the em
+    # phase's shape (prot2dna 64 x 192) and at 200 x 200 (dense64), and the
+    # longest pair one chunk takes (Lo = 3 Li at prot2dna, Li at dense64);
+    # a batch of any size is cut into chunks
+    try:
+        from machineboss_tpu_torch.ops.fwdback import CountModel
+        from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
+    except ImportError:                 # a tree from before the kernel
+        return
+    for kind, L0, r in (("prot2dna", 64, 3), ("dense64", 200, 1)):
+        m = machines[kind]
+        model = CountModel(EvaluatedMachine(m, m.get_param_defs(True)),
+                           device="cpu")
+        built = model.build_tensors(model.logw)
+        tables = ck.counts_tables(*(x.detach() for x in built))
+        S = model.n_states
+        emit("expected_counts", machine=kind, S=S, n_fin=tables.n_fin,
+             launch=ck.counts_launch_plan(S, tables.n_fin, 128,
+                                          mem_bytes=CARD_BYTES),
+             pairs_a_chunk_at={"%dx%d" % (L0, r * L0): ck.counts_chunk_plan(
+                 S, L0, r * L0, 10 ** 9, mem_bytes=CARD_BYTES)["pairs"]},
+             largest_batch="unbounded (chunks)",
+             largest_Li_one_pair=largest(lambda L: takes(
+                 ck.counts_chunk_plan, S, L, r * L, 1,
+                 mem_bytes=CARD_BYTES)), Lo_over_Li=r)
 
 
 if __name__ == "__main__":

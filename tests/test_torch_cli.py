@@ -32,6 +32,8 @@ from machineboss_tpu_torch.models import casino
 from machineboss_tpu_torch.testmachines import (build_generator_1d,
                                                 prot2dna_pairs)
 
+from one_thread import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FUSED = os.path.join(ROOT, "tests", "golden", "fused")
 LL_TOL = 1e-4                    # nats: float32 device engines, two ports

@@ -28,6 +28,8 @@ from machineboss_tpu_torch.core.presets import make_preset
 from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair, SeqPairList
 from machineboss_tpu_torch.models import casino
 
+from one_thread import one_torch_thread  # noqa: F401
+
 FIT_TOL = 1e-3                   # per parameter, device fit vs host fit
 ROLLS = ["154233314562365566666655661521246", "66666666666666",
          "123456123456"]

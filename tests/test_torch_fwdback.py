@@ -1,16 +1,20 @@
 """The port's E-step (ops/fwdback.CountModel, parallel/em.device_counts)
 against the JAX package's CountModel and the float64 host MachineCounts.
 
-The JAX class differentiates a vmap of its row scan; the port
-differentiates the batched scaled wavefront (ops/wavefront_fast.py), the
-same function. On the CPU both are held to the host counts at the JAX
-tests' rtol 1e-3 / atol 1e-4 (tests/test_device_counts.py), on the silent
-tkf91branch, the indel transducer, jukescantor and short prot2dna pairs,
-and the port's counts to the JAX class's at the same tolerance, from
-identical arrays (convert.count_model_from_numpy). On a generator the JAX
-class raises (its row scan indexes the empty a_left); the port's counts
-equal the host's. The card tests (marker cuda) hold the card's counts to
-the CPU's. This file imports the JAX package only inside its JAX tests.
+The JAX class differentiates a vmap of its row scan; the port takes the
+same algorithm's gradient by its rows route (ops/kernels/counts_kernel.py:
+the row scan's score under RowLoglike, whose backward is the expected
+counts over the Forward and Backward lattices; on the CPU their plain
+versions), which these tests run. On the CPU both are held to the host
+counts at the JAX tests' rtol 1e-3 / atol 1e-4
+(tests/test_device_counts.py), on the silent tkf91branch, the indel
+transducer, jukescantor and short prot2dna pairs, and the port's counts
+to the JAX class's at the same tolerance, from identical arrays
+(convert.count_model_from_numpy). On a generator the JAX class raises (its
+row scan indexes the empty a_left); the port's counts (its row engine
+gives the empty side one impossible token) equal the host's. The card
+tests (marker cuda) hold the card's counts to the CPU's. This file
+imports the JAX package only inside its JAX tests.
 """
 
 import json
@@ -31,6 +35,8 @@ from machineboss_tpu_torch.models import casino
 from machineboss_tpu_torch.ops.fwdback import CountModel, tokenize_batch
 from machineboss_tpu_torch.ops.semiring import NEG_INF
 from machineboss_tpu_torch.parallel.em import device_counts
+
+from one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-3, 1e-4          # the JAX tests' count tolerance
 LL_TOL = 1e-3                    # nats, summed over the batch
@@ -150,6 +156,7 @@ def test_counts_match_jax_and_host(name):
         jmodel.n_states, jmodel.n_in, jmodel.n_out, device="cpu")
     toks = [torch.tensor(np.asarray(x)) for x in jtoks]
     grads, total, lls = model.counts_and_loglike(*toks)
+    assert model.last_route == "rows"
     flat_host = np.concatenate(host.count)
     np.testing.assert_allclose(grads.numpy(), flat_host, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(grads.numpy(), np.asarray(jg), rtol=RTOL,
@@ -197,8 +204,8 @@ def test_impossible_pair_drops_out():
 
 def test_generator_jax_raises_port_matches_host():
     """On a generator (empty input side) the JAX class's row scan indexes
-    the empty a_left and raises TypeError; the port's batched wavefront
-    takes the empty side and its counts equal the host's."""
+    the empty a_left and raises TypeError; the port's row engine takes the
+    empty side (row_kernel.nonempty) and its counts equal the host's."""
     _, _, ev, spl, host = _case("casino")
     jmodel, jtoks = _jax_model("casino")
     with pytest.raises(TypeError):
@@ -250,11 +257,13 @@ def test_default_device_is_the_card():
 
 def test_saved_tensors_stay_per_cell():
     """What autograd keeps for the backward pass grows with the batch's
-    cells, not with every cell's token products: the wavefront picks each
-    cell's token block by indexing, which keeps the indices, where a
-    gather would keep all Ti*To blocks of every diagonal (at prot2dna's
-    B=128 x 64 x 192, more than an 80 GB card holds). The batch is
-    doubled, so the machine's tables cancel out of the growth."""
+    tokens, not with its cells: the rows route (RowLoglike) saves the
+    matrices, the tokens, the lengths and the lls, and no lattice (its
+    backward makes the lattices a chunk at a time), where the wavefront
+    route kept a slab of cells a diagonal (and a gather of the token
+    blocks, all Ti*To of every diagonal: at prot2dna's B=128 x 64 x 192,
+    more than an 80 GB card holds). The batch is doubled, so the
+    machine's tables cancel out of the growth."""
     _, _, ev, spl, _ = _case("prot2dna")
     model = CountModel(ev, device="cpu")
 
@@ -274,10 +283,11 @@ def test_saved_tensors_stay_per_cell():
 
     one, toks = saved_bytes(spl.seq_pairs)
     two, _ = saved_bytes(list(spl.seq_pairs) * 2)
+    assert model.last_route == "rows"
     B, Li = toks[0].shape
-    n_diag = Li + toks[1].shape[1]
+    tok_bytes = sum(t.numel() * t.element_size() for t in toks) + B * 4
     cell_bytes = B * (Li + 1) * model.n_states * 4   # one (B, W, S) slab
-    assert two - one < 12 * cell_bytes * n_diag
+    assert 0 < two - one <= 2 * tok_bytes < cell_bytes
 
 
 @pytest.mark.cuda

@@ -112,7 +112,7 @@ def test_every_kernel_source_is_built_and_calls_no_library():
     csrc = os.path.join(PKG, "csrc")
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert sorted(_build.SOURCES.values()) == sources
-    assert len(sources) == 13
+    assert len(sources) == 14
     local = set(os.listdir(csrc))
     for name in os.listdir(csrc):
         with open(os.path.join(csrc, name)) as f:

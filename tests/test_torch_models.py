@@ -16,6 +16,8 @@ from machineboss_tpu_torch import api, testmachines
 from machineboss_tpu_torch.core.machine import Machine
 from machineboss_tpu_torch.models import casino, ctc, pairhmm, profile, tkf91
 
+from one_thread import one_torch_thread  # noqa: F401
+
 ROLLS = "154233314562365566666655661521246"
 VS_JAX = 1e-4                    # nats: device engines, same algorithm
 FIT_TOL = 1e-3                   # per parameter, device fit vs host fit
