@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from csrc/ and the three phase-profile
+Builds every CUDA kernel of the port from csrc/ and the four phase-profile
 libraries (one nvcc process each, all at once), holds each against its
 plain PyTorch version and the float64 oracles at small sizes, then drives
 thirteen paths at full width (and the row kernel's calls, below), each
@@ -123,7 +123,12 @@ the indel transducer against host counts; the 128 pairs' counts against
 the wavefront route's (rtol 1e-3, atol 1e-4); expected_counts alone on
 the E-step's own lattices against its plain version on the card (8
 pairs, then all 128; 1e-5 + 1e-3 relative), the same bits twice, timed
-beside its bound and the lattices' launches; then
+beside its bound and the lattices' launches; the kernel at 128, 16 and 1
+pairs, each against its plain version, timed by CUDA events and by the
+profiler's device time of the kernel alone, with its phase profile (the
+expected_counts_profile library, SM cycles a cell a phase); the
+512-state machine on 8 pairs of 32 x 32 (its tables and sums in global
+memory); then
 MachineFitter(engine="device") for 3 iterations with a checkpoint (each
 iteration's s and E/M split; the loglike may not fall) and a host and a
 device fit of 8 flanked pairs of 16 aa: every parameter the data use
@@ -3620,6 +3625,139 @@ def counts_bound(mats, it, ot, il, ol, tables, lattice_bytes):
     return ms, by, flops, nbytes
 
 
+def kernel_device_ms(fn, reps, name):
+    """The device ms a call of the kernels whose name holds `name` take,
+    over `reps` calls of fn under torch.profiler's CUDA activity (the
+    wrapper's host work left out), after a warm-up; None where the
+    profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kineto = getattr(prof.profiler, "kineto_results", None)
+    ns = 0.0
+    seen = False
+    if kineto is not None:
+        for e in kineto.events():
+            if e.device_type() == cuda and name in e.name():
+                seen = True
+                ns += (e.duration_ns() if hasattr(e, "duration_ns")
+                       else 1e3 * e.duration_us())
+    else:
+        for e in prof.events():
+            if e.device_type == cuda and name in e.name:
+                seen = True
+                ns += 1e3 * e.device_time
+    return ns / 1e6 / reps if seen else None
+
+
+def counts_profile(args):
+    """expected_counts_profile's reading on these operands: the plan, the
+    warps' units and cells, SM cycles a cell in each phase (summed over
+    the warps), each phase's share, and the busiest warp's cycles."""
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
+    cfg, prof = ck.expected_counts_profile(*args)
+    p = prof.double().cpu().numpy()
+    cells = float(p[:, 1].sum())
+    names = ck.PROFILE_SLOTS[2:]
+    tot = p[:, 2:].sum(0)
+    return {"plan": cfg, "warps": int(p.shape[0]),
+            "units": float(p[:, 0].sum()), "cells": cells,
+            "cycles_per_cell": {n: float(c) / max(cells, 1.0)
+                                for n, c in zip(names, tot)},
+            "share": {n: float(c) / max(float(tot.sum()), 1.0)
+                      for n, c in zip(names, tot)},
+            "busiest_warp_cycles": float(p[:, 2:].sum(1).max())}
+
+
+def counts_sizes(F, Br, mats, toks, g, tables):
+    """expected_counts at the E-step's B pairs, 16 and 1 of them, on the
+    same lattices: against the plain version on the card (16 and 1; all B
+    are gated by the caller); timed by CUDA events around the wrapper
+    (`ms`) and by the profiler's device time of the kernel alone
+    (`kernel_ms`), beside its bound; and its phase profile at each size.
+    Returns (sizes, profiles)."""
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
+    it, ot, il, ol = toks
+    B = F.shape[0]
+    sizes, profiles = [], []
+    for nb in sorted({B, min(16, B), 1}, reverse=True):
+        args = (F[:nb], Br[:nb], *mats, it[:nb], ot[:nb], il[:nb], ol[:nb],
+                g[:nb])
+        got = ck.expected_counts(*args)
+        plan = ck.expected_counts.last["plan"]
+        if nb != B:
+            _, excess = counts_close(got, ck.expected_counts_plain(*args))
+            check(excess <= 0.0, "expected_counts vs plain at %d pairs past "
+                  "tolerance by %.3g" % (nb, excess))
+        reps = 10 if nb > 1 else 50
+        sizes.append({
+            "pairs": nb, "plan": plan,
+            "ms": cuda_ms(lambda: ck.expected_counts(*args), reps),
+            "kernel_ms": kernel_device_ms(
+                lambda: ck.expected_counts(*args), reps,
+                "expected_counts_kernel"),
+            "bound_ms": counts_bound(mats, it[:nb], ot[:nb], il[:nb],
+                                     ol[:nb], tables,
+                                     F[:nb].numel() * 4.0)[0]})
+        profiles.append(dict(counts_profile(args), pairs=nb))
+    return sizes, profiles
+
+
+def counts_wide_case(dev, B=8, L=32):
+    """expected_counts on the 512-state machine (511 states and End), B
+    pairs of L x L ACGT: the tables past a quarter of a block's shared
+    memory and the sums, both in global memory by the plan; against the
+    plain version on the card, the same bits twice; timed (CUDA events
+    and the profiler's device time) beside the bound."""
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
+    from machineboss_tpu_torch.ops.fwdback import CountModel, tokenize_batch
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
+    from machineboss_tpu_torch.ops.kernels import row_kernel as rk
+    from machineboss_tpu_torch.ops.semiring import LOGSUMEXP
+    from machineboss_tpu_torch.testmachines import build_random_transducer
+    m = build_random_transducer(511, list("ACGT"))
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    model = CountModel(ev, device=dev)
+    mats = [x.detach() for x in model.build_tensors(model.logw)]
+    rng = np.random.RandomState(8)
+
+    def seq():
+        return NamedSeq("s", ["ACGT"[c] for c in rng.randint(0, 4, L)])
+
+    toks = tokenize_batch(ev, [SeqPair(seq(), seq()) for _ in range(B)],
+                          device=dev)
+    it, ot, il, ol = toks
+    g = torch.ones(B, device=dev)
+    F = rk.row_scan(*mats, it, ot, LOGSUMEXP)
+    Br = ck.backward_lattices(*mats, it, ot, il, ol)
+    args = (F, Br, *mats, *toks, g)
+    got = ck.expected_counts(*args)
+    plan = ck.expected_counts.last["plan"]
+    check((plan["tables"], plan["acc"]) == ("global", "global"),
+          "expected_counts at 512 states: tables and sums not global")
+    diff, excess = counts_close(got, ck.expected_counts_plain(*args))
+    check(excess <= 0.0, "expected_counts at 512 states vs plain past "
+          "tolerance by %.3g" % excess)
+    again = ck.expected_counts(*args)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "expected_counts at 512 states differs run to run")
+    tables, _ = ck.counts_tables_cached(*rk.nonempty(*mats[:3]), mats[3])
+    return {"S": int(mats[3].shape[0]), "pairs": B, "Li": L, "Lo": L,
+            "n_fin": tables.n_fin, "plan": plan,
+            "max_abs_vs_plain": diff,
+            "ms": cuda_ms(lambda: ck.expected_counts(*args), 10),
+            "kernel_ms": kernel_device_ms(lambda: ck.expected_counts(*args),
+                                          10, "expected_counts_kernel"),
+            "bound_ms": counts_bound(mats, it, ot, il, ol, tables,
+                                     F.numel() * 4.0)[0]}
+
+
 def count_err(got, host):
     """The largest excess of |got - host| over the count tolerance
     (<= 0 passes), and the largest |got - host|, over two MachineCounts."""
@@ -3806,7 +3944,9 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
     plan = ck.expected_counts.last["plan"]
     tables_c, _ = ck.counts_tables_cached(*mats)
     check(ck.counts_smem_bytes_on_card(
-        S, tables_c.n_fin, plan["acc"] == "shared") == plan["smem_bytes"],
+        S, plan["T"], plan["warps"], tables_c.n_mat, tables_c.n_fin,
+        plan["tables"] == "shared", plan["acc"] == "shared")
+        == plan["smem_bytes"],
         "expected_counts' shared layout differs from its plan's")
     plain, counts_plain_ms = synced_ms(
         lambda: ck.expected_counts_plain(F, Br, *mats, *toks, g))
@@ -3826,6 +3966,8 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
                                            lens=(il, ol)), 5)
     c_bound, c_by, c_flops, c_bytes = counts_bound(
         mats, it, ot, il, ol, tables_c, F.numel() * 4.0)
+    counts_at, counts_prof = counts_sizes(F, Br, mats, toks, g, tables_c)
+    counts_wide = counts_wide_case(dev)
     del F, Br, kern, again
 
     # (c) each input (output) token is emitted by one edge with an input
@@ -3982,6 +4124,9 @@ def em_phase(dev, card, smi, B=128, Lp=64, n_host=4, fit_iters=3,
                                  "ll_max_abs": wf_ll_err,
                                  "total_diff": float(total) - float(wf_total),
                                  "wavefront_first_call_ms": wf_ms},
+          "expected_counts_sizes": counts_at,
+          "expected_counts_profile": counts_prof,
+          "expected_counts_512_states": counts_wide,
           "expected_counts": {"plan": plan, "n_fin": tables_c.n_fin,
                               "max_abs_8_pairs": diff8,
                               "excess_8_pairs": excess8,

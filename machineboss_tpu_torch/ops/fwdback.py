@@ -11,8 +11,9 @@ counts flow through the differentiable closure C = (I - N)^{-1}.
 
 The JAX class differentiates a vmap of the row scan (dp2d.forward_2d)
 and XLA derives the backward; this one takes the same algorithm by the
-route of kernels/counts_kernel.estep_route: "rows" for float32 and up to
-512 states, the row kernel's Forward score under
+route of kernels/counts_kernel.estep_route: "rows" for up to 512 states
+(float32, or float64 weights on float32 copies of the matrices), the row
+kernel's Forward score under
 counts_kernel.RowLoglike, whose backward is the expected counts over the
 row kernel's Forward and Backward lattices (csrc/expected_counts.cu on the
 card, their plain versions on the CPU); "wavefront" for any other dtype
@@ -127,12 +128,18 @@ class CountModel:
         NEG_INF/2) drop out of the sum."""
         route = self.route or estep_route(logw.dtype, self.n_states)
         mats = self.build_tensors(logw)
+        if logw.dtype == torch.float64:
+            # both engines are float32: float64 weights run on float32
+            # copies (what the JAX class computes without x64), and the
+            # lls and, through the casts, the counts come back in float64
+            mats = [m.to(torch.float32) for m in mats]
         if route == "rows":
             lls = RowLoglike.apply(*mats, in_toks, out_toks, in_lens,
                                    out_lens)
         else:
             lls = forward_2d_wavefront_fast(*mats, in_toks, out_toks,
                                             in_lens, out_lens)
+        lls = lls.to(logw.dtype)
         self.last_route = route
         valid = lls > NEG_INF / 2
         w = torch.ones_like(lls) if weights is None else weights

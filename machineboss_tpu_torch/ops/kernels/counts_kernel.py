@@ -29,9 +29,10 @@ Pieces, for the E-step (ops/fwdback.CountModel):
 
 * `estep_route(dtype, S)`: the E-step's route, stated here once: "rows"
   (this module: the row kernel and expected_counts on the card, their
-  plain versions on the CPU) for float32 and 1..512 states, the row
-  kernel's range; "wavefront" (autograd through ops/wavefront_fast.py)
-  for anything else.
+  plain versions on the CPU) for 1..512 states, the row kernel's range,
+  in float32 (float64 weights run on float32 copies of the matrices);
+  "wavefront" (autograd through ops/wavefront_fast.py) for anything
+  else.
 * `RowLoglike`, a torch.autograd.Function: forward is the row kernel's
   score mode on the batch (one launch, no lattice kept); backward works in
   chunks of pairs (`counts_chunk_plan`, against the card's memory): a
@@ -41,10 +42,11 @@ Pieces, for the E-step (ops/fwdback.CountModel):
 * `expected_counts`, the counted wrapper of csrc/expected_counts.cu: a CUDA
   tensor launches the kernel once (or raises), a CPU tensor takes
   `expected_counts_plain`, the same function vectorised over a row.
-* `counts_tables` (the kernel's finite-entry lists, each entry with its
-  index among the finite entries), `counts_launch_plan` (blocks, where the
-  per-warp accumulators live) and `expected_counts_twin` (the kernel's
-  arithmetic in plain PyTorch on those tables: tests and chip_smoke only).
+* `counts_tables` (the kernel's compact lists of the finite entries, by
+  destination and by source), `counts_launch_plan` (rows a unit, warps,
+  blocks, where the tables and the warps' sums live) and
+  `expected_counts_twin` (the kernel's arithmetic in plain PyTorch on
+  those tables: tests only).
 
 The Backward lattices are passed as the row kernel writes them on each
 pair's reversed prefix (`Br`): Bk_b(i, o) = Br[b, ol_b - o, il_b - i] for
@@ -61,8 +63,6 @@ from ..semiring import LOGSUMEXP, NEG_INF
 from . import row_kernel
 from ._build import load
 
-THREADS = 512
-WARPS = THREADS // 32
 SMEM_MAX = row_kernel.SMEM_MAX - 64   # dynamic bytes: the ticket's flag
                                       # is static shared memory
 MAX_STATES = row_kernel.MAX_STATES
@@ -74,10 +74,12 @@ ACC_SHARE = 0.5      # of the card's memory the global accumulators may take
 
 def estep_route(dtype, S):
     """The E-step's route for a model of S states in `dtype`: "rows"
-    where the row kernel takes it (float32, 1 to MAX_STATES states; on
-    the CPU the same functions' plain versions), else "wavefront"
-    (autograd through the batched scaled wavefront, any dtype and S)."""
-    if dtype == torch.float32 and 1 <= S <= MAX_STATES:
+    where the row kernel takes it (1 to MAX_STATES states in float32, or
+    in float64 on float32 copies of the matrices, as the JAX package
+    computes without x64; on the CPU the same functions' plain versions),
+    else "wavefront" (autograd through the batched scaled wavefront, a
+    float32 engine, any S)."""
+    if dtype in (torch.float32, torch.float64) and 1 <= S <= MAX_STATES:
         return "rows"
     return "wavefront"
 
@@ -282,23 +284,29 @@ def expected_counts_plain(F, Br, a_diag, a_left, a_up, closure, in_toks,
 class CountsTables:
     """The kernel's operands for one set of matrices, in row_scan's
     matrix order (A_diag[x, y] as x * n_out + y, A_left[x], A_up[y], the
-    closure). hdr_f (n_mat * nsl, 2) int32: a (matrix, slice of 32
-    destination columns) header, (offset into ent_f, rows); ent_f (n, 4)
-    int32: a slice's (rows + 1) x 32 entries, its first row the lanes'
-    finite counts, then row t the lanes' t-th (source, raw log value bits,
-    index among the finite entries, 0) in ascending source order. hdr_t,
-    ent_t: the same lists of the transposed matrices (a row's finite
-    destinations; index -1). pos (n_fin,): each finite entry's flat
-    position in (n_mat, S, S). prep_ms: the build's host clock,
-    synchronised on a card."""
+    closure). The compact lists: off_f (n_mat + 1,) int32, matrix m's
+    entries ent_f[off_f[m]:off_f[m + 1]]; ent_f (n_fin, 2) int32, each
+    finite entry's (key, log value bits) sorted by (matrix, destination,
+    source), its row its index among the finite entries; off_t, ent_t the
+    same of the transposed matrices (sorted by source, then destination).
+    A key holds in bits 0-9 the state the list is sorted by, in 10-14 the
+    lane of the last entry of its run (that state) within its group of 32
+    entries of the matrix's list, in 15 whether it starts its run in the
+    group, in 16-25 the other state, in 26-28 the shuffle steps
+    (ceil(log2)) the group's longest run needs. cdiag: every diagonal entry
+    of the closure is finite (as (I - N)^-1's always are), and its S
+    diagonal entries lead its forward list, by state; the rest follow by
+    (destination, source). pos (n_fin,): each finite entry's flat
+    position in (n_mat, S, S). prep_ms: the build's host clock, synchronised on a card."""
     S: int
     n_in: int
     n_out: int
-    hdr_f: torch.Tensor
+    off_f: torch.Tensor
     ent_f: torch.Tensor
-    hdr_t: torch.Tensor
+    off_t: torch.Tensor
     ent_t: torch.Tensor
     pos: torch.Tensor
+    cdiag: bool
     prep_ms: float
 
     @property
@@ -312,36 +320,45 @@ class CountsTables:
     @property
     def nbytes(self):
         return sum(t.numel() * t.element_size() for t in
-                   (self.hdr_f, self.ent_f, self.hdr_t, self.ent_t))
+                   (self.off_f, self.ent_f, self.off_t, self.ent_t))
 
 
-def _column_lists(M, fin, index):
-    """(hdr, ent) of M (n_mat, S, S): each column's finite sources in ELL
-    slices of 32 columns, with `index` (n_mat, S, S) int32 or None."""
+def compact_lists(M, fin, diag_first=False):
+    """(off, ent, (mm, a, b)) of M (n_mat, S, S): each matrix's finite
+    entries sorted by destination a, then source b (CountsTables' keys);
+    with `diag_first` the last matrix's diagonal entries lead its list, by
+    state, before the others. The transposed lists are compact_lists of M
+    transposed."""
     n_mat, S, _ = M.shape
     dev = M.device
-    nsl = -(-S // 32)
-    cnt = torch.zeros((n_mat, nsl * 32), dtype=torch.int64, device=dev)
-    cnt[:, :S] = fin.sum(1)
-    rows = cnt.view(n_mat, nsl, 32).amax(-1)               # (n_mat, nsl)
-    size = torch.where(rows > 0, (rows + 1) * 32, 0).reshape(-1)
-    off = torch.cumsum(size, 0) - size
-    ent = torch.zeros((int(size.sum()), 4), dtype=torch.int32, device=dev)
-    off2 = off.view(n_mat, nsl)
-    hm, hr = torch.nonzero(rows > 0, as_tuple=True)
-    lanes = torch.arange(32, device=dev)
-    j = hr[:, None] * 32 + lanes                            # (n, 32)
-    ent[(off2[hm, hr][:, None] + lanes).reshape(-1), 0] = \
-        cnt[hm[:, None].expand_as(j), j].reshape(-1).to(torch.int32)
-    mm, kk, jj = torch.nonzero(fin, as_tuple=True)
-    rank = (torch.cumsum(fin, 1) - 1)[mm, kk, jj]
-    p = off2[mm, jj // 32] + (1 + rank) * 32 + jj % 32
-    ent[p, 0] = kk.to(torch.int32)
-    ent[p, 1] = M[mm, kk, jj].to(torch.float32).contiguous() \
-        .view(torch.int32)
-    ent[p, 2] = -1 if index is None else index[mm, kk, jj]
-    hdr = torch.stack([off, rows.reshape(-1)], -1).to(torch.int32)
-    return hdr.contiguous(), ent
+    mm, a, b = torch.nonzero(fin.transpose(1, 2), as_tuple=True)
+    if diag_first:
+        last = mm == n_mat - 1
+        order = torch.argsort((mm * 2 + (last & (a != b))) * S * S
+                              + torch.where(last & (a == b), a, a * S + b))
+        mm, a, b = mm[order], a[order], b[order]
+    n = len(mm)
+    cnt = torch.bincount(mm, minlength=n_mat)
+    off = torch.zeros(n_mat + 1, dtype=torch.int64, device=dev)
+    off[1:] = torch.cumsum(cnt, 0)
+    lane = (torch.arange(n, device=dev) - off[mm]) % 32
+    head = lane == 0
+    if n > 1:
+        head[1:] |= (a[1:] != a[:-1]) | (mm[1:] != mm[:-1])
+    # (each scatter's target sized n, so no count crosses to the host)
+    seg = torch.cumsum(head.long(), 0) - 1
+    tail = torch.zeros(n, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, seg, lane, "amax")[seg]
+    # the shuffle steps a group's longest run needs: ceil(log2(length))
+    length = tail - lane + 1                  # at each run's first entry
+    group = torch.cumsum((lane == 0).long(), 0) - 1
+    longest = torch.ones(n, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, group, length, "amax")[group]
+    steps = torch.ceil(torch.log2(longest.double())).long()
+    key = a | (tail << 10) | (head.long() << 15) | (b << 16) | (steps << 26)
+    ent = torch.stack([key.to(torch.int32), M[mm, b, a].to(torch.float32)
+                       .contiguous().view(torch.int32)], 1)
+    return off.to(torch.int32), ent.contiguous(), (mm, a, b)
 
 
 def counts_tables(a_diag, a_left, a_up, closure):
@@ -354,16 +371,13 @@ def counts_tables(a_diag, a_left, a_up, closure):
     M = torch.cat([a_diag.reshape(-1, S, S), a_left.reshape(-1, S, S),
                    a_up.reshape(-1, S, S), closure.reshape(1, S, S)])
     fin = M > NEG_INF / 2
-    mm, kk, jj = torch.nonzero(fin, as_tuple=True)
-    index = torch.full(M.shape, -1, dtype=torch.int32, device=dev)
-    index[mm, kk, jj] = torch.arange(len(mm), dtype=torch.int32, device=dev)
-    hdr_f, ent_f = _column_lists(M, fin, index)
-    hdr_t, ent_t = _column_lists(M.transpose(1, 2), fin.transpose(1, 2),
-                                 None)
+    cdiag = bool(torch.diagonal(fin[-1]).all())
+    off_f, ent_f, (mm, dst, src) = compact_lists(M, fin, diag_first=cdiag)
+    off_t, ent_t, _ = compact_lists(M.transpose(1, 2), fin.transpose(1, 2))
     row_kernel._sync(dev)
     return CountsTables(S=S, n_in=a_left.shape[0], n_out=a_up.shape[0],
-                        hdr_f=hdr_f, ent_f=ent_f, hdr_t=hdr_t, ent_t=ent_t,
-                        pos=(mm * S + kk) * S + jj,
+                        off_f=off_f, ent_f=ent_f, off_t=off_t, ent_t=ent_t,
+                        pos=(mm * S + src) * S + dst, cdiag=cdiag,
                         prep_ms=(time.perf_counter() - t0) * 1e3)
 
 
@@ -391,46 +405,109 @@ def dense_grads(tables, sums, dtype):
 
 # --------------------------------------------------------------- the plan
 
-def counts_smem_bytes(S, n_fin, acc_shared):
-    """A block's shared bytes (the kernel's smem_bytes): the warps'
-    workspaces (two vectors of S floats) and, where shared, the warps'
-    accumulators (n_fin floats each)."""
-    return WARPS * (2 * S + (n_fin if acc_shared else 0)) * _F32
+STRIP_T = 2          # cells a strip
+MAX_WARPS = 16       # a block's warps (the kernel's launch bound)
+MIN_WARPS = 4        # fewer with the sums shared, and the plan puts them
+                     # in global memory
+MAX_ROWS = 32        # rows a unit
+UNITS_PER_WARP = 8   # the units a warp takes at least, where R allows
+TAB_SHARE = 0.25     # of a block's shared memory the tables may take
+SM_SMEM = 233472     # shared bytes an SM holds (228 KB)
+BLOCK_RESERVE = 1024  # shared bytes the card reserves a block
+SM_WARPS = 64
 
 
-def counts_launch_plan(S, n_fin, B, smem_max=SMEM_MAX, sms=SMS,
-                       mem_bytes=None, acc=None):
-    """The kernel's layout for B pairs over S states and n_fin finite
-    entries. Returns a dict: threads; blocks (a block takes pairs b, b +
-    blocks, ...: min(B, sms), fewer where global accumulators would pass
-    ACC_SHARE of `mem_bytes`); acc, where each warp's n_fin float32 sums
-    live: "shared" where the 16 warps' fit a block's shared memory beside
-    their workspaces, else "global" (`acc` "global" forces it, for tests);
-    smem_bytes; mem_bytes (the device bytes the call allocates: global
-    accumulators, the blocks' float64 partial sums, the float64 result).
-    Raises ValueError past MAX_STATES or where one block's accumulators
-    pass `mem_bytes` (None: not checked)."""
+def _up16(n):
+    return (n + 15) & ~15
+
+
+def counts_smem_bytes(S, T, warps, n_mat, n_fin, tables_shared, acc_shared):
+    """A block's shared bytes (the kernel's layout()): an mbarrier a warp;
+    a warp's six staging slots (three rows of F, three of Bk) of (T+1) S
+    + 8 floats (rounded up to 4 floats); the tables where shared; a warp's
+    P_U and P_beta (S floats each, rounded up to 4); where shared, a
+    warp's n_fin float32 sums."""
+    seg = ((T + 1) * S + 8 + 3) & ~3
+    sp = (S + 3) & ~3
+    o = _up16(warps * 8) + warps * 6 * seg * _F32
+    if tables_shared:
+        o += 2 * (n_mat + 1) * 4
+        o = (o + 7) & ~7
+        o += 2 * n_fin * 8
+    o = _up16(o) + warps * 2 * sp * _F32
+    return o + (warps * n_fin * _F32 if acc_shared else 0)
+
+
+def counts_launch_plan(S, n_mat, n_fin, B, Li, Lo, smem_max=SMEM_MAX,
+                       sms=SMS, mem_bytes=None, acc=None):
+    """The strips kernel's layout for B pairs padded to Li x Lo over S
+    states, n_mat matrices and n_fin finite entries. Returns a dict: T
+    (cells a strip, STRIP_T), warps (a block's: the most, up to
+    MAX_WARPS, whose staging buffers, workspaces, tables and sums fit;
+    with the sums in shared memory where that keeps MIN_WARPS warps, else
+    in global memory), R (rows a unit: as many as leave each warp the
+    card holds at once UNITS_PER_WARP units, 1 to MAX_ROWS), threads,
+    units (B ceil((Lo + 1) / R) ceil((Li + 1) / T): a strip of T cells
+    over R rows), blocks (enough that every warp has a unit, at most the
+    blocks that fit the SMs at once: any batch, one pair too, spreads
+    over the card; fewer where global sums would pass ACC_SHARE of
+    `mem_bytes`), blocks_per_sm, blocks_per_pair, tables ("shared" where
+    the lists take at most TAB_SHARE of a block's shared memory, else
+    "global"), acc (each warp's n_fin float32 sums: "shared" or "global",
+    as above; `acc="global"` forces it), smem_bytes and mem_bytes (the
+    device bytes the call allocates: global sums, the blocks' float64
+    partials, the float64 result). Raises ValueError past MAX_STATES,
+    where no block fits or where one block's global sums pass
+    `mem_bytes` (None: not checked)."""
     if not 1 <= S <= MAX_STATES:
         raise ValueError("expected_counts takes 1 to %d states, not %d"
                          % (MAX_STATES, S))
     if acc not in (None, "global"):
         raise ValueError("acc may be forced to 'global' only")
-    shared = acc is None and counts_smem_bytes(S, n_fin, True) <= smem_max
-    blocks = max(1, min(B, sms))
-    per_block = 0 if shared else WARPS * n_fin * _F32
+    t = STRIP_T
+    tab_bytes = counts_smem_bytes(S, t, 0, n_mat, n_fin, True, False) \
+        - counts_smem_bytes(S, t, 0, n_mat, n_fin, False, False)
+    tab_shared = tab_bytes <= TAB_SHARE * smem_max
+
+    def fit(sh):
+        """The most warps whose block fits, with the sums shared or not;
+        0 where none does."""
+        for w in range(MAX_WARPS, 0, -1):
+            if counts_smem_bytes(S, t, w, n_mat, n_fin, tab_shared,
+                                 sh) <= smem_max:
+                return w
+        return 0
+
+    w = fit(True) if acc is None else 0
+    shared = w >= MIN_WARPS
+    if not shared:
+        w = fit(False)
+    if not w:
+        raise ValueError("no block of T=%d fits %d shared bytes at %d "
+                         "states" % (t, smem_max, S))
+    smem = counts_smem_bytes(S, t, w, n_mat, n_fin, tab_shared, shared)
+    per_sm = max(1, min(SM_SMEM // (smem + BLOCK_RESERVE), SM_WARPS // w))
+    nstrip = -(-(Li + 1) // t)
+    R = max(1, min(MAX_ROWS, B * (Lo + 1) * nstrip
+                   // (UNITS_PER_WARP * sms * per_sm * w)))
+    units = B * (-(-(Lo + 1) // R)) * nstrip
+    blocks = max(1, min(-(-units // w), sms * per_sm))
+    per_block = 0 if shared else w * n_fin * _F32
     if per_block and mem_bytes is not None:
-        fit = int(mem_bytes * ACC_SHARE) // per_block
-        if fit < 1:
+        cap = int(mem_bytes * ACC_SHARE) // (per_block + n_fin * _F64)
+        if cap < 1:
             raise ValueError(
                 "expected_counts needs %d device bytes for one block's "
                 "accumulators of %d entries, past %d of the card's %d"
-                % (per_block, n_fin, int(mem_bytes * ACC_SHARE), mem_bytes))
-        blocks = min(blocks, fit)
-    mem = blocks * (per_block + n_fin * _F64) + n_fin * _F64
-    return {"threads": THREADS, "blocks": blocks,
-            "acc": "shared" if shared else "global",
-            "smem_bytes": counts_smem_bytes(S, n_fin, shared),
-            "mem_bytes": mem}
+                % (per_block + n_fin * _F64, n_fin,
+                   int(mem_bytes * ACC_SHARE), mem_bytes))
+        blocks = min(blocks, cap)
+    return {"T": t, "R": R, "warps": w, "threads": 32 * w, "units": units,
+            "blocks": blocks, "blocks_per_sm": per_sm,
+            "blocks_per_pair": blocks / B if B else 0.0,
+            "tables": "shared" if tab_shared else "global",
+            "acc": "shared" if shared else "global", "smem_bytes": smem,
+            "mem_bytes": blocks * (per_block + n_fin * _F64) + n_fin * _F64}
 
 
 def counts_chunk_plan(S, Li, Lo, B, mem_bytes=None):
@@ -470,6 +547,12 @@ def _check(t, name, shape, dtype, dev):
                          % (name, tuple(t.shape), tuple(shape)))
 
 
+def _aligned(t):
+    """t contiguous at a 16-byte aligned address (the copy engine's)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def expected_counts(F, Br, a_diag, a_left, a_up, closure, in_toks,
                     out_toks, in_lens, out_lens, grad_ll, blocks=None,
                     acc=None):
@@ -489,7 +572,44 @@ def expected_counts(F, Br, a_diag, a_left, a_up, closure, in_toks,
     if dev.type != "cuda":
         raise ValueError("expected_counts runs on cuda or cpu tensors, "
                          "not %s" % dev)
-    n_in0, n_out0 = a_left.shape[0], a_up.shape[0]
+    out, cfg, tables, built = _launch(
+        F, Br, a_diag, a_left, a_up, closure, in_toks, out_toks, in_lens,
+        out_lens, grad_ll, blocks, acc, None)
+    expected_counts.launches += 1
+    expected_counts.last = {"plan": cfg, "n_fin": tables.n_fin,
+                            "prep_ms": tables.prep_ms if built else 0.0}
+    return _unpad(dense_grads(tables, out, torch.float32),
+                  a_left.shape[0], a_up.shape[0])
+
+
+expected_counts.launches = 0
+expected_counts.last = None
+
+
+def expected_counts_profile(F, Br, a_diag, a_left, a_up, closure, in_toks,
+                            out_toks, in_lens, out_lens, grad_ll):
+    """expected_counts through the profile library (the source built with
+    -DPHASE_PROFILE), on a card, uncounted: (plan, prof) with prof
+    (warps of the grid, len(PROFILE_SLOTS)) int64, each warp's units and
+    cells and its clock64 cycles a phase (csrc/expected_counts.cu)."""
+    box = []
+    _, cfg, _, _ = _launch(F, Br, a_diag, a_left, a_up, closure, in_toks,
+                           out_toks, in_lens, out_lens, grad_ll, None, None,
+                           box)
+    torch.cuda.synchronize(F.device)
+    return cfg, box[0]
+
+
+PROFILE_SLOTS = ("units", "cells", "lists", "lattice", "emitting", "logs",
+                 "closure", "reduce")
+
+
+def _launch(F, Br, a_diag, a_left, a_up, closure, in_toks, out_toks,
+            in_lens, out_lens, grad_ll, blocks, acc, prof):
+    """expected_counts' CUDA call: (out (n_fin,) float64, plan, tables,
+    built). prof a list: through the profile library, its counters
+    appended."""
+    dev = F.device
     mats = row_kernel.nonempty(a_diag, a_left, a_up) + (closure,)
     B, Lo1, Li1, S = F.shape
     n_in, n_out = mats[1].shape[0], mats[2].shape[0]
@@ -506,108 +626,147 @@ def expected_counts(F, Br, a_diag, a_left, a_up, closure, in_toks,
     ol = row_kernel._as_int32(out_lens, dev).reshape(B)
     g = torch.as_tensor(grad_ll, device=dev).to(f32).reshape(B) \
         .contiguous()
-    F, Br = F.contiguous(), Br.contiguous()
-    tables, built = counts_tables_cached(*mats)
+    F, Br = _aligned(F), _aligned(Br)
+    tabs, built = counts_tables_cached(*mats)
     props = torch.cuda.get_device_properties(dev)
-    cfg = counts_launch_plan(S, tables.n_fin, B,
+    cfg = counts_launch_plan(S, tabs.n_mat, tabs.n_fin, B, Li1 - 1, Lo1 - 1,
                              sms=props.multi_processor_count,
                              mem_bytes=props.total_memory, acc=acc)
     if blocks is not None:
         cfg = dict(cfg, blocks=blocks)
-    nb = cfg["blocks"]
+    nb, nw = cfg["blocks"], cfg["warps"]
     acc_g = None if cfg["acc"] == "shared" else torch.empty(
-        (max(nb, 0), WARPS, tables.n_fin), dtype=f32, device=dev)
-    partial = torch.empty((max(nb, 0), tables.n_fin), dtype=torch.float64,
+        (max(nb, 0), nw, tabs.n_fin), dtype=f32, device=dev)
+    partial = torch.empty((max(nb, 0), tabs.n_fin), dtype=torch.float64,
                           device=dev)
-    out = torch.zeros((tables.n_fin,), dtype=torch.float64, device=dev)
+    out = torch.zeros((tabs.n_fin,), dtype=torch.float64, device=dev)
     ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
-    fn = load("expected_counts").expected_counts_launch
+    pr = None
+    if prof is not None:
+        pr = torch.zeros((max(nb, 0) * nw, len(PROFILE_SLOTS)),
+                         dtype=torch.int64, device=dev)
+        prof.append(pr)
+    lib = load("expected_counts" if prof is None
+               else "expected_counts_profile")
+    fn = lib.expected_counts_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 15 + [I] * 9 + [P]
+    fn.argtypes = [P] * 16 + [I] * 15 + [P]
     fn.restype = I
-    rc = fn(tables.hdr_f.data_ptr(), tables.ent_f.data_ptr(),
-            tables.hdr_t.data_ptr(), tables.ent_t.data_ptr(), F.data_ptr(),
+    rc = fn(tabs.off_f.data_ptr(), tabs.ent_f.data_ptr(),
+            tabs.off_t.data_ptr(), tabs.ent_t.data_ptr(), F.data_ptr(),
             Br.data_ptr(), it.data_ptr(), ot.data_ptr(), il.data_ptr(),
             ol.data_ptr(), g.data_ptr(),
             None if acc_g is None else acc_g.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), ticket.data_ptr(), B, Li1 - 1, Lo1 - 1, S, n_in,
-            n_out, tables.n_fin, nb, int(cfg["acc"] == "shared"),
+            out.data_ptr(), ticket.data_ptr(),
+            None if pr is None else pr.data_ptr(), B, Li1 - 1, Lo1 - 1, S,
+            n_in, n_out, tabs.n_mat, tabs.n_fin, int(tabs.cdiag), cfg["T"],
+            cfg["R"], nw, nb, int(cfg["tables"] == "shared"),
+            int(cfg["acc"] == "shared"),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("expected_counts launch failed: CUDA error %d"
                            % rc)
-    expected_counts.launches += 1
-    expected_counts.last = {"plan": cfg, "n_fin": tables.n_fin,
-                            "prep_ms": tables.prep_ms if built else 0.0}
-    return _unpad(dense_grads(tables, out, f32), n_in0, n_out0)
+    return out, cfg, tabs, built
 
 
-expected_counts.launches = 0
-expected_counts.last = None
-
-
-def counts_smem_bytes_on_card(S, n_fin, acc_shared):
-    """The kernel's own count of a block's shared bytes."""
-    return int(load("expected_counts").expected_counts_smem_bytes(
-        ctypes.c_int(S), ctypes.c_int(n_fin), ctypes.c_int(int(acc_shared))))
+def counts_smem_bytes_on_card(S, T, warps, n_mat, n_fin, tables_shared,
+                              acc_shared):
+    """The strips kernel's own count of a block's shared bytes."""
+    fn = load("expected_counts").expected_counts_smem_bytes
+    fn.restype = ctypes.c_longlong
+    return int(fn(*(ctypes.c_int(int(v)) for v in (
+        S, T, warps, n_mat, n_fin, tables_shared, acc_shared))))
 
 
 # -------------------------------------------------------------- CPU twin
 
-def _lists_back(hdr, ent, n_mat, S):
-    """(src, val, index, count) of the lists, each (n_mat, SP, R) but
-    count (n_mat, SP), SP = 32 nsl columns, R the longest list (>= 1)."""
-    nsl = -(-S // 32)
-    h = hdr.long().view(n_mat, nsl, 2)
-    off, rows = h[..., 0], h[..., 1]
-    R = max(int(rows.max()), 1) if rows.numel() else 1
-    pad = torch.tensor([[0, 0, -1, 0]], dtype=torch.int32, device=ent.device)
-    ent = torch.cat([ent, pad])
-    none = ent.shape[0] - 1
-    t = torch.arange(R + 1, device=ent.device)
-    lanes = torch.arange(32, device=ent.device)
-    p = off[..., None, None] + t[:, None] * 32 + lanes       # (m, r, R+1, 32)
-    ok = (t[:, None] <= rows[..., None, None]) & (rows[..., None, None] > 0)
-    got = ent[torch.where(ok, p, none)]
-    got = got.permute(0, 1, 3, 2, 4).reshape(n_mat, nsl * 32, R + 1, 4)
-    count = got[:, :, 0, 0].long()
-    body = got[:, :, 1:]
-    return (body[..., 0].long(), body[..., 1].contiguous()
-            .view(torch.float32), body[..., 2].long(), count)
+def _padded_lists(off, ent, n_mat):
+    """(key, val, count) of each matrix's compact list, each (n_mat, E)
+    but count (n_mat,), E the longest list rounded up to 32 (at least 32):
+    key 0 and val 0 past a list's end."""
+    off = off.long()
+    cnt = off[1:] - off[:-1]
+    E = max(32, -(-int(cnt.max()) // 32) * 32) if n_mat else 32
+    r = torch.arange(E, device=ent.device)
+    ok = r < cnt[:, None]
+    idx = torch.where(ok, off[:-1, None] + r, 0)
+    key = torch.where(ok, ent[idx, 0].long(), 0)
+    val = torch.where(ok, ent[:, 1].contiguous().view(torch.float32)[idx],
+                      0.0)
+    return key, val, cnt
+
+
+def run_sums(terms, keys):
+    """The kernel's shuffle tree over lists of terms: terms (N, E) and
+    their keys (N, E), E a multiple of 32 in groups of 32 lanes; lane l
+    takes lane l + d's partial for d = 1, 2, 4, 8, 16 while l + d is
+    within its run (the steps past a group's longest run add nothing), so
+    a run's first lane holds its sum. Returns (sums, heads, states), each
+    (N, E // 32, 32); keys 0 (past a list) head nothing."""
+    N, E = terms.shape
+    t = terms.reshape(N, E // 32, 32)
+    k = keys.reshape(N, E // 32, 32)
+    tail = (k >> 10) & 31
+    lane = torch.arange(32, device=terms.device)
+    for d in (1, 2, 4, 8, 16):
+        v = torch.cat([t[..., d:], torch.zeros_like(t[..., :d])], -1)
+        t = t + torch.where(lane + d <= tail, v, torch.zeros_like(v))
+    return t, ((k >> 15) & 1) == 1, (k & 0x3ff).long()
+
+
+def add_runs(P, runs):
+    """Adds a list's run sums (run_sums' triple) into P (N, S) in the
+    kernel's order, group by group: each group's runs hold distinct
+    states."""
+    t, head, state = runs
+    for r in range(t.shape[1]):
+        P.scatter_add_(1, state[:, r], torch.where(
+            head[:, r], t[:, r], torch.zeros_like(t[:, r])))
+    return P
+
 
 
 def expected_counts_twin(tables, F, Br, in_toks, out_toks, in_lens,
-                         out_lens, grad_ll):
-    """The kernel's arithmetic in plain PyTorch on `tables`, every live
-    cell at once, in F's dtype: returns the per-entry sums (n_fin,). For
-    each cell (i, o) of a live pair and each column j, the incoming terms
-    exp((F_nb(k) + A[k, j]) + (Bk(j) - LL)) over its neighbours' lists
-    (each a count of its entry; their sum P_U(j)); for each row t, the
-    outgoing sum P_beta(t) of exp((Bk_next(u) + A[t, u]) + (F(t) - LL))
-    over the transposed lists, plus 1 at the end cell's S-1; then the
-    closure terms exp((log P_U(j) - Bk(j) + C[j, t]) + (log P_beta(t) -
-    F(t) + LL)), which is exp(U(j) + C[j, t] + beta(t) - LL)."""
+                         out_lens, grad_ll, plan=None):
+    """The strips kernel's arithmetic in plain PyTorch on `tables`, every
+    live cell at once, in F's dtype (tests only): returns
+    the per-entry sums (n_fin,) float64. Each cell's incoming terms
+    exp((F_nb(k) + A[k, j]) + (Bk(j) - LL)) over its neighbours' compact
+    lists (up, diag, left), their runs summed by run_sums into P_U(j) list
+    by list, group by group, as the kernel adds them (add_runs; P_U(0) =
+    exp(Bk(0) - LL) at the start cell); the outgoing terms
+    exp((Bk_next(u) + A[t, u]) + (F(t) - LL)) over the transposed lists
+    into P_beta(t), then exp(F(S-1) - LL) at the end cell; the closure
+    terms exp((log P_U(s) - Bk(s) + C[s, t]) + (log P_beta(t) - F(t) +
+    LL)). The reduction in the kernel's order of units: a cell's unit
+    (b, o // R, i // T) is u, taken by warp u mod (blocks warps) of
+    `plan` (counts_launch_plan's for these shapes by default); each warp's
+    float32 sums, a block's over its warps in warp order in float64, the
+    blocks' in block order."""
     S, n_in, n_out = tables.S, tables.n_in, tables.n_out
-    n_mat = tables.n_mat
+    n_mat, n_fin = tables.n_mat, tables.n_fin
     dev, dt = F.device, F.dtype
-    src_f, val_f, idx_f, cnt_f = _lists_back(tables.hdr_f, tables.ent_f,
-                                             n_mat, S)
-    src_t, val_t, _, cnt_t = _lists_back(tables.hdr_t, tables.ent_t,
-                                         n_mat, S)
-    R_f, R_t = src_f.shape[-1], src_t.shape[-1]
+    B, Lo1, Li1, _ = F.shape
+    if plan is None:
+        plan = counts_launch_plan(S, n_mat, n_fin, B, Li1 - 1, Lo1 - 1)
+    T, R, W, nb = plan["T"], plan["R"], plan["warps"], plan["blocks"]
+    key_f, val_f, cnt_f = _padded_lists(tables.off_f, tables.ent_f, n_mat)
+    key_t, val_t, cnt_t = _padded_lists(tables.off_t, tables.ent_t, n_mat)
+    off_f = tables.off_f.long()
     it, ot, il, ol, LL, g, live = _pairs(F, in_toks, out_toks, in_lens,
                                          out_lens, grad_ll, n_in, n_out)
-    _, Lo1, Li1, _ = F.shape
-    # every live cell
     ii = torch.arange(Li1, device=dev)
     oo = torch.arange(Lo1, device=dev)
     cell = live[:, None, None] & (oo[None, :, None] <= ol[:, None, None]) \
         & (ii[None, None, :] <= il[:, None, None])
     b, o, i = torch.nonzero(cell, as_tuple=True)
     N = len(b)
-    out = torch.zeros(tables.n_fin, dtype=torch.float64, device=dev)
+    out = torch.zeros(n_fin, dtype=torch.float64, device=dev)
     if N == 0:
         return out
+    nstrip, nchunk = -(-Li1 // T), -(-Lo1 // R)
+    warp = ((b * nchunk + o // R) * nstrip + i // T) % (W * nb)
+    sums = torch.zeros((W * nb, n_fin), dtype=torch.float32, device=dev)
     n_io = n_in * n_out
     ll, gb = LL[b], g[b]
     x = torch.where(i > 0, it[b, (i - 1).clamp(min=0)], 0)
@@ -617,57 +776,66 @@ def expected_counts_twin(tables, F, Br, in_toks, out_toks, in_lens,
                      else torch.zeros_like(i), 0)
     y1 = torch.where(inner_o, ot[b, o.clamp(max=Lo1 - 2)] if Lo1 > 1
                      else torch.zeros_like(o), 0)
-    SP = src_f.shape[1]
 
-    def vec(lat, oc, ic):          # (N, SP): a cell's S values, padded
-        v = lat[b, oc.clamp(0, Lo1 - 1), ic.clamp(0, Li1 - 1)]
-        return torch.cat([v, torch.full((N, SP - S), NEG_INF, dtype=dt,
-                                        device=dev)], 1)
+    def vec(lat, oc, ic):          # (N, S): a cell's values
+        return lat[b, oc.clamp(0, Lo1 - 1), ic.clamp(0, Li1 - 1)]
 
     def bk(oc, ic):                # Bk(ic, oc) = Br(ol - oc, il - ic)
         return vec(Br, ol[b] - oc, il[b] - ic)
 
+    def terms(keys, vals, cnt, m, nb_vec, here, present):
+        """(N, E) terms exp((nb[other] + v) + (here[state] - LL)) of
+        matrix m (N,) per cell, 0 where absent or past the list."""
+        k, v = keys[m], vals[m].to(dt)
+        ok = present[:, None] & (torch.arange(k.shape[1], device=dev)
+                                 < cnt[m][:, None])
+        t = torch.exp((torch.gather(nb_vec, 1, (k >> 16) & 0x3ff) + v)
+                      + (torch.gather(here, 1, k & 0x3ff) - ll[:, None]))
+        t = torch.where(ok, t, torch.zeros_like(t))
+        return t, torch.where(ok, k, torch.zeros_like(k)), ok
+
     Fc, Bc = vec(F, o, i), bk(o, i)
-    r = torch.arange(R_f, device=dev)
-    P_U = torch.zeros((N, SP), dtype=dt, device=dev)
     start = (o == 0) & (i == 0)
+    P_U = torch.zeros((N, S), dtype=dt, device=dev)
     P_U[:, 0] = torch.where(start, torch.exp(Bc[:, 0] - ll), 0.0)
     for m, on, inn, present in (
             (n_io + n_in + y, o - 1, i, o > 0),
             (x * n_out + y, o - 1, i - 1, (o > 0) & (i > 0)),
             (n_io + x, o, i - 1, i > 0)):
-        k, v, e = src_f[m], val_f[m].to(dt), idx_f[m]         # (N, SP, R)
-        ok = present[:, None, None] & (r < cnt_f[m][..., None])
-        src = vec(F, on, inn)
-        t = torch.exp(torch.gather(src, 1, k.reshape(N, -1)).view(k.shape)
-                      + v + (Bc - ll[:, None])[..., None])
-        t = torch.where(ok, t, torch.zeros_like(t))
-        P_U = P_U + t.sum(-1)
-        out.index_add_(0, e[ok], (gb[:, None, None] * t)[ok].double())
-    r = torch.arange(R_t, device=dev)
-    P_b = torch.zeros((N, SP), dtype=dt, device=dev)
+        t, k, ok = terms(key_f, val_f, cnt_f, m, vec(F, on, inn), Bc,
+                         present)
+        add_runs(P_U, run_sums(t, k))
+        e = off_f[m][:, None] + torch.arange(t.shape[1], device=dev)
+        rows = warp[:, None].expand_as(e)
+        sums.index_put_((rows[ok], e[ok]), (gb[:, None] * t)[ok].float(),
+                        accumulate=True)
+    P_b = torch.zeros((N, S), dtype=dt, device=dev)
     for m, on, inn, present in (
             (n_io + n_in + y1, o + 1, i, inner_o),
             (x1 * n_out + y1, o + 1, i + 1, inner_o & inner_i),
             (n_io + x1, o, i + 1, inner_i)):
-        k, v = src_t[m], val_t[m].to(dt)
-        ok = present[:, None, None] & (r < cnt_t[m][..., None])
-        nxt = bk(on, inn)
-        t = torch.exp(torch.gather(nxt, 1, k.reshape(N, -1)).view(k.shape)
-                      + v + (Fc - ll[:, None])[..., None])
-        P_b = P_b + torch.where(ok, t, torch.zeros_like(t)).sum(-1)
+        t, k, _ = terms(key_t, val_t, cnt_t, m, bk(on, inn), Fc, present)
+        add_runs(P_b, run_sums(t, k))
     end = (o == ol[b]) & (i == il[b])
     P_b[:, S - 1] += torch.where(end, torch.exp(Fc[:, S - 1] - ll), 0.0)
     ninf = torch.tensor(float("-inf"), dtype=dt, device=dev)
-    lu = torch.where(P_U > 0, torch.log(P_U) - Bc, ninf)     # (N, SP)
-    lb = torch.where(P_b > 0, torch.log(P_b) - Fc, ninf)
+    lu = torch.where(P_U > 0, torch.log(P_U) - Bc, ninf)       # (N, S)
+    lb = torch.where(P_b > 0, (torch.log(P_b) - Fc) + ll[:, None], ninf)
     m_cl = n_mat - 1
-    k, v, e = src_f[m_cl], val_f[m_cl].to(dt), idx_f[m_cl]     # (SP, R)
-    ok = torch.arange(R_f, device=dev) < cnt_f[m_cl][:, None]
-    t = torch.exp((lu[:, k] + v) + (lb + ll[:, None])[..., None])
-    t = torch.where(ok, t, torch.zeros_like(t))
-    out.index_add_(0, e[ok].reshape(-1).repeat(N),
-                   (gb[:, None, None] * t)[:, ok].reshape(-1).double())
+    k, v = key_f[m_cl], val_f[m_cl].to(dt)
+    ok = torch.arange(k.shape[0], device=dev) < cnt_f[m_cl]
+    t = torch.exp((lu[:, (k >> 16) & 0x3ff] + v) + lb[:, k & 0x3ff])
+    t = torch.where(ok, t, torch.zeros_like(t)) * gb[:, None]
+    e = off_f[m_cl] + torch.arange(k.shape[0], device=dev)
+    sums.index_put_((warp[:, None].expand(N, int(ok.sum())),
+                     e[ok].expand(N, -1)), t[:, ok].float(),
+                    accumulate=True)
+    blk = sums.view(nb, W, n_fin).double()
+    for q in range(nb):
+        part = torch.zeros(n_fin, dtype=torch.float64, device=dev)
+        for w in range(W):
+            part = part + blk[q, w]
+        out = out + part
     return out
 
 

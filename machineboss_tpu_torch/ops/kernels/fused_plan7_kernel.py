@@ -770,7 +770,7 @@ def decode(out, B_=None):
     return np.where(dead | (mant <= 0.0), NEG_INF, ll)
 
 
-def make_fused_plan7_kernel(fused, B, L):
+def make_fused_plan7_kernel(fused, B, L, interpret=False):
     """Build the kernel route for a Plan7Fused (mode='plan7', Forward, St
     <= 4) and fixed shapes. Returns fn(toks (B, L) 1-based integer tokens,
     lens (B,)) -> (B,) float64 numpy log-likelihoods, computed on the
@@ -778,8 +778,9 @@ def make_fused_plan7_kernel(fused, B, L):
     that device and returns the (3, B) result there without
     synchronising; fn.decode is `decode`.
 
-    The JAX factory's `interpret` runs its kernel off the TPU and is not
-    carried: on CPU tensors the route runs the plain version."""
+    `interpret` (the JAX factory's Pallas interpret mode off the TPU) is
+    accepted, so the JAX call form runs, and unused: on CPU tensors the
+    route runs the plain version."""
     if "_kernel_ops" not in fused.__dict__:
         fused._kernel_ops = plan7_operands(prepare_fused_plan7(fused),
                                            fused.device)

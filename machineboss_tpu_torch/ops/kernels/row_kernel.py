@@ -25,10 +25,10 @@ diagonal, where the ring of the last three diagonals lives ("shared" or
 shared and device bytes; it refuses only what the card's memory cannot
 hold.
 
-The row engine has no gradient of its own: the E-step's
-(counts_kernel.RowLoglike) calls it on detached matrices in its forward
-and backward and takes the gradient from csrc/expected_counts.cu, so an
-input that requires grad raises rather than being detached. A machine
+The row engine's gradient is counts_kernel.RowLoglike's (row_scan states
+the rule): the kernels serve the logsumexp score's; the other calls
+differentiate their plain versions on the CPU and raise on a card. A
+machine
 with an empty input or output alphabet (a generator or a recognizer)
 runs with that side's matrices as one impossible token (`nonempty`).
 """
@@ -359,13 +359,36 @@ def row_scan(a_diag, a_left, a_up, closure, in_toks, out_toks, sr,
     layout, on the tables of row_tables_cached) and counts it in
     `row_scan.launches`; `row_scan.last` holds the last launch's plan and
     its tables' build ms (0.0 when they were kept); a failed launch
-    raises. A CPU tensor takes the plain version."""
+    raises. A CPU tensor takes the plain version.
+
+    The gradient, where a matrix or start_vec requires grad (and grad
+    mode is on): the logsumexp score with the default start goes through
+    counts_kernel.RowLoglike, whose forward is this call on the detached
+    matrices and whose backward the E-step's kernels (a Forward and a
+    Backward lattice, expected_counts; their plain versions on a CPU
+    tensor); every other call (lattices, max-plus, banded, a start_vec)
+    runs its plain version under autograd on a CPU tensor and raises on
+    a CUDA tensor, where no kernel computes its gradient."""
     tensors = [a_diag, a_left, a_up, closure, start_vec]
-    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise ValueError("the row engine has no gradient: its inputs must "
-                         "not require grad")
+    grad = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+    if grad and sr.name == "logsumexp" and lens is not None \
+            and band is None and start_vec is None:
+        from .counts_kernel import RowLoglike
+        dev = closure.device
+        B = 1 if in_toks.dim() == 1 else in_toks.shape[0]
+        it = torch.as_tensor(in_toks, device=dev).reshape(B, -1)
+        ot = torch.as_tensor(out_toks, device=dev).reshape(B, -1)
+        il, ol = (torch.as_tensor(n, device=dev).reshape(B) for n in lens)
+        lls = RowLoglike.apply(a_diag, a_left, a_up, closure, it, ot, il, ol)
+        return lls[0] if in_toks.dim() == 1 else lls
     a_diag, a_left, a_up = nonempty(a_diag, a_left, a_up)
     dev = closure.device
+    if grad and dev.type != "cpu":
+        raise ValueError("on a card the row engine's gradient is the "
+                         "logsumexp score's (lens given, no band, no "
+                         "start_vec); this call's inputs must not require "
+                         "grad")
     if dev.type == "cpu":
         from .. import dp2d
         if band is not None:

@@ -221,7 +221,8 @@ def main():
         tables = ck.counts_tables(*(x.detach() for x in built))
         S = model.n_states
         emit("expected_counts", machine=kind, S=S, n_fin=tables.n_fin,
-             launch=ck.counts_launch_plan(S, tables.n_fin, 128,
+             launch=ck.counts_launch_plan(S, tables.n_mat, tables.n_fin,
+                                          128, L0, r * L0,
                                           mem_bytes=CARD_BYTES),
              pairs_a_chunk_at={"%dx%d" % (L0, r * L0): ck.counts_chunk_plan(
                  S, L0, r * L0, 10 ** 9, mem_bytes=CARD_BYTES)["pairs"]},

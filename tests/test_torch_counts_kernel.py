@@ -9,18 +9,22 @@ jukescantor, short prot2dna pairs and a generator (casino: an empty input
 alphabet, which row_scan now takes); a ragged batch against its pairs one
 by one (1e-9, float64); an impossible pair and a weight-0 pair drop out;
 the kernel's own arithmetic in plain PyTorch (expected_counts_twin, on the
-kernel's tables) against the plain version in float32 (1e-4 relative: the
-twin takes the closure terms from the incoming and outgoing sums where the
-plain version takes logsumexps); the tables; the route rule; the launch and
-chunk plans as pure functions; a chunked backward against one chunk; the
-rows route against the wavefront route through CountModel. The E-step's
+kernel's compact lists, strips and reduction order) against the plain
+version in float32 (1e-4 relative: the twin takes the closure terms from
+the incoming and outgoing sums where the plain version takes logsumexps);
+its segmented sums against per-destination sums; the tables; the route
+rule; the launch and chunk plans as pure functions; a chunked backward
+against one chunk; the rows route against the wavefront route through
+CountModel. The E-step's
 counts against the JAX CountModel and the host are in
 tests/test_torch_fwdback.py, which now runs this route.
 
 On a CUDA card (marker cuda): the kernel against its plain version and its
 twin on the card's own lattices (1e-5 + 1e-3 relative: float32 terms whose
 exponents round at ~|LL| ulp, summed in other orders), the same bits run
-to run and with the accumulators in global memory, and a failed launch
+to run and with the sums in global memory, every layout the plan gives
+(a pair's units over one block and over many, B = 1, 16, 128, and the
+512-state machine's tables in global memory), and a failed launch
 raising:
     python -m pytest --noconftest tests/test_torch_counts_kernel.py -m cuda
 """
@@ -193,60 +197,132 @@ def test_impossible_and_weight_zero_pairs_drop_out():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_twin_matches_plain(name):
-    """The kernel's arithmetic (expected_counts_twin on counts_tables)
+    """The strips kernel's arithmetic (expected_counts_twin on
+    counts_tables, the default plan's units and reduction order, and
+    units over 3 rows on two blocks, as the plan gives a larger batch)
     against the plain version, float32 lattices: 1e-4 relative."""
     _, mats, toks, g = _case(name, torch.float32)
     F, Br = _lattices(mats, toks)
     tables = ck.counts_tables(*rk.nonempty(*mats[:3]), mats[3])
-    sums = ck.expected_counts_twin(tables, F, Br, *toks, g)
     n_in, n_out = mats[1].shape[0], mats[2].shape[0]
-    got = ck._unpad(ck.dense_grads(tables, sums, torch.float64), n_in,
-                    n_out)
     want = ck.expected_counts_plain(F, Br, *mats, *toks, g)
-    _close(got, [w.double() for w in want], 1e-6, TWIN_VS_PLAIN)
+    B, Lo1, Li1, S = F.shape
+    for plan in (None, dict(ck.counts_launch_plan(
+            S, tables.n_mat, tables.n_fin, B, Li1 - 1, Lo1 - 1, sms=2),
+            R=3)):
+        sums = ck.expected_counts_twin(tables, F, Br, *toks, g, plan=plan)
+        got = ck._unpad(ck.dense_grads(tables, sums, torch.float64), n_in,
+                        n_out)
+        _close(got, [w.double() for w in want], 1e-6, TWIN_VS_PLAIN)
+
+
+def _unpack(off, ent):
+    """(matrix, state, other, run tail, run head, value, index) of every
+    entry of compact lists."""
+    off = off.long()
+    n = ent.shape[0]
+    m = torch.repeat_interleave(torch.arange(len(off) - 1), off[1:] - off[:-1])
+    key = ent[:, 0].long()
+    return (m, key & 0x3ff, (key >> 16) & 0x3ff, (key >> 10) & 31,
+            (key >> 15) & 1, ent[:, 1].contiguous().view(torch.float32),
+            torch.arange(n) - off[m])
 
 
 def test_tables_list_every_finite_entry_once():
-    """Every finite entry of the four matrices is listed once in its
-    column with its raw float32 value and its index, the index's flat
-    position is the entry's, and the transposed lists hold each row's
-    finite destinations."""
-    _, mats, _, _ = _case("tkf91branch", torch.float32)
+    """The compact lists: every finite entry of the four matrices once,
+    sorted by (matrix, destination, source) but the closure's S diagonal
+    entries leading its list (cdiag), with its raw float32 value,
+    and its row (its index among the finite entries) at its flat position
+    in pos; each key's run bits (the run's last lane and first flag in its
+    group of 32) those of its destination's run, and its group's shuffle
+    steps ceil(log2) of the group's longest run; the transposed lists the
+    same entries sorted by (matrix, source, destination)."""
+    _, mats, _, _ = _case("prot2dna", torch.float32)
     tables = ck.counts_tables(*mats)
     S = tables.S
     M = torch.cat([mats[0].reshape(-1, S, S), mats[1], mats[2],
                    mats[3][None]])
     fin = M > NEG_INF / 2
-    assert tables.n_fin == int(fin.sum())
-    src, val, idx, cnt = ck._lists_back(tables.hdr_f, tables.ent_f,
-                                        tables.n_mat, S)
-    R = src.shape[-1]
-    live = torch.arange(R) < cnt[..., None]
-    m, j, _ = torch.nonzero(live, as_tuple=True)
-    k, e, v = src[live], idx[live], val[live]
-    assert torch.equal(torch.sort(e).values, torch.arange(tables.n_fin))
-    assert torch.equal(tables.pos[e], (m * S + k) * S + j)
-    assert torch.equal(v, M[m, k, j])
-    assert torch.equal(cnt[:, :S], fin.sum(1))
-    src_t, val_t, idx_t, cnt_t = ck._lists_back(tables.hdr_t, tables.ent_t,
-                                                tables.n_mat, S)
-    live = torch.arange(src_t.shape[-1]) < cnt_t[..., None]
-    m, t, _ = torch.nonzero(live, as_tuple=True)
-    assert torch.equal(val_t[live], M[m, t, src_t[live]])
-    assert (idx_t[live] == -1).all()
-    assert torch.equal(cnt_t[:, :S], fin.sum(2))
+    n = tables.n_fin
+    assert n == int(fin.sum()) and tables.off_f[-1] == n
+    assert tables.nbytes == 2 * 4 * (tables.n_mat + 1) + 2 * 8 * n
+    for off, ent, by in ((tables.off_f, tables.ent_f, "dst"),
+                         (tables.off_t, tables.ent_t, "src")):
+        m, a, b, tail, head, val, rank = _unpack(off, ent)
+        src, dst = (b, a) if by == "dst" else (a, b)
+        order = (m * S + a) * S + b
+        if by == "dst":                 # the closure's diagonal leads it
+            assert tables.cdiag
+            diag = (m == tables.n_mat - 1) & (a == b)
+            rest = (m == tables.n_mat - 1) & (a != b)
+            order = (m * 2 + rest) * S * S + torch.where(diag, a, a * S + b)
+            first = int(off[-2])
+            assert torch.equal(a[first:first + S], torch.arange(S))
+            assert torch.equal(b[first:first + S], torch.arange(S))
+        assert (order[1:] > order[:-1]).all()          # sorted, no repeats
+        assert torch.equal(val, M[m, src, dst])
+        assert int(fin[m, src, dst].sum()) == n
+        lane, group = rank % 32, rank // 32
+        same = torch.zeros(n, dtype=torch.bool)
+        same[1:] = (m[1:] == m[:-1]) & (a[1:] == a[:-1]) \
+            & (group[1:] == group[:-1])
+        assert torch.equal(head == 1, ~same)
+        last = torch.ones(n, dtype=torch.bool)
+        last[:-1] = ~same[1:]
+        run = torch.cumsum(~same, 0) - 1
+        assert torch.equal(tail, lane[last][run])
+        steps = (ent[:, 0].long() >> 26) & 7
+        length = torch.zeros(n, dtype=torch.long)
+        length[head == 1] = (tail - lane + 1)[head == 1]
+        gid = (m * 10 ** 6 + group).tolist()
+        longest = {}
+        for gkey, ln in zip(gid, length.tolist()):
+            longest[gkey] = max(longest.get(gkey, 0), ln)
+        want = [(longest[gkey] - 1).bit_length() for gkey in gid]
+        assert steps.tolist() == want
+        if by == "dst":
+            assert torch.equal(tables.pos, (m * S + src) * S + dst)
+
+
+def test_segmented_sums_match_per_destination_sums():
+    """The twin's segmented reduction (run_sums' shuffle tree, add_runs
+    group by group, as the kernel adds them) over random terms on
+    prot2dna's lists (every matrix, its groups of 32) against a
+    plain per-destination sum in float64, within 1e-6, and the same bits
+    on a second run."""
+    _, mats, _, _ = _case("prot2dna", torch.float32)
+    tables = ck.counts_tables(*mats)
+    S = tables.S
+    for off, ent in ((tables.off_f, tables.ent_f),
+                     (tables.off_t, tables.ent_t)):
+        key, _, cnt = ck._padded_lists(off, ent, tables.n_mat)
+        rng = np.random.RandomState(4)
+        t = torch.from_numpy(rng.uniform(0, 1, key.shape)).float()
+        t = torch.where(torch.arange(key.shape[1]) < cnt[:, None], t, 0.0)
+        def sums():
+            return ck.add_runs(torch.zeros((key.shape[0], S)),
+                               ck.run_sums(t, key))
+
+        got = sums()
+        want = torch.zeros((key.shape[0], S), dtype=torch.float64) \
+            .scatter_add_(1, key & 0x3ff, t.double())
+        np.testing.assert_allclose(got.double().numpy(), want.numpy(),
+                                   rtol=0, atol=1e-6)
+        assert torch.equal(got, sums())
 
 
 def test_route_rule(monkeypatch):
-    """rows for float32 and 1..512 states, wavefront for anything else;
-    CountModel takes it from the weights' dtype (the wavefront engine, a
-    float32 engine, is stubbed for the float64 model), and a forced route
-    wins."""
+    """rows for float32 and float64 at 1..512 states (float64 on float32
+    copies of the matrices), wavefront for more states or another dtype;
+    CountModel takes it from the weights' dtype and returns the float64
+    model's counts in float64 without calling the wavefront engine
+    (stubbed), and a forced route wins."""
     from machineboss_tpu_torch.ops import fwdback
-    for S in (1, 7, 132, 512):
-        assert ck.estep_route(torch.float32, S) == "rows"
-    assert ck.estep_route(torch.float32, 513) == "wavefront"
-    for dt in (torch.float64, torch.float16, torch.bfloat16):
+    for dt in (torch.float32, torch.float64):
+        for S in (1, 7, 132, 512):
+            assert ck.estep_route(dt, S) == "rows"
+        assert ck.estep_route(dt, 513) == "wavefront"
+    for dt in (torch.float16, torch.bfloat16):
         assert ck.estep_route(dt, 7) == "wavefront"
     calls = []
 
@@ -255,18 +331,19 @@ def test_route_rule(monkeypatch):
         return a_diag.sum() * 0.0 + torch.zeros(rest[3].shape[0],
                                                 dtype=a_diag.dtype)
 
+    monkeypatch.setattr(fwdback, "forward_2d_wavefront_fast", wavefront)
     model, _, toks, _ = _case("tkf91branch", torch.float32)
     model.counts_and_loglike(*toks)
     assert model.last_route == "rows"
-    monkeypatch.setattr(fwdback, "forward_2d_wavefront_fast", wavefront)
     model64, _, toks64, _ = _case("tkf91branch", torch.float64)
-    model64.counts_and_loglike(*toks64)
-    assert model64.last_route == "wavefront" and calls == [torch.float64]
+    got = model64.counts_and_loglike(*toks64)
+    assert model64.last_route == "rows" and not calls
+    assert got[0].dtype == got[2].dtype == torch.float64
     model.route = "wavefront"
     try:
         model.counts_and_loglike(*toks)
         assert model.last_route == "wavefront"
-        assert calls == [torch.float64, torch.float32]
+        assert calls == [torch.float32]
     finally:
         model.route = None
 
@@ -347,30 +424,55 @@ def test_row_scan_takes_an_empty_input_alphabet():
 
 
 def test_launch_plan():
-    """Accumulators in shared memory while 16 warps' fit beside their
-    workspaces, else global with the blocks cut to half the card's
-    memory; blocks min(B, SMs); refusals past 512 states and where one
-    block's accumulators do not fit."""
-    cfg = ck.counts_launch_plan(132, 406, 128)
-    assert cfg["acc"] == "shared" and cfg["blocks"] == 128
-    assert cfg["smem_bytes"] == 16 * (2 * 132 + 406) * 4 <= ck.SMEM_MAX
-    assert cfg["mem_bytes"] == 128 * 406 * 8 + 406 * 8
-    assert ck.counts_launch_plan(132, 406, 1000)["blocks"] == ck.SMS
-    assert ck.counts_launch_plan(132, 406, 4, sms=2)["blocks"] == 2
-    g = ck.counts_launch_plan(132, 406, 128, acc="global")
-    assert g["acc"] == "global" and g["smem_bytes"] == 16 * 264 * 4
-    assert g["mem_bytes"] == 128 * (16 * 406 * 4 + 406 * 8) + 406 * 8
-    big = 4 * 512 * 512 * 25
-    cfg = ck.counts_launch_plan(512, big, 1000, mem_bytes=80 * 2 ** 30)
-    assert cfg["acc"] == "global"
-    assert cfg["blocks"] == (40 * 2 ** 30) // (16 * big * 4)
-    assert cfg["smem_bytes"] == 16 * 1024 * 4
+    """prot2dna (132 states, 105 matrices, 406 finite entries) at 64 x 192:
+    strips of 2 cells (STRIP_T), the most warps (16, the launch bound) whose six
+    staging rows, tables and shared sums fit a block; units of R rows, R
+    leaving each warp of the card 8 units (B=1: 1 row, B=16: 6, B=128:
+    the most, 32); every SM a block whatever the batch (B=1: 132 blocks on
+    the one pair, B=16: 8.25 a pair, B=128: 1.03); the sums forced
+    global; the 512-state machine (25 matrices, 9,199 finite entries: its
+    tables past a quarter of a block's shared memory) with tables and
+    sums global on 5 warps, a block an SM; refusals past 512 states and
+    where one block's global sums pass the card's memory."""
+    for B, R, per_pair in ((1, 1, 132.0), (16, 6, 8.25),
+                           (128, 32, 132 / 128)):
+        cfg = ck.counts_launch_plan(132, 105, 406, B, 64, 192)
+        assert (cfg["T"], cfg["R"], cfg["warps"], cfg["threads"]) == \
+            (2, R, 16, 512)
+        assert cfg["units"] == B * (-(-193 // R)) * 33
+        assert cfg["blocks"] == ck.SMS and cfg["blocks_per_sm"] == 1
+        assert cfg["blocks_per_pair"] == per_pair
+        assert (cfg["tables"], cfg["acc"]) == ("shared", "shared")
+        assert cfg["smem_bytes"] == ck.counts_smem_bytes(
+            132, 2, 16, 105, 406, True, True) <= ck.SMEM_MAX
+        assert cfg["mem_bytes"] == 132 * 406 * 8 + 406 * 8
+    seg = 3 * 132 + 8
+    assert ck.counts_smem_bytes(132, 2, 16, 105, 406, True, True) == (
+        16 * 8 + 16 * 6 * seg * 4 + ((2 * 106 * 4 + 7) & ~7) + 16 * 406
+        + 16 * 2 * 132 * 4 + 16 * 406 * 4)
+    g = ck.counts_launch_plan(132, 105, 406, 128, 64, 192, acc="global")
+    assert (g["tables"], g["acc"], g["warps"]) == ("shared", "global", 16)
+    assert g["mem_bytes"] == 132 * (16 * 406 * 4 + 406 * 8) + 406 * 8
+    small = ck.counts_launch_plan(132, 105, 406, 1, 3, 2, sms=8)
+    assert (small["units"], small["blocks"]) == (6, 1)
+    wide = ck.counts_launch_plan(512, 25, 9199, 8, 32, 32,
+                                 mem_bytes=80 * 2 ** 30)
+    assert (wide["tables"], wide["acc"], wide["T"], wide["R"],
+            wide["warps"]) == ("global", "global", 2, 1, 5)
+    assert (wide["units"], wide["blocks"]) == (8 * 33 * 17, ck.SMS)
+    assert wide["smem_bytes"] == ck.counts_smem_bytes(
+        512, 2, 5, 25, 9199, False, False)
+    big = 512 * 512
+    cfg = ck.counts_launch_plan(512, 25, big, 8, 64, 64,
+                                mem_bytes=80 * 2 ** 30)
+    assert (cfg["tables"], cfg["acc"], cfg["T"]) == ("global", "global", 2)
+    assert cfg["warps"] >= ck.MIN_WARPS
     with pytest.raises(ValueError, match="states"):
-        ck.counts_launch_plan(513, 10, 4)
+        ck.counts_launch_plan(513, 25, 10, 4, 8, 8)
     with pytest.raises(ValueError, match="accumulators"):
-        ck.counts_launch_plan(512, big, 4, mem_bytes=2 ** 20)
+        ck.counts_launch_plan(512, 25, big, 4, 8, 8, mem_bytes=2 ** 20)
     with pytest.raises(ValueError, match="global"):
-        ck.counts_launch_plan(4, 10, 4, acc="shared")
+        ck.counts_launch_plan(4, 25, 10, 4, 8, 8, acc="shared")
 
 
 def test_chunk_plan():
@@ -440,13 +542,23 @@ def _on(x, dev):
     return tuple(t.to(dev) for t in x)
 
 
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _card_close(got, want, rtol=CARD_RTOL, atol=CARD_ATOL):
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", NAMES)
 def test_kernel_matches_plain_on_card(name):
     """The kernel on the card's own lattices against its plain version and
     its twin on the card; the same bits in a second launch and with the
-    accumulators in global memory (the same float32 sums in the same
-    order); one block (other float64 partials) within the tolerance."""
+    sums in global memory (the same float32 sums in the same order); one
+    block (other float64 partials) within the tolerance."""
     dev = _card()
     _, mats, toks, g = _case(name, torch.float32)
     mats, toks, g = _on(mats, dev), _on(toks, dev), g.to(dev)
@@ -455,30 +567,89 @@ def test_kernel_matches_plain_on_card(name):
     got = ck.expected_counts(F, Br, *mats, *toks, g)
     torch.cuda.synchronize()
     assert ck.expected_counts.launches == before + 1
-    plain = ck.expected_counts_plain(F, Br, *mats, *toks, g)
-    for a, b in zip(got, plain):
-        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
-                                   rtol=CARD_RTOL, atol=CARD_ATOL)
+    _card_close(got, ck.expected_counts_plain(F, Br, *mats, *toks, g))
     tables = ck.counts_tables(*rk.nonempty(*mats[:3]), mats[3])
-    twin = ck._unpad(ck.dense_grads(tables, ck.expected_counts_twin(
-        tables, F, Br, *toks, g), torch.float32), mats[1].shape[0],
-        mats[2].shape[0])
-    for a, b in zip(got, twin):
-        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
-                                   rtol=CARD_RTOL, atol=CARD_ATOL)
     plan = ck.expected_counts.last["plan"]
+    twin = ck._unpad(ck.dense_grads(tables, ck.expected_counts_twin(
+        tables, F, Br, *toks, g, plan=plan), torch.float32),
+        mats[1].shape[0], mats[2].shape[0])
+    _card_close(got, twin)
     assert ck.counts_smem_bytes_on_card(
-        tables.S, tables.n_fin, plan["acc"] == "shared") == \
+        tables.S, plan["T"], plan["warps"], tables.n_mat, tables.n_fin,
+        plan["tables"] == "shared", plan["acc"] == "shared") == \
         plan["smem_bytes"]
-    again = ck.expected_counts(F, Br, *mats, *toks, g)
-    glob = ck.expected_counts(F, Br, *mats, *toks, g, acc="global")
+    assert _equal(got, ck.expected_counts(F, Br, *mats, *toks, g))
+    again = ck.expected_counts(F, Br, *mats, *toks, g, acc="global")
     assert ck.expected_counts.last["plan"]["acc"] == "global"
-    for a, b, c in zip(got, again, glob):
-        assert torch.equal(a, b) and torch.equal(a, c)
-    for a, b in zip(got, ck.expected_counts(F, Br, *mats, *toks, g,
-                                            blocks=1)):
-        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
-                                   rtol=1e-6, atol=1e-7)
+    assert _equal(got, again)
+    _card_close(got, ck.expected_counts(F, Br, *mats, *toks, g, blocks=1),
+                rtol=1e-6, atol=1e-7)
+
+
+def _prot2dna_batch(B, dev, seed=5):
+    """B prot2dna pairs of 2-4 aa (ragged) on the card: the model's
+    matrices, tokens, Forward and Backward lattices and weights."""
+    model, _, _, _ = _case("prot2dna", torch.float32)
+    pairs = testmachines.prot2dna_pairs(B, [2 + k % 3 for k in range(B)],
+                                        seed=seed, synonymous=True)
+    toks = _on(tokenize_batch(model.ev, [_sp(i, o) for i, o in pairs],
+                              device="cpu"), dev)
+    mats = tuple(x.detach().to(dev) for x in model.build_tensors(
+        model.logw))
+    g = torch.ones(B, device=dev)
+    return mats, toks, _lattices(mats, toks), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 128])
+def test_layouts_on_card(B):
+    """prot2dna at B = 1, 16 and 128, each on the plan's own rows a unit
+    and blocks (a pair's units over many blocks at B = 1): the kernel
+    against its plain version, the same bits in a second launch and with
+    the sums forced global; one block within the tolerance (its float64
+    partials differ); the profile library's units and cells."""
+    dev = _card()
+    mats, toks, (F, Br), g = _prot2dna_batch(B, dev)
+    got = ck.expected_counts(F, Br, *mats, *toks, g)
+    plan = ck.expected_counts.last["plan"]
+    assert plan["blocks"] == min(ck.SMS, -(-plan["units"] // plan["warps"]))
+    _card_close(got, ck.expected_counts_plain(F, Br, *mats, *toks, g))
+    assert _equal(got, ck.expected_counts(F, Br, *mats, *toks, g))
+    assert _equal(got, ck.expected_counts(F, Br, *mats, *toks, g,
+                                          acc="global"))
+    _card_close(got, ck.expected_counts(F, Br, *mats, *toks, g, blocks=1),
+                rtol=1e-6, atol=1e-7)
+    before = ck.expected_counts.launches
+    cfg, prof = ck.expected_counts_profile(F, Br, *mats, *toks, g)
+    assert ck.expected_counts.launches == before
+    il, ol = toks[2].long(), toks[3].long()
+    assert int(prof[:, 1].sum()) == int(((il + 1) * (ol + 1)).sum())
+    assert (prof[:, 2:] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_512_states_on_card():
+    """The 512-state machine (511 states and End), two pairs of 6 x 6:
+    the tables past TAB_SHARE of a block's shared memory and the sums,
+    both in global memory by the plan; against the plain version, the
+    same bits twice."""
+    dev = _card()
+    m = testmachines.build_random_transducer(511, list("ACGT"))
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    model = CountModel(ev, device=dev)
+    mats = tuple(x.detach() for x in model.build_tensors(model.logw))
+    assert mats[3].shape == (512, 512)
+    rng = np.random.RandomState(6)
+    toks = tokenize_batch(ev, [_sp("".join("ACGT"[c] for c in rng.randint(
+        0, 4, 6)), "".join("ACGT"[c] for c in rng.randint(0, 4, 6)))
+        for _ in range(2)], device=dev)
+    g = torch.ones(2, device=dev)
+    F, Br = _lattices(mats, toks)
+    got = ck.expected_counts(F, Br, *mats, *toks, g)
+    plan = ck.expected_counts.last["plan"]
+    assert (plan["tables"], plan["acc"]) == ("global", "global")
+    _card_close(got, ck.expected_counts_plain(F, Br, *mats, *toks, g))
+    assert _equal(got, ck.expected_counts(F, Br, *mats, *toks, g))
 
 
 @pytest.mark.cuda

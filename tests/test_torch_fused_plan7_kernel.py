@@ -133,6 +133,22 @@ def test_plain_matches_pallas_interpret_and_flat(case):
         assert np.array_equal(o, got)
 
 
+def test_pallas_call_form_takes_interpret():
+    """The JAX factory's call form, make_fused_plan7_pallas(fused, B, L,
+    interpret=True) as the JAX Plan7Fused makes it, runs and gives the
+    factory's result: the keyword is accepted and unused."""
+    from machineboss_tpu.ops.pallas.fused_plan7_kernel import \
+        make_fused_plan7_pallas
+    jf, tf = jax_pair(CASES[0][0], CASES[0][1])
+    B, L = 4, 7
+    toks, lens = batch(tf, B, L, seed=3)
+    got = fk.make_fused_plan7_pallas(tf, B, L, interpret=True)(toks, lens)
+    assert np.array_equal(got, fk.make_fused_plan7_kernel(tf, B, L)(toks,
+                                                                   lens))
+    want = make_fused_plan7_pallas(jf, B, L, interpret=True)(toks, lens)
+    assert np.abs(got - want).max() <= VS_PALLAS
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_prepared_operands_match_the_pallas_factory(case):
     """prepare_fused_plan7's probability-space operands from the port's own

@@ -170,6 +170,32 @@ def test_counts_match_jax_and_host(name):
     np.testing.assert_allclose(own, grads.numpy(), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("name", ["jukescantor", "tkf91branch"])
+def test_float64_model_matches_host_and_jax(name):
+    """CountModel(ev, dtype=torch.float64) takes the rows route on float32
+    copies of its matrices and returns float64 counts, total and lls:
+    against the host's float64 counts and the JAX CountModel(ev,
+    dtype=jnp.float64) (float32 without x64, as the suite runs it), at
+    the count tolerance."""
+    import jax.numpy as jnp
+    from machineboss_tpu.ops.fwdback import CountModel as JCountModel
+    _, _, ev, spl, host = _case(name)
+    jmodel, jtoks = _jax_model(name)
+    jg, jtotal, _ = JCountModel(jmodel.ev, dtype=jnp.float64) \
+        .counts_and_loglike(*jtoks)
+    model = CountModel(ev, dtype=torch.float64, device="cpu")
+    toks = tokenize_batch(ev, spl.seq_pairs, device="cpu")
+    grads, total, lls = model.counts_and_loglike(*toks)
+    assert model.last_route == "rows"
+    assert grads.dtype == total.dtype == lls.dtype == torch.float64
+    np.testing.assert_allclose(grads.numpy(), np.concatenate(host.count),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(grads.numpy(), np.asarray(jg, np.float64),
+                               rtol=RTOL, atol=ATOL)
+    assert abs(float(total) - host.loglike) < LL_TOL
+    assert abs(float(total) - float(jtotal)) < LL_TOL
+
+
 def test_weight_zero_duplicate_changes_nothing():
     """A pair repeated with weight 0 adds nothing to the total or the
     counts (the JAX package pads a sharded batch this way)."""

@@ -12,7 +12,10 @@ the tables' cache; dp2d's calls on a CPU tensor run the plain versions
 (forward_2d_plain, forward_2d_lattice_plain, forward_2d_banded_plain) bit
 for bit, one small case a mode against the JAX dp2d function at
 tests/test_torch_dp2d.py's bounds, whose fixtures it reuses; an input that
-requires grad raises.
+requires grad gets its gradient (the score through counts_kernel.RowLoglike,
+the rest through the plain versions), held to autograd through the plain
+versions and to jax.grad of the JAX dp2d functions; on a card only the
+score has a gradient, and the other calls raise.
 
 On a CUDA card (marker cuda) the kernel against its plain version on the
 card, per semiring and call (score, lattice, Backward, banded): logsumexp
@@ -418,25 +421,124 @@ def test_cpu_runs_the_plain_version_and_matches_jax(mode):
     _close(np.asarray(got), ref, bound)
 
 
-def test_an_input_that_requires_grad_raises():
+GRAD_VS_PLAIN = 1e-5      # float32: the same gradient by another route
+GRAD_VS_JAX_RTOL, GRAD_VS_JAX_ATOL = 1e-3, 1e-4   # the JAX count tolerance
+
+
+def _scalar(mode, out):
+    """A scalar of a call's output: the score itself, a lattice's last and
+    middle cells' logsumexp over the states."""
+    if out.dim() == 0:
+        return out
+    mid = out[out.shape[0] // 2, out.shape[1] // 2]
+    return out[-1, -1].logsumexp(-1) + mid.logsumexp(-1)
+
+
+def test_an_input_that_requires_grad_gets_its_gradient():
+    """Where the matrices require grad, every call returns a result that
+    carries a gradient (the logsumexp score through counts_kernel's
+    RowLoglike, whose backward is the E-step's expected counts; the
+    lattices, the Backward lattice and the banded fill through their
+    plain versions under autograd), within 1e-5 of autograd through the
+    plain version in all four matrices; the score takes RowLoglike with
+    any one matrix requiring grad; no launch is counted on the CPU."""
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
     _, mats, it, ot = _pair("allclass", "logsumexp")
     tm = [torch.from_numpy(x) for x in mats]
     ti, to = torch.from_numpy(it), torch.from_numpy(ot)
-    for k in range(4):
-        grad = list(tm)
-        grad[k] = tm[k].clone().requires_grad_(True)
-        for mode in ("score", "lattice", "backward"):
-            with pytest.raises(ValueError, match="gradient"):
-                _run(mode, grad, ti, to, LOGSUMEXP)
     band = (torch.zeros(len(ot) + 1, dtype=torch.long),
             torch.full((len(ot) + 1,), len(it) + 1))
-    with pytest.raises(ValueError, match="gradient"):
-        _run("banded", [tm[0].clone().requires_grad_(True)] + tm[1:], ti,
-             to, LOGSUMEXP, band)
+    before = rk.row_scan.launches
+
+    def grads(mode, plain, leaves):
+        args = [x.clone().requires_grad_(True) if k in leaves else x
+                for k, x in enumerate(tm)]
+        ck.estep_backward.last = None
+        out = _run(mode, args, ti, to, LOGSUMEXP, band, plain=plain)
+        assert out.requires_grad
+        got = torch.autograd.grad(_scalar(mode, out),
+                                  [args[k] for k in leaves])
+        if mode == "score" and not plain:
+            assert ck.estep_backward.last["pairs"] == 1
+        return got
+
+    cases = [(mode, (0, 1, 2, 3)) for mode in MODES] + \
+        [("score", (k,)) for k in range(4)]
+    for mode, leaves in cases:
+        for a, b in zip(grads(mode, False, leaves),
+                        grads(mode, True, leaves)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                       atol=GRAD_VS_PLAIN, rtol=0)
+    assert rk.row_scan.launches == before
     # the associative rows are not the kernel's: autograd runs through
     got = dp2d.forward_2d(tm[0].clone().requires_grad_(True), *tm[1:], ti,
                           to, len(it), len(ot), assoc=True)
     assert got.requires_grad
+
+
+def _grad_machine(name):
+    from machineboss_tpu_torch.core.params import param_assign_from_json
+    from machineboss_tpu_torch.core.presets import make_preset
+    if name == "jukescantor":
+        m = make_preset("jukescantor")
+        params = m.get_param_defs(True).combine(
+            param_assign_from_json({"t": 0.3}), True)
+    else:
+        m = testmachines.build_indel_transducer(6, list("ACGT"))
+        params = m.get_param_defs(True)
+    ev = EvaluatedMachine(m, params)
+    return [np.asarray(x) for x in LoweredMachine(
+        ev, dtype=np.float32).matrices_2d("logsumexp")]
+
+
+@pytest.mark.parametrize("mode", ["score", "lattice"])
+@pytest.mark.parametrize("name", ["jukescantor", "indel"])
+def test_gradient_matches_jax_grad(name, mode):
+    """dp2d.forward_2d (through RowLoglike) and forward_2d_lattice (its
+    plain version under autograd) with the four matrices requiring grad:
+    their gradients against jax.grad of the JAX package's dp2d functions
+    on the same numpy inputs (rtol 1e-3 / atol 1e-4, the JAX count
+    tolerance) and within 1e-5 of autograd through forward_2d_plain in
+    float64."""
+    import jax
+    import jax.numpy as jnp
+    from machineboss_tpu.ops import dp2d as jd
+    mats = _grad_machine(name)
+    rng = np.random.RandomState(7)
+    it = rng.randint(0, mats[1].shape[0], 4).astype(np.int32)
+    ot = rng.randint(0, mats[2].shape[0], 5).astype(np.int32)
+    ti, to = torch.from_numpy(it), torch.from_numpy(ot)
+
+    def port(dtype, plain):
+        leaves = [torch.from_numpy(x).to(dtype).requires_grad_(True)
+                  for x in mats]
+        if mode == "score":
+            fn = dp2d.forward_2d_plain if plain else dp2d.forward_2d
+            out = fn(*leaves, ti, to, len(it), len(ot))
+        else:
+            fn = dp2d.forward_2d_lattice_plain if plain \
+                else dp2d.forward_2d_lattice
+            out = fn(*leaves, ti, to)
+        return [g.double().numpy() for g in
+                torch.autograd.grad(_scalar(mode, out), leaves)]
+
+    def jax_scalar(*jm):
+        if mode == "score":
+            return jd.forward_2d(*jm, jnp.array(it), jnp.array(ot), len(it),
+                                 len(ot))
+        lat = jd.forward_2d_lattice(*jm, jnp.array(it), jnp.array(ot))
+        mid = lat[lat.shape[0] // 2, lat.shape[1] // 2]
+        return jax.nn.logsumexp(lat[-1, -1]) + jax.nn.logsumexp(mid)
+
+    want = jax.grad(jax_scalar, argnums=(0, 1, 2, 3))(
+        *[jnp.array(x) for x in mats])
+    got = port(torch.float32, False)
+    f64 = port(torch.float64, True)
+    for g, w, r in zip(got, want, f64):
+        np.testing.assert_allclose(g, np.asarray(w, np.float64),
+                                   rtol=GRAD_VS_JAX_RTOL,
+                                   atol=GRAD_VS_JAX_ATOL)
+        np.testing.assert_allclose(g, r, atol=GRAD_VS_PLAIN, rtol=0)
 
 
 # ---- the kernel on the card
@@ -580,6 +682,50 @@ def _dense_mats(n_states, sr_name="logsumexp"):
 
 
 @pytest.mark.cuda
+def test_score_gradient_on_card():
+    """dp2d.forward_2d on the card with the matrices requiring grad: the
+    score through RowLoglike (the row kernel, then its lattices and
+    expected_counts in the backward), one pair and a batch, against
+    autograd through the plain version on the card (1e-4 + 1e-3
+    relative: float32 counts by other sums); the lattice, Backward and
+    banded calls with a matrix requiring grad raise on the card (no
+    kernel computes their gradient), launching nothing."""
+    from machineboss_tpu_torch.ops.kernels import counts_kernel as ck
+    dev = _card()
+    _, mats, it, ot = _pair("indel", "logsumexp")
+    ti, to = torch.from_numpy(it).to(dev), torch.from_numpy(ot).to(dev)
+    for batch in (False, True):
+        grads = []
+        for plain in (False, True):
+            leaves = [torch.from_numpy(x).to(dev).requires_grad_(True)
+                      for x in mats]
+            fn = dp2d.forward_2d_plain if plain else dp2d.forward_2d
+            if batch:
+                bi, bo = ti.repeat(3, 1), to.repeat(3, 1)
+                n = torch.full((3,), len(it), device=dev)
+                out = fn(*leaves, bi, bo, n, n * 0 + len(ot)).sum()
+            else:
+                out = fn(*leaves, ti, to, len(it), len(ot))
+            rk.row_scan.launches = ck.expected_counts.launches = 0
+            grads.append(torch.autograd.grad(out, leaves))
+            if not plain:
+                assert (rk.row_scan.launches,
+                        ck.expected_counts.launches) == (2, 1)
+        for a, b in zip(*grads):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-3, atol=1e-4)
+    band = (torch.zeros(len(ot) + 1, dtype=torch.long, device=dev),
+            torch.full((len(ot) + 1,), len(it) + 1, device=dev))
+    tm = [torch.from_numpy(x).to(dev) for x in mats]
+    rk.row_scan.launches = 0
+    for mode in ("lattice", "backward", "banded"):
+        args = [tm[0].clone().requires_grad_(True)] + tm[1:]
+        with pytest.raises(ValueError, match="gradient"):
+            _run(mode, args, ti, to, LOGSUMEXP, band)
+    assert rk.row_scan.launches == 0
+
+
+@pytest.mark.cuda
 def test_512_states_on_card():
     """S = 512 (dispatch's DENSE_MAX_STATES: 511 states and End): the
     closure read from global memory, one lane a destination."""
@@ -650,9 +796,11 @@ def test_card_raises_on_what_the_kernel_does_not_take():
     ti, to = torch.from_numpy(it).to(dev), torch.from_numpy(ot).to(dev)
     with pytest.raises(TypeError, match="float32"):
         dp2d.forward_2d(*[m.double() for m in tm], ti, to, len(it), len(ot))
+    # the score with a matrix requiring grad has its gradient (RowLoglike,
+    # test_score_gradient_on_card); a lattice has none on the card
     with pytest.raises(ValueError, match="gradient"):
-        dp2d.forward_2d(tm[0].clone().requires_grad_(True), *tm[1:], ti, to,
-                        len(it), len(ot))
+        dp2d.forward_2d_lattice(tm[0].clone().requires_grad_(True), *tm[1:],
+                                ti, to)
     from machineboss_tpu_torch.ops.semiring import PROB
     with pytest.raises(ValueError, match="semiring"):
         dp2d.forward_2d(*tm, ti, to, len(it), len(ot), sr=PROB)
