@@ -190,7 +190,8 @@ call gated against a float64 oracle, timed with torch.cuda.synchronize()
 around it (the median of 5 where a call takes under 1 s, else over its
 pairs) and its device launches counted once under torch.profiler; a fifth,
 row_profile, reads the row kernel. The 2D single-pair calls run the row
-kernel (row_scan, the kernels line's 14th entry); the other phases run
+kernel (row_scan, the kernels line's 14th entry), the sparse engine's
+token calls the sparse walk (sparse_walk, the 16th); the other calls run
 eager torch engines, no kernel of the line:
 
   single_pair_2d  prot2dna, 8 pairs of 64 aa x 192 nt, each call with
@@ -232,8 +233,16 @@ eager torch engines, no kernel of the line:
                   scan at 256 x 3,000;
   sparse          a seeded 128-node Plan7 generator (644 states, not
                   dense), 4 reads of 128 (log_forward, the 1D forms in
-                  both semirings), and prot2dna forced sparse, 4 pairs of
-                  64 x 192 (log_forward_batch, backward and Viterbi);
+                  both semirings; the 1D kernel at clusters 1-16,
+                  bit-equal), and prot2dna forced sparse, 4 pairs of
+                  64 x 192 (log_forward_batch: one launch for the batch,
+                  bit-equal to its pairs' own calls; backward and
+                  Viterbi; the kernel's CPU twin on the card), each call
+                  one sparse_walk launch by its counter, the kernel alone
+                  by CUDA events and against its plain version, the eager
+                  walk on the card (logsumexp 1e-3 nats, max-plus 0.0);
+                  then the 512-node generator (2,564 states), a read of
+                  512, against the eager walk in float32 and float64;
   pswm            the dense and sparse PSWM forms, 1D and 2D (the 2D
                   profiles at 16 aa x 48 nt).
 
@@ -271,7 +280,14 @@ TF32_FLOPS = 495e12              # H100 SXM TF32 tensor peak, dense
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Prints obj as one JSON line; a phase's record gains at_s, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -602,6 +618,7 @@ def counts():
     from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
     from machineboss_tpu_torch.ops.kernels import row_kernel as rk
     from machineboss_tpu_torch.ops.kernels import scan1d_kernel as sk
+    from machineboss_tpu_torch.ops.kernels import sparse_kernel as spk
     from machineboss_tpu_torch.ops.kernels import viterbi_kernel as vk
     from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
     return {"lowrank_wavefront": lk.lowrank_wavefront,
@@ -618,7 +635,8 @@ def counts():
             "lattice_walk": tb.lattice_walk,
             "fused_plan7": fk.fused_plan7_forward_kernel,
             "row_scan": rk.row_scan,
-            "expected_counts": ck.expected_counts}
+            "expected_counts": ck.expected_counts,
+            "sparse_walk": spk.sparse_walk}
 
 
 def drive(name, cm, pairs, kernel, route):
@@ -3341,18 +3359,160 @@ def plan7_generator(K, seed=0):
     return hmm.machine(False)
 
 
+SPARSE_VS_PLAIN_TOL = {False: 1e-3, True: 0.0}   # nats: logsumexp sums in
+# another order; max-plus takes the eager walk's float32 sums and maxes
+SPARSE_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def sparse_bound(tables, toks):
+    """(bound_ms, bound_by, operations, bytes) of the sparse walk's work on
+    the pairs `toks` (1-based (in, out) token lists) for `tables`
+    (sparse_kernel.sparse_tables): every cell's finite terms, its live
+    neighbours' class entries and the closure's entries, an add and a max
+    each in max-plus, an add, a max, a subtract, an exp and an add in
+    logsumexp (plus two logs a state a cell), at the float32 peak; the
+    tables and tokens read once, the scores written once, each pair's ring
+    of three diagonals written once."""
+    t = tables
+    ints = t.ints.cpu().numpy().astype(np.int64)
+    S = t.S
+    eoff = ints[:t.o_coff]
+    per_cls = eoff[S::S] - eoff[:-1:S]                   # (n_cls,)
+    cls = ints[t.o_cls:t.o_eidx].reshape(t.n_in, t.n_out)
+    n_cl = len(ints) - t.o_cidx
+    elt = t.weights.element_size()
+
+    def cl(a, b):
+        ok = (a >= 0) & (a < t.n_in) & (b >= 0) & (b < t.n_out)
+        return np.where(ok, cls[np.clip(a, 0, t.n_in - 1),
+                                np.clip(b, 0, t.n_out - 1)], t.empty)
+
+    terms = cells = ring = 0.0
+    for x, y in toks:
+        x, y = np.asarray(x, np.int64), np.asarray(y, np.int64)
+        xi = np.concatenate([[0], x])[:, None]           # (Li+1, 1)
+        yo = np.concatenate([[0], y])[None, :]           # (1, Lo+1)
+        i = np.arange(len(x) + 1)[:, None]
+        o = np.arange(len(y) + 1)[None, :]
+        em = per_cls[cl(xi, yo)] * ((i > 0) & (o > 0)) \
+            + per_cls[cl(xi, 0 * yo)] * (i > 0) \
+            + per_cls[cl(0 * xi, yo)] * (o > 0)
+        n = (len(x) + 1.0) * (len(y) + 1.0)
+        terms += float(em.sum()) + n_cl * n
+        cells += n
+        ring += 3.0 * (min(len(x), len(y)) + 1) * S * elt
+    flops = terms * (2.0 if t.maxplus else 5.0) \
+        + (0.0 if t.maxplus else 2.0 * S * cells)
+    nbytes = t.nbytes + 4.0 * sum(len(x) + len(y) + 2 for x, y in toks) \
+        + elt * len(toks) + ring
+    ms, by = bound(flops, nbytes)
+    return ms, by, flops, nbytes
+
+
+def sparse_cluster_sweep(sm, toks, viterbi=False, reverse=False):
+    """The sparse walk alone on the pairs `toks` (1-based (in, out) token
+    lists) of SparseMachine `sm` (CUDA events, median of 5) at the plan's
+    layout and at each cluster size 1-16, each result bit-equal to the
+    plan's; with the plan and the ring each cluster size takes."""
+    from machineboss_tpu_torch.ops.kernels import sparse_kernel as sk
+    it, il = sk.pad_tokens([t[0] for t in toks])
+    ot, ol = sk.pad_tokens([t[1] for t in toks])
+
+    def walk(cluster=None):
+        return sk.WalkCall(sm, it, ot, il, ol, viterbi, reverse, cluster)
+
+    def ms(w):
+        return float(np.median([event_ms(w.launch)[0] for _ in range(5)]))
+
+    base = walk()
+    want = base.launch().cpu().numpy()
+    rec = {"S": sm.n_states, "pairs": len(toks),
+           "semiring": "maxplus" if viterbi else "logsumexp",
+           "direction": "backward" if reverse else "forward",
+           "plan": base.cfg, "plan_ms": ms(base), "ms": {}, "rows": {}}
+    for c in SPARSE_CLUSTERS:
+        w = walk(c)
+        check(np.array_equal(w.launch().cpu().numpy(), want), "sparse walk: "
+              "cluster %d differs from the plan's" % c)
+        rec["rows"][c] = w.cfg["rows"]
+        rec["ms"][c] = ms(w)
+    return rec
+
+
+def sparse_record(name, fns, walk, plain_fn, viterbi, toks):
+    """One call form of the sparse engine over its inputs (a zero-argument
+    function each): every call's sparse_walk launches (set to 0 just
+    before, read just after: one, and no other counted kernel), then
+    call_record's ms and device launches; the kernel alone (`walk`, a
+    sparse_kernel.WalkCall prepared on the first input, or the batch) by
+    CUDA events, median of 5, its plan, against its plain version
+    (plain_fn, the eager walk on the card, timed once; logsumexp 1e-3
+    nats, max-plus 0.0), and its bound on `toks`. Returns (record, the
+    first run's results)."""
+    wrappers = counts()
+    outs = []
+    for fn in fns:
+        for w in wrappers.values():
+            w.launches = 0
+        outs.append(fn())
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        check(got == {k: int(k == "sparse_walk") for k in wrappers},
+              "%s: launches %s, expected one of sparse_walk" % (name, got))
+    rec, _ = call_record(fns)
+    kern = walk.launch().cpu().numpy()
+    plain, plain_ms = synced_ms(plain_fn)
+    err = score_err(kern, plain)
+    check(err <= SPARSE_VS_PLAIN_TOL[viterbi], "%s: sparse kernel vs plain "
+          "%.3g nats" % (name, err))
+    kernel_ms = float(np.median([event_ms(walk.launch)[0]
+                                 for _ in range(5)]))
+    bound_ms, bound_by, flops, nbytes = sparse_bound(walk.tables, toks)
+    rec.update(sparse_walk_per_call=1, sparse_walk_launches=len(fns),
+               kernel_ms=kernel_ms, plain_ms=plain_ms, kernel_vs_plain=err,
+               semiring="maxplus" if viterbi else "logsumexp",
+               plan=walk.cfg, bound_ms=bound_ms, bound_by=bound_by,
+               flops=flops, bytes=nbytes,
+               kernel_share_of_bound=bound_ms / kernel_ms)
+    return rec, outs
+
+
 def sparse_phase(dev, card, smi, K=128, n_reads=4, Lr=128, n_pairs=4,
-                 Lp=64):
-    """The sparse engine: the K-node Plan7 generator (not dense at K=128,
-    S=644: "auto" takes "sparse"), n_reads reads of Lr; prot2dna forced
-    sparse (dense_max_states=16), n_pairs pairs of Lp x 3Lp."""
+                 Lp=64, K_wide=512, L_wide=512):
+    """The sparse engine, every call one sparse_walk launch: the K-node
+    Plan7 generator (not dense at K=128, S=644: "auto" takes "sparse"),
+    n_reads reads of Lr (log_forward, the 1D forms in both semirings, and
+    the 1D kernel at each cluster size); prot2dna forced sparse
+    (dense_max_states=16), n_pairs pairs of Lp x 3Lp (log_forward_batch:
+    one launch for the batch, bit-equal to its pairs' own; backward and
+    Viterbi on the first pair; the twin on the card); then the K_wide-node
+    generator, one read of L_wide, against the eager walk in float32 and
+    in float64 on the card. Each call form against its plain version on
+    the card and a float64 oracle. Returns the kernels-line entry
+    (log_forward_batch's)."""
     from machineboss_tpu_torch.core.presets import make_preset
     from machineboss_tpu_torch.dispatch import CompiledMachine
     from machineboss_tpu_torch.ops import sparse
     from machineboss_tpu_torch.ops.host_oracle import viterbi_2d_f64
+    from machineboss_tpu_torch.ops.kernels import sparse_kernel as sk
     from machineboss_tpu_torch.testmachines import (AMINO, plan7_reads,
                                                     prot2dna_pairs)
     t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(dev)
+
+    def padded(pairs):
+        it, il = sk.pad_tokens([p[0] for p in pairs])
+        ot, ol = sk.pad_tokens([p[1] for p in pairs])
+        return it, ot, il, ol
+
+    def walk(sm, pairs, viterbi=False, reverse=False, **kw):
+        return sk.WalkCall(sm, *padded(pairs), viterbi, reverse, **kw)
+
+    def eager(sm, pairs, viterbi=False, reverse=False):
+        return lambda: np.array([sparse._token_walk(sm, i, o, viterbi,
+                                                    reverse)
+                                 for i, o in pairs])
+
     gen = plan7_generator(K)
     cm = CompiledMachine(gen, device=dev)
     reads = plan7_reads(AMINO, n_reads, Lr, seed=0)
@@ -3364,57 +3524,137 @@ def sparse_phase(dev, card, smi, K=128, n_reads=4, Lr=128, n_pairs=4,
     of_dense = " of the dense lowering, %d reads" % n_reads
     calls = {}
     check(cm._strategy(0, Lr, "auto") == "sparse", "plan7: not sparse")
-    rec, got = call_record([lambda r=r: cm.log_forward("", r)
-                            for r in reads])
+    sm = cm._sparse_machine()
+    ones = [([], [t + 1 for t in o]) for o in otoks]
+    rec, got = sparse_record(
+        "plan7 log_forward", [lambda r=r: cm.log_forward("", r)
+                              for r in reads], walk(sm, ones[:1]),
+        eager(sm, ones[:1]), False, ones[:1])
     check(cm.last_route == "sparse", "log_forward took %s" % cm.last_route)
     calls["plan7_log_forward"] = gated(
         rec, score_err(got, ref_f), GATE_TOL,
         "host_oracle.forward_2d_f64" + of_dense, "plan7 log_forward")
-    sm = cm._cache["sparse"]
-    ones = [[t + 1 for t in o] for o in otoks]
-    for name in ("forward_1d_sparse", "backward_1d_sparse"):
+    for name, reverse in (("forward_1d_sparse", False),
+                          ("backward_1d_sparse", True)):
         fn = getattr(sparse, name)
         for viterbi, ref, oracle in ((False, ref_f, "forward_2d_f64"),
                                      (True, ref_v, "viterbi_2d_f64")):
-            rec, got = call_record([lambda o=o: fn(sm, o, viterbi=viterbi)
-                                    for o in ones])
+            rec, got = sparse_record(
+                "plan7 %s%s" % (name, " viterbi" * viterbi),
+                [lambda o=o: fn(sm, o[1], viterbi=viterbi) for o in ones],
+                walk(sm, ones[:1], viterbi, reverse),
+                eager(sm, ones[:1], viterbi, reverse), viterbi, ones[:1])
             calls["plan7_%s%s" % (name, "_viterbi" if viterbi else "")] = \
                 gated(rec, score_err(got, ref), GATE_TOL,
                       "host_oracle." + oracle + of_dense, name)
+    # the 1D walk at every cluster size, bit-equal
+    sweep = sparse_cluster_sweep(sm, ones[:1])
 
     p2d = CompiledMachine(make_preset("prot2dna"), device=dev,
                           dense_max_states=16)
     pd = CompiledMachine(make_preset("prot2dna"), device=dev)
     pairs = prot2dna_pairs(n_pairs, Lp, seed=0)
     toks = [(pd.in_toks(i), pd.out_toks(o)) for i, o in pairs]
+    ptoks = [([t + 1 for t in i], [t + 1 for t in o]) for i, o in toks]
     ref = f64_scores(pd._host_mats(), toks)
-    rec, (got,) = call_record(lambda: p2d.log_forward_batch(pairs))
+    psm = p2d._sparse_machine()
+    bw = walk(psm, ptoks)
+    rec, (got,) = sparse_record(
+        "prot2dna log_forward_batch", [lambda: p2d.log_forward_batch(pairs)],
+        bw, eager(psm, ptoks), False, ptoks)
     check(p2d.last_route == "sparse", "the batch took %s" % p2d.last_route)
     err = score_err(got, pd.log_forward_batch(pairs))
     check(err <= SPARSE_VS_DENSE_TOL, "sparse vs dense route %.3g" % err)
+    each = np.array([p2d.log_forward(i, o) for i, o in pairs])
+    check(np.array_equal(got, each), "the batch's scores differ from its "
+          "pairs' own calls")
+    check(sk.sparse_smem_bytes_on_card(bw.cfg, psm.n_states, 4)
+          == bw.cfg["smem_bytes"], "sparse_walk: the kernel's shared bytes "
+          "differ from sparse_launch_plan's")
+    # four rings of 65 x 132 values: far from the free memory, which
+    # would only lower the grid
+    check(bw.cfg == sk.sparse_launch_plan(
+        psm.n_states, Lp, 3 * Lp, n_pairs, bw.tables.emit_row,
+        bw.tables.closure_row, bw.tables.cell_terms,
+        sms=props.multi_processor_count),
+          "sparse_walk: the call's plan is not sparse_launch_plan's")
     calls["prot2dna_log_forward_batch"] = gated(
         rec, score_err(got, ref), GATE_TOL, "host_oracle.forward_2d_f64, "
-        "%d pairs; the dense route's (lowrank) scores" % n_pairs,
-        "prot2dna sparse batch", vs_dense_route_max_abs=err)
-    psm = p2d._cache["sparse"]
-    it, ot = [t + 1 for t in toks[0][0]], [t + 1 for t in toks[0][1]]
-    rec, (got,) = call_record(lambda: sparse.backward_2d_sparse(psm, it, ot))
+        "%d pairs; the dense route's (lowrank) scores; each pair's "
+        "log_forward, bit-equal" % n_pairs, "prot2dna sparse batch",
+        vs_dense_route_max_abs=err)
+    it, ot = ptoks[0]
+    rec, (got,) = sparse_record(
+        "prot2dna backward_2d_sparse",
+        [lambda: sparse.backward_2d_sparse(psm, it, ot)],
+        walk(psm, ptoks[:1], reverse=True),
+        eager(psm, ptoks[:1], reverse=True), False, ptoks[:1])
     calls["prot2dna_backward_2d_sparse"] = gated(
         rec, abs(got - ref[0]), SINGLE_FB_TOL,
         "backward = the Forward f64 score, 1 pair", "prot2dna backward")
     vref = viterbi_2d_f64(*pd.lowered.matrices_2d("maxplus"), *toks[0])
-    rec, got = call_record(lambda: sparse.viterbi_2d_sparse(psm, it, ot))
+    rec, got = sparse_record(
+        "prot2dna viterbi_2d_sparse",
+        [lambda: sparse.viterbi_2d_sparse(psm, it, ot)],
+        walk(psm, ptoks[:1], True, True), eager(psm, ptoks[:1], True, True),
+        True, ptoks[:1])
     calls["prot2dna_viterbi_2d_sparse"] = gated(
         rec, score_err(got, [vref]), GATE_TOL,
         "host_oracle.viterbi_2d_f64, 1 pair", "prot2dna viterbi")
+    # the twin, on the card, on the first pair
+    twin = sk.sparse_walk_diagonal(bw.tables, *padded(ptoks[:1]))
+    twin_err = score_err(twin.cpu().numpy(), bw.launch().cpu().numpy()[:1])
+    check(twin_err <= SPARSE_VS_PLAIN_TOL[False], "sparse twin vs kernel "
+          "%.3g nats" % twin_err)
+
+    # the size case: the K_wide-node generator, one read of L_wide
+    t0 = time.perf_counter()
+    wgen = plan7_generator(K_wide)
+    wcm = CompiledMachine(wgen, device=dev)
+    wread = plan7_reads(AMINO, 1, L_wide, seed=1)[0]
+    wtoks = [([], [t + 1 for t in wcm.out_toks(wread)])]
+    wsm = wcm._sparse_machine()
+    w64 = sparse.SparseMachine(wcm.ev, dtype=np.float64, device=dev)
+    build_s = time.perf_counter() - t0
+    wide = {"K": K_wide, "S": wsm.n_states, "L": L_wide,
+            "closure_edges": int(wsm.closure()[0].numel()),
+            "machine_build_s": build_s}
+    for viterbi in (False, True):
+        rec, (got,) = sparse_record(
+            "wide forward_1d_sparse%s" % (" viterbi" * viterbi),
+            [lambda: sparse.forward_1d_sparse(wsm, wtoks[0][1],
+                                              viterbi=viterbi)],
+            walk(wsm, wtoks, viterbi), eager(wsm, wtoks, viterbi), viterbi,
+            wtoks)
+        ref64, f64_ms = synced_ms(eager(w64, wtoks, viterbi))
+        wide["forward_1d_sparse" + "_viterbi" * viterbi] = gated(
+            rec, score_err([got], ref64), GATE_TOL, "the eager walk in "
+            "float64 on the card", "wide 1D", f64_ms=f64_ms)
+    wide["layout"] = sk.sparse_walk.last["plan"]
+
+    lf = calls["prot2dna_log_forward_batch"]
     emit({"phase": "sparse",
           "plan7": {"K": K, "S": cm.ev.n_states(), "reads": n_reads,
-                    "L": Lr, "closure_edges": int(sm.closure()[0].numel())},
+                    "L": Lr, "closure_edges": int(sm.closure()[0].numel()),
+                    "kernel_by_cluster": sweep},
           "prot2dna": {"S": p2d.ev.n_states(), "dense_max_states": 16,
                        "pairs": n_pairs, "Li": Lp, "Lo": 3 * Lp,
-                       "closure_edges": int(psm.closure()[0].numel())},
-          "calls": calls, "seconds": time.perf_counter() - t_phase,
+                       "closure_edges": int(psm.closure()[0].numel()),
+                       "twin_vs_kernel": twin_err},
+          "wide": wide, "calls": calls,
+          "seconds": time.perf_counter() - t_phase,
           "card": card, "nvidia_smi": smi})
+    return {"name": "sparse_walk", "route": "cuda",
+            "source": "machineboss_tpu_torch/csrc/sparse_walk.cu",
+            "replaces": "machineboss_tpu/ops/sparse.py:89-269 "
+                        "(forward_2d_sparse, forward_1d_sparse, "
+                        "backward_1d_sparse, backward_2d_sparse, "
+                        "viterbi_2d_sparse: jitted programs, no "
+                        "pallas_call)",
+            "launches": lf["sparse_walk_launches"],
+            "max_abs_err": lf["kernel_vs_plain"], "ms": lf["kernel_ms"],
+            "plain_ms": lf["plain_ms"], "bound_ms": lf["bound_ms"],
+            "bound_by": lf["bound_by"], "library_ms": None}
 
 
 def dirichlet_profile(L, T, seed):
@@ -5059,25 +5299,53 @@ def parallel_phase(dev, card, smi, p2d_cm, p2d_pairs, p2d_lls, dense_cm,
 
 def single_pair_paths(dev, card, smi):
     """The four phases of the single-pair and sparse engines (the row
-    kernel under the 2D single-pair calls, eager torch under the rest) and
-    the row kernel's profile. Returns the kernels-line entry of
-    row_scan."""
+    kernel under the 2D single-pair calls, the sparse walk under the
+    sparse engine's token calls, eager torch under the rest) and the row
+    kernel's profile. Returns the kernels-line entries of row_scan and
+    sparse_walk."""
     row = single_pair_2d_phase(dev, card, smi)
     row_profile_phase(dev, card, smi)
     cm1d, toks1d = single_pair_1d_phase(dev, card, smi)
-    sparse_phase(dev, card, smi)
+    walk = sparse_phase(dev, card, smi)
     pswm_phase(dev, card, smi, cm1d, toks1d)
-    return row
+    return [row, walk]
 
 
 # -- the long shapes: the sizes past a block's shared memory ----------------
+
+def graph_steps(step, n, dev):
+    """Calls step() n times, step updating its state in place (a diagonal
+    of an oracle's walk). On a card the first three calls run eagerly on
+    a side stream (the warm-up capture asks for), then one call is
+    captured as a CUDA graph (capture runs nothing) and replayed for the
+    rest: the same kernels on the same buffers, without a host dispatch
+    per operation."""
+    warm = 3
+    if n <= warm + 1 or dev.type != "cuda":
+        for _ in range(n):
+            step()
+        return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for _ in range(n - warm):
+        graph.replay()
+    torch.cuda.synchronize()
+
 
 def forward_2d_f64_card(mats, x, y, dev):
     """The float64 Forward of one pair on the card: forward_2d_f64's
     recurrence in probability space, each cell's states divided by their
     max with a float64 log scale, one product per class and diagonal over
     every token's block (an oracle of this script's own, where the host's
-    numpy oracle would take minutes)."""
+    numpy oracle would take minutes; the diagonals replayed as a CUDA
+    graph, graph_steps)."""
     a_diag, a_left, a_up, closure = (
         torch.tensor(np.asarray(m, np.float64), device=dev) for m in mats)
     Ti, To, S, _ = a_diag.shape
@@ -5115,7 +5383,9 @@ def forward_2d_f64_card(mats, x, y, dev):
     p2, m2 = torch.zeros_like(p1), torch.full_like(m1, -np.inf)
     zp, zm = torch.zeros((1, S), dtype=f64, device=dev), neg.reshape(1)
     xi = xt[torch.clamp(i - 1, 0, max(Li - 1, 0))] if Li else i * 0
-    for d in range(1, Li + Lo + 1):
+    d = torch.ones((), dtype=torch.long, device=dev)
+
+    def step():                             # diagonal d, then d + 1
         o = d - i
         yo = yt[torch.clamp(o - 1, 0, max(Lo - 1, 0))] if Lo else i * 0
         terms = []
@@ -5135,16 +5405,21 @@ def forward_2d_f64_card(mats, x, y, dev):
         mu_s = torch.where(live, mu, torch.zeros_like(mu))
         pre = sum(t * torch.exp(m - mu_s)[:, None] for t, m in terms)
         cur, m = norm(pre @ C, mu_s)
-        cur = torch.where(live[:, None], cur, torch.zeros_like(cur))
-        m = torch.where(live, m, neg)
-        p2, m2, p1, m1 = p1, m1, cur, m
+        p2.copy_(p1)
+        m2.copy_(m1)
+        p1.copy_(torch.where(live[:, None], cur, torch.zeros_like(cur)))
+        m1.copy_(torch.where(live, m, neg))
+        d.add_(1)
+
+    graph_steps(step, Li + Lo, dev)
     end = float(p1[Li, S - 1])
     return float(m1[Li]) + np.log(end) if end > 0 else -np.inf
 
 
 def viterbi_2d_f64_card(mats, x, y, dev):
     """The float64 max-plus score of one pair on the card: viterbi_2d_f64's
-    recurrence with each cell's class block gathered by its token."""
+    recurrence with each cell's class block gathered by its token (the
+    diagonals replayed as a CUDA graph, graph_steps)."""
     a_diag, a_left, a_up, closure = (
         torch.tensor(np.asarray(m, np.float64), device=dev) for m in mats)
     Ti, To, S, _ = a_diag.shape
@@ -5167,7 +5442,9 @@ def viterbi_2d_f64_card(mats, x, y, dev):
     p1[0] = closure[0]
     p2 = torch.full_like(p1, -1e30)
     xi = xt[torch.clamp(i - 1, 0, max(Li - 1, 0))] if Li else i * 0
-    for d in range(1, Li + Lo + 1):
+    d = torch.ones((), dtype=torch.long, device=dev)
+
+    def step():                             # diagonal d, then d + 1
         o = d - i
         yo = yt[torch.clamp(o - 1, 0, max(Lo - 1, 0))] if Lo else i * 0
         pre = torch.full_like(p1, -1e30)
@@ -5185,8 +5462,11 @@ def viterbi_2d_f64_card(mats, x, y, dev):
                 pre = torch.maximum(pre, mp(v, blocks[xi * To + yo]))
         cur = mp(pre, closure.expand(W, S, S))
         cur = torch.where(((o >= 0) & (o <= Lo))[:, None], cur, neg)
-        cur = torch.where(cur > NEG, cur, neg)
-        p2, p1 = p1, cur
+        p2.copy_(p1)
+        p1.copy_(torch.where(cur > NEG, cur, neg))
+        d.add_(1)
+
+    graph_steps(step, Li + Lo, dev)
     return float(p1[Li, S - 1])
 
 
@@ -5659,12 +5939,12 @@ def main():
                    dense_pairs)
 
     # -- single-pair scoring (the row kernel) and the sparse engine -------
-    kernels.append(single_pair_paths(dev, card, smi))
+    kernels += single_pair_paths(dev, card, smi)
 
-    # no single PyTorch call computes a wavefront, this scan, this walk,
+    # no single PyTorch call computes a wavefront, this scan, these walks,
     # this row solve or these expected counts: library_ms is null for every
     # kernel
-    check(len(kernels) == 15, "the kernels line has %d entries" % len(kernels))
+    check(len(kernels) == 16, "the kernels line has %d entries" % len(kernels))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

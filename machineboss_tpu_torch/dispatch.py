@@ -23,8 +23,9 @@ log_forward_batch, dense machines:
     is empty;
   - 1D machines (exactly one empty side) -> the 1D scan;
   - engine="wavefront" -> the torch wavefront engine (ops/wavefront_fast).
-Non-dense machines score pair by pair through log_forward (the sparse
-engine), as in the JAX package.
+Non-dense machines take the sparse engine, as in the JAX package, whose
+class loops over them pair by pair; here the batch is one call of the
+sparse walk (one kernel launch on the card).
 
 Each kernel route launches its CUDA kernel on the card and runs the
 kernel's plain PyTorch version on the CPU. With engine="auto" the CPU
@@ -188,12 +189,9 @@ class CompiledMachine:
         self.last_route = strat
 
         if strat == "sparse":
-            if "sparse" not in self._cache:
-                self._cache["sparse"] = sparse_mod.SparseMachine(
-                    self.ev, device=self.device)
             return check_finite("forward_2d_sparse",
                                 sparse_mod.forward_2d_sparse(
-                                    self._cache["sparse"],
+                                    self._sparse_machine(),
                                     [t + 1 for t in it],
                                     [t + 1 for t in ot]))
 
@@ -216,6 +214,25 @@ class CompiledMachine:
             *mats, torch.tensor(it, dtype=torch.long, device=self.device),
             torch.tensor(ot, dtype=torch.long, device=self.device),
             len(it), len(ot), sr=sr)))
+
+    def _sparse_machine(self):
+        if "sparse" not in self._cache:
+            self._cache["sparse"] = sparse_mod.SparseMachine(
+                self.ev, device=self.device)
+        return self._cache["sparse"]
+
+    def _log_forward_batch_sparse(self, pairs):
+        """The sparse engine's Forward of every pair in one sparse_walk
+        call (one kernel launch on the card; the eager walk pair by pair
+        on the CPU): what log_forward gives pair by pair."""
+        from .ops.kernels.sparse_kernel import pad_tokens, sparse_walk
+        it, il = pad_tokens([[t + 1 for t in self.in_toks(i)]
+                             for i, _ in pairs])
+        ot, ol = pad_tokens([[t + 1 for t in self.out_toks(o)]
+                             for _, o in pairs])
+        lls = sparse_walk(self._sparse_machine(), it, ot, il, ol)
+        return check_finite("forward_2d_sparse",
+                            lls.cpu().numpy().astype(np.float64))
 
     def log_viterbi(self, input_seq, output_seq, strategy="auto"):
         return self.log_forward(input_seq, output_seq, strategy,
@@ -276,11 +293,11 @@ class CompiledMachine:
         package does. Machines with exactly one empty side take the 1D
         scan, which pads every sequence to the batch's longest (no
         bucketing); engine='wavefront' keeps them on the 2D wavefront
-        engine. A non-dense machine scores pair by pair through
-        log_forward (the sparse engine). `last_route` names the route the
-        call took."""
+        engine. A non-dense machine takes the sparse engine, the whole
+        batch in one call of its walk (log_forward's scores, pair by
+        pair). `last_route` names the route the call took."""
         if not self.is_dense:
-            res = np.array([self.log_forward(i, o) for i, o in pairs])
+            res = self._log_forward_batch_sparse(pairs)
             self.last_route = "sparse"
             return res
         one_d = self.machine.input_empty() != self.machine.output_empty()

@@ -37,7 +37,8 @@ SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
            "lattice_walk": "lattice_walk.cu",
            "fused_plan7": "fused_plan7.cu",
            "row_scan": "row_scan.cu",
-           "expected_counts": "expected_counts.cu"}
+           "expected_counts": "expected_counts.cu",
+           "sparse_walk": "sparse_walk.cu"}
 
 # phase-profile library -> the kernel whose source it builds, with
 # PROFILE_FLAG: the kernel's clock64 counters, never in a path's library

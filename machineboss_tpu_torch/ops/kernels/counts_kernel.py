@@ -59,6 +59,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ...utils.device import free_bytes
 from ..semiring import LOGSUMEXP, NEG_INF
 from . import row_kernel
 from ._build import load
@@ -841,14 +842,6 @@ def expected_counts_twin(tables, F, Br, in_toks, out_toks, in_lens,
 
 # ---------------------------------------------------- the autograd Function
 
-def _free_bytes(dev):
-    """Device bytes the chunks may take: the CUDA runtime's free memory and
-    what the caching allocator holds unused, less a tenth."""
-    free, _ = torch.cuda.mem_get_info(dev)
-    held = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    return int(0.9 * (free + held))
-
-
 def estep_backward(a_diag, a_left, a_up, closure, in_toks, out_toks,
                    in_lens, out_lens, lls, grad_lls, mem_bytes=None):
     """The four gradients of sum_b grad_lls[b] lls[b] (RowLoglike's
@@ -871,7 +864,7 @@ def estep_backward(a_diag, a_left, a_up, closure, in_toks, out_toks,
     il = torch.as_tensor(in_lens, device=dev).long()[live]
     ol = torch.as_tensor(out_lens, device=dev).long()[live]
     if mem_bytes is None and dev.type == "cuda":
-        mem_bytes = _free_bytes(dev)
+        mem_bytes = free_bytes(dev)
     plan = counts_chunk_plan(closure.shape[-1], int(il.max()),
                              int(ol.max()), n, mem_bytes)
     record.update(chunks=plan["chunks"], pairs_per_chunk=plan["pairs"])

@@ -31,6 +31,13 @@ instead:
 Backward runs the same walk on the reversed problem: sequences reversed,
 edges traversed dst -> src, the end state as the start. Only the last three
 diagonals are kept (a ring), so memory is O(min(Li, Lo) * S).
+
+On the card the five token call forms (forward_2d_sparse,
+forward_1d_sparse, backward_1d_sparse, backward_2d_sparse,
+viterbi_2d_sparse) are one launch of the hand-written walk,
+ops/kernels/sparse_kernel.sparse_walk (csrc/sparse_walk.cu); this eager
+walk is its plain version and the CPU route. The PSWM forms walk eagerly
+on both.
 """
 
 import numpy as np
@@ -378,10 +385,20 @@ def _pswm_walk(sm, in_pswm, out_pswm, viterbi, reverse):
 
 # ----------------------------------------------------------- the API
 
+def _token_call(sm, in_toks, out_toks, viterbi, reverse):
+    """One pair's token walk through sparse_kernel.sparse_walk: one kernel
+    launch on the card, the eager walk on the CPU; a float."""
+    from .kernels.sparse_kernel import sparse_walk
+    it = np.asarray(in_toks, np.int64).reshape(1, -1)
+    ot = np.asarray(out_toks, np.int64).reshape(1, -1)
+    return float(sparse_walk(sm, it, ot, [it.shape[1]], [ot.shape[1]],
+                             viterbi, reverse)[0])
+
+
 def forward_2d_sparse(sm: SparseMachine, in_toks, out_toks):
     """Sparse 2D Forward; in_toks/out_toks are 1-based token id lists
     (host ints). Returns the final log-likelihood (a float)."""
-    return _token_walk(sm, in_toks, out_toks, False, False)
+    return _token_call(sm, in_toks, out_toks, False, False)
 
 
 def forward_1d_sparse(sm: SparseMachine, toks, output_side=True,
@@ -389,7 +406,7 @@ def forward_1d_sparse(sm: SparseMachine, toks, output_side=True,
     """Sparse 1D Forward/Viterbi for a generator (output_side=True) or
     recognizer; toks are 1-based token ids (host ints)."""
     empty = []
-    return _token_walk(sm, empty if output_side else toks,
+    return _token_call(sm, empty if output_side else toks,
                        toks if output_side else empty, viterbi, False)
 
 
@@ -398,14 +415,14 @@ def backward_1d_sparse(sm: SparseMachine, toks, output_side=True,
     """Sparse 1D Backward: fill from the end state; returns the same total
     as Forward."""
     empty = []
-    return _token_walk(sm, empty if output_side else toks,
+    return _token_call(sm, empty if output_side else toks,
                        toks if output_side else empty, viterbi, True)
 
 
 def backward_2d_sparse(sm: SparseMachine, in_toks, out_toks, viterbi=False):
     """Sparse 2D Backward fill (reverse traversal); returns the total
     log-likelihood (cell (0,0), start state)."""
-    return _token_walk(sm, in_toks, out_toks, viterbi, True)
+    return _token_call(sm, in_toks, out_toks, viterbi, True)
 
 
 def viterbi_2d_sparse(sm: SparseMachine, in_toks, out_toks):

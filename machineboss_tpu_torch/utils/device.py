@@ -14,3 +14,11 @@ def resolve_device(device=None):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r (cuda or cpu)" % (device,))
     return dev
+
+
+def free_bytes(dev):
+    """Device bytes a call may allocate on `dev`: the CUDA runtime's free
+    memory and what the caching allocator holds unused, less a tenth."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    held = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return int(0.9 * (free + held))

@@ -21,6 +21,7 @@ from machineboss_tpu_torch.core.eval import EvaluatedMachine
 from machineboss_tpu_torch.ops import dp1d as td
 from machineboss_tpu_torch.ops import semiring as ts
 from machineboss_tpu_torch.ops.lowering import LoweredMachine
+from one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 NEW_BOUND = 1e-4          # nats: a new engine against its JAX twin

@@ -24,6 +24,7 @@ from machineboss_tpu_torch.core.seqpair import Envelope, NamedSeq, SeqPair
 from machineboss_tpu_torch.ops import dp2d, fwdback
 from machineboss_tpu_torch.ops.lowering import LoweredMachine
 from machineboss_tpu_torch.ops.semiring import LOGSUMEXP, MAXPLUS
+from one_thread import one_torch_thread  # noqa: F401
 
 BOUND = {"logsumexp": 2e-3, "maxplus": 1e-5}
 SEMIRINGS = {"logsumexp": LOGSUMEXP, "maxplus": MAXPLUS}

@@ -20,7 +20,6 @@ another order):
     python -m pytest --noconftest tests/test_torch_factored.py -m cuda
 """
 
-from contextlib import contextmanager, nullcontext
 from types import SimpleNamespace
 
 import numpy as np
@@ -34,6 +33,7 @@ from machineboss_tpu_torch.ops.host_oracle import forward_2d_f64
 from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
 from machineboss_tpu_torch.ops.kernels.plain_walk import walk_plain
 from machineboss_tpu_torch.ops.lowering import LoweredMachine
+from one_thread import one_torch_thread  # noqa: F401
 
 F64_FULL = 0.01      # nats, the accuracy gate, prot2dna at full width
 F64_SMALL = 5e-3     # nats, the factored bound vs f64 on the small machines
@@ -115,27 +115,6 @@ def _case(name):
                     for b in range(len(il))])
     _cache[name] = (kind, it, ot, il, ol, ref)
     return _cache[name]
-
-
-@contextmanager
-def _one_thread():
-    """torch and numpy's BLAS on one thread for the block: pytest-xdist's
-    workers share the machine's cores, and with a thread a core each these
-    small products spend their time waiting on each other (the
-    prot2dna_full case took minutes in a loaded six-worker run, seconds
-    alone on one thread)."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:                 # numpy's BLAS keeps its threads
-        def threadpool_limits(_):
-            return nullcontext()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpool_limits(1):
-            yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _assert_close(got, ref, bound):
@@ -268,12 +247,11 @@ def test_3xtf32_products_hold_the_f64_bound(name):
     """Before any card time: both products split keep the factored Forward
     within the f64 bounds and within the card bound of the float32 plain
     version."""
-    with _one_thread():
-        kind, it, ot, il, ol, ref = _case(name)
-        ops = wk.factored_operands(_plan(kind), torch.device("cpu"))
-        split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
-        plain = wk.factored_forward_plain(
-            ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    kind, it, ot, il, ol, ref = _case(name)
+    ops = wk.factored_operands(_plan(kind), torch.device("cpu"))
+    split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
+    plain = wk.factored_forward_plain(
+        ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
     _assert_close(split, ref, F64_FULL if kind == "prot2dna" else F64_SMALL)
     _assert_close(split, plain, CARD_BOUND)
 
@@ -284,13 +262,12 @@ def test_kernel_arithmetic_holds_the_bounds_on_dense64():
     14, pairs of 56, 53 and 99): the kernel's arithmetic, float32 class
     products and a 3xTF32 closure, stays within 5e-3 nats of f64 and 1e-3
     of the float32 plain version."""
-    with _one_thread():
-        kind, it, ot, il, ol, ref = _case("dense64_deep")
-        ops = wk.factored_operands(_plan(kind), torch.device("cpu"))
-        own = _forward_3xtf32(ops, it, ot, il, ol,
-                              split_classes=False).numpy()
-        plain = wk.factored_forward_plain(
-            ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    kind, it, ot, il, ol, ref = _case("dense64_deep")
+    ops = wk.factored_operands(_plan(kind), torch.device("cpu"))
+    own = _forward_3xtf32(ops, it, ot, il, ol,
+                          split_classes=False).numpy()
+    plain = wk.factored_forward_plain(
+        ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
     _assert_close(own, ref, F64_SMALL)
     _assert_close(own, plain, CARD_BOUND)
 

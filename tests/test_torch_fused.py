@@ -34,6 +34,7 @@ from machineboss_tpu_torch.core.machine import Machine
 from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
 from machineboss_tpu_torch.ops.fused import fused_forward, fused_tensors
 from machineboss_tpu_torch.ops.semiring import MAXPLUS
+from one_thread import one_torch_thread  # noqa: F401
 
 VS_JAX = 1e-5
 

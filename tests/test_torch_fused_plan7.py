@@ -30,6 +30,7 @@ from machineboss_tpu_torch.core.hmmer import HmmerModel
 from machineboss_tpu_torch.core.machine import Machine
 from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
 from machineboss_tpu_torch.ops.fused_plan7 import Plan7Fused
+from one_thread import one_torch_thread  # noqa: F401
 
 VS_JAX = 1e-4
 VS_F64 = 5e-3

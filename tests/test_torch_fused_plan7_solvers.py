@@ -17,6 +17,7 @@ from machineboss_tpu_torch.algo.dp_host import ViterbiMatrix
 from machineboss_tpu_torch.algo.fused_align import FusedViterbiAligner
 from machineboss_tpu_torch.core.machine import Machine
 from machineboss_tpu_torch.ops.fused_plan7 import Plan7Fused
+from one_thread import one_torch_thread  # noqa: F401
 
 from test_torch_fused_plan7 import (COMBOS, IDS, VS_F64, VS_JAX, generator,
                                     models, oracle, pair, toy_reads)

@@ -185,7 +185,7 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         "chained_wavefront", "generic_wavefront", "seqscale_wavefront",
         "factored_wavefront", "scan1d", "viterbi_wavefront",
         "viterbi_banded_wavefront", "lattice_walk", "fused_plan7",
-        "row_scan", "expected_counts"}
+        "row_scan", "expected_counts", "sparse_walk"}
     for name, deps in (("merged_wavefront", 2),
                        ("chained_ragged_wavefront", 2),
                        ("chained_wavefront", 2), ("generic_wavefront", 2),
@@ -194,12 +194,12 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
                        ("viterbi_wavefront", 2),
                        ("viterbi_banded_wavefront", 2), ("lattice_walk", 1),
                        ("fused_plan7", 1), ("row_scan", 2),
-                       ("expected_counts", 1)):
+                       ("expected_counts", 1), ("sparse_walk", 2)):
         files = _build.source_files(name)
         assert len(files) == deps and files[0].endswith(_build.SOURCES[name])
         assert all(f.startswith(str(csrc)) for f in files)
     before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
-    assert len(set(before.values())) == 14
+    assert len(set(before.values())) == 15
     with open(csrc / "wavefront_common.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
@@ -215,8 +215,8 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
     assert changed == {"lowrank_wavefront", "factored_wavefront"}
     after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
     # the chained schedule walks pair by pair on walk_pair (its strip
-    # header is gone), and the cluster helpers both Viterbi fills and the
-    # row kernel use live once, in viterbi_common.cuh
+    # header is gone), and the cluster helpers both Viterbi fills, the
+    # row kernel and the sparse walk use live once, in viterbi_common.cuh
     assert not (csrc / "strip.cuh").exists()
     common = (csrc / "viterbi_common.cuh").read_text()
     sources = [(csrc / f).read_text() for f in _build.SOURCES.values()]
@@ -239,7 +239,7 @@ def test_library_name_follows_source_and_header_bytes(tmp_path, monkeypatch):
         f.write(b"\n// edited\n")
     changed = {n for n in after if _build._lib_path(n)[1] != after[n]}
     assert changed == {"scan1d", "viterbi_wavefront",
-                       "viterbi_banded_wavefront", "row_scan"}
+                       "viterbi_banded_wavefront", "row_scan", "sparse_walk"}
 
 
 # ---- the host side of alignment: utils/logsumexp, core/seqpair, algo/dp_host

@@ -112,7 +112,7 @@ def test_every_kernel_source_is_built_and_calls_no_library():
     csrc = os.path.join(PKG, "csrc")
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert sorted(_build.SOURCES.values()) == sources
-    assert len(sources) == 14
+    assert len(sources) == 15
     local = set(os.listdir(csrc))
     for name in os.listdir(csrc):
         with open(os.path.join(csrc, name)) as f:
@@ -132,10 +132,12 @@ def test_single_pair_modules_are_among_the_probed():
     rel = {os.path.relpath(p, PKG) for p in _sources()[1:]}
     assert {"ops/sparse.py", "ops/pswm.py", "ops/dp_aligned.py",
             "ops/dp1d.py", "ops/dp2d.py", "ops/fwdback.py",
-            "dispatch.py", "autotune_dispatch.py"} <= rel
+            "ops/kernels/sparse_kernel.py", "dispatch.py",
+            "autotune_dispatch.py"} <= rel
     for name in ("dispatch_table.json", "dispatch_table_cuda.json"):
         assert os.path.exists(os.path.join(PKG, name))
     probe = ("import machineboss_tpu_torch.ops.sparse, "
+             "machineboss_tpu_torch.ops.kernels.sparse_kernel, "
              "machineboss_tpu_torch.ops.pswm, "
              "machineboss_tpu_torch.ops.dp_aligned, "
              "machineboss_tpu_torch.autotune_dispatch, "

@@ -21,8 +21,6 @@ test runs where only torch is installed:
     python -m pytest --noconftest tests/test_torch_lowrank.py -m cuda
 """
 
-from contextlib import contextmanager, nullcontext
-
 import numpy as np
 import pytest
 import torch
@@ -33,6 +31,7 @@ from machineboss_tpu_torch.core.presets import make_preset
 from machineboss_tpu_torch.ops.host_oracle import forward_2d_f64
 from machineboss_tpu_torch.ops.kernels import lowrank_kernel as lk
 from machineboss_tpu_torch.ops.lowering import LoweredMachine
+from one_thread import one_torch_thread  # noqa: F401
 
 JAX_BOUND = 5e-3     # nats, lowrank vs f64 and vs the JAX kernel at L<=20
 CARD_BOUND = 1e-3    # nats, kernel vs plain on the card
@@ -401,27 +400,6 @@ def _forward_3xtf32(ops, it, ot, il, ol):
                       ops.To)
 
 
-@contextmanager
-def _one_thread():
-    """torch and numpy's BLAS on one thread for the block: pytest-xdist's
-    workers share the machine's cores, and with a thread a core each these
-    small products spend their time waiting on each other (the
-    prot2dna_full case took minutes in a loaded six-worker run, seconds
-    alone on one thread)."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:                 # numpy's BLAS keeps its threads
-        def threadpool_limits(_):
-            return nullcontext()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpool_limits(1):
-            yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def _p2d_full():
     """prot2dna at chip_smoke's main-path width: B=4 proteins of 64 and
     their 192-base DNA."""
@@ -448,19 +426,18 @@ def test_3xtf32_products_hold_the_f64_bound(name):
     Forward within the f64 bounds (5e-3 nats on the small machine, the
     0.01 gate at prot2dna's full width) and within the card bound of the
     float32 plain version."""
-    with _one_thread():
-        if name == "prot2dna_full":
-            mats, it, ot, il, ol, ref = _p2d_full()
-            bound = 0.01
-        else:
-            mats, it, ot, il, ol = _case(name)
-            ref, bound = _f64(name), JAX_BOUND
-        plan, host = lk.prepare_lowrank(*mats)
-        ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
-                                  torch.device("cpu"))
-        split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
-        plain = lk.lowrank_forward_plain(
-            ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
+    if name == "prot2dna_full":
+        mats, it, ot, il, ol, ref = _p2d_full()
+        bound = 0.01
+    else:
+        mats, it, ot, il, ol = _case(name)
+        ref, bound = _f64(name), JAX_BOUND
+    plan, host = lk.prepare_lowrank(*mats)
+    ops = lk.lowrank_operands(plan, host, mats[0].shape[1],
+                              torch.device("cpu"))
+    split = _forward_3xtf32(ops, it, ot, il, ol).numpy()
+    plain = lk.lowrank_forward_plain(
+        ops, *[torch.from_numpy(x) for x in (it, ot, il, ol)]).numpy()
     _assert_close(split, ref, bound)
     _assert_close(split, plain, CARD_BOUND)
 

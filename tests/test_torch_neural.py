@@ -31,6 +31,7 @@ from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
 from machineboss_tpu_torch.ops import dp_neural, exprjit
 from machineboss_tpu_torch.ops.semiring import MAXPLUS
 from machineboss_tpu_torch.testmachines import bitnoise_json
+from one_thread import one_torch_thread  # noqa: F401
 
 RTOL = 1e-4
 HOST_TOL = 1e-4                  # nats: float32 DP against float64 host

@@ -25,6 +25,8 @@ import time
 import numpy as np
 import pytest
 
+from one_thread import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT_S = 150
 INIT_TIMEOUT_S = 60

@@ -24,6 +24,7 @@ from machineboss_tpu_torch.core.eval import EvaluatedMachine
 from machineboss_tpu_torch.ops import dp2d, dp_aligned, pswm, sparse
 from machineboss_tpu_torch.ops.lowering import LoweredMachine
 from machineboss_tpu_torch.ops.semiring import LOGSUMEXP, MAXPLUS
+from one_thread import one_torch_thread  # noqa: F401
 
 JAX_BOUND = 1e-4
 FB_BOUND = 1e-3

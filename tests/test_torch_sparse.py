@@ -24,6 +24,7 @@ from machineboss_tpu_torch.core.hmmer import HmmerModel
 from machineboss_tpu_torch.core.presets import make_preset
 from machineboss_tpu_torch.core.seqpair import NamedSeq, SeqPair
 from machineboss_tpu_torch.ops import sparse
+from one_thread import one_torch_thread  # noqa: F401
 
 JAX_BOUND = 1e-4          # nats: the port's walk against the JAX engine
 HOST_BOUND = 0.01         # nats: the f64 host engine (the contract)

@@ -34,6 +34,7 @@ from machineboss_tpu_torch.core.presets import make_preset
 from machineboss_tpu_torch.ops.host_oracle import forward_2d_f64
 from machineboss_tpu_torch.ops.kernels import wavefront_kernel as wk
 from machineboss_tpu_torch.ops.lowering import LoweredMachine
+from one_thread import one_torch_thread  # noqa: F401
 
 BOUND = 2e-3         # nats, the merged family vs f64 and vs the JAX kernels
 FACTORED_BOUND = 5e-3    # nats, signed SVD factors
