@@ -3413,7 +3413,8 @@ def sparse_cluster_sweep(sm, toks, viterbi=False, reverse=False):
     """The sparse walk alone on the pairs `toks` (1-based (in, out) token
     lists) of SparseMachine `sm` (CUDA events, median of 5) at the plan's
     layout and at each cluster size 1-16, each result bit-equal to the
-    plan's; with the plan and the ring each cluster size takes."""
+    plan's; with the plan and the form, ring and tables each cluster size
+    takes."""
     from machineboss_tpu_torch.ops.kernels import sparse_kernel as sk
     it, il = sk.pad_tokens([t[0] for t in toks])
     ot, ol = sk.pad_tokens([t[1] for t in toks])
@@ -3429,14 +3430,77 @@ def sparse_cluster_sweep(sm, toks, viterbi=False, reverse=False):
     rec = {"S": sm.n_states, "pairs": len(toks),
            "semiring": "maxplus" if viterbi else "logsumexp",
            "direction": "backward" if reverse else "forward",
-           "plan": base.cfg, "plan_ms": ms(base), "ms": {}, "rows": {}}
+           "plan": base.cfg, "plan_ms": ms(base), "ms": {}, "layout": {}}
     for c in SPARSE_CLUSTERS:
         w = walk(c)
         check(np.array_equal(w.launch().cpu().numpy(), want), "sparse walk: "
               "cluster %d differs from the plan's" % c)
-        rec["rows"][c] = w.cfg["rows"]
+        rec["layout"][c] = [w.cfg[k] for k in ("form", "rows", "tables")]
         rec["ms"][c] = ms(w)
     return rec
+
+
+def sparse_profiles(sm, toks, viterbi=False, reverse=False,
+                    clusters=(None, 1)):
+    """The sparse walk's clock64 phase profile (the profile library,
+    `sparse_kernel.sparse_walk_profile`: a warp's SM cycles a diagonal in
+    each phase) on the pairs `toks` (1-based (in, out) token lists) of
+    SparseMachine `sm` at each cluster size (None: the plan's), each
+    profiled result equal to the path library's; with the plan and the
+    kernel alone (CUDA events, median of 5)."""
+    from machineboss_tpu_torch.ops.kernels import sparse_kernel as sk
+    it, il = sk.pad_tokens([t[0] for t in toks])
+    ot, ol = sk.pad_tokens([t[1] for t in toks])
+    base = sk.WalkCall(sm, it, ot, il, ol, viterbi, reverse)
+    want = base.launch().cpu().numpy()
+    rec = {"S": sm.n_states, "pairs": len(toks),
+           "semiring": "maxplus" if viterbi else "logsumexp",
+           "direction": "backward" if reverse else "forward",
+           "plan": base.cfg,
+           "kernel_ms": float(np.median([event_ms(base.launch)[0]
+                                         for _ in range(5)])),
+           "profile": {}}
+    for cluster in clusters:
+        w = base if cluster is None else sk.WalkCall(
+            sm, it, ot, il, ol, viterbi, reverse, cluster)
+        got, prof = sk.sparse_walk_profile(w)
+        check(np.array_equal(got.cpu().numpy(), want), "sparse profile: "
+              "cluster %d differs from the path library" % prof["cluster"])
+        rec["profile"][prof["cluster"]] = prof
+    return rec
+
+
+def sparse_profile_phase(dev, card, smi, K=128, Lr=128, n_pairs=4, Lp=64):
+    """The sparse walk's phase profile (sparse_profiles) at the plan's
+    cluster and on one block, on the sparse phase's shapes: prot2dna
+    forced sparse, n_pairs pairs of Lp x 3 Lp (Forward, and the first
+    pair's Backward and Viterbi), and the K-node Plan7 generator's read of
+    Lr (forward_1d_sparse's walk). scripts/sparse_sweep.py takes the same
+    readings on more shapes."""
+    from machineboss_tpu_torch.core.presets import make_preset
+    from machineboss_tpu_torch.dispatch import CompiledMachine
+    from machineboss_tpu_torch.testmachines import (AMINO, plan7_reads,
+                                                    prot2dna_pairs)
+    t_phase = time.perf_counter()
+    p2d = CompiledMachine(make_preset("prot2dna"), device=dev,
+                          dense_max_states=16)
+    psm = p2d._sparse_machine()
+    ptoks = [([t + 1 for t in p2d.in_toks(p)],
+              [t + 1 for t in p2d.out_toks(d)])
+             for p, d in prot2dna_pairs(n_pairs, Lp, seed=0)]
+    gen = CompiledMachine(plan7_generator(K), device=dev)
+    read = plan7_reads(AMINO, 1, Lr, seed=0)[0]
+    out = {"prot2dna_pairs": sparse_profiles(psm, ptoks),
+           "prot2dna_backward": sparse_profiles(psm, ptoks[:1], False,
+                                                True),
+           "prot2dna_viterbi": sparse_profiles(psm, ptoks[:1], True, True),
+           "plan7_read": sparse_profiles(
+               gen._sparse_machine(),
+               [([], [t + 1 for t in gen.out_toks(read)])])}
+    emit({"phase": "sparse_profile", "K": K, "Lr": Lr, "pairs": n_pairs,
+          "Li": Lp, "Lo": 3 * Lp, "cases": out,
+          "seconds": time.perf_counter() - t_phase, "card": card,
+          "nvidia_smi": smi})
 
 
 def sparse_record(name, fns, walk, plain_fn, viterbi, toks):
@@ -3447,8 +3511,9 @@ def sparse_record(name, fns, walk, plain_fn, viterbi, toks):
     sparse_kernel.WalkCall prepared on the first input, or the batch) by
     CUDA events, median of 5, its plan, against its plain version
     (plain_fn, the eager walk on the card, timed once; logsumexp 1e-3
-    nats, max-plus 0.0), and its bound on `toks`. Returns (record, the
-    first run's results)."""
+    nats, max-plus 0.0), its shared bytes against the kernel's own count,
+    and its bound on `toks`. Returns (record, the first run's results)."""
+    from machineboss_tpu_torch.ops.kernels import sparse_kernel as sk
     wrappers = counts()
     outs = []
     for fn in fns:
@@ -3460,6 +3525,8 @@ def sparse_record(name, fns, walk, plain_fn, viterbi, toks):
         check(got == {k: int(k == "sparse_walk") for k in wrappers},
               "%s: launches %s, expected one of sparse_walk" % (name, got))
     rec, _ = call_record(fns)
+    check(sk.sparse_smem_bytes_on_card(walk.cfg) == walk.cfg["smem_bytes"],
+          "%s: the kernel's shared bytes differ from the plan's" % name)
     kern = walk.launch().cpu().numpy()
     plain, plain_ms = synced_ms(plain_fn)
     err = score_err(kern, plain)
@@ -3568,14 +3635,12 @@ def sparse_phase(dev, card, smi, K=128, n_reads=4, Lr=128, n_pairs=4,
     each = np.array([p2d.log_forward(i, o) for i, o in pairs])
     check(np.array_equal(got, each), "the batch's scores differ from its "
           "pairs' own calls")
-    check(sk.sparse_smem_bytes_on_card(bw.cfg, psm.n_states, 4)
-          == bw.cfg["smem_bytes"], "sparse_walk: the kernel's shared bytes "
-          "differ from sparse_launch_plan's")
-    # four rings of 65 x 132 values: far from the free memory, which
-    # would only lower the grid
+    check(sk.sparse_smem_bytes_on_card(bw.cfg) == bw.cfg["smem_bytes"],
+          "sparse_walk: the kernel's shared bytes differ from "
+          "sparse_launch_plan's")
+    # the shared ring: no device scratch, so the free memory plays no part
     check(bw.cfg == sk.sparse_launch_plan(
-        psm.n_states, Lp, 3 * Lp, n_pairs, bw.tables.emit_row,
-        bw.tables.closure_row, bw.tables.cell_terms,
+        psm.n_states, Lp, 3 * Lp, n_pairs, bw.tables.sizes,
         sms=props.multi_processor_count),
           "sparse_walk: the call's plan is not sparse_launch_plan's")
     calls["prot2dna_log_forward_batch"] = gated(
@@ -5301,12 +5366,13 @@ def single_pair_paths(dev, card, smi):
     """The four phases of the single-pair and sparse engines (the row
     kernel under the 2D single-pair calls, the sparse walk under the
     sparse engine's token calls, eager torch under the rest) and the row
-    kernel's profile. Returns the kernels-line entries of row_scan and
-    sparse_walk."""
+    kernel's and the sparse walk's profiles. Returns the kernels-line
+    entries of row_scan and sparse_walk."""
     row = single_pair_2d_phase(dev, card, smi)
     row_profile_phase(dev, card, smi)
     cm1d, toks1d = single_pair_1d_phase(dev, card, smi)
     walk = sparse_phase(dev, card, smi)
+    sparse_profile_phase(dev, card, smi)
     pswm_phase(dev, card, smi, cm1d, toks1d)
     return [row, walk]
 

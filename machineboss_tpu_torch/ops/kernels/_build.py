@@ -45,7 +45,8 @@ SOURCES = {"lowrank_wavefront": "lowrank_wavefront.cu",
 PROFILES = {"lattice_walk_profile": "lattice_walk",
             "fused_plan7_profile": "fused_plan7",
             "row_scan_profile": "row_scan",
-            "expected_counts_profile": "expected_counts"}
+            "expected_counts_profile": "expected_counts",
+            "sparse_walk_profile": "sparse_walk"}
 PROFILE_FLAG = "-DPHASE_PROFILE"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -14,20 +14,24 @@ once per SparseMachine, direction and semiring, and kept in its cache):
 every emitting class's edges and the silent closure's as CSR lists keyed
 by the scatter side (the destination for Forward, the source for
 Backward), with the gather side's state and the weight of each edge, and
-the (in token, out token) -> class table. Each cell takes three stages:
-its three neighbours' incoming terms gathered from the ring of the last
-three diagonals, their reduction per scatter-side state (the eager walk's
-`pre`), then the closure. `sparse_walk_diagonal` is the same walk in
-plain PyTorch on the same tables, in the kernel's stage order: the tests
-hold it to the eager walk and to the JAX engine; nothing on the main path
-calls it.
+the (in token, out token) -> class table. Each cell takes two stages:
+its three neighbours' terms reduced per scatter-side state (the eager
+walk's `pre`), then the closure. `sparse_walk_diagonal` is the same walk
+in plain PyTorch on the same tables, in the kernel's stage order: the
+tests hold it to the eager walk and to the JAX engine; nothing on the
+main path calls it.
 
 The kernel's layout comes from `sparse_launch_plan`, a pure function of
-the shape: the blocks a pair (a cluster of up to 16 while the batch
-leaves the card's multiprocessors idle: the kernel is bound by its items'
-dependent loads, so each block added takes a share of every diagonal's
-items), the lanes that reduce one state's terms in each stage, where the
-ring lives ("shared" or "global"), the clusters launched (each walks a
+the shape and the tables' sizes (`ListSizes`): the form ("2d": each block
+of a cluster owns a fixed range of positions along the shorter side, a
+group of warps a cell; "1d", where one side is empty: each block owns a
+fixed range of states, balanced by `state_turns`), the blocks a pair (a
+cluster of up to 16 while the batch leaves the card's multiprocessors
+idle), the lanes that reduce one state's terms in each stage, where the 2D
+ring
+lives ("shared" or "global"), where the tables live ("shared": all of
+them in every block; "slice": a block's states' lists; "global": read
+through L1/L2), chosen by size alone, the clusters launched (each walks a
 pair, then the next: a global ring is one a cluster, not one a pair),
 with the shared and device bytes; it refuses only what the device memory
 cannot hold for one pair.
@@ -45,11 +49,44 @@ from ..semiring import NEG_INF
 from ._build import load
 
 THREADS = 512        # a block's threads
+WARPS = THREADS // 32
 SMEM_MAX = 232448    # shared bytes a block may take on the H100
 SMS = 132            # the H100's multiprocessors, the plan's default
 MAX_CLUSTER = 16     # a cluster's blocks (past 8: non-portable sizes)
 MIN_TERMS = 512      # terms a diagonal a block of a cluster takes at least
+BOX = 4              # the 2D inbox's slots (csrc/sparse_walk.cu)
+BAR_BYTES = 64       # a block's mbarriers
+IDX16_STATES = 65536  # staged gather indices are 16-bit below this many
+LONG_LIST = 8        # closure entries a state's group takes at least
 _DTYPES = {torch.float32: 4, torch.float64: 8}
+_TABLES = {"global": 0, "shared": 1, "slice": 2}
+
+
+@dataclass
+class ListSizes:
+    """What the launch plan reads of a machine's tables: S states, n_cls
+    classes (the empty one last), n_io (in, out) token pairs, each state's
+    emitting entries (over every class) and closure entries (state_emit,
+    state_closure: (S,) int64, the entries of the lists that reduce into
+    it), the mean entries of a non-empty emitting and closure list
+    (emit_row, closure_row) and a cell's terms (cell_terms: its three
+    neighbours' mean class edges and the closure's)."""
+    S: int
+    n_cls: int
+    n_io: int
+    state_emit: np.ndarray
+    state_closure: np.ndarray
+    emit_row: float
+    closure_row: float
+    cell_terms: float
+
+    @property
+    def n_emit(self):
+        return int(self.state_emit.sum())
+
+    @property
+    def n_closure(self):
+        return int(self.state_closure.sum())
 
 
 @dataclass
@@ -62,10 +99,8 @@ class SparseTables:
     token pair; absent pairs the empty class n_cls - 1), eidx, cidx (the
     gather-side state of each entry), at o_coff, o_cls, o_eidx, o_cidx.
     weights (the machine's dtype): ew then cw (at o_cw), each entry's log
-    weight, the plain version's values. emit_row and closure_row: mean
-    entries of a non-empty list; cell_terms: a cell's terms (its three
-    neighbours' mean class edges and the closure's). prep_ms: the build's
-    host clock, synchronised on a card."""
+    weight, the plain version's values. sizes: the ListSizes the plan
+    reads. prep_ms: the build's host clock, synchronised on a card."""
     S: int
     n_cls: int
     n_in: int
@@ -79,9 +114,7 @@ class SparseTables:
     o_eidx: int
     o_cidx: int
     o_cw: int
-    emit_row: float
-    closure_row: float
-    cell_terms: float
+    sizes: ListSizes
     prep_ms: float
 
     @property
@@ -150,14 +183,18 @@ def sparse_tables(sm, reverse=False, viterbi=False):
     ints = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
     weights = torch.from_numpy(np.concatenate([ew, cw])).to(dev)
     live = max(len(keys), 1)
+    n_in, n_out = sm.class_index.shape
+    sizes = ListSizes(
+        S=S, n_cls=n_cls, n_io=n_in * n_out,
+        state_emit=np.diff(eoff).reshape(n_cls, S).sum(0),
+        state_closure=np.diff(coff), emit_row=_mean_row(eoff),
+        closure_row=_mean_row(coff),
+        cell_terms=3.0 * len(eidx) / live + len(cidx))
     tables = SparseTables(
-        S=S, n_cls=n_cls, n_in=sm.class_index.shape[0],
-        n_out=sm.class_index.shape[1], maxplus=bool(viterbi),
+        S=S, n_cls=n_cls, n_in=n_in, n_out=n_out, maxplus=bool(viterbi),
         reverse=bool(reverse), ints=ints, weights=weights,
         o_coff=int(starts[1]), o_cls=int(starts[2]), o_eidx=int(starts[3]),
-        o_cidx=int(starts[4]), o_cw=len(ew), emit_row=_mean_row(eoff),
-        closure_row=_mean_row(coff),
-        cell_terms=3.0 * len(eidx) / live + len(cidx), prep_ms=0.0)
+        o_cidx=int(starts[4]), o_cw=len(ew), sizes=sizes, prep_ms=0.0)
     _sync(dev)
     tables.prep_ms = (time.perf_counter() - t0) * 1e3
     sm._cache[key] = tables
@@ -173,38 +210,96 @@ def _lanes(terms):
     return g
 
 
-def sparse_smem_bytes(W, S, elt, ring_shared):
-    """A block's shared bytes (the kernel's smem_bytes): the ring of three
-    diagonals and the pre-closure diagonal (4 W S values) where shared."""
-    return 4 * W * S * elt if ring_shared else 0
+def _up16(n):
+    return (n + 15) // 16 * 16
 
 
-def sparse_launch_plan(S, Li, Lo, B, emit_row=1.0, closure_row=1.0,
-                       cell_terms=1.0, elt=4, smem_max=SMEM_MAX,
+def sparse_smem_bytes(cfg):
+    """A block's shared bytes for the plan `cfg` (the kernel's
+    smem_layout): the mbarriers; the 2D form's shared ring of three
+    diagonals of ncb cells, its inbox of BOX cells and the warps'
+    workspaces, or the 1D form's cell and pre-closure vectors; the order
+    of the block's n_rows states' closures and two counts; then the
+    staged tables (weights, offsets, the class table, gather indices of 16
+    or 32 bits)."""
+    v = cfg["S"] * cfg["elt"]
+    n = BAR_BYTES
+    if cfg["form"] == "1d":
+        n += 2 * _up16(v)
+    elif cfg["rows"] == "shared":
+        n += _up16(3 * cfg["ncb"] * v) + _up16(BOX * v) + _up16(WARPS * v)
+    n += _up16((cfg["n_rows"] + 2) * 4)
+    if cfg["tables"] != "global":
+        ib = 2 if cfg["idx16"] else 4
+        n_e, n_c, rows = cfg["n_e"], cfg["n_c"], cfg["n_rows"]
+        n += (_up16(n_e * cfg["elt"]) + _up16(n_c * cfg["elt"])
+              + _up16((cfg["n_cls"] * rows + 1) * 4) + _up16((rows + 1) * 4)
+              + _up16(cfg["n_io"] * 4) + _up16(n_e * ib) + _up16(n_c * ib))
+    return n
+
+
+def state_turns(lists, lanes):
+    """Each state's share of a 1D diagonal's time, in a warp's turns: a
+    list of LONG_LIST closure entries or more (`lanes` > 1) its entries a
+    lane plus two for its group's shuffle trees, a shorter one (a lane
+    alone) its entries over a warp's 32 lanes; and a thirty-second for its
+    emitting list."""
+    n = lists.state_closure
+    long = (lanes > 1) & (n >= LONG_LIST)
+    return np.where(long, np.ceil(n / lanes) + 2, n / 32.0) + 1 / 32.0
+
+
+def state_bounds(work, parts):
+    """parts + 1 bounds of contiguous state ranges, each holding one state
+    or more, balanced by `work` (a state's)."""
+    S = len(work)
+    cum = np.concatenate([[0], np.cumsum(np.asarray(work, np.float64))])
+    out = [0]
+    for k in range(1, parts):
+        x = cum[-1] * k / parts
+        j = int(np.searchsorted(cum, x))
+        if j > 0 and x - cum[j - 1] < cum[min(j, S)] - x:
+            j -= 1
+        out.append(min(max(j, out[-1] + 1), S - (parts - k)))
+    return out + [S]
+
+
+def sparse_launch_plan(S, Li, Lo, B, lists, elt=4, smem_max=SMEM_MAX,
                        mem_bytes=None, sms=SMS, cluster=None, rows=None):
-    """The kernel's layout for B pairs padded to Li x Lo over S states.
+    """The kernel's layout for B pairs padded to Li x Lo on tables of
+    sizes `lists` (ListSizes) over S states.
 
-    Returns a dict: threads; W (a diagonal's cells at most, min(Li, Lo) +
-    1); lanes_emit and lanes_closure (the lanes that reduce one state's
-    terms in each stage: the power of two at or below half the mean
-    emitting list's length, emit_row, and at or below the closure's,
-    closure_row); cluster (the blocks a pair: 1 where B alone fills the
-    `sms` multiprocessors, else the largest power of two up to
-    MAX_CLUSTER with B * cluster <= sms and at least MIN_TERMS of a
-    diagonal's W * cell_terms a block; `cluster` forces it, 1 to 16);
-    rows, where the ring of the last three diagonals and the pre-closure
-    diagonal live: "shared" for one block a pair where they fit, else
-    "global" (`rows` "global" forces it); grid (the clusters launched,
-    each walking a pair and then the next: B with the shared ring, else
-    the clusters the card holds at once, sms // cluster, at most B, and
-    no more than `mem_bytes` holds rings for, one a cluster);
-    smem_bytes; and mem_bytes (the device bytes the call allocates: the
-    scores, the tokens and the global rings).
+    Returns a dict: threads; W (the positions along the shorter side,
+    min(Li, Lo) + 1); form: "1d" where a side is empty, a block holds
+    the cell and pre-closure vectors (2 S values) and a forced cluster
+    gives each block a state, else "2d"; cluster (the
+    blocks a pair: 1 where B alone fills the `sms` multiprocessors, else
+    the largest power of two up to MAX_CLUSTER with B * cluster <= sms, at
+    least MIN_TERMS of a diagonal's W * cell_terms a block and, in 1D, a
+    state a block; `cluster` forces it, 1 to 16); lanes_emit and
+    lanes_closure (the lanes that reduce one state's terms in each stage:
+    the power of two at or below half the mean emitting list's length and
+    at or below the closure's); 2D: swap (the ranges along the output
+    side, Lo < Li), ncb (a block's positions, ceil(W / cluster)), rows
+    ("shared": the ring of three diagonals, the inbox and the warps'
+    workspaces in shared memory where they fit, else "global": in global
+    scratch, one a cluster launched; `rows` "global" forces it, and the 2D
+    form); 1D: bounds (the cluster + 1 state bounds, balanced by
+    state_turns); tables ("shared": all in every block, 2D, where they fit
+    beside the rows; "slice": a block's states' lists, 1D, where the
+    largest fits; else "global"), idx16 (16-bit staged gather indices,
+    below IDX16_STATES states), n_rows, n_e, n_c (the staged states and
+    entries, the largest slice's); grid (the clusters launched, each
+    walking a pair and then the next: B with the 2D shared ring, else the
+    clusters the card holds at once, sms // cluster, at most B, and no
+    more than `mem_bytes` holds global scratch for); smem_bytes; and
+    mem_bytes (the device bytes the call allocates: the scores, the
+    tokens, the 1D bounds and the 2D global scratch).
     Raises ValueError where `mem_bytes` (the device memory free for the
-    call; None: not checked) cannot hold one ring beside the scores and
-    tokens, and past the kernel's 32-bit indices (a diagonal's W * S
-    values, a pair's Li + Lo + 2 tokens: 2^31, some 16 M aa at prot2dna's
-    132 states, where one ring takes 34 GB)."""
+    call; None: not checked) cannot hold one cluster's scratch beside the
+    scores and tokens, and past the kernel's 32-bit indices (a diagonal's
+    W * S values, a pair's Li + Lo + 2 tokens: 2^31, some 16 M aa at
+    prot2dna's 132 states, where one ring takes 34 GB)."""
     if S < 1 or min(Li, Lo, B) < 0:
         raise ValueError("bad shape (S=%d, Li=%d, Lo=%d, B=%d)"
                          % (S, Li, Lo, B))
@@ -215,45 +310,78 @@ def sparse_launch_plan(S, Li, Lo, B, emit_row=1.0, closure_row=1.0,
     if rows not in (None, "global"):
         raise ValueError("rows may be forced to 'global' only")
     W = min(Li, Lo) + 1
+    cfg = {"threads": THREADS, "W": W, "S": S, "elt": elt,
+           "n_cls": lists.n_cls, "n_io": lists.n_io,
+           "lanes_emit": _lanes(lists.emit_row / 2),
+           "lanes_closure": _lanes(lists.closure_row),
+           "idx16": S < IDX16_STATES, "swap": Li > Lo, "ncb": 1,
+           "bounds": None, "rows": "shared", "n_rows": S}
+    cfg["form"] = "1d" if rows is None and W == 1 and (
+        cluster is None or cluster <= S) and sparse_smem_bytes(
+        dict(cfg, form="1d", tables="global")) <= smem_max else "2d"
     if cluster is None:
         cluster = 1
         if B < sms:
             cluster = MAX_CLUSTER
-            while cluster > 1 and (B * cluster > sms or
-                                   W * cell_terms < MIN_TERMS * cluster):
+            while cluster > 1 and (
+                    B * cluster > sms or
+                    W * lists.cell_terms < MIN_TERMS * cluster or
+                    (cfg["form"] == "1d" and cluster > S)):
                 cluster //= 2
     elif not 1 <= cluster <= MAX_CLUSTER:
         raise ValueError("a cluster holds 1 to %d blocks, not %d"
                          % (MAX_CLUSTER, cluster))
-    ring_shared = rows is None and cluster == 1 and \
-        sparse_smem_bytes(W, S, elt, True) <= smem_max
+    cfg["cluster"] = cluster
     fixed = B * elt + B * (2 + Li + Lo) * 4
-    ring = 0 if ring_shared else 4 * W * S * elt
-    grid = B if ring_shared else min(B, max(sms // cluster, 1))
-    if mem_bytes is not None and ring and B:
-        if fixed + ring > mem_bytes:
+    scratch = 0
+    if cfg["form"] == "1d":
+        b = state_bounds(state_turns(lists, cfg["lanes_closure"]), cluster)
+        cfg["bounds"] = b
+        cfg["n_rows"] = max(b[k + 1] - b[k] for k in range(cluster))
+        cfg["n_e"] = max(int(lists.state_emit[b[k]:b[k + 1]].sum())
+                         for k in range(cluster))
+        cfg["n_c"] = max(int(lists.state_closure[b[k]:b[k + 1]].sum())
+                         for k in range(cluster))
+        cfg["tables"] = "slice" if sparse_smem_bytes(
+            dict(cfg, tables="slice")) <= smem_max else "global"
+        fixed += (cluster + 1) * 4
+        grid = min(B, max(sms // cluster, 1))
+    else:
+        cfg["ncb"] = -(-W // cluster)
+        cfg.update(n_e=lists.n_emit, n_c=lists.n_closure)
+        if rows is not None or sparse_smem_bytes(
+                dict(cfg, tables="global")) > smem_max:
+            cfg["rows"] = "global"
+        cfg["tables"] = "shared" if sparse_smem_bytes(
+            dict(cfg, tables="shared")) <= smem_max else "global"
+        if cfg["rows"] == "global":
+            scratch = (3 * W + cluster * WARPS) * S * elt
+        grid = B if cfg["rows"] == "shared" else min(
+            B, max(sms // cluster, 1))
+    if mem_bytes is not None and scratch and B:
+        if fixed + scratch > mem_bytes:
             raise ValueError(
                 "the sparse walk needs %d device bytes for %d pairs of %d x "
                 "%d over %d states (one ring of %d), past the %d free"
-                % (fixed + ring, B, Li, Lo, S, ring, mem_bytes))
-        grid = min(grid, (mem_bytes - fixed) // ring)
+                % (fixed + scratch, B, Li, Lo, S, scratch, mem_bytes))
+        grid = min(grid, (mem_bytes - fixed) // scratch)
     elif mem_bytes is not None and fixed > mem_bytes:
         raise ValueError(
             "the sparse walk needs %d device bytes for %d pairs of %d x %d, "
             "past the %d free" % (fixed, B, Li, Lo, mem_bytes))
-    return {"threads": THREADS, "W": W, "cluster": cluster, "grid": grid,
-            "lanes_emit": _lanes(emit_row / 2),
-            "lanes_closure": _lanes(closure_row),
-            "rows": "shared" if ring_shared else "global",
-            "smem_bytes": sparse_smem_bytes(W, S, elt, ring_shared),
-            "mem_bytes": fixed + grid * ring}
+    cfg.update(grid=grid, smem_bytes=sparse_smem_bytes(cfg),
+               mem_bytes=fixed + grid * scratch)
+    return cfg
 
 
-def sparse_smem_bytes_on_card(cfg, S, elt):
+def sparse_smem_bytes_on_card(cfg):
     """The kernel's own count of a block's shared bytes for `cfg`."""
+    I = ctypes.c_int
     return int(load("sparse_walk").sparse_walk_smem_bytes(
-        ctypes.c_int(cfg["W"]), ctypes.c_int(S), ctypes.c_int(elt),
-        ctypes.c_int(int(cfg["rows"] == "shared"))))
+        I(cfg["form"] == "1d"), I(cfg["S"]), I(cfg["elt"]), I(cfg["ncb"]),
+        I(cfg["rows"] == "shared"), I(_TABLES[cfg["tables"]]),
+        I(cfg["idx16"]), I(cfg["n_cls"]), I(cfg["n_io"]), I(cfg["n_rows"]),
+        I(cfg["n_e"]), I(cfg["n_c"])))
 
 
 def pad_tokens(seqs):
@@ -274,10 +402,11 @@ def _host(a):
 
 class WalkCall:
     """One sparse_walk launch prepared: the tables, the plan (on the
-    device memory free once the tables are built), the packed tokens on
-    the card and the output. `launch()` launches the kernel and counts it
-    in sparse_walk.launches; `last` holds the plan and the tables' build
-    ms (0.0 when they were kept)."""
+    device memory free once the tables are built), the packed tokens, the
+    1D form's state bounds and the 2D form's global scratch on the card,
+    and the output. `launch()` launches the kernel and counts it in
+    sparse_walk.launches; `last` holds the plan and the tables' build ms
+    (0.0 when they were kept)."""
 
     def __init__(self, sm, in_toks, out_toks, in_lens, out_lens, viterbi,
                  reverse, cluster=None, rows=None):
@@ -302,8 +431,7 @@ class WalkCall:
         Li, Lo = it.shape[1], ot.shape[1]
         elt = _DTYPES[dtype]
         self.cfg = cfg = sparse_launch_plan(
-            t.S, Li, Lo, B, t.emit_row, t.closure_row, t.cell_terms, elt,
-            mem_bytes=free_bytes(dev),
+            t.S, Li, Lo, B, t.sizes, elt, mem_bytes=free_bytes(dev),
             sms=torch.cuda.get_device_properties(dev).multi_processor_count,
             cluster=cluster, rows=rows)
         # a token past int32 takes the empty class as any other outside
@@ -314,33 +442,45 @@ class WalkCall:
                               np.clip(ot, -1, 2 ** 31 - 1)], 1)
         self.seq = torch.from_numpy(seq.astype(np.int32)).to(dev)
         self.out = torch.empty((B,), dtype=dtype, device=dev)
-        self.ring = torch.empty((cfg["grid"], 4, cfg["W"], t.S),
-                                dtype=dtype, device=dev) \
-            if cfg["rows"] == "global" and B else None
+        self.bounds = None if cfg["bounds"] is None else torch.tensor(
+            cfg["bounds"], dtype=torch.int32, device=dev)
+        self.scratch = torch.empty(
+            (cfg["grid"], (3 * cfg["W"] + cfg["cluster"] * WARPS) * t.S),
+            dtype=dtype, device=dev) \
+            if cfg["form"] == "2d" and cfg["rows"] == "global" and B \
+            else None
         self.args = (B, Li, Lo, elt, dev)
         self.last = {"plan": cfg, "prep_ms": t.prep_ms if built else 0.0}
 
-    def launch(self):
+    def launch(self, prof=None):
+        """Launches the kernel (with `prof`, a (grid, 7) int64 tensor, the
+        profile library instead: not counted)."""
         t, cfg = self.tables, self.cfg
         B, Li, Lo, elt, dev = self.args
-        fn = load("sparse_walk").sparse_walk_launch
+        fn = load("sparse_walk" if prof is None else "sparse_walk_profile") \
+            .sparse_walk_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 25 + [P]
+        fn.argtypes = [P] * 6 + [I] * 32 + [P, P]
         fn.restype = I
         S = t.S
+        ptr = (lambda x: None if x is None else x.data_ptr())
         rc = fn(self.seq.data_ptr(), t.ints.data_ptr(),
-                t.weights.data_ptr(), self.out.data_ptr(),
-                None if self.ring is None else self.ring.data_ptr(),
-                t.ints.numel(), t.weights.numel(), t.o_coff, t.o_cls,
+                t.weights.data_ptr(), ptr(self.bounds), self.out.data_ptr(),
+                ptr(self.scratch), t.ints.numel(), t.o_coff, t.o_cls,
                 t.o_eidx, t.o_cidx, t.o_cw, t.n_cls, t.n_in, t.n_out,
                 B, Li, Lo, S, cfg["W"], cfg["cluster"], cfg["grid"],
                 cfg["lanes_emit"], cfg["lanes_closure"],
-                int(cfg["rows"] == "shared"), S - 1 if t.reverse else 0,
-                0 if t.reverse else S - 1, int(t.reverse), int(t.maxplus),
-                int(elt == 8), torch.cuda.current_stream(dev).cuda_stream)
+                int(cfg["form"] == "1d"), int(cfg["rows"] == "shared"),
+                _TABLES[cfg["tables"]], int(cfg["idx16"]), int(cfg["swap"]),
+                cfg["ncb"], cfg["n_rows"], cfg["n_e"], cfg["n_c"],
+                S - 1 if t.reverse else 0, 0 if t.reverse else S - 1,
+                int(t.reverse), int(t.maxplus), int(elt == 8), ptr(prof),
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError("sparse_walk launch failed: CUDA error %d"
                                % rc)
+        if prof is not None:
+            return self.out
         sparse_walk.launches += 1
         sparse_walk.last = self.last
         return self.out
@@ -378,6 +518,33 @@ def sparse_walk(sm, in_toks, out_toks, in_lens, out_lens, viterbi=False,
 sparse_walk.launches = 0
 sparse_walk.last = None
 
+PROFILE_PHASES = ("prologue", "emit", "wait1", "closure", "wait2")
+
+
+def sparse_walk_profile(call):
+    """The launch `call` (a WalkCall) through the profile library (the
+    same source built with its clock64 counters; not counted as a launch).
+    Returns (the scores, {"cluster", "diagonals" and "rounds" (a warp's
+    turns over its states) of the batch, "cycles_a_diagonal": phase: a
+    warp's SM cycles a diagonal, averaged over every block's warps,
+    "shares": phase: its share of the five}). The phases: the tokens and
+    classes; stage 1-2's loads and reduction (1D: and its sends); the
+    waits for data (2D: the left neighbour's cell in the inbox and the
+    right one's free slot; 1D: the pre-closure vector's bytes); the
+    closure (and its sends); the wait after it (2D: the block or cluster
+    barrier; 1D: the cell's bytes)."""
+    prof = torch.zeros((max(call.cfg["grid"], 1), 2 + len(PROFILE_PHASES)),
+                       dtype=torch.int64, device=call.out.device)
+    out = call.launch(prof)
+    tot = prof.sum(0).cpu().tolist()
+    cluster = call.cfg["cluster"]
+    diag_warps = max(tot[0], 1) * (THREADS // 32)   # over every block
+    cyc = {p: tot[2 + k] / diag_warps for k, p in enumerate(PROFILE_PHASES)}
+    whole = sum(cyc.values()) or 1.0
+    return out, {"cluster": cluster, "diagonals": tot[0] // cluster,
+                 "rounds": tot[1], "cycles_a_diagonal": cyc,
+                 "shares": {p: v / whole for p, v in cyc.items()}}
+
 
 # ---------------------------------------------------------------- CPU twin
 
@@ -406,7 +573,9 @@ def _reduce(vals, seg, n_seg, maxplus):
 
 def sparse_walk_diagonal(tables, in_toks, out_toks, in_lens, out_lens):
     """The kernel's walk in plain PyTorch on `tables` (sparse_tables), on
-    their device: sparse_walk's token arguments, the same (B,) scores.
+    their device: sparse_walk's token arguments, the same (B,) scores (the
+    kernel's logsumexp in one pass a list, this one's in two: the same sums
+    in another order).
     Diagonal by diagonal, over every pair's cells at once: each cell's
     three neighbours' terms gathered from the ring through their classes'
     lists and reduced per scatter-side state (a missing neighbour's values

@@ -231,42 +231,64 @@ def main():
                  ck.counts_chunk_plan, S, L, r * L, 1,
                  mem_bytes=CARD_BYTES)), Lo_over_Li=r)
 
-    # the sparse walk: one read of the 512-node Plan7 generator (1D: one
-    # cell a diagonal) and one forced-sparse prot2dna pair (Lo = 3 Li),
-    # each B = 1, on their own tables (held on the card beside the call's
-    # bytes); the ring leaves shared memory past largest_Li_rows_shared
+    # the sparse walk: one read of the 128- and 512-node Plan7 generators
+    # (1D: one cell a diagonal, the states split over the cluster) and
+    # forced-sparse prot2dna pairs (Lo = 3 Li), each B = 1 but the 4 pairs
+    # at 64, on their own tables (held on the card beside the call's
+    # bytes); the form, ring and tables each takes, and the longest pair
+    # whose ring and whose tables stay in shared memory
     try:
         from machineboss_tpu_torch.ops import sparse
         from machineboss_tpu_torch.ops.kernels import sparse_kernel as spk
     except ImportError:                 # a tree from before the kernel
         return
     from machineboss_tpu_torch.core.hmmer import HmmerModel
-    hmm = HmmerModel()
-    hmm.read(testmachines.random_plan7_hmm_text(512, testmachines.AMINO,
-                                                0))
-    for kind, m in (("plan7_512", hmm.machine(False)),
-                    ("prot2dna", machines["prot2dna"])):
+    plan7 = {}
+    for K in (128, 512):
+        hmm = HmmerModel()
+        hmm.read(testmachines.random_plan7_hmm_text(K, testmachines.AMINO,
+                                                    0))
+        plan7["plan7_%d" % K] = hmm.machine(False)
+    params = inspect.signature(spk.sparse_launch_plan).parameters
+    for kind, m in list(plan7.items()) + [("prot2dna",
+                                           machines["prot2dna"])]:
         sm = sparse.SparseMachine(EvaluatedMachine(m, m.get_param_defs(
             True)), device="cpu")
         t = spk.sparse_tables(sm)
         S = sm.n_states
-        kw = dict(emit_row=t.emit_row, closure_row=t.closure_row,
-                  cell_terms=t.cell_terms, mem_bytes=CARD_BYTES - t.nbytes)
-        if kind == "plan7_512":
+        if "lists" in params:
+            kw = dict(lists=t.sizes)
+        else:                           # a tree from before ListSizes
+            kw = dict(emit_row=t.emit_row, closure_row=t.closure_row,
+                      cell_terms=t.cell_terms)
+        kw["mem_bytes"] = CARD_BYTES - t.nbytes
+
+        def plan(*args, elt=4):
+            return spk.sparse_launch_plan(*args, elt=elt, **kw)
+
+        def layout(cfg):
+            return {k: cfg.get(k) for k in ("form", "cluster", "rows",
+                                            "tables", "grid", "smem_bytes")}
+        if kind.startswith("plan7"):
+            L = int(kind.split("_")[1])
             emit("sparse_walk", machine=kind, S=S, B=1,
                  closure_edges=len(t.ints) - t.o_cidx,
-                 launch_at_L512=spk.sparse_launch_plan(S, 0, 512, 1, **kw),
+                 **{"launch_at_L%d" % L: layout(plan(S, 0, L, 1)),
+                    "launch_at_L%d_f64" % L: layout(plan(S, 0, L, 1,
+                                                         elt=8))},
                  largest_read=largest(lambda L: takes(
                      spk.sparse_launch_plan, S, 0, L, 1, **kw), hi=1 << 31))
         else:
             emit("sparse_walk", machine=kind, S=S, B=1, Lo_over_Li=3,
-                 launch_at_64=spk.sparse_launch_plan(S, 64, 192, 4, **kw),
+                 launch_at_64_4_pairs=layout(plan(S, 64, 192, 4)),
                  largest_Li=largest(lambda L: takes(
                      spk.sparse_launch_plan, S, L, 3 * L, 1, **kw),
                      hi=1 << 31),
                  largest_Li_rows_shared=largest(
-                     lambda L: spk.sparse_launch_plan(
-                         S, L, 3 * L, 1, **kw)["rows"] == "shared"))
+                     lambda L: plan(S, L, 3 * L, 1)["rows"] == "shared"),
+                 largest_Li_tables_shared=largest(
+                     lambda L: plan(S, L, 3 * L, 1).get("tables")
+                     == "shared"))
 
 
 if __name__ == "__main__":

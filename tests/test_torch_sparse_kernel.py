@@ -185,74 +185,100 @@ def test_tables_hold_every_edge_once():
                 == ints[t.o_cls:t.o_eidx]).all()
 
 
+def _sizes(S, emit=2, closure=3, n_cls=25, n_io=105):
+    """ListSizes of S states, each with `emit` emitting entries over its
+    classes and `closure` closure entries."""
+    return sk.ListSizes(S=S, n_cls=n_cls, n_io=n_io,
+                        state_emit=np.full(S, emit, np.int64),
+                        state_closure=np.full(S, closure, np.int64),
+                        emit_row=1.0, closure_row=float(closure),
+                        cell_terms=3.0 * emit * S / (n_cls - 1)
+                        + closure * S)
+
+
 def test_launch_plan_takes_every_size_below_the_card():
-    """Past shared memory the ring goes global and the plan never refuses
-    below 80 GB; it keeps the shared ring wherever that fits one block,
-    and the 1D forms' one-cell diagonals take a cluster. A global ring is
-    one a cluster launched, never more clusters than the card holds."""
+    """Past shared memory the 2D ring and the tables go global and the plan
+    never refuses below 80 GB; a 2D shared ring is a cluster a pair, a
+    global ring one a cluster launched, never more clusters than the card
+    holds; a side left empty takes the 1D form, whose state ranges cover
+    the states once; every layout's shared bytes fit a block."""
     for S, elt in ((132, 4), (644, 4), (2564, 4), (132, 8), (2564, 8)):
         for L in (0, 1, 64, 300, 5000, 100000):
             for B in (1, 4, 132, 1024):
-                for terms in (220, 34056, 529416):
-                    args = (S, L, 3 * L, B)
-                    kw = dict(cell_terms=terms, elt=elt)
-                    cfg = sk.sparse_launch_plan(*args, **kw,
+                for closure in (1, 53, 206):
+                    lists = _sizes(S, closure=closure)
+                    cfg = sk.sparse_launch_plan(S, L, 3 * L, B, lists, elt,
                                                 mem_bytes=CARD_BYTES)
                     W = L + 1
                     assert cfg["W"] == W
-                    fits = 4 * W * S * elt <= sk.SMEM_MAX
-                    assert (cfg["rows"] == "shared") == (
-                        fits and cfg["cluster"] == 1)
+                    assert cfg["form"] == ("1d" if L == 0 else "2d")
                     assert cfg["smem_bytes"] <= sk.SMEM_MAX
+                    assert cfg["smem_bytes"] == sk.sparse_smem_bytes(cfg)
                     assert B * cfg["cluster"] <= max(sk.SMS, B)
                     assert 1 <= cfg["grid"] <= B
-                    if cfg["rows"] == "global":
-                        assert cfg["grid"] * cfg["cluster"] <= sk.SMS
+                    if cfg["form"] == "1d":
+                        b = cfg["bounds"]
+                        assert len(b) == cfg["cluster"] + 1
+                        assert b[0] == 0 and b[-1] == S
+                        assert all(x < y for x, y in zip(b, b[1:]))
+                        assert cfg["tables"] in ("slice", "global")
+                    else:
+                        assert cfg["ncb"] * cfg["cluster"] >= W
+                        assert cfg["tables"] in ("shared", "global")
+                        if cfg["rows"] == "shared":
+                            assert cfg["grid"] == B
+                        else:
+                            assert cfg["grid"] * cfg["cluster"] <= sk.SMS
                     assert cfg["mem_bytes"] <= CARD_BYTES
-    one_d = sk.sparse_launch_plan(2564, 0, 512, 1, cell_terms=529416)
-    assert one_d["cluster"] == 16 and one_d["rows"] == "global"
+    p2d = _sizes(132, emit=2, closure=1)
+    one_d = sk.sparse_launch_plan(2564, 0, 512, 1, _sizes(2564, 1, 206, 22,
+                                                          21))
+    assert one_d["cluster"] == 16 and one_d["form"] == "1d"
     assert one_d["grid"] == 1
-    assert sk.sparse_launch_plan(132, 64, 192, 4, cell_terms=220)[
-        "cluster"] == 16
-    full = sk.sparse_launch_plan(132, 64, 192, 132, cell_terms=220)
+    four = sk.sparse_launch_plan(132, 64, 192, 4, p2d)
+    assert four["cluster"] == 16 and four["rows"] == "shared"
+    assert four["tables"] == "shared" and four["ncb"] == 5
+    full = sk.sparse_launch_plan(132, 64, 192, 132, p2d)
     assert full["cluster"] == 1 and full["rows"] == "shared"
     assert full["grid"] == 132
-    tiny = sk.sparse_launch_plan(132, 3, 9, 1, cell_terms=220)
+    tiny = sk.sparse_launch_plan(132, 3, 9, 1, p2d)
     assert tiny["cluster"] == 1 and tiny["rows"] == "shared"
-    lanes = sk.sparse_launch_plan(644, 0, 128, 1, emit_row=1.0,
-                                  closure_row=52.9)
+    lanes = sk.sparse_launch_plan(644, 0, 128, 1, sk.ListSizes(
+        S=644, n_cls=21, n_io=21, state_emit=np.ones(644, np.int64),
+        state_closure=np.full(644, 53, np.int64), emit_row=1.0,
+        closure_row=52.9, cell_terms=34000.0))
     assert (lanes["lanes_emit"], lanes["lanes_closure"]) == (1, 32)
     # refused: past the 32-bit indices, and one ring past the memory given
     with pytest.raises(ValueError):
-        sk.sparse_launch_plan(2564, 10 ** 6, 10 ** 6, 64,
+        sk.sparse_launch_plan(2564, 10 ** 6, 10 ** 6, 64, _sizes(2564),
                               mem_bytes=CARD_BYTES)
     with pytest.raises(ValueError):
-        sk.sparse_launch_plan(132, 10 ** 6, 3 * 10 ** 6, 1,
+        sk.sparse_launch_plan(132, 10 ** 6, 3 * 10 ** 6, 1, p2d,
                               mem_bytes=10 ** 9)
 
 
 def test_launch_plan_takes_many_long_pairs():
     """A batch of 10,000 pairs of 300 x 900 over the 512-node generator's
     2,564 states: a ring a pair would be 123 GB; the plan launches the
-    clusters the card holds, one ring each, and fewer where the memory
-    given holds fewer rings."""
+    clusters the card holds, one global ring and workspace each, and
+    fewer where the memory given holds fewer."""
     S, Li, Lo, B = 2564, 300, 900, 10000
-    ring = 4 * (Li + 1) * S * 4
-    assert B * ring > CARD_BYTES
-    cfg = sk.sparse_launch_plan(S, Li, Lo, B, cell_terms=220,
-                                mem_bytes=CARD_BYTES)
+    lists = _sizes(S)
+    scratch = (3 * (Li + 1) + sk.WARPS) * S * 4
+    assert B * 3 * (Li + 1) * S * 4 > CARD_BYTES
+    cfg = sk.sparse_launch_plan(S, Li, Lo, B, lists, mem_bytes=CARD_BYTES)
     assert (cfg["rows"], cfg["cluster"], cfg["grid"]) == ("global", 1,
                                                            sk.SMS)
     fixed = B * 4 + B * (2 + Li + Lo) * 4
-    assert cfg["mem_bytes"] == fixed + sk.SMS * ring
-    few = sk.sparse_launch_plan(S, Li, Lo, B, cell_terms=220,
-                                mem_bytes=fixed + 5 * ring + 7)
-    assert few["grid"] == 5 and few["mem_bytes"] == fixed + 5 * ring
-    assert sk.sparse_launch_plan(S, Li, Lo, B, cell_terms=220,
-                                 mem_bytes=fixed + ring)["grid"] == 1
+    assert cfg["mem_bytes"] == fixed + sk.SMS * scratch
+    few = sk.sparse_launch_plan(S, Li, Lo, B, lists,
+                                mem_bytes=fixed + 5 * scratch + 7)
+    assert few["grid"] == 5 and few["mem_bytes"] == fixed + 5 * scratch
+    assert sk.sparse_launch_plan(S, Li, Lo, B, lists,
+                                 mem_bytes=fixed + scratch)["grid"] == 1
     with pytest.raises(ValueError):
-        sk.sparse_launch_plan(S, Li, Lo, B, cell_terms=220,
-                              mem_bytes=fixed + ring - 1)
+        sk.sparse_launch_plan(S, Li, Lo, B, lists,
+                              mem_bytes=fixed + scratch - 1)
 
 
 def test_lanes_follow_the_list_lengths():
@@ -349,9 +375,11 @@ def test_public_forms_launch_once_on_card():
 @pytest.mark.cuda
 def test_ragged_batch_equals_its_pairs_on_card():
     """A ragged batch (lengths 0 to 40, a bad token) in one launch equals
-    each pair's own launch bit for bit, in every layout the plan or a
-    forced cluster or ring gives; at 8 and 16 blocks a pair the 20 pairs
-    are more than the clusters launched, so a cluster walks several."""
+    each pair's own launch bit for bit (a pair with an empty side alone
+    takes the 1D form), in every layout the plan or a forced cluster or
+    ring gives; with the global ring at 8 and 16 blocks a pair the 20
+    pairs are more than the clusters launched, so a cluster walks
+    several."""
     _card()
     sm = _sm("prot2dna", device="cuda")
     pairs = testmachines.prot2dna_pairs(
@@ -367,9 +395,11 @@ def test_ragged_batch_equals_its_pairs_on_card():
                               for b in range(len(pairs))])
         _equal(whole, one)
         for kw in ({"cluster": 2}, {"cluster": 4}, {"rows": "global"},
-                   {"cluster": 8}, {"cluster": 16}):
+                   {"cluster": 8}, {"cluster": 16},
+                   {"cluster": 8, "rows": "global"},
+                   {"cluster": 16, "rows": "global"}):
             _equal(_on_card(sm, batch, viterbi, reverse, **kw), whole)
-            if kw.get("cluster", 1) >= 8:
+            if "rows" in kw and kw.get("cluster", 1) >= 8:
                 assert sk.sparse_walk.last["plan"]["grid"] < len(pairs)
 
 
@@ -441,3 +471,117 @@ def test_batch_route_is_one_launch_on_card():
     assert cm.last_route == "sparse"
     _equal(got, [cm.log_forward(i, o) for i, o in pairs])
     _close(got, cpu.log_forward_batch(pairs), CARD_BOUND)
+
+
+def _dense_sm(S=48, alph="ACGT", seed=5):
+    """A machine whose every state has an edge to every state in every
+    class (S^2 entries a class: 448 KB of tables at S=48, past a block's
+    shared memory), on the card."""
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.core.machine import Machine
+    rng = np.random.RandomState(seed)
+    kinds = ([{"in": a, "out": b} for a in alph for b in alph]
+             + [{"in": a} for a in alph] + [{"out": b} for b in alph])
+    states = [{"id": "s%d" % s, "trans": [
+        dict(k, to=t, weight=float(rng.uniform(0.001, 0.01)))
+        for k in kinds for t in range(S)] + [{"to": S, "weight": 0.01}]}
+        for s in range(S)] + [{"id": "end", "trans": []}]
+    m = Machine.from_json({"state": states})
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    return sparse.SparseMachine(ev, device="cuda"), ev
+
+
+@pytest.mark.cuda
+def test_each_table_layout_on_card():
+    """The kernel against the eager walk and its twin on the card in each
+    table layout the plan picks by size: prot2dna's pairs, every table in
+    every block ("shared"); the 8-node Plan7 generator's reads, a block's
+    states' lists ("slice"); a dense 48-state machine's pairs, its 448 KB
+    of tables read through L1/L2 ("global"), 16 lanes a state's emitting
+    terms; each layout's shared bytes the kernel's own count."""
+    _card()
+    dense, ev = _dense_sm()
+    dpairs = [("ACGTTA", "CGTAGCA"), ("GGA", "T"), ("", "AC")]
+    it, il = sk.pad_tokens([[ev.input_tokenizer.sym2tok[c] for c in a]
+                            for a, _ in dpairs])
+    ot, ol = sk.pad_tokens([[ev.output_tokenizer.sym2tok[c] for c in b]
+                            for _, b in dpairs])
+    cases = [(_sm("prot2dna", device="cuda"), _batch(
+        "prot2dna", PAIRS_2D["prot2dna"] + [("MKW", "ATGAAATGG")]),
+        "shared"),
+        (_sm("plan7", device="cuda"), _batch(
+            "plan7", [("", SEQ_1D), ("", "MK"), ("", "")]), "slice"),
+        (dense, (it, ot, il, ol), "global")]
+    for sm, batch, tables in cases:
+        for form, viterbi, reverse in FORMS:
+            got = _on_card(sm, batch, viterbi, reverse)
+            cfg = sk.sparse_walk.last["plan"]
+            assert cfg["tables"] == tables, cfg
+            assert sk.sparse_smem_bytes_on_card(cfg) == cfg["smem_bytes"]
+            eager = _eager(sm, batch, viterbi, reverse)
+            twin = sk.sparse_walk_diagonal(sk.sparse_tables(
+                sm, reverse, viterbi), *batch).cpu().numpy()
+            if viterbi:
+                _equal(got, eager)
+                _equal(got, twin)
+            else:
+                _close(got, eager, CARD_BOUND)
+                _close(got, twin, CARD_BOUND)
+
+
+@pytest.mark.cuda
+def test_short_pairs_and_bad_tokens_at_range_edges_on_card():
+    """Pairs shorter than a cluster's ranges (blocks that own no position)
+    and a token outside the alphabet at a range's first position: along
+    the input (9 x 11 at 4 blocks: ranges of 3, x[2] consumed into
+    position 3) and along the output where it is the shorter side (13 x 9:
+    y[2]); the kernel against the eager walk, each batch bit-equal to its
+    pairs' own launches (a pair with an empty side alone: the 1D form)."""
+    _card()
+    sm = _sm("indel", device="cuda")
+    short = [("AC", "G"), ("A", "CGTACG"), ("", "A"), ("G", "")]
+    for pairs, side in (([("ACGTTGCAA", "TTGCAACGGTA")] + short, 0),
+                        ([("ACGTTGCAAGTCA", "TTGCAACGG")] + short, 1)):
+        batch = _batch("indel", pairs)
+        batch[side][0, 2] = 99 if side == 0 else -4
+        for form, viterbi, reverse in FORMS:
+            for cluster in (4, 16):
+                got = _on_card(sm, batch, viterbi, reverse, cluster=cluster)
+                assert sk.sparse_walk.last["plan"]["swap"] == bool(side)
+                eager = _eager(sm, batch, viterbi, reverse)
+                if viterbi:
+                    _equal(got, eager)
+                else:
+                    _close(got, eager, CARD_BOUND)
+                one = np.concatenate([_on_card(
+                    sm, tuple(x[b:b + 1] for x in batch), viterbi, reverse,
+                    cluster=cluster) for b in range(len(pairs))])
+                _equal(got, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("viterbi", [False, True])
+def test_wide_generator_read_on_card(viterbi):
+    """The 512-node Plan7 generator's read of 512 (2,564 states, 529,416
+    closure entries: the 1D form on 16 blocks, its lists streamed) against
+    the eager walk on the card."""
+    _card()
+    from machineboss_tpu_torch.core.eval import EvaluatedMachine
+    from machineboss_tpu_torch.core.hmmer import HmmerModel
+    hmm = HmmerModel()
+    hmm.read(testmachines.random_plan7_hmm_text(512, testmachines.AMINO, 0))
+    m = hmm.machine(False)
+    ev = EvaluatedMachine(m, m.get_param_defs(True))
+    sm = sparse.SparseMachine(ev, device="cuda")
+    read = testmachines.plan7_reads(testmachines.AMINO, 1, 512, seed=1)[0]
+    toks = [ev.output_tokenizer.sym2tok[c] for c in read]
+    batch = (np.zeros((1, 0), np.int64), np.array([toks]), [0], [512])
+    got = _on_card(sm, batch, viterbi, False)
+    cfg = sk.sparse_walk.last["plan"]
+    assert (cfg["form"], cfg["cluster"], cfg["tables"]) == ("1d", 16,
+                                                            "global")
+    eager = _eager(sm, batch, viterbi, False)
+    if viterbi:
+        _equal(got, eager)
+    else:
+        _close(got, eager, CARD_BOUND)
